@@ -11,15 +11,31 @@ Phases, one line each on stdout, any failure exits non-zero:
   kernels  K1/K2/K3 against their plain PyTorch versions on the card on
            seeded cases (exact (dist, end) equality), K1 at the 20 kb root
            shape against the native host engine and the numpy band mirror;
-           kernel and plain-version times
+           K4 (banded traceback) against its plain version on 2 root-shape
+           tasks and against the host traceback (dp_reference, native) on
+           every accepted root of a seeded batch; kernel, plain-version
+           and host-pool times
   toy_e2e  python -m floxer_tpu_torch --engine device on tests/data: the
            reference's expected records, empty stdout
   e2e      a simulated E. coli-sized genome (4.6 Mb) with 200 reads of
            20 kb at 7% error: pass A --engine device (every wave fused on
            the CUDA kernels), pass B on the native host engine only; SAM
-           files byte-identical, every kernel launched in pass A
-The line before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}.
+           files byte-identical, K1-K3 launched in pass A. Pass B is the
+           oracle of every pass below.
+  traceback  pass C: --engine device with FLOXER_TPU_DEVICE_TRACEBACK=1
+           (root CIGARs by K4); SAM = pass B, K4 launched
+  legacy   pass D: --engine device with FLOXER_TPU_LEGACY_VERIFY=1 (the
+           legacy object path: the bucketed batcher through resident banks
+           and host slices); SAM = pass B, K1 and K2/K3 launched
+  server   python -m floxer_tpu_torch --serve (jax blocked) and two
+           --server --engine device jobs: SAM = pass B, the second job hits
+           the resident bank cache; --shutdown-server and the daemon exit 0
+  profile  --engine device --profile DIR: a torch.profiler trace naming
+           K1's kernel, SAM = pass B
+Each path is driven with the launch counts set to 0 just before it and
+read just after (server jobs report theirs in their stage split line). The
+line before the last is the kernel table as JSON (K1-K3 launches of pass
+A, K4 of pass C); the last line is {"ok": true, "device": {...}}.
 """
 
 import importlib.util
@@ -28,7 +44,9 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -36,7 +54,16 @@ SEED = 20261016
 # K1 at the PEX root shape of 20 kb reads: tasks, pattern length, budget,
 # band words (32-bit)
 ROOT_SHAPE = (256, 20600, 1442, 256)
+# K4 at the same root shape: tasks of the seeded batch, read error rate
+TRACEBACK_TASKS = 128
+TRACEBACK_ERROR = 0.066
 E2E_READS = 200
+# runs the port's CLI with jax unimportable, as on a machine without jax
+JAX_BLOCKED = (
+    "import runpy, sys; sys.modules['jax'] = None; "
+    "sys.argv = ['floxer_tpu_torch'] + sys.argv[1:]; "
+    "runpy.run_module('floxer_tpu_torch', run_name='__main__')"
+)
 
 
 def phase(name: str, **fields) -> None:
@@ -298,6 +325,95 @@ def run_kernel_phase(device, rng):
     return rows
 
 
+def run_traceback_phase(device, rng):
+    """K4 at the 20 kb root shape: equal to its plain version on two tasks
+    and to the host traceback (native/traceback.cpp through dp_reference)
+    on every accepted root of a seeded batch. Returns the table row."""
+    import numpy as np
+    import torch
+
+    from floxer_tpu.native import native_myers_distance_batch
+    from floxer_tpu.ops import dp_reference
+    from floxer_tpu_torch.ops import traceback_device as td
+
+    _, m_root, k_root, _ = ROOT_SHAPE
+    genome = rng.integers(1, 5, size=400_000).astype(np.uint8)
+    windows, patterns = [], []
+    for _ in range(TRACEBACK_TASKS):
+        n = m_root + 2 * k_root + 1 + int(rng.integers(0, 1200))
+        start = int(rng.integers(0, len(genome) - n))
+        window = genome[start : start + n]
+        offset = int(rng.integers(0, n - m_root - k_root))
+        patterns.append(mutate(
+            rng, window[offset : offset + m_root], TRACEBACK_ERROR
+        )[:m_root])
+        windows.append(window)
+    dist, end = native_myers_distance_batch(
+        windows, patterns, num_threads=min(8, os.cpu_count() or 1)
+    )
+    tasks = [
+        (w, p, int(e), int(d))
+        for w, p, e, d in zip(windows, patterns, end, dist)
+        if d <= k_root
+    ]
+    check(len(tasks) >= TRACEBACK_TASKS // 2,
+          f"only {len(tasks)} root tasks within the budget")
+
+    # the batched entry on every accepted root against the host pool
+    started = time.monotonic()
+    got = td.banded_cigar_traceback_device_batch(tasks, device)
+    batch_s = time.monotonic() - started
+    started = time.monotonic()
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        host = list(pool.map(
+            lambda task: dp_reference.banded_cigar_traceback(*task), tasks
+        ))
+    host_pool_s = time.monotonic() - started
+    mismatches = sum(g != h for g, h in zip(got, host))
+    check(mismatches == 0, f"K4 differs from the host traceback on "
+          f"{mismatches} of {len(tasks)} root tasks")
+
+    # K4 against its plain version on two root-shape tasks (same inputs)
+    pair = tasks[:2]
+    m_pad = max(td._pad_quantum(len(p), 2048) for _, p, _, _ in pair)
+    n_pad = max(td._pad_quantum(len(w), 2048) for w, _, _, _ in pair)
+    w_pad = max(td._pad_quantum(2 * d + 1, 256) for _, _, _, d in pair)
+    windows2 = np.zeros((2, n_pad), dtype=np.int32)
+    patterns2 = np.zeros((2, m_pad), dtype=np.int32)
+    scalars = np.zeros((4, 2), dtype=np.int32)
+    for s, (w, p, e, d) in enumerate(pair):
+        windows2[s, : len(w)] = w
+        patterns2[s, : len(p)] = p
+        scalars[:, s] = (len(w), len(p), e, d)
+
+    def to_dev(array):
+        return torch.from_numpy(np.ascontiguousarray(array)).to(device)
+
+    args = (to_dev(windows2), to_dev(patterns2),
+            *(to_dev(row) for row in scalars))
+    shape = dict(m_pad=m_pad, w_pad=w_pad, n_pad=n_pad)
+    kernel_out = [t.cpu().numpy() for t in
+                  td.banded_directions_and_walk(*args, **shape)]
+    started = time.monotonic()
+    plain_out = [t.cpu().numpy() for t in
+                 td.banded_directions_and_walk_plain(*args, **shape)]
+    torch.cuda.synchronize()
+    plain_ms = (time.monotonic() - started) * 1000
+    err = max(int(np.max(np.abs(k.astype(np.int64) - p)))
+              for k, p in zip(kernel_out, plain_out))
+    check(err == 0, f"K4 differs from its plain version ({err})")
+    k4_ms = cuda_ms(lambda: td.banded_directions_and_walk(*args, **shape), 3)
+    return {
+        "name": "traceback_banded", "route": "cuda",
+        "source": td.SOURCE, "replaces": td.REPLACES,
+        "max_abs_err": err, "ms": k4_ms, "plain_ms": plain_ms,
+        "shape": f"T=2 m={len(pair[0][1])} d={pair[0][3]},{pair[1][3]} "
+                 f"m_pad={m_pad} w_pad={w_pad}",
+        "host_equal_tasks": len(tasks),
+        "batch_s": batch_s, "host_pool_s": host_pool_s,
+    }
+
+
 def load_e2e_checks():
     spec = importlib.util.spec_from_file_location(
         "floxer_e2e_checks", ROOT / "tests" / "test_e2e.py"
@@ -341,36 +457,91 @@ def align_seconds(logfile: Path) -> tuple[float, str]:
     return seconds, split
 
 
-def run_e2e(device, workdir: Path, num_reads: int):
-    import torch
+def reset_launches() -> None:
+    from floxer_tpu_torch.ops import (
+        cuda_myers,
+        cuda_myers_banded,
+        cuda_myers_large,
+        traceback_device,
+    )
 
-    from floxer_tpu.cli import parse_and_validate
-    from floxer_tpu.tools.simulated_dataset import main as simulate
-    from floxer_tpu_torch import pipeline, verify_batch
-    from floxer_tpu_torch.__main__ import main
-    from floxer_tpu_torch.ops import cuda_myers, cuda_myers_banded, cuda_myers_large
+    for module in (cuda_myers_banded, cuda_myers, cuda_myers_large,
+                   traceback_device):
+        module.LAUNCHES = 0
 
-    genome = workdir / "genome.fasta"
-    reads = workdir / "reads.fastq"
-    check(simulate([
-        "create", "-g", str(genome), "-r", str(reads),
-        "-c", "4600000", "-n", "1", "-l", "20000",
-        "-m", str(num_reads), "-e", "0.07", "-s", str(SEED),
-    ]) == 0, "simulated_dataset create failed")
 
-    def argv(name, extra):
+def run_logged_launches(logfile: Path) -> dict:
+    """Kernel launches of one run, from its stage split line."""
+    _, split = align_seconds(logfile)
+    check("launches=" in split, f"no launch counts in {logfile}")
+    field = split.split("launches=")[1].split()[0]
+    return {k: int(v) for k, v in (item.split(":") for item in field.split(","))}
+
+
+class E2E:
+    """The simulated 20 kb workload and its runs; pass B (native host
+    engine only) is the oracle every other pass is held to."""
+
+    def __init__(self, workdir: Path, num_reads: int):
+        from floxer_tpu.tools.simulated_dataset import main as simulate
+
+        self.workdir = workdir
+        self.num_reads = num_reads
+        self.genome = workdir / "genome.fasta"
+        self.reads = workdir / "reads.fastq"
+        check(simulate([
+            "create", "-g", str(self.genome), "-r", str(self.reads),
+            "-c", "4600000", "-n", "1", "-l", "20000",
+            "-m", str(num_reads), "-e", "0.07", "-s", str(SEED),
+        ]) == 0, "simulated_dataset create failed")
+
+    def argv(self, name, extra=()):
         return [
-            "--reference", str(genome), "--queries", str(reads),
-            "--index", str(workdir / "index.npz"),
-            "--output", str(workdir / f"{name}.sam"),
-            "--logfile", str(workdir / f"{name}.log"),
+            "--reference", str(self.genome), "--queries", str(self.reads),
+            "--index", str(self.workdir / "index.npz"),
+            "--output", str(self.workdir / f"{name}.sam"),
+            "--logfile", str(self.workdir / f"{name}.log"),
             "-p", "0.08", "--interval-optimization", "--threads", "4",
             "--batch-size", "100", *extra,
         ]
 
+    def sam(self, name) -> bytes:
+        return (self.workdir / f"{name}.sam").read_bytes()
+
+    def seconds(self, name) -> float:
+        return align_seconds(self.workdir / f"{name}.log")[0]
+
+    def run_device_pass(self, name, extra=(), env=None):
+        """One --engine device run in this process with the launch counts
+        set to 0 just before it; (launches, fused dispatches)."""
+        from floxer_tpu_torch import pipeline, verify_batch
+        from floxer_tpu_torch.__main__ import main
+
+        env = env or {}
+        os.environ.update(env)
+        try:
+            fused_before = verify_batch._BATCH_TIMERS["fused"]
+            reset_launches()
+            code = main(self.argv(name, ["--engine", "device", *extra]))
+            launches = pipeline.kernel_launches()
+        finally:
+            for key in env:
+                del os.environ[key]
+        check(code == 0, f"{name} failed")
+        check(self.sam(name) == self.sam("pass_b"),
+              f"{name} and pass B SAM files differ")
+        return launches, verify_batch._BATCH_TIMERS["fused"] - fused_before
+
+
+def run_e2e(device, e2e: E2E):
+    import torch
+
+    from floxer_tpu.cli import parse_and_validate
+    from floxer_tpu_torch import pipeline, verify_batch
+
     # pass B first: the native host engine only (no torch kernel); it also
-    # builds and saves the index both passes load
-    cli = parse_and_validate(argv("pass_b", []))
+    # builds and saves the index every pass loads
+    cli = parse_and_validate(e2e.argv("pass_b"))
     check(pipeline.run(cli, use_device=False) == 0, "pass B failed")
 
     # pass A: every wave fused on the card. The warmup (kernel build and
@@ -379,30 +550,20 @@ def run_e2e(device, workdir: Path, num_reads: int):
     pipeline.start_device_warmup(device)
     pipeline.join_device_warmup()
     torch.cuda.synchronize()
-    for module in (cuda_myers_banded, cuda_myers, cuda_myers_large):
-        module.LAUNCHES = 0
-    fused_before = verify_batch._BATCH_TIMERS["fused"]
     kernel_before = verify_batch._BATCH_TIMERS["kernel"]
-    check(main(argv("pass_a", ["--engine", "device"])) == 0, "pass A failed")
-    launches = {
-        "K1": cuda_myers_banded.LAUNCHES,
-        "K2": cuda_myers.LAUNCHES,
-        "K3": cuda_myers_large.LAUNCHES,
-    }
-    fused = verify_batch._BATCH_TIMERS["fused"] - fused_before
+    launches, fused = e2e.run_device_pass("pass_a")
     device_kernel_s = verify_batch._BATCH_TIMERS["kernel"] - kernel_before
 
-    sam_a = (workdir / "pass_a.sam").read_bytes()
-    sam_b = (workdir / "pass_b.sam").read_bytes()
+    sam_a = e2e.sam("pass_a")
     mapped = sum(
         1 for line in sam_a.decode().splitlines()
         if line and not line.startswith("@") and not int(line.split("\t")[1]) & 4
     )
-    seconds_a, split_a = align_seconds(workdir / "pass_a.log")
-    seconds_b, split_b = align_seconds(workdir / "pass_b.log")
+    seconds_a, split_a = align_seconds(e2e.workdir / "pass_a.log")
+    seconds_b, split_b = align_seconds(e2e.workdir / "pass_b.log")
     result = {
-        "reads": num_reads, "genome_bp": 4_600_000, "read_len": 20_000,
-        "sam_identical": sam_a == sam_b, "sam_bytes": len(sam_a),
+        "reads": e2e.num_reads, "genome_bp": 4_600_000, "read_len": 20_000,
+        "sam_identical": True, "sam_bytes": len(sam_a),
         "mapped_records": mapped,
         "pass_a_align_s": seconds_a, "pass_b_align_s": seconds_b,
         "pass_a_stage_split": split_a, "pass_b_stage_split": split_b,
@@ -410,11 +571,132 @@ def run_e2e(device, workdir: Path, num_reads: int):
         "launches": launches,
     }
     check(fused > 0, "pass A made no fused dispatch")
-    for name, count in launches.items():
-        check(count > 0, f"{name} was never launched in pass A")
-    check(sam_a == sam_b, "pass A and pass B SAM files differ")
+    for name in ("K1", "K2", "K3"):
+        check(launches[name] > 0, f"{name} was never launched in pass A")
     check(mapped > 0, "no read mapped")
     return result, launches
+
+
+def run_traceback_pass(e2e: E2E):
+    """Pass C: root CIGARs by K4 (FLOXER_TPU_DEVICE_TRACEBACK=1)."""
+    launches, fused = e2e.run_device_pass(
+        "pass_c", env={"FLOXER_TPU_DEVICE_TRACEBACK": "1"}
+    )
+    check(launches["K4"] > 0, "K4 was never launched in pass C")
+    return {
+        "align_s": e2e.seconds("pass_c"),
+        "pass_b_align_s": e2e.seconds("pass_b"),
+        "launches": launches, "fused_dispatches": fused,
+        "sam_identical": True,
+    }, launches
+
+
+def run_legacy_pass(e2e: E2E):
+    """Pass D: the legacy object path (FLOXER_TPU_LEGACY_VERIFY=1): the
+    bucketed batcher, resident buckets through _try_resident and the
+    reversed without-CIGAR batch through host slices; no fused wave."""
+    launches, fused = e2e.run_device_pass(
+        "pass_d", env={"FLOXER_TPU_LEGACY_VERIFY": "1"}
+    )
+    check(fused == 0, "the legacy path made a fused dispatch")
+    check(launches["K1"] > 0, "K1 was never launched in pass D")
+    check(launches["K2"] + launches["K3"] > 0,
+          "neither K2 nor K3 was launched in pass D")
+    return {
+        "reads": e2e.num_reads, "align_s": e2e.seconds("pass_d"),
+        "stage_split": align_seconds(e2e.workdir / "pass_d.log")[1],
+        "launches": launches, "sam_identical": True,
+    }
+
+
+def run_server_pass(e2e: E2E):
+    """A --serve daemon (jax blocked) and two --server jobs."""
+    sock = e2e.workdir / "floxer.sock"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    started = time.monotonic()
+    daemon = subprocess.Popen(
+        [sys.executable, "-c", JAX_BLOCKED, "--serve", str(sock)],
+        stderr=subprocess.PIPE, text=True, cwd=ROOT, env=env,
+    )
+    lines = []
+    ready = threading.Event()
+
+    def read_stderr():
+        for line in daemon.stderr:
+            lines.append(line.rstrip())
+            if "warm replay done" in line:
+                ready.set()
+
+    reader = threading.Thread(target=read_stderr, daemon=True)
+    reader.start()
+    try:
+        check(ready.wait(timeout=300),
+              "server not ready: " + " | ".join(lines[-10:]))
+        ready_s = time.monotonic() - started
+        kernels_ready = [l for l in lines if "kernels ready" in l]
+        check(len(kernels_ready) == 1, "no kernels-ready line: "
+              + " | ".join(lines[-10:]))
+        jobs = []
+        for job in (1, 2):
+            name = f"server_{job}"
+            proc = subprocess.run(
+                [sys.executable, "-m", "floxer_tpu_torch", "--server",
+                 str(sock), *e2e.argv(name, ["--engine", "device"])],
+                capture_output=True, text=True, cwd=ROOT, env=env,
+                timeout=900,
+            )
+            check(proc.returncode == 0,
+                  f"server job {job} exited {proc.returncode}: "
+                  f"{proc.stderr[-2000:]}")
+            check(e2e.sam(name) == e2e.sam("pass_b"),
+                  f"server job {job} and pass B SAM files differ")
+            log = (e2e.workdir / f"{name}.log").read_text()
+            launches = run_logged_launches(e2e.workdir / f"{name}.log")
+            check(launches["K1"] > 0, f"server job {job} launched no K1")
+            jobs.append({
+                "align_s": e2e.seconds(name), "launches": launches,
+                "bank_cache_hit": "resident reference bank: cache hit" in log,
+            })
+        check(not jobs[0]["bank_cache_hit"], "server job 1 hit the bank cache")
+        check(jobs[1]["bank_cache_hit"], "server job 2 missed the bank cache")
+        proc = subprocess.run(
+            [sys.executable, "-m", "floxer_tpu_torch", "--shutdown-server",
+             str(sock)],
+            capture_output=True, text=True, cwd=ROOT, env=env, timeout=60,
+        )
+        check(proc.returncode == 0, f"--shutdown-server exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        code = daemon.wait(timeout=120)
+        check(code == 0, f"the daemon exited {code}")
+    finally:
+        if daemon.poll() is None:
+            daemon.kill()
+            daemon.wait()
+        reader.join(timeout=10)
+    return {
+        "ready_s": ready_s, "kernels_ready": " | ".join(kernels_ready),
+        "job1": jobs[0], "job2": jobs[1],
+        "pass_b_align_s": e2e.seconds("pass_b"), "sam_identical": True,
+    }
+
+
+def run_profile_pass(e2e: E2E):
+    """--profile: a torch.profiler trace of the alignment phase that names
+    K1's kernel; the SAM is unchanged."""
+    trace_dir = e2e.workdir / "trace"
+    launches, _ = e2e.run_device_pass(
+        "pass_p", extra=["--profile", str(trace_dir)]
+    )
+    traces = list(trace_dir.glob("*.json"))
+    check(len(traces) == 1, f"expected one trace in {trace_dir}: {traces}")
+    text = traces[0].read_text()
+    check("myers_banded_kernel" in text, "the trace does not name K1")
+    return {
+        "align_s": e2e.seconds("pass_p"), "trace_bytes": len(text),
+        "k1_events": text.count("myers_banded_kernel"),
+        "launches": launches, "sam_identical": True,
+    }
 
 
 def main() -> int:
@@ -448,21 +730,33 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     rows = run_kernel_phase(device, rng)
+    rows["K4"] = run_traceback_phase(device, rng)
     phase("kernels", **{name: {k: v for k, v in row.items()
-                               if k in ("ms", "plain_ms", "max_abs_err", "shape")}
+                               if k not in ("name", "route", "source",
+                                            "replaces")}
                         for name, row in rows.items()})
 
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         workdir = Path(tmp)
         run_toy_e2e(workdir)
         phase("toy_e2e", ok=True)
-        result, launches = run_e2e(device, workdir, E2E_READS)
+        e2e = E2E(workdir, E2E_READS)
+        result, launches = run_e2e(device, e2e)
         phase("e2e", **result)
+        result, launches_c = run_traceback_pass(e2e)
+        phase("traceback", **result)
+        phase("legacy", **run_legacy_pass(e2e))
+        phase("server", **run_server_pass(e2e))
+        phase("profile", **run_profile_pass(e2e))
 
-    for name, row in rows.items():
-        row["launches"] = launches[name]
-        del row["shape"]
-    print(json.dumps({"kernels": [rows[k] for k in ("K1", "K2", "K3")]}))
+    for name in ("K1", "K2", "K3"):
+        rows[name]["launches"] = launches[name]
+    rows["K4"]["launches"] = launches_c["K4"]
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms")
+    print(json.dumps({"kernels": [
+        {k: rows[name][k] for k in keys} for name in ("K1", "K2", "K3", "K4")
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

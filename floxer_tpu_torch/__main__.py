@@ -3,23 +3,47 @@ verifying on an NVIDIA Hopper GPU).
 
 The arguments are floxer_tpu's (floxer_tpu.cli); the options this port does
 not cover yet are rejected with a non-zero exit (see ROADMAP.md).
+
+Server mode (server.py), as in floxer_tpu:
+  python -m floxer_tpu_torch --serve SOCKET             run the daemon
+  python -m floxer_tpu_torch --server SOCKET <args...>  run one job in it
+  python -m floxer_tpu_torch --shutdown-server SOCKET   stop the daemon
 """
 
 import sys
 
-_SERVER_FLAGS = ("--serve", "--server", "--shutdown-server")
+
+def _take_flag(argv: list[str], flag: str):
+    """Remove `flag VALUE` from argv, returning VALUE or None."""
+    if flag not in argv:
+        return None
+    at = argv.index(flag)
+    if at + 1 >= len(argv):
+        print(f"{flag} requires a socket path", file=sys.stderr)
+        raise SystemExit(255)
+    value = argv[at + 1]
+    del argv[at : at + 2]
+    return value
 
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    for flag in _SERVER_FLAGS:
-        if flag in argv:
-            print(
-                f"{flag}: the alignment server is not yet ported to "
-                "floxer_tpu_torch, see ROADMAP.md",
-                file=sys.stderr,
-            )
-            return -1
+
+    serve_path = _take_flag(argv, "--serve")
+    if serve_path is not None:
+        from .server import serve
+
+        return serve(serve_path)
+    shutdown_path = _take_flag(argv, "--shutdown-server")
+    if shutdown_path is not None:
+        from .server import shutdown_server
+
+        return shutdown_server(shutdown_path)
+    server_path = _take_flag(argv, "--server")
+    if server_path is not None:
+        from .server import run_via_server
+
+        return run_via_server(server_path, argv)
 
     from floxer_tpu.cli import parse_and_validate
 

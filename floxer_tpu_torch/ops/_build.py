@@ -42,6 +42,11 @@ _SIGNATURES = {
     "floxer_myers_small": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # peq, plen, texts, tlen, B, words_padded, num_text, dist, end, stream
     "floxer_myers_large": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # windows, patterns, n_lens, m_lens, end_cols, distances, T, m_pad,
+    # w_pad, n_pad, dirs, ops, num_ops, begin_cols, stream
+    "floxer_traceback_banded": [
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+    ],
 }
 
 _lock = threading.Lock()

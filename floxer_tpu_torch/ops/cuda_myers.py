@@ -129,9 +129,11 @@ def myers_small_host(
     texts: np.ndarray,
     text_lengths: np.ndarray,
     device: torch.device,
-) -> tuple[np.ndarray, np.ndarray]:
+    sync: bool = True,
+):
     """Host-packing entry with the contract of
-    floxer_tpu.ops.pallas_myers.myers_pallas: (distance, end_col) [B]."""
+    floxer_tpu.ops.pallas_myers.myers_pallas: (distance, end_col) [B], as
+    int32 tensors on `device` with sync=False."""
     peq = build_peq_vectorized(
         np.asarray(patterns), np.asarray(pattern_lengths)
     )  # [B, SIGMA, W]
@@ -143,4 +145,6 @@ def myers_small_host(
         ).to(device),
         torch.from_numpy(np.asarray(text_lengths, dtype=np.int32)).to(device),
     )
+    if not sync:
+        return dist, end
     return dist.cpu().numpy(), end.cpu().numpy()

@@ -252,11 +252,13 @@ def myers_banded_host(
     budgets: np.ndarray,
     band_words: int,
     device: torch.device,
-) -> tuple[np.ndarray, np.ndarray]:
+    sync: bool = True,
+):
     """Host-packing entry with the contract of
     floxer_tpu.ops.pallas_myers_banded.myers_pallas_banded: (distance,
-    end_col) per task. Requires 0 < budget < m and band_words*32 >=
-    n - m + 2*budget + 1 for every task."""
+    end_col) per task, as int32 tensors on `device` with sync=False.
+    Requires 0 < budget < m and band_words*32 >= n - m + 2*budget + 1 for
+    every task. No pad rows: the kernel stops each task at its tlen."""
     T = len(patterns)
     num_text = -(-max(texts.shape[1], 1) // 8) * 8
     vp0, planes0, stream, scalars = prepare_banded_batch(
@@ -274,5 +276,7 @@ def myers_banded_host(
         band_words,
         num_text,
     )
+    if not sync:
+        return dist, end
     return dist.cpu().numpy(), end.cpu().numpy()
 

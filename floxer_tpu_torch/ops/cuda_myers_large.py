@@ -123,10 +123,12 @@ def myers_large_host(
     texts: np.ndarray,
     text_lengths: np.ndarray,
     device: torch.device,
-) -> tuple[np.ndarray, np.ndarray]:
+    sync: bool = True,
+):
     """Host-packing entry with the contract of
     floxer_tpu.ops.pallas_myers_large.myers_pallas_large: (distance,
-    end_col) [B]; the word axis is padded to a multiple of 128."""
+    end_col) [B] (int32 tensors on `device` with sync=False); the word
+    axis is padded to a multiple of 128."""
     peq = build_peq_vectorized(
         np.asarray(patterns), np.asarray(pattern_lengths)
     )  # [B, SIGMA, W]
@@ -140,4 +142,6 @@ def myers_large_host(
         torch.from_numpy(np.ascontiguousarray(texts, dtype=np.int32)).to(device),
         torch.from_numpy(np.asarray(text_lengths, dtype=np.int32)).to(device),
     )
+    if not sync:
+        return dist, end
     return dist.cpu().numpy(), end.cpu().numpy()

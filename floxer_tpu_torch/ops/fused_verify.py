@@ -35,12 +35,12 @@ import torch
 from .myers import MAX_UNROLLED_WORDS, WORD
 from .resident import (
     CHARS_PER_WORD,
-    TAIL_PAD_WORDS,
     ResidentBank,
     _resident_banded_call_core,
     _resident_large_call_core,
     _resident_small_call_core,
     addr_arrays,
+    check_gather,
 )
 
 KIND_BANDED = "banded"
@@ -260,12 +260,6 @@ def _segment_device_args(seg: _Segment) -> np.ndarray:
     return block
 
 
-def _gather_words(words: int, n_chars: int) -> int:
-    """Largest gather (in words, plus the funnel-shift word) a segment
-    makes past a task's start offset."""
-    return max(n_chars, words * WORD) // CHARS_PER_WORD + 1
-
-
 def _fused_call(ref_flat, bank_flat, table, plan, counts, num_walks):
     """The whole wave on the device: per segment, gate on aliveness, run
     the kernel of the segment's kind, fold the verdicts into aliveness.
@@ -276,11 +270,7 @@ def _fused_call(ref_flat, bank_flat, table, plan, counts, num_walks):
     out_ends = []
     offset = 0
     for (kind, words, n_chars), count in zip(plan, counts):
-        if _gather_words(words, n_chars) > TAIL_PAD_WORDS:
-            raise ValueError(
-                f"{kind} segment gathers past the banks' tail padding "
-                f"({words} words, {n_chars} chars)"
-            )
+        check_gather(words, n_chars)
         # one contiguous row per task-table column
         col = table[offset : offset + count].t().contiguous()
         offset += count

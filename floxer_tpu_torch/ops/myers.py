@@ -71,25 +71,46 @@ def narrow(values: torch.Tensor) -> torch.Tensor:
     )
 
 
+def pad_batch(
+    sequences: list[np.ndarray], pad_to: int | None = None, multiple: int = 128
+) -> tuple[np.ndarray, np.ndarray]:
+    """Host-side ragged->padded packing: [B, L] uint8 + lengths [B], L a
+    multiple of `multiple`. Copied from
+    floxer_tpu/ops/device_dp.py:pad_batch."""
+    lengths = np.array([len(s) for s in sequences], dtype=np.int32)
+    longest = int(lengths.max()) if len(sequences) else 1
+    target = pad_to if pad_to is not None else longest
+    target = max(target, 1)
+    target = -(-target // multiple) * multiple
+    out = np.zeros((len(sequences), target), dtype=np.uint8)
+    for i, s in enumerate(sequences):
+        out[i, : len(s)] = s
+    return out, lengths
+
+
 def myers_distance(
     patterns: np.ndarray,
     pattern_lengths: np.ndarray,
     texts: np.ndarray,
     text_lengths: np.ndarray,
     device: torch.device,
-) -> tuple[np.ndarray, np.ndarray]:
+    sync: bool = True,
+):
     """(distance, end_col) per row with dp_reference semantics: rightmost
     minimal end among columns 0..text_len-1. Patterns of more than
-    MAX_UNROLLED_WORDS words go to K3, all others to K2."""
+    MAX_UNROLLED_WORDS words go to K3, all others to K2.
+
+    With sync=False the results stay on `device` as int32 tensors, so a
+    caller submitting several batches downloads them after the last."""
     max_len = int(np.max(pattern_lengths)) if len(pattern_lengths) else 0
     if max_len > MAX_UNROLLED_WORDS * WORD:
         from .cuda_myers_large import myers_large_host
 
         return myers_large_host(
-            patterns, pattern_lengths, texts, text_lengths, device
+            patterns, pattern_lengths, texts, text_lengths, device, sync
         )
     from .cuda_myers import myers_small_host
 
     return myers_small_host(
-        patterns, pattern_lengths, texts, text_lengths, device
+        patterns, pattern_lengths, texts, text_lengths, device, sync
     )

@@ -296,3 +296,129 @@ def _resident_small_call_core(
         texts.t().contiguous(),  # [N, T]
         win_lens.to(torch.int32),
     )
+
+
+# ---------------------------------------------------------------------------
+# host entries of the bucketed batcher (reference: ops/resident.py:288-508)
+# ---------------------------------------------------------------------------
+
+
+def check_gather(state_words: int, n_chars: int) -> None:
+    """A kernel call at (state words, window chars) gathers at most
+    max(n_chars, 32 * state_words) / 8 + 1 words past a task's start
+    (the funnel shift reads one more); that must stay inside the banks'
+    tail padding."""
+    words = max(n_chars, state_words * WORD) // CHARS_PER_WORD + 1
+    if words > TAIL_PAD_WORDS:
+        raise ValueError(
+            f"a gather of {words} words ({state_words} state words, "
+            f"{n_chars} chars) runs past the banks' tail padding "
+            f"({TAIL_PAD_WORDS} words)"
+        )
+
+
+def _int32(values, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(values, dtype=np.int32)).to(device)
+
+
+def myers_banded_resident(
+    ref_bank: ResidentBank,
+    query_bank: ResidentBank,
+    win_starts: np.ndarray,  # int64 global char offsets into ref_bank
+    win_lens: np.ndarray,
+    pat_starts: np.ndarray,  # int64 global char offsets into query_bank
+    pat_lens: np.ndarray,
+    budgets: np.ndarray,
+    band_words: int,
+    num_text: int,
+    sync: bool = True,
+):
+    """Drop-in for myers_banded_host with offsets instead of arrays, on the
+    banks' device: (distance, end_col) per task, as int32 tensors on the
+    device with sync=False. Requires 0 < budget < m per task. The
+    reference pads the batch to its kernel's task groups with dummy rows;
+    K1 stops each task at its own window, so the port runs the tasks as
+    given."""
+    device = ref_bank.device
+    num_text = -(-num_text // CHARS_PER_WORD) * CHARS_PER_WORD
+    check_gather(band_words, num_text)
+    starts = np.asarray(pat_starts, dtype=np.int64)
+    win_word0, win_phase = addr_arrays(win_starts)
+    pat_word0, pat_phase = addr_arrays(starts)
+    stream_word0, stream_phase = addr_arrays(
+        starts + np.asarray(budgets, dtype=np.int64)
+    )
+    dist, end = _resident_banded_call_core(
+        ref_bank.flat, query_bank.flat,
+        _int32(win_word0, device), _int32(win_phase, device),
+        _int32(win_lens, device), _int32(pat_word0, device),
+        _int32(pat_phase, device), _int32(stream_word0, device),
+        _int32(stream_phase, device), _int32(pat_lens, device),
+        _int32(budgets, device),
+        band_words=band_words, num_text=num_text,
+    )
+    if not sync:
+        return dist, end
+    return dist.cpu().numpy(), end.cpu().numpy()
+
+
+def _resident_full_core(
+    ref_flat, bank_flat, win_word0, win_phase, win_lens, pat_word0,
+    pat_phase, pat_lens, num_words: int | None,
+    num_words_padded: int | None, num_text: int,
+):
+    """Small/large full-state dispatch on resident banks: K3 when
+    num_words_padded is given, else K2 at num_words. (dist, end) [T]."""
+    args = (
+        ref_flat, bank_flat, win_word0, win_phase, win_lens,
+        pat_word0, pat_phase, pat_lens,
+    )
+    if num_words_padded is not None:
+        return _resident_large_call_core(
+            *args, num_words_padded=num_words_padded, num_text=num_text
+        )
+    return _resident_small_call_core(
+        *args, num_words=num_words, num_text=num_text
+    )
+
+
+def myers_full_resident(
+    ref_bank: ResidentBank,
+    query_bank: ResidentBank,
+    win_starts: np.ndarray,
+    win_lens: np.ndarray,
+    pat_starts: np.ndarray,
+    pat_lens: np.ndarray,
+    m_bucket: int,
+    num_text: int,
+    sync: bool = True,
+):
+    """Drop-in for myers_distance with offsets instead of arrays, on the
+    banks' device; routes by pattern word count like myers_distance: more
+    than MAX_UNROLLED_WORDS words to K3 (words padded to 128), else K2.
+    The reference pads the batch to its kernels' task groups (128 or 8
+    rows); K2 and K3 stop each task at its own window, so the port runs
+    the tasks as given."""
+    from .myers import MAX_UNROLLED_WORDS
+
+    if num_text % CHARS_PER_WORD:
+        raise ValueError(f"num_text must be a multiple of 8, got {num_text}")
+    device = ref_bank.device
+    num_words = -(-m_bucket // WORD)
+    words_padded = None
+    if num_words > MAX_UNROLLED_WORDS:
+        words_padded = -(-num_words // 128) * 128
+    check_gather(words_padded or num_words, num_text)
+    win_word0, win_phase = addr_arrays(win_starts)
+    pat_word0, pat_phase = addr_arrays(pat_starts)
+    dist, end = _resident_full_core(
+        ref_bank.flat, query_bank.flat,
+        _int32(win_word0, device), _int32(win_phase, device),
+        _int32(win_lens, device), _int32(pat_word0, device),
+        _int32(pat_phase, device), _int32(pat_lens, device),
+        num_words=num_words, num_words_padded=words_padded,
+        num_text=num_text,
+    )
+    if not sync:
+        return dist, end
+    return dist.cpu().numpy(), end.cpu().numpy()

@@ -4,8 +4,9 @@ Counterpart of floxer_tpu/pipeline.py. Reading, index build or load, the
 native scheme search, anchor choice, tracebacks and SAM/BAM writing are
 the reference's jax-free host code, imported from floxer_tpu. What this
 module carries is the device wiring of the batched engines: the device
-choice, the resident reference bank, the warmup that builds the CUDA
-kernels off the align loop, and the verifier of this package.
+choice, the resident reference bank (cached across a server's jobs), the
+warmup that builds the CUDA kernels off the align loop, the verifier of
+this package, and --profile through torch.profiler.
 
 Stdout stays empty; all logs go to stderr (and the optional log file).
 """
@@ -52,15 +53,27 @@ def unsupported_options(cli: CommandLineInput) -> list[str]:
         found.append("--device-search")
     if getattr(cli, "index_shards", 1) > 1:
         found.append("--index-shards > 1")
-    if cli.profile_dir:
-        found.append("--profile")
     if cli.num_hosts > 1 or cli.host_id != 0:
         found.append("--num-hosts / --host-id (multi-host runs)")
-    if os.environ.get("FLOXER_TPU_DEVICE_TRACEBACK", "") not in ("", "0"):
-        found.append("FLOXER_TPU_DEVICE_TRACEBACK (device tracebacks)")
-    if os.environ.get("FLOXER_TPU_LEGACY_VERIFY"):
-        found.append("FLOXER_TPU_LEGACY_VERIFY (the legacy object path)")
     return found
+
+
+def kernel_launches() -> dict[str, int]:
+    """Launches of the CUDA kernels K1-K4 in this process so far (the
+    wrappers count only launches on the card)."""
+    from .ops import (
+        cuda_myers,
+        cuda_myers_banded,
+        cuda_myers_large,
+        traceback_device,
+    )
+
+    return {
+        "K1": cuda_myers_banded.LAUNCHES,
+        "K2": cuda_myers.LAUNCHES,
+        "K3": cuda_myers_large.LAUNCHES,
+        "K4": traceback_device.LAUNCHES,
+    }
 
 
 def warm_kernels(device: torch.device) -> None:
@@ -158,14 +171,78 @@ def _accelerator_ready() -> bool:
     return _WARMUP.ready()
 
 
-def _get_resident_bank(references, device: torch.device):
+# set by server.serve(): the process hosts many jobs, so the resident
+# reference bank is cached across them
+_PERSISTENT_PROCESS = False
+# server-process cache of the device-resident reference bank, keyed by the
+# reference file's identity (path, size, mtime) and the device: jobs
+# against the same genome reuse the uploaded bank instead of uploading it
+# again. One entry: device memory holds one genome at a time. A cached bank
+# holds no host copy of the genome once uploaded (ResidentBank drops it).
+_RESIDENT_BANK_CACHE: dict = {}
+
+
+def _get_resident_bank(cli, references, device: torch.device):
     """The run's resident reference bank; its packed upload happens on
-    first use (ops/resident.py), and it drops its host copy then."""
+    first use (ops/resident.py), and it drops its host copy then. In a
+    server process the bank is cached and uploaded in the background once
+    the kernels are built."""
     from .ops.resident import ResidentBank
 
-    return ResidentBank(
+    key = None
+    try:
+        stat = os.stat(cli.reference_path)
+        key = (
+            str(cli.reference_path), stat.st_size, stat.st_mtime_ns,
+            str(device),
+        )
+    except OSError:
+        pass
+    if key is not None and key in _RESIDENT_BANK_CACHE:
+        logger.debug("resident reference bank: cache hit (%s)", key[0])
+        return _RESIDENT_BANK_CACHE[key]
+    bank = ResidentBank(
         [record.rank_sequence for record in references.records], device
     )
+    if key is not None and _PERSISTENT_PROCESS:
+        _RESIDENT_BANK_CACHE.clear()
+        _RESIDENT_BANK_CACHE[key] = bank
+
+        def preload() -> None:
+            try:
+                join_device_warmup(timeout=600)
+                bank.flat
+                logger.debug("resident bank preloaded to %s", device)
+            except Exception as error:  # noqa: BLE001 - the align loop's
+                # own upload raises it again where it matters
+                logger.debug("resident bank preload failed: %s", error)
+
+        threading.Thread(
+            target=preload, name="bank-preload", daemon=True
+        ).start()
+    return bank
+
+
+def _start_profiler(device):
+    """torch.profiler over the alignment phase: CPU activity, plus CUDA
+    activity when the run has a CUDA device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device is not None and device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    profiler = profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def _stop_profiler(profiler, profile_dir: str) -> None:
+    """Stop the profiler and write its Chrome trace under profile_dir."""
+    profiler.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"floxer_tpu_torch_{os.getpid()}.json")
+    profiler.export_chrome_trace(path)
+    logger.info("profiler trace written to %s", path)
 
 
 def verify_and_write_chunk(
@@ -179,6 +256,7 @@ def verify_and_write_chunk(
     resident_ref=None,
     defer_finalize: bool = False,
     deadline_check=None,
+    device=None,
 ):
     """Verification + output for a chunk whose search results are ready.
 
@@ -187,7 +265,8 @@ def verify_and_write_chunk(
     traceback pool and ALL stats/output writing is packaged into the
     returned zero-arg closure — the caller runs closures in chunk order on
     a single finalize thread. Copied from floxer_tpu/pipeline.py with the
-    port's verifier and an explicit use_device."""
+    port's verifier, an explicit use_device and the verifier's device
+    (bucketed batcher calls and device tracebacks)."""
     from .verify_batch import BatchVerifier, _QueryItem
 
     items = []
@@ -211,6 +290,7 @@ def verify_and_write_chunk(
         resident_ref=resident_ref,
         defer_finalize=defer_finalize,
         deadline_check=deadline_check,
+        device=device,
     )
     all_alignments = verifier.process(items)
     verification_ms = int((time.monotonic() - verification_started) * 1000)
@@ -279,15 +359,18 @@ def run(
     cli: CommandLineInput,
     device: torch.device | None = None,
     use_device=None,
+    extra_log_handler=None,
 ) -> int:
     """Main driver; mirrors floxer_tpu.pipeline.run (src/main/floxer.cpp).
 
-    device: where fused waves run. None picks CUDA device 0 when it is a
-    Hopper GPU; a CPU device runs the fused waves through the kernels'
-    plain versions (tests). use_device: None takes the CLI's choice
-    (--engine device: True; --engine batched: the warmup's readiness
-    probe, so waves route by the cost model once the kernels are built);
-    False keeps every wave on the native host engine."""
+    device: where device work runs (fused waves, bucketed batcher calls,
+    device tracebacks). None picks CUDA device 0 when it is a Hopper GPU;
+    a CPU device runs that work through the kernels' plain versions
+    (tests). use_device: None takes the CLI's choice (--engine device:
+    True; --engine batched: the warmup's readiness probe, so waves route by
+    the cost model once the kernels are built); False keeps every wave on
+    the host engines. extra_log_handler: a logging.Handler attached for
+    this run (the server mirrors a job's logs to its client with it)."""
     if getattr(cli, "cprofile_path", None):
         import cProfile
 
@@ -295,13 +378,17 @@ def run(
         cli.cprofile_path = None
         profiler = cProfile.Profile()
         try:
-            return profiler.runcall(run, cli, device, use_device)
+            return profiler.runcall(
+                run, cli, device, use_device, extra_log_handler
+            )
         finally:
             cli.cprofile_path = path
             profiler.dump_stats(path)
             logger.info("cProfile written to %s", path)
 
     initialize_logger(cli.logfile_path, cli.console_debug_logs)
+    if extra_log_handler is not None:
+        logger.addHandler(extra_log_handler)
     problems = unsupported_options(cli)
     if problems:
         for problem in problems:
@@ -309,20 +396,21 @@ def run(
         return -1
     warming = False
     if cli.engine in ("device", "batched"):
-        from floxer_tpu.native import get_library
-
-        if get_library() is None:
-            logger.error(
-                "running the batched engines without the native library "
-                "%s", NOT_PORTED,
-            )
-            return -1
         if device is None and accelerator_available():
             device = torch.device("cuda", 0)
         if device is None and cli.engine == "device":
             logger.error(
                 "--engine device needs a CUDA device of compute capability "
                 ">= 9.0 (Hopper); none is available"
+            )
+            return -1
+        from .verify_batch import device_tracebacks_requested
+
+        if device is None and device_tracebacks_requested():
+            logger.error(
+                "FLOXER_TPU_DEVICE_TRACEBACK=1 runs the root tracebacks on "
+                "a CUDA device of compute capability >= 9.0 (Hopper); none "
+                "is available"
             )
             return -1
         if use_device is None:
@@ -414,193 +502,204 @@ def run(
         cli.output_path,
     )
     aligning_started = time.monotonic()
-    timed_out = False
+    launches_before = kernel_launches()
+    # torch.profiler trace of the alignment phase (the reference traces it
+    # with jax.profiler); stopped on every exit path below
+    profiler = (
+        _start_profiler(device) if cli.profile_dir else None
+    )
+    try:
+        timed_out = False
 
-    def hit_timeout() -> bool:
-        return (
-            cli.timeout_seconds is not None
-            and time.monotonic() - aligning_started > cli.timeout_seconds
-        )
-
-    failed = False
-    stage_wall = None  # set by the batched engines; None => no stage split
-    vb_timers_start = None
-    if cli.engine == "reference":
-        try:
-            for query in queries:
-                if hit_timeout():
-                    timed_out = True
-                    break
-                process_query(query, cli, references, searcher, output, stats)
-                num_processed += 1
-                record_progress()
-        except Exception as error:  # noqa: BLE001 - parity with the
-            # reference's task-level abort (parallelization.cpp:149-157)
-            logger.error(
-                "An error occurred while reading/searching/verifying a "
-                "query. Shutting down. The output file is likely "
-                "incomplete. Error message: %s",
-                error,
+        def hit_timeout() -> bool:
+            return (
+                cli.timeout_seconds is not None
+                and time.monotonic() - aligning_started > cli.timeout_seconds
             )
-            failed = True
-    else:
-        # double-buffered pipeline: the host searches chunk N+1 on a worker
-        # thread (the native search releases the GIL) while chunk N
-        # verifies, and a single finalize worker writes chunk N-1
-        from concurrent.futures import ThreadPoolExecutor
 
-        from .verify_batch import _BATCH_TIMERS, VerificationTimeout
-
-        resident_ref = (
-            _get_resident_bank(references, device)
-            if use_device is not False
-            else None
-        )
-        # per-stage wall attribution for the end-of-run "stage split" line:
-        # stages OVERLAP, so the sums can exceed the align wall
-        stage_wall = {"search": 0.0, "verify": 0.0, "finalize": 0.0}
-        vb_timers_start = dict(_BATCH_TIMERS)
-
-        def next_chunk():
-            chunk = []
-            for query in queries:
-                chunk.append(query)
-                if len(chunk) >= cli.batch_size:
-                    break
-            return chunk
-
-        def search_chunk(chunk):
-            started = time.monotonic()
-            many = getattr(searcher, "search_seeds_many", None)
-            if many is None:
-                result = [
-                    search_query_pure(query, cli, searcher) for query in chunk
-                ]
-            else:
-                # chunk-level batched search: every query's fwd+rc seeds in
-                # one native call per seed class; per-query search ms is
-                # chunk-averaged
-                prepared = []
-                jobs = []
-                for query in chunk:
-                    pex_tree, seeds = prepare_query_tree(query, cli)
-                    prepared.append((pex_tree, seeds))
-                    jobs.append((seeds, query.rank_sequence))
-                    jobs.append(
-                        (seeds, query.reverse_complement_rank_sequence)
-                    )
-                searched = many(jobs)
-                elapsed_ms = int((time.monotonic() - started) * 1000) // max(
-                    len(chunk), 1
-                )
-                result = [
-                    (
-                        pex_tree,
-                        seeds,
-                        searched[2 * i],
-                        searched[2 * i + 1],
-                        elapsed_ms,
-                    )
-                    for i, (pex_tree, seeds) in enumerate(prepared)
-                ]
-            stage_wall["search"] += time.monotonic() - started
-            logger.debug(
-                "search chunk: %d queries in %.2fs",
-                len(chunk),
-                time.monotonic() - started,
-            )
-            return result
-
-        with ThreadPoolExecutor(max_workers=1) as pool, ThreadPoolExecutor(
-            max_workers=1, thread_name_prefix="finalize"
-        ) as finalize_pool:
-            pending = None
-            finalizing = None  # (chunk_len, future)
+        failed = False
+        stage_wall = None  # set by the batched engines; None => no stage split
+        vb_timers_start = None
+        if cli.engine == "reference":
             try:
-                while not timed_out:
-                    chunk = next_chunk()
-                    future = (
-                        pool.submit(search_chunk, chunk) if chunk else None
-                    )
-                    if pending is not None:
-                        prev_chunk, prev_future = pending
-                        t0_verify = time.monotonic()
-                        try:
-                            complete = verify_and_write_chunk(
-                                prev_chunk,
-                                prev_future.result(),
-                                cli,
-                                references,
-                                output,
-                                stats,
-                                use_device=use_device,
-                                resident_ref=resident_ref,
-                                defer_finalize=True,
-                                deadline_check=hit_timeout,
-                            )
-                            stage_wall["verify"] += (
-                                time.monotonic() - t0_verify
-                            )
-                        except VerificationTimeout:
-                            # per-wave timeout check: drop the in-flight
-                            # chunk, output stays truncated like the
-                            # reference's
-                            timed_out = True
-                            if future is not None:
-                                future.cancel()
-                            break
-                        if finalizing is not None:
-                            done_len, done_future = finalizing
-                            done_future.result()
-                            num_processed += done_len
-                            record_progress()
-
-                        def timed_complete(fn=complete):
-                            t0 = time.monotonic()
-                            try:
-                                return fn()
-                            finally:
-                                stage_wall["finalize"] += (
-                                    time.monotonic() - t0
-                                )
-
-                        finalizing = (
-                            len(prev_chunk),
-                            finalize_pool.submit(timed_complete),
-                        )
-                    if not chunk:
-                        break
+                for query in queries:
                     if hit_timeout():
                         timed_out = True
-                        future.cancel()
                         break
-                    pending = (chunk, future)
-                if finalizing is not None:
-                    done_len, done_future = finalizing
-                    done_future.result()
-                    num_processed += done_len
+                    process_query(query, cli, references, searcher, output, stats)
+                    num_processed += 1
                     record_progress()
-                    finalizing = None
-            except Exception as error:  # noqa: BLE001 - see reference-engine
-                # branch above
+            except Exception as error:  # noqa: BLE001 - parity with the
+                # reference's task-level abort (parallelization.cpp:149-157)
                 logger.error(
-                    "An error occurred during batched alignment. Shutting "
-                    "down. The output file is likely incomplete. Error "
-                    "message: %s",
+                    "An error occurred while reading/searching/verifying a "
+                    "query. Shutting down. The output file is likely "
+                    "incomplete. Error message: %s",
                     error,
                 )
-                logger.debug(
-                    "batched alignment failure traceback:", exc_info=True
-                )
                 failed = True
+        else:
+            # double-buffered pipeline: the host searches chunk N+1 on a worker
+            # thread (the native search releases the GIL) while chunk N
+            # verifies, and a single finalize worker writes chunk N-1
+            from concurrent.futures import ThreadPoolExecutor
 
-    if timed_out:
-        logger.warning(
-            "Timeout happened. Shutting down now. The output file might "
-            "be incomplete."
-        )
+            from .verify_batch import _BATCH_TIMERS, VerificationTimeout
 
-    output.close()
+            resident_ref = (
+                _get_resident_bank(cli, references, device)
+                if use_device is not False
+                else None
+            )
+            # per-stage wall attribution for the end-of-run "stage split" line:
+            # stages OVERLAP, so the sums can exceed the align wall
+            stage_wall = {"search": 0.0, "verify": 0.0, "finalize": 0.0}
+            vb_timers_start = dict(_BATCH_TIMERS)
+
+            def next_chunk():
+                chunk = []
+                for query in queries:
+                    chunk.append(query)
+                    if len(chunk) >= cli.batch_size:
+                        break
+                return chunk
+
+            def search_chunk(chunk):
+                started = time.monotonic()
+                many = getattr(searcher, "search_seeds_many", None)
+                if many is None:
+                    result = [
+                        search_query_pure(query, cli, searcher) for query in chunk
+                    ]
+                else:
+                    # chunk-level batched search: every query's fwd+rc seeds in
+                    # one native call per seed class; per-query search ms is
+                    # chunk-averaged
+                    prepared = []
+                    jobs = []
+                    for query in chunk:
+                        pex_tree, seeds = prepare_query_tree(query, cli)
+                        prepared.append((pex_tree, seeds))
+                        jobs.append((seeds, query.rank_sequence))
+                        jobs.append(
+                            (seeds, query.reverse_complement_rank_sequence)
+                        )
+                    searched = many(jobs)
+                    elapsed_ms = int((time.monotonic() - started) * 1000) // max(
+                        len(chunk), 1
+                    )
+                    result = [
+                        (
+                            pex_tree,
+                            seeds,
+                            searched[2 * i],
+                            searched[2 * i + 1],
+                            elapsed_ms,
+                        )
+                        for i, (pex_tree, seeds) in enumerate(prepared)
+                    ]
+                stage_wall["search"] += time.monotonic() - started
+                logger.debug(
+                    "search chunk: %d queries in %.2fs",
+                    len(chunk),
+                    time.monotonic() - started,
+                )
+                return result
+
+            with ThreadPoolExecutor(max_workers=1) as pool, ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="finalize"
+            ) as finalize_pool:
+                pending = None
+                finalizing = None  # (chunk_len, future)
+                try:
+                    while not timed_out:
+                        chunk = next_chunk()
+                        future = (
+                            pool.submit(search_chunk, chunk) if chunk else None
+                        )
+                        if pending is not None:
+                            prev_chunk, prev_future = pending
+                            t0_verify = time.monotonic()
+                            try:
+                                complete = verify_and_write_chunk(
+                                    prev_chunk,
+                                    prev_future.result(),
+                                    cli,
+                                    references,
+                                    output,
+                                    stats,
+                                    use_device=use_device,
+                                    resident_ref=resident_ref,
+                                    defer_finalize=True,
+                                    deadline_check=hit_timeout,
+                                    device=device,
+                                )
+                                stage_wall["verify"] += (
+                                    time.monotonic() - t0_verify
+                                )
+                            except VerificationTimeout:
+                                # per-wave timeout check: drop the in-flight
+                                # chunk, output stays truncated like the
+                                # reference's
+                                timed_out = True
+                                if future is not None:
+                                    future.cancel()
+                                break
+                            if finalizing is not None:
+                                done_len, done_future = finalizing
+                                done_future.result()
+                                num_processed += done_len
+                                record_progress()
+
+                            def timed_complete(fn=complete):
+                                t0 = time.monotonic()
+                                try:
+                                    return fn()
+                                finally:
+                                    stage_wall["finalize"] += (
+                                        time.monotonic() - t0
+                                    )
+
+                            finalizing = (
+                                len(prev_chunk),
+                                finalize_pool.submit(timed_complete),
+                            )
+                        if not chunk:
+                            break
+                        if hit_timeout():
+                            timed_out = True
+                            future.cancel()
+                            break
+                        pending = (chunk, future)
+                    if finalizing is not None:
+                        done_len, done_future = finalizing
+                        done_future.result()
+                        num_processed += done_len
+                        record_progress()
+                        finalizing = None
+                except Exception as error:  # noqa: BLE001 - see reference-engine
+                    # branch above
+                    logger.error(
+                        "An error occurred during batched alignment. Shutting "
+                        "down. The output file is likely incomplete. Error "
+                        "message: %s",
+                        error,
+                    )
+                    logger.debug(
+                        "batched alignment failure traceback:", exc_info=True
+                    )
+                    failed = True
+
+        if timed_out:
+            logger.warning(
+                "Timeout happened. Shutting down now. The output file might "
+                "be incomplete."
+            )
+
+        output.close()
+    finally:
+        if profiler is not None:
+            _stop_profiler(profiler, cli.profile_dir)
     if warming:
         # a batched run may finish before the warmup; a failed kernel
         # build fails the run either way
@@ -627,16 +726,23 @@ def run(
         # machine-parsable per-stage attribution. Stages overlap, so the
         # sums can exceed the align wall; device_kernel_s is the unhidden
         # device wait observed by the wave loop this run.
+        # launches= counts the CUDA kernel launches of this run (in a
+        # server: of this job)
         from .verify_batch import _BATCH_TIMERS as _vb_now
 
+        launches = kernel_launches()
         logger.info(
             "stage split: search=%.2fs verify=%.2fs finalize=%.2fs "
-            "device_kernel=%.2fs fused_dispatches=%d",
+            "device_kernel=%.2fs fused_dispatches=%d launches=%s",
             stage_wall["search"],
             stage_wall["verify"],
             stage_wall["finalize"],
             _vb_now["kernel"] - vb_timers_start["kernel"],
             _vb_now["fused"] - vb_timers_start["fused"],
+            ",".join(
+                f"{name}:{count - launches_before[name]}"
+                for name, count in launches.items()
+            ),
         )
 
     if cli.stats_target is not None:

@@ -26,12 +26,15 @@ randomized workloads.
 
 This is the PyTorch/CUDA port's copy of floxer_tpu/verify_batch.py. It
 keeps the reference's structure, so a diff against it shows the device
-seams: torch resident banks (_setup_chunk_state), the port's FusedBatch
-(_try_fused_wave, without the XLA new-plan compile gate), and a CUDA round
-trip as the router's overhead probe (_device_call_overhead). Not ported
-yet (ROADMAP): the bucketed device branch of _TaskBatcher, device
-tracebacks, and the legacy object path that runs without the native
-library; the A/B kill switches of those paths are gone with them.
+seams: an explicit torch device on the verifier and the bucketed batcher,
+torch resident banks (_setup_chunk_state), the port's FusedBatch
+(_try_fused_wave, without the XLA new-plan compile gate), a CUDA round
+trip as the router's overhead probe (_device_call_overhead), the port's
+kernel entries in _TaskBatcher (no batch padding: the CUDA kernels stop
+each task at its own window) and its device tracebacks (K4). The
+reference's A/B kill switches (FLOXER_TPU_NO_FUSED, FLOXER_TPU_NO_RESIDENT,
+FLOXER_TPU_FORCE_FUSED) and its test hook FLOXER_TPU_FORCE_BANDED are not
+carried over.
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from floxer_tpu.intervals import VerifiedIntervals
 
 
 _TRACEBACK_POOL = None
@@ -74,10 +79,10 @@ from floxer_tpu.verify import (
     compute_reference_span,
 )
 
-# device-routing threshold in padded DP cells per bucket of the bucketed
-# batcher: smaller buckets always run on the native host Myers engine
-# (myers_host.cpp). Kept at the reference's value; re-seeding the router
-# from H100 measurements is ROADMAP work.
+# device-routing threshold in useful DP cells per full-kernel bucket of
+# the bucketed batcher: smaller buckets always run on the native host
+# Myers engine (myers_host.cpp). Kept at the reference's value; re-seeding
+# the router from H100 measurements is ROADMAP work.
 MIN_DEVICE_CELLS = int(
     __import__("os").environ.get("FLOXER_TPU_MIN_DEVICE_CELLS", "1000000000")
 )
@@ -228,6 +233,18 @@ def _device_call_overhead(device) -> float:
     return state["ewma"]
 
 
+def _observe_device_call(observed_s: float, modeled_kernel_s: float) -> None:
+    """EWMA-update the bucketed batcher's per-call overhead from one
+    device bucket (dispatch + download) minus its modeled kernel time."""
+    state = _DEVICE_OVERHEAD
+    sample = max(observed_s - modeled_kernel_s, 0.0)
+    floor = 0.25 * (state["rtt"] or 0.0)
+    if state["ewma"] is None:
+        state["ewma"] = max(sample, floor)
+    else:
+        state["ewma"] = max(0.7 * state["ewma"] + 0.3 * sample, floor)
+
+
 # fixed per-dispatch cost of the FUSED wave (ops/fused_verify.py): one
 # table upload, the segments' launches, one download.
 _FUSED_OVERHEAD = {"ewma": None}
@@ -355,30 +372,34 @@ class _WalkTable:
 
 
 _BATCH_TIMERS = {
-    "kernel": 0.0, "numpy": 0.0, "calls": 0, "fused": 0,
+    "pack": 0.0, "kernel": 0.0, "numpy": 0.0, "calls": 0, "fused": 0,
 }
 
 
 class _TaskBatcher:
     """Collects unique (pattern, window) pairs and runs them in batched
-    native Myers calls; duplicates share one slot.
+    Myers calls, bucketed by shape; duplicates share one slot.
 
     use_device may be a bool or a zero-arg callable resolved lazily the
-    first time a bucket actually qualifies for device dispatch. The
-    bucketed device branch is not ported yet (ROADMAP): a bucket that the
-    router would send to the device raises instead of running elsewhere.
-    On the ported main path (native library + resident banks) the
-    verifier hands this batcher use_device=False and all device work goes
-    through the fused waves."""
+    first time a bucket actually qualifies for device dispatch — so tiny
+    workloads never touch the device at all. Device buckets run on
+    `device`, or on the resident banks' device when `resident` is given."""
 
-    def __init__(self, use_device):
+    def __init__(self, use_device, resident=None, device=None):
         self.use_device = use_device
+        # resident: (ref_bank, query_bank) ResidentBank pair enabling the
+        # on-device gather path (ops/resident.py) — per-task slice copies
+        # are replaced by offsets into device-resident packed banks
+        self.resident = resident
+        self.device = resident[0].device if resident is not None else device
         self._device_resolved: bool | None = None
         self.keys: dict = {}
         self.patterns: list[np.ndarray] = []
         self.windows: list[np.ndarray] = []
         self.owners: list[list[int]] = []
         self.budgets: list[int] = []
+        self.pat_addrs: list[int] = []
+        self.win_addrs: list[int] = []
 
     def add(
         self,
@@ -387,6 +408,8 @@ class _TaskBatcher:
         window: np.ndarray,
         owner: int,
         budget: int = -1,
+        pat_addr: int = -1,
+        win_addr: int = -1,
     ):
         slot = self.keys.get(key)
         if slot is None:
@@ -395,6 +418,8 @@ class _TaskBatcher:
             self.patterns.append(pattern)
             self.windows.append(window)
             self.budgets.append(budget)
+            self.pat_addrs.append(pat_addr)
+            self.win_addrs.append(win_addr)
             self.owners.append([])
         self.owners[slot].append(owner)
         return slot
@@ -406,19 +431,53 @@ class _TaskBatcher:
                 if callable(self.use_device)
                 else bool(self.use_device)
             )
-        if self._device_resolved:
-            raise NotImplementedError(
-                "the bucketed device batcher is not yet ported (see "
-                "ROADMAP); device verification runs as fused waves over "
-                "resident banks"
+            if self._device_resolved and self.device is None:
+                raise ValueError(
+                    "device verification needs a device (pass device= or "
+                    "resident banks)"
+                )
+        return self._device_resolved
+
+    def _try_resident(self, tag, m_bucket, n_bucket, slots):
+        """Dispatch one device bucket through the resident-gather path
+        (ops/resident.py): offsets into device-resident banks instead of
+        per-task host slice uploads. Returns (dist, end) device tensors of
+        length len(slots), or None when the path does not apply (no banks,
+        or a slot without addresses, e.g. the reversed root batch). The
+        reference pads the batch to its Pallas kernels' task groups; the
+        CUDA kernels stop each task at its own window, so no pad rows."""
+        if self.resident is None:
+            return None
+        if any(
+            self.pat_addrs[i] < 0 or self.win_addrs[i] < 0 for i in slots
+        ):
+            return None
+        from .ops.resident import myers_banded_resident, myers_full_resident
+
+        ref_bank, query_bank = self.resident
+        win_starts = np.asarray([self.win_addrs[i] for i in slots], np.int64)
+        win_lens = np.asarray([len(self.windows[i]) for i in slots], np.int64)
+        pat_starts = np.asarray([self.pat_addrs[i] for i in slots], np.int64)
+        pat_lens = np.asarray([len(self.patterns[i]) for i in slots], np.int64)
+        if tag == "banded":
+            return myers_banded_resident(
+                ref_bank, query_bank,
+                win_starts, win_lens, pat_starts, pat_lens,
+                np.asarray([self.budgets[i] for i in slots], np.int64),
+                band_words=m_bucket, num_text=n_bucket, sync=False,
             )
-        return False
+        return myers_full_resident(
+            ref_bank, query_bank,
+            win_starts, win_lens, pat_starts, pat_lens,
+            m_bucket=m_bucket, num_text=n_bucket, sync=False,
+        )
 
     def run(self) -> tuple[np.ndarray, np.ndarray]:
         """Returns (distances, end_cols) per unique slot.
 
-        Slots are grouped into (pattern, window) shape buckets, each one
-        native batch call."""
+        Slots are grouped into (pattern, window) shape buckets; each bucket
+        is one native host call or one device kernel call, as the router
+        decides."""
         count = len(self.patterns)
         distances = np.zeros(count, dtype=np.int64)
         ends = np.zeros(count, dtype=np.int64)
@@ -459,16 +518,27 @@ class _TaskBatcher:
                 return band_tiles * 128
             return None
 
+        def window_bucket(n):
+            # with the resident gather path the per-task window transfer is
+            # offsets-only and the kernels stop at each task's window, so
+            # quantize coarsely (power of two), as the reference does
+            if self.resident is not None:
+                size = 256
+                while size < n:
+                    size *= 2
+                return size
+            return bucket_at_least(n, 256)
+
         buckets: dict[tuple, list[int]] = {}
         for i, (pattern, window) in enumerate(zip(self.patterns, self.windows)):
             bw = banded_words_for(i)
             if bw is not None:
-                key = ("banded", bw, bucket_at_least(len(window), 256))
+                key = ("banded", bw, window_bucket(len(window)))
             else:
                 key = (
                     "full",
                     bucket_at_least(len(pattern), 128),
-                    bucket_at_least(len(window), 256),
+                    window_bucket(len(window)),
                 )
             buckets.setdefault(key, []).append(i)
 
@@ -496,17 +566,29 @@ class _TaskBatcher:
         for slots in buckets.values():
             slots.sort(key=lambda i: len(self.windows[i]), reverse=True)
 
+        import logging as _logging
         import time as _time
 
-        from floxer_tpu.native import native_myers_distance_batch
+        from .ops.myers import pad_batch
 
+        # device buckets are SUBMITTED first (sync=False keeps results on
+        # the device) and downloaded after the last dispatch, so the card
+        # runs bucket after bucket instead of waiting on one round trip
+        # per bucket
+        pending = []  # (slots, b_bucket, m_bucket, n_bucket, dist, end, t, mk)
         for (tag, m_bucket, n_bucket), slots in buckets.items():
             # route on USEFUL cells — the native host engine computes only
             # those, so padding waste must not push a bucket onto the device
             cells = sum(
                 len(self.patterns[i]) * len(self.windows[i]) for i in slots
             )
+            modeled_kernel_s = 0.0
             if tag == "banded":
+                # time-model routing (see _device_call_overhead): both
+                # engines compute the same band, so compare estimated wall
+                # time. Host computes useful band cells on min(4, slots)
+                # threads; device computes the padded band and pays a
+                # per-call overhead.
                 band_cells = 0
                 for i in slots:
                     m = len(self.patterns[i])
@@ -516,31 +598,175 @@ class _TaskBatcher:
                 host_s = band_cells / (
                     _host_band_rate() * min(4, len(slots))
                 )
-                device_worthy = host_s > _PROBE_MIN_HOST_S
+                if self.use_device is True:
+                    # --engine device / direct construction: hard override,
+                    # the caller wants the device path exercised
+                    on_device = self._device()
+                elif host_s <= _PROBE_MIN_HOST_S or not self._device():
+                    on_device = False
+                else:
+                    b_pad = 1
+                    while b_pad < len(slots):
+                        b_pad *= 2
+                    modeled_kernel_s = (
+                        m_bucket * 32 * n_bucket * b_pad
+                    ) / _device_band_rate()
+                    overhead = _device_call_overhead(self.device)
+                    device_s = overhead + modeled_kernel_s
+                    on_device = device_s < host_s
+                    _logging.getLogger("floxer-tpu").debug(
+                        "banded route: %d slots band=%.0fMcells host %.0fms"
+                        " device %.0fms (overhead %.0fms) -> %s",
+                        len(slots), band_cells / 1e6, host_s * 1e3,
+                        device_s * 1e3, overhead * 1e3,
+                        "device" if on_device else "host",
+                    )
+            elif self.use_device is True:
+                # the hard override holds for full buckets too: with
+                # --engine device every bucket runs on the device, as every
+                # wave of the fused path does (the reference keeps full
+                # buckets under MIN_DEVICE_CELLS on the host even then)
+                on_device = self._device()
             else:
-                device_worthy = cells > MIN_DEVICE_CELLS
-            if device_worthy or self.use_device is True:
-                self._device()  # raises when the device would be used
-            t0 = _time.monotonic()
-            native = native_myers_distance_batch(
-                [self.windows[i] for i in slots],
-                [self.patterns[i] for i in slots],
-                num_threads=min(4, len(slots)),
-                budgets=[self.budgets[i] for i in slots],
-            )
-            if native is None:
-                raise RuntimeError("the native library is required")
-            dist_arr, end_arr = native
-            distances[slots] = dist_arr
-            ends[slots] = end_arr
-            if tag == "banded":
-                _observe_host_band_rate(
-                    band_cells,
-                    _time.monotonic() - t0,
-                    min(4, len(slots)),
+                size_qualifies = cells > MIN_DEVICE_CELLS
+                on_device = size_qualifies and self._device()
+            if not on_device:
+                t0 = _time.monotonic()
+                from floxer_tpu.native import native_myers_distance_batch
+
+                native = native_myers_distance_batch(
+                    [self.windows[i] for i in slots],
+                    [self.patterns[i] for i in slots],
+                    num_threads=min(4, len(slots)),
+                    budgets=[self.budgets[i] for i in slots],
                 )
-            _BATCH_TIMERS["numpy"] += _time.monotonic() - t0
+                if native is not None:
+                    dist_arr, end_arr = native
+                    distances[slots] = dist_arr
+                    ends[slots] = end_arr
+                    if tag == "banded":
+                        _observe_host_band_rate(
+                            band_cells,
+                            _time.monotonic() - t0,
+                            min(4, len(slots)),
+                        )
+                else:
+                    for i in slots:
+                        dp = dp_reference.semi_global_dp_matrix(
+                            self.windows[i], self.patterns[i]
+                        )
+                        last = dp[-1]
+                        end = dp_reference._rightmost_argmin(last)
+                        distances[i] = last[end]
+                        ends[i] = end
+                _BATCH_TIMERS["numpy"] += _time.monotonic() - t0
+                continue
+            # the cost model prices a power-of-two batch as the reference's
+            # padded kernels ran it; the CUDA kernels run the slots as they
+            # are (each task stops at its own window), so no pad rows
+            t0 = _time.monotonic()
+            b_bucket = 1
+            while b_bucket < len(slots):
+                b_bucket *= 2
+            resident_result = self._try_resident(
+                tag, m_bucket, n_bucket, slots
+            )
+            if resident_result is not None:
+                t1 = _time.monotonic()
+                _BATCH_TIMERS["pack"] += t1 - t0
+                _BATCH_TIMERS["calls"] += 1
+                pending.append(
+                    (slots, b_bucket, m_bucket, n_bucket,
+                     resident_result[0], resident_result[1], t1 - t0,
+                     modeled_kernel_s)
+                )
+                continue
+            batch_patterns = [self.patterns[i] for i in slots]
+            txt, tlen = pad_batch(
+                [self.windows[i] for i in slots], pad_to=n_bucket
+            )
+            if tag == "banded":
+                from .ops.cuda_myers_banded import myers_banded_host
+
+                t1 = _time.monotonic()
+                bucket_distances, bucket_ends = myers_banded_host(
+                    batch_patterns,
+                    txt,
+                    tlen,
+                    np.asarray([self.budgets[i] for i in slots], np.int64),
+                    band_words=m_bucket,
+                    device=self.device,
+                    sync=False,
+                )
+                t2 = _time.monotonic()
+            else:
+                from .ops.myers import myers_distance
+
+                pat, plen = pad_batch(batch_patterns, pad_to=m_bucket)
+                t1 = _time.monotonic()
+                bucket_distances, bucket_ends = myers_distance(
+                    pat, plen, txt, tlen, self.device, sync=False
+                )
+                t2 = _time.monotonic()
+            _BATCH_TIMERS["pack"] += t1 - t0
+            _BATCH_TIMERS["calls"] += 1
+            pending.append(
+                (slots, b_bucket, m_bucket, n_bucket,
+                 bucket_distances, bucket_ends, t2 - t1, modeled_kernel_s)
+            )
+
+        log = _logging.getLogger("floxer-tpu")
+        # the downloads wait for the kernels in submission order
+        for (
+            slots, b_bucket, m_bucket, n_bucket, dist, end, t_disp, mk_s
+        ) in pending:
+            t1 = _time.monotonic()
+            distances[slots] = dist.cpu().numpy()
+            ends[slots] = end.cpu().numpy()
+            t2 = _time.monotonic()
+            _BATCH_TIMERS["kernel"] += t2 - t1
+            if mk_s:
+                _observe_device_call(t_disp + (t2 - t1), mk_s)
+            useful = sum(
+                len(self.patterns[i]) * len(self.windows[i]) for i in slots
+            )
+            padded = b_bucket * m_bucket * n_bucket
+            log.debug(
+                "batcher call: %d slots (pad %d) m=%d n=%d -> disp %.2fs "
+                "wait %.2fs useful=%.2fMcells padded=%.2fMcells fill=%.1f%% "
+                "%.1fGCUPS",
+                len(slots), b_bucket, m_bucket, n_bucket, t_disp, t2 - t1,
+                useful / 1e6, padded / 1e6, 100.0 * useful / padded,
+                padded / max(t2 - t1, 1e-9) / 1e9,
+            )
+
         return distances, ends
+
+
+class _DeviceTb:
+    """Placeholder for one device-batched traceback task: future-compatible
+    (`.result()`) once resolve_deferred() fills `value` from the batch."""
+
+    __slots__ = ("index", "value")
+
+    def __init__(self, index: int):
+        self.index = index
+        self.value = None
+
+    def result(self):
+        if self.value is None:
+            raise RuntimeError("resolve_deferred was not called")
+        return self.value
+
+
+def device_tracebacks_requested() -> bool:
+    """FLOXER_TPU_DEVICE_TRACEBACK opts the root tracebacks into the device
+    (K4), as in the reference: any value but empty or "0"."""
+    import os
+
+    return os.environ.get("FLOXER_TPU_DEVICE_TRACEBACK") not in (
+        None, "", "0"
+    )
 
 
 class VerificationTimeout(Exception):
@@ -562,11 +788,14 @@ class BatchVerifier:
         resident_ref=None,
         defer_finalize: bool = False,
         deadline_check=None,
+        device=None,
     ):
         """use_device: True (every wave fused on the device), False, or a
         zero-arg readiness callable resolved lazily (cost-model routing).
         resident_ref: the run's ResidentBank of the references; its device
-        is the device every fused wave runs on."""
+        is the device every fused wave runs on. device: where bucketed
+        batcher calls and device tracebacks run (default: resident_ref's
+        device)."""
         self.references = references
         # defer_finalize=True: process() may return alignments whose root
         # begin/CIGAR are still being computed on the traceback pool; the
@@ -584,14 +813,39 @@ class BatchVerifier:
         # per-run device-resident reference bank (ops/resident.py); the
         # per-chunk query bank is built in process()
         self.resident_ref = resident_ref
+        self.device = (
+            device
+            if device is not None or resident_ref is None
+            else resident_ref.device
+        )
         self._resident = None
         # deferred root tracebacks: futures submitted during the wave loop;
         # resolve_deferred() (cheap, callable from a later pipeline stage)
         # patches begin/cigar into the affected levels and alignment records
-        self._deferred: list = []  # (future, level)
+        self._deferred: list = []  # (future-or-_DeviceTb, level)
         self._patches: list = []  # (QueryAlignment, level)
+        # device-traceback accumulation: recorded-root tasks queued during
+        # the record pass, dispatched as batched K4 launches in
+        # resolve_deferred() (ops/traceback_device.py)
+        self._device_tb_tasks: list = []
+        self._device_tb_enabled: bool | None = None
 
     # ------------------------------------------------------------------
+
+    def _chain_for(self, tree: PexTree, leaf: PexNode) -> list[PexNode]:
+        """Nodes visited by the hierarchical walk (leaf's parent ... root),
+        or [leaf] when the tree is a single root, or [root] for direct_full."""
+        if self.kind == VerificationKind.DIRECT_FULL:
+            return [tree.root]
+        if leaf.is_root:
+            return [leaf]
+        chain = []
+        node = tree.parent_of(leaf)
+        while True:
+            chain.append(node)
+            if node.is_root:
+                return chain
+            node = tree.parent_of(node)
 
     def _chains_for_tree(self, tree: PexTree):
         """Per-leaf walk chains as a lazy ChainTable, memoized on the tree
@@ -639,18 +893,23 @@ class BatchVerifier:
         with --interval-optimization the device computes ~one walk per
         distinct locus instead of one per anchor.
 
-        The SoA path keeps all per-walk scalars in numpy arrays, runs the
-        cache simulation natively (cachescan.cpp), and materializes walk
-        objects only for the few walks that actually compute. The
-        reference's legacy object path (no native library) is not ported."""
+        Two implementations: the SoA path keeps all per-walk scalars in
+        numpy arrays, runs the cache simulation natively (cachescan.cpp),
+        and materializes walk objects only for the few walks that actually
+        compute; the legacy object path remains as the semantics oracle and
+        the fallback without the native library (FLOXER_TPU_LEGACY_VERIFY
+        selects it too)."""
+        import os
+
         from floxer_tpu.native import get_library
 
-        if get_library() is None:
-            raise NotImplementedError(
-                "verification without the native library (the legacy "
-                "object path) is not yet ported, see ROADMAP"
-            )
-        result = self._process_soa(items)
+        self._soa_active = get_library() is not None and not os.environ.get(
+            "FLOXER_TPU_LEGACY_VERIFY"
+        )
+        if self._soa_active:
+            result = self._process_soa(items)
+        else:
+            result = self._process_legacy(items)
         if not self.defer_finalize:
             self.resolve_deferred()
         return result
@@ -1071,6 +1330,333 @@ class BatchVerifier:
         )
         return alignments
 
+    def _process_legacy(self, items: list[_QueryItem]) -> list[QueryAlignments]:
+        import logging
+        import time as _time
+
+        log = logging.getLogger("floxer-tpu")
+        t0 = _time.monotonic()
+
+        walks = self._build_walks(items)
+        computed: set[int] = set()
+        self._setup_chunk_state(items)
+        t_build = _time.monotonic()
+
+        # prescreen: cheap batched passes over every walk's first few levels
+        # (the smallest spans) resolve junk anchors immediately — their
+        # walks can never reach the root, so the wave loop's optimistic
+        # cache simulation won't wrongly shadow other anchors behind them
+        # and trigger repair waves
+        # depth 0 disables the prescreen: with flat single-dispatch waves,
+        # letting the wave loop resolve mis-predicted walks is cheaper than
+        # prescreening the (mostly cache-skipped) full anchor set
+        prescreen_depth = int(
+            __import__("os").environ.get("FLOXER_TPU_PRESCREEN_DEPTH", "0")
+        )
+        if prescreen_depth > 0:
+            all_ids = list(range(len(walks)))
+            self._compute_walks(
+                walks, items, all_ids, max_depth=prescreen_depth
+            )
+            for walk_id in all_ids:
+                walk = walks[walk_id]
+                prescreened = walk.levels[:prescreen_depth]
+                if prescreened and not all(
+                    level.exists for level in prescreened
+                ):
+                    computed.add(walk_id)
+        t_prescreen = _time.monotonic()
+
+        waves = 0
+        need_total = 0
+        CHECK_DEPTH = 3
+
+        # the optimistic cache simulation is exact per (query, orientation,
+        # reference) — interval caches never cross those keys — so only
+        # keys whose predictions turned out wrong need re-simulation.
+        # A failed optimistic root insertion can only UNCOVER other walks
+        # (more need, never less), so survivors of the cheap check are
+        # always safe to compute in the same wave.
+        walks_by_key: dict = {}
+        for walk_id, walk in enumerate(walks):
+            key = (walk.query_index, walk.orientation, walk.anchor.reference_id)
+            walks_by_key.setdefault(key, []).append(walk_id)
+        need_by_key = {}
+        dirty = set(walks_by_key)
+        t_sim = 0.0  # host time inside the cache simulation
+        t_flat = 0.0  # host+device time inside _compute_walks_flat
+
+        def key_of(walk_id):
+            walk = walks[walk_id]
+            return (walk.query_index, walk.orientation, walk.anchor.reference_id)
+
+        def mark_broken(batch):
+            """Keys whose walks failed before reaching the root: their
+            optimistic root insertion never happened, so re-simulate."""
+            for walk_id in batch:
+                for level in walks[walk_id].levels:
+                    if level.node.is_root:
+                        break
+                    if not level.exists:
+                        dirty.add(key_of(walk_id))
+                        break
+
+        # checked-OK walks whose full-size levels haven't run yet; the
+        # simulation treats them exactly like its optimistic assumption
+        pending_ok: set[int] = set()
+        while True:
+            # inner: stabilize junk anchors on the cheap first levels only
+            # (small batches, fast dispatches) before any full-size work
+            while True:
+                t0_sim = _time.monotonic()
+                for key in dirty:
+                    need_by_key[key] = self._simulate_key(
+                        walks, walks_by_key[key], computed, pending_ok
+                    )
+                dirty.clear()
+                need = sorted(
+                    walk_id
+                    for ids in need_by_key.values()
+                    for walk_id in ids
+                    if walk_id not in computed and walk_id not in pending_ok
+                )
+                t_sim += _time.monotonic() - t0_sim
+                if not need:
+                    break
+                waves += 1
+                if self.deadline_check is not None and self.deadline_check():
+                    raise VerificationTimeout()
+                need_total += len(need)
+                t0_flat = _time.monotonic()
+                self._compute_walks_flat(
+                    walks, items, need, max_depth=CHECK_DEPTH
+                )
+                t_flat += _time.monotonic() - t0_flat
+                failed = set(
+                    walk_id
+                    for walk_id in need
+                    if not all(
+                        level.exists
+                        for level in walks[walk_id].levels[:CHECK_DEPTH]
+                    )
+                )
+                pending_ok.update(w for w in need if w not in failed)
+                if not failed:
+                    break
+                computed.update(failed)
+                mark_broken(failed)
+            if not pending_ok:
+                break
+            # all levels of every checked-OK walk as ONE flat batch: the
+            # early-exit is only a compute saving, never a dependency, and
+            # dispatch rounds cost more than the extra cells on a remote TPU
+            batch = sorted(pending_ok)
+            t0_flat = _time.monotonic()
+            self._compute_walks_flat(walks, items, batch)
+            t_flat += _time.monotonic() - t0_flat
+            computed.update(batch)
+            pending_ok.clear()
+            mark_broken(batch)
+        t_waves = _time.monotonic()
+
+        alignments = [QueryAlignments(len(self.references)) for _ in items]
+        leftover = self._scan(walks, items, computed, record=alignments)
+        assert not leftover
+        log.debug(
+            "batcher timers: pack %.2fs kernel %.2fs numpy %.2fs calls %d",
+            _BATCH_TIMERS["pack"],
+            _BATCH_TIMERS["kernel"],
+            _BATCH_TIMERS["numpy"],
+            _BATCH_TIMERS["calls"],
+        )
+        log.debug(
+            "verify batch: %d walks, %d waves (%d walks computed); "
+            "build %.2fs prescreen %.2fs waves %.2fs (sim %.2fs flat %.2fs) "
+            "record %.2fs",
+            len(walks),
+            waves,
+            need_total,
+            t_build - t0,
+            t_prescreen - t_build,
+            t_waves - t_prescreen,
+            t_sim,
+            t_flat,
+            _time.monotonic() - t_waves,
+        )
+        return alignments
+
+    def _simulate_key(
+        self,
+        walks: list[_AnchorWalk],
+        key_walk_ids: list[int],
+        computed: set[int],
+        pending_ok: set[int] = frozenset(),
+    ) -> list[int]:
+        """Optimistic cache simulation for ONE (query, orientation,
+        reference) key — the exact non-recording logic of _scan restricted
+        to the walks sharing one interval cache. Walks in pending_ok have
+        passed the cheap check but not run their full levels yet; they get
+        the optimistic insertion without being re-listed as need."""
+        cache = VerifiedIntervals(self.use_interval_optimization)
+        need: list[int] = []
+        for walk_id in key_walk_ids:
+            walk = walks[walk_id]
+            trimmed = (
+                walk.root_span.as_half_open_interval().trim_from_both_sides(
+                    walk.root_span.applied_extra_verification_length_per_side
+                )
+            )
+            if cache.contains(trimmed):
+                continue
+            if walk_id in pending_ok:
+                cache.insert(walk.root_span.as_half_open_interval())
+                continue
+            if walk_id not in computed:
+                need.append(walk_id)
+                cache.insert(walk.root_span.as_half_open_interval())
+                continue
+            for level in walk.levels:
+                if level.node.is_root:
+                    cache.insert(level.span.as_half_open_interval())
+                    break
+                if not level.exists:
+                    break
+        return need
+
+    def _scan(
+        self,
+        walks: list[_AnchorWalk],
+        items: list[_QueryItem],
+        computed: set[int],
+        record: list[QueryAlignments] | None,
+    ) -> list[int]:
+        """One pass over all walks in anchor order with fresh caches.
+
+        For computed walks, replays the actual outcome; for uncomputed
+        non-skipped walks, optimistically assumes the walk reaches the root
+        (so its interval lands in the cache) and reports it as needed.
+        When `record` is given this is the authoritative bookkeeping pass:
+        alignments and statistics are emitted.
+        """
+        caches = {}
+        stats_events = [] if record is not None else None
+        need: list[int] = []
+
+        for walk_id, walk in enumerate(walks):
+            key = (walk.query_index, walk.orientation, walk.anchor.reference_id)
+            cache = caches.get(key)
+            if cache is None:
+                cache = VerifiedIntervals(self.use_interval_optimization)
+                caches[key] = cache
+
+            trimmed = (
+                walk.root_span.as_half_open_interval().trim_from_both_sides(
+                    walk.root_span.applied_extra_verification_length_per_side
+                )
+            )
+            if cache.contains(trimmed):
+                if stats_events is not None:
+                    stats_events.append(("avoided_root", walk.root_span.length))
+                continue
+
+            if walk_id not in computed:
+                need.append(walk_id)
+                # optimistic: assume the walk reaches the root
+                cache.insert(walk.root_span.as_half_open_interval())
+                continue
+
+            for level in walk.levels:
+                if level.node.is_root:
+                    if stats_events is not None:
+                        stats_events.append(("aligned_root", level.span.length))
+                    cache.insert(level.span.as_half_open_interval())
+                    if level.exists and record is not None:
+                        if level.begin is None and not self.without_cigar:
+                            # lazy traceback: only recorded walks get one
+                            self._submit_traceback(walk, level, items)
+                        pending = level.begin is None
+                        alignment = QueryAlignment(
+                            start_in_reference=level.begin,
+                            num_errors=level.distance,
+                            orientation=walk.orientation,
+                            cigar=(
+                                None if pending else _cigar_value(level.cigar)
+                            ),
+                        )
+                        if pending:
+                            self._patches.append((alignment, level))
+                        record[walk.query_index].insert(
+                            alignment,
+                            walk.anchor.reference_id,
+                        )
+                    break
+                if stats_events is not None:
+                    stats_events.append(("aligned_inner", level.span.length))
+                if not level.exists:
+                    break
+
+        if stats_events is not None:
+            self.last_stats_events = stats_events
+        return need
+
+    # ---------------- phase A ----------------
+
+    def _build_walks(self, items: list[_QueryItem]) -> list[_AnchorWalk]:
+        """Builds every walk with its root span (needed by the cache
+        simulation for ALL walks) but defers per-level span construction
+        to _ensure_levels — only the few percent of walks that actually
+        compute ever need their inner levels."""
+        from floxer_tpu.utils.mathutils import float_aware_ceil
+
+        ref_lengths = [len(r.rank_sequence) for r in self.references]
+        walks = []
+        for query_index, item in enumerate(items):
+            # per-tree invariants of the root span math
+            # (verification.cpp:157-184): base length and extra depend only
+            # on the root node, the leaf offset term only on the leaf
+            root = item.pex_tree.root
+            base_length = (
+                root.length_of_query_span + 2 * root.num_errors + 1
+            )
+            extra = float_aware_ceil(
+                base_length * self.extra_verification_ratio
+            )
+            full_length = base_length + 2 * extra
+            chains = {}
+            leaf_offsets = {}
+            for leaf_index, leaf in enumerate(item.pex_tree.leaves):
+                chains[leaf_index] = self._chain_for(item.pex_tree, leaf)
+                leaf_offsets[leaf_index] = (
+                    leaf.query_index_from
+                    - root.query_index_from
+                    + root.num_errors
+                    + extra
+                )
+            for orientation, result in (
+                (Orientation.FORWARD, item.forward_result),
+                (Orientation.REVERSE_COMPLEMENT, item.rc_result),
+            ):
+                for anchor in result.iter_anchors():
+                    start = anchor.reference_position - leaf_offsets[
+                        anchor.pex_leaf_index
+                    ]
+                    if start < 0:
+                        start = 0
+                    ref_len = ref_lengths[anchor.reference_id]
+                    length = full_length
+                    if length > ref_len - start:
+                        length = ref_len - start
+                    walks.append(
+                        _AnchorWalk(
+                            query_index,
+                            orientation,
+                            anchor,
+                            chains[anchor.pex_leaf_index],
+                            SpanConfig(start, length, extra),
+                        )
+                    )
+        return walks
+
     def _ensure_levels(
         self, walk: _AnchorWalk, item: _QueryItem, upto: int | None = None
     ) -> None:
@@ -1432,11 +2018,12 @@ class BatchVerifier:
 
     def _batcher_use_device(self):
         """use_device for the host/bucketed batchers: when the fused wave
-        path owns device work (resident banks), a host-routed wave stays
-        on the host instead of round-tripping its big buckets to the
-        device one by one. Without banks the batchers see the verifier's
-        use_device (and raise if they would use the device: not ported)."""
-        if self._resident is not None:
+        path owns device work (SoA loop + resident banks), a host-routed
+        wave must stay on the host instead of round-tripping its big
+        buckets to the device one by one. The legacy object path never
+        reaches _try_fused_wave, so it keeps the bucketed-device
+        behavior."""
+        if getattr(self, "_soa_active", False) and self._resident is not None:
             return False
         return self.use_device
 
@@ -1448,6 +2035,94 @@ class BatchVerifier:
                 else bool(self.use_device)
             )
         return self._device_flag
+
+    def _compute_walks(
+        self,
+        walks: list[_AnchorWalk],
+        items: list[_QueryItem],
+        subset: list[int],
+        max_depth: int | None = None,
+    ):
+        for w in subset:
+            self._ensure_levels(walks[w], items[walks[w].query_index])
+        limit = max((len(walks[w].levels) for w in subset), default=0)
+        if max_depth is not None:
+            limit = min(limit, max_depth)
+        active = list(subset)
+        cache = getattr(self, "_task_cache", None)
+        if cache is None:
+            cache = self._task_cache = {}
+
+        for depth in range(limit):
+            batcher = _TaskBatcher(
+                self._batcher_use_device(), resident=self._resident,
+                device=self.device,
+            )
+            slot_of_walk = {}
+            cached_of_walk = {}
+            for walk_id in active:
+                walk = walks[walk_id]
+                if depth >= len(walk.levels):
+                    continue
+                level = walk.levels[depth]
+                item = items[walk.query_index]
+                query = self._oriented_query(item, walk.orientation)
+                reference = self.references[walk.anchor.reference_id]
+                key = (
+                    walk.query_index,
+                    walk.orientation,
+                    walk.anchor.reference_id,
+                    level.node.query_index_from,
+                    level.node.query_index_to,
+                    level.span.offset,
+                    level.span.length,
+                )
+                hit = cache.get(key)
+                if hit is not None:
+                    cached_of_walk[walk_id] = hit
+                    continue
+                pattern = query[
+                    level.node.query_index_from : level.node.query_index_to + 1
+                ]
+                window = reference.rank_sequence[
+                    level.span.offset : level.span.offset + level.span.length
+                ]
+                pat_addr, win_addr = self._addrs(walk, level)
+                slot_of_walk[walk_id] = (
+                    batcher.add(
+                        key, pattern, window, walk_id,
+                        budget=level.node.num_errors,
+                        pat_addr=pat_addr, win_addr=win_addr,
+                    ),
+                    key,
+                )
+
+            distances, ends = batcher.run()
+
+            next_active = []
+            root_tasks = []  # (walk_id, level, distance, end)
+            for walk_id in active:
+                walk = walks[walk_id]
+                if depth >= len(walk.levels):
+                    continue
+                level = walk.levels[depth]
+                if walk_id in cached_of_walk:
+                    distance, end = cached_of_walk[walk_id]
+                else:
+                    slot, key = slot_of_walk[walk_id]
+                    distance = int(distances[slot])
+                    end = int(ends[slot])
+                    cache[key] = (distance, end)
+                level.exists = distance <= level.node.num_errors
+                if level.node.is_root:
+                    if level.exists:
+                        root_tasks.append((walk_id, level, distance, end))
+                elif level.exists and depth + 1 < len(walk.levels):
+                    next_active.append(walk_id)
+
+            self._finalize_roots(root_tasks, walks, items)
+            active = next_active
+
 
     def _compute_walks_flat(
         self,
@@ -1487,9 +2162,11 @@ class BatchVerifier:
             window = reference.rank_sequence[
                 level.span.offset : level.span.offset + level.span.length
             ]
+            pat_addr, win_addr = self._addrs(walk, level)
             return batcher.add(
                 key, pattern, window, walk_id,
                 budget=level.node.num_errors,
+                pat_addr=pat_addr, win_addr=win_addr,
             )
 
         root_tasks = []
@@ -1500,7 +2177,10 @@ class BatchVerifier:
                 root_tasks.append((walk_id, level, distance, end))
 
         # phase 1: one flat pass over every walk's cheap level prefix
-        batcher = _TaskBatcher(self._batcher_use_device())
+        batcher = _TaskBatcher(
+            self._batcher_use_device(), resident=self._resident,
+            device=self.device,
+        )
         pending = []  # (walk_id, depth, key, slot_or_None)
         limits = {}  # walk_id -> (prefix levels taken, level limit)
         for walk_id in subset:
@@ -1550,7 +2230,10 @@ class BatchVerifier:
                 active.append(walk_id)
                 depth_of[walk_id] = take
         while active:
-            batcher = _TaskBatcher(self._batcher_use_device())
+            batcher = _TaskBatcher(
+                self._batcher_use_device(), resident=self._resident,
+                device=self.device,
+            )
             round_pending = []  # (walk_id, level, key, slot_or_None)
             for walk_id in active:
                 walk = walks[walk_id]
@@ -1604,7 +2287,9 @@ class BatchVerifier:
 
         if self.without_cigar:
             # reversed-sequence trick: batch the reversed alignments
-            batcher = _TaskBatcher(self._batcher_use_device())
+            batcher = _TaskBatcher(
+                self._batcher_use_device(), device=self.device
+            )
             per_task_slot = []
             for walk_id, level, distance, _ in root_tasks:
                 walk = walks[walk_id]
@@ -1708,6 +2393,19 @@ class BatchVerifier:
                 level.cigar = None
                 self._deferred.append((entry, level))
 
+    def _use_device_traceback(self) -> bool:
+        """Route recorded-root CIGAR tracebacks to the device (K4,
+        ops/traceback_device.py) instead of the host pool. Opt-in via
+        FLOXER_TPU_DEVICE_TRACEBACK=1, as in the reference; the tracebacks
+        then run on the verifier's device, which must be set."""
+        if self._device_tb_enabled is None:
+            self._device_tb_enabled = device_tracebacks_requested()
+            if self._device_tb_enabled and self.device is None:
+                raise ValueError(
+                    "FLOXER_TPU_DEVICE_TRACEBACK needs the verifier's device"
+                )
+        return self._device_tb_enabled
+
     def _submit_traceback(self, walk, level, items) -> None:
         """Submit the banded CIGAR traceback for one recorded root level
         (lazy mode); begin/cigar resolve in resolve_deferred()."""
@@ -1733,10 +2431,16 @@ class BatchVerifier:
             window = reference.rank_sequence[
                 level.span.offset : level.span.offset + level.span.length
             ]
-            entry = memo[key] = _traceback_pool().submit(
-                dp_reference.banded_cigar_traceback,
-                window, pattern, level.end_col, level.distance,
-            )
+            if self._use_device_traceback():
+                entry = memo[key] = _DeviceTb(len(self._device_tb_tasks))
+                self._device_tb_tasks.append(
+                    (window, pattern, level.end_col, level.distance)
+                )
+            else:
+                entry = memo[key] = _traceback_pool().submit(
+                    dp_reference.banded_cigar_traceback,
+                    window, pattern, level.end_col, level.distance,
+                )
         if isinstance(entry, tuple):
             begin, cigar = entry
             level.begin = level.span.offset + begin
@@ -1746,8 +2450,26 @@ class BatchVerifier:
 
     def resolve_deferred(self) -> None:
         """Await the deferred root tracebacks and patch begin/CIGAR into
-        their levels and the alignment records built from them."""
+        their levels and the alignment records built from them. Queued
+        device tracebacks run here, on the verifier's device and the
+        calling thread's current stream (the pipeline calls this from its
+        finalize thread)."""
         memo = getattr(self, "_root_memo", None)
+        if self._device_tb_tasks:
+            # one batched K4 launch per shape bucket for every traceback
+            # queued since the last resolve; run-length formatting on host
+            from .ops.traceback_device import (
+                banded_cigar_traceback_device_batch,
+            )
+
+            results = banded_cigar_traceback_device_batch(
+                self._device_tb_tasks, self.device
+            )
+            if memo:
+                for entry in memo.values():
+                    if isinstance(entry, _DeviceTb) and entry.value is None:
+                        entry.value = results[entry.index]
+            self._device_tb_tasks = []
         for future, level in self._deferred:
             begin, cigar = future.result()
             level.begin = level.span.offset + begin

@@ -103,6 +103,46 @@ def test_large_kernel_matches_plain(cuda_device, max_m):
     np.testing.assert_array_equal(got, myers_large_host(pat, plen, txt, tlen, CPU))
 
 
+def traceback_tasks(rng, count, length, error_rate):
+    """Root-like traceback tasks: a window, a mutated slice of it as the
+    pattern, (end_col, distance) from the native full Myers engine."""
+    from floxer_tpu.native import native_myers_distance_batch
+
+    windows, patterns = [], []
+    for _ in range(count):
+        window = rng.integers(1, 5, size=length + length // 8).astype(np.uint8)
+        start = int(rng.integers(0, length // 16))
+        pattern = window[start : start + length].copy()
+        for pos in rng.integers(0, length, size=int(length * error_rate)):
+            pattern[pos] = 1 + (pattern[pos] % 4)
+        pattern = np.delete(pattern, rng.integers(0, length, size=length // 100))
+        windows.append(window)
+        patterns.append(pattern)
+    dist, end = native_myers_distance_batch(windows, patterns, num_threads=4)
+    return [
+        (w, p, int(e), int(d))
+        for w, p, e, d in zip(windows, patterns, end, dist)
+    ]
+
+
+@pytest.mark.parametrize("length,error_rate", [(600, 0.04), (5000, 0.12)])
+def test_traceback_kernel_matches_plain(cuda_device, length, error_rate):
+    """K4 at two band widths (w_pad 256 and 1536): the card's walk ops equal
+    the plain version's, and the batched CIGARs equal the host traceback."""
+    from floxer_tpu.ops import dp_reference
+    from floxer_tpu_torch.ops import traceback_device
+
+    rng = np.random.default_rng(length)
+    tasks = traceback_tasks(rng, 12, length, error_rate)
+    launches = traceback_device.LAUNCHES
+    got = traceback_device.banded_cigar_traceback_device_batch(tasks, cuda_device)
+    assert traceback_device.LAUNCHES > launches
+    want = traceback_device.banded_cigar_traceback_device_batch(tasks, CPU)
+    assert got == want
+    for t, task in enumerate(tasks):
+        assert got[t] == dp_reference.banded_cigar_traceback(*task), t
+
+
 def test_fused_wave_on_card_matches_cpu(cuda_device):
     """One multi-stage wave through all three kernels, on the card and
     through the plain versions: identical (distance, end) per task."""
@@ -157,3 +197,46 @@ def test_engine_device_matches_host_engine(cuda_device, tmp_path):
         tmp_path / "host.sam"
     ).read_bytes()
     check_output_records(parse_sam(tmp_path / "device.sam"))
+
+
+@pytest.fixture(scope="module")
+def simulated(tmp_path_factory):
+    """A 300 kb genome and 8 reads of 5 kb at 7% error."""
+    from floxer_tpu.tools.simulated_dataset import main as simulate
+
+    workdir = tmp_path_factory.mktemp("simulated")
+    assert simulate([
+        "create", "-g", str(workdir / "genome.fasta"),
+        "-r", str(workdir / "reads.fastq"), "-c", "300000", "-n", "1",
+        "-l", "5000", "-m", "8", "-e", "0.07", "-s", "11",
+    ]) == 0
+    return workdir
+
+
+@pytest.mark.parametrize(
+    "env_name,kernel",
+    [("FLOXER_TPU_LEGACY_VERIFY", "K1"), ("FLOXER_TPU_DEVICE_TRACEBACK", "K4")],
+)
+def test_engine_device_mode_matches_host_engine(
+    cuda_device, simulated, tmp_path, monkeypatch, env_name, kernel
+):
+    """--engine device through the legacy object path (the bucketed
+    batcher) or with device tracebacks (K4) writes the host engine's SAM
+    and launches the mode's kernel."""
+    def args(name, extra=()):
+        return [
+            "--reference", str(simulated / "genome.fasta"),
+            "--queries", str(simulated / "reads.fastq"),
+            "--output", str(tmp_path / name),
+            "-p", "0.08", "--interval-optimization", *extra,
+        ]
+
+    assert pipeline.run(parse_and_validate(args("host.sam")), use_device=False) == 0
+    monkeypatch.setenv(env_name, "1")
+    before = pipeline.kernel_launches()
+    device = parse_and_validate(args("device.sam", ["--engine", "device"]))
+    assert pipeline.run(device) == 0
+    assert pipeline.kernel_launches()[kernel] > before[kernel]
+    assert (tmp_path / "device.sam").read_bytes() == (
+        tmp_path / "host.sam"
+    ).read_bytes()

@@ -3,11 +3,15 @@ python -m floxer_tpu_torch) on the reference's tiny e2e data.
 
 The port's SAM must be byte-identical to python -m floxer_tpu's; the port
 must run with jax unimportable (as on the GPU machine, which has no jax);
-and every option the port does not cover yet must fail loudly."""
+every option the port does not cover yet must fail loudly, and the options
+and modes ported since must write the reference's SAM."""
 
+import json
 import os
 import subprocess
 import sys
+import threading
+import time
 from pathlib import Path
 
 import pytest
@@ -107,6 +111,25 @@ def test_engine_device_without_hopper_gpu_fails(tmp_path, data_dir):
     assert not (tmp_path / "out.sam").exists()
 
 
+SERVER_FLAGS = ("--serve", "--server", "--shutdown-server")
+
+
+def serve_in_thread(sock: str):
+    """python -m floxer_tpu_torch --serve SOCK, in a thread of this
+    process; returns (thread, result) once the socket exists."""
+    result = {}
+    thread = threading.Thread(
+        target=lambda: result.setdefault("code", main(["--serve", sock])),
+        daemon=True,
+    )
+    thread.start()
+    deadline = time.monotonic() + 60
+    while not os.path.exists(sock) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    assert os.path.exists(sock), "the server did not create its socket"
+    return thread, result
+
+
 @pytest.mark.parametrize(
     "extra",
     [
@@ -119,14 +142,36 @@ def test_engine_device_without_hopper_gpu_fails(tmp_path, data_dir):
         ["--shutdown-server", "sock"],
     ],
 )
-def test_unported_options_fail(tmp_path, data_dir, extra):
-    args = cli_args(data_dir, tmp_path / "out.sam")
-    if extra[0] in ("--serve", "--server", "--shutdown-server"):
-        args = extra
-    else:
-        args = args + extra
-    assert main(args) != 0
-    assert not (tmp_path / "out.sam").exists()
+def test_unported_options_fail(tmp_path, data_dir, reference_sam, extra):
+    """--device-search, --index-shards > 1 and multi-host runs are not
+    ported: the CLI exits non-zero and writes nothing. --profile and the
+    server flags are ported: --profile writes a torch.profiler trace and
+    the reference's SAM; a job through --serve / --server writes the
+    reference's SAM and --shutdown-server stops the daemon."""
+    output = tmp_path / "out.sam"
+    args = cli_args(data_dir, output)
+    if extra[0] == "--profile":
+        trace_dir = tmp_path / extra[1]
+        assert main(args + ["--profile", str(trace_dir)]) == 0
+        assert output.read_bytes() == reference_sam
+        traces = list(trace_dir.glob("*.json"))
+        assert len(traces) == 1
+        assert "traceEvents" in json.loads(traces[0].read_text())
+        return
+    if extra[0] in SERVER_FLAGS:
+        sock = str(tmp_path / extra[1])
+        thread, result = serve_in_thread(sock)
+        try:
+            assert main(["--server", sock, *args]) == 0
+            assert output.read_bytes() == reference_sam
+        finally:
+            assert main(["--shutdown-server", sock]) == 0
+            thread.join(timeout=60)
+        assert not thread.is_alive() and result["code"] == 0
+        assert not os.path.exists(sock)
+        return
+    assert main(args + extra) != 0
+    assert not output.exists()
 
 
 @pytest.mark.parametrize(
@@ -137,20 +182,47 @@ def test_unported_options_fail(tmp_path, data_dir, extra):
         "FLOXER_TPU_LEGACY_VERIFY",
     ],
 )
-def test_unported_modes_fail(tmp_path, data_dir, env_name):
-    """Device tracebacks and runs without the native library (the legacy
-    object path) are not ported: the CLI exits non-zero."""
+def test_unported_modes_fail(
+    tmp_path, data_dir, reference_sam, monkeypatch, env_name
+):
+    """Runs without the native library and the legacy object path are
+    ported: the CLI writes the reference's SAM. Device tracebacks are
+    ported too, but need a Hopper GPU: without one (and without an explicit
+    device) the CLI exits non-zero instead of tracing back elsewhere; with
+    an explicit CPU device the run writes the reference's SAM."""
     env = env_without_gpu()
     env[env_name] = "1"
+    output = tmp_path / "out.sam"
     proc = subprocess.run(
-        [
-            sys.executable, "-m", "floxer_tpu_torch",
-            *cli_args(data_dir, tmp_path / "out.sam"),
-        ],
+        [sys.executable, "-m", "floxer_tpu_torch", *cli_args(data_dir, output)],
         capture_output=True, text=True, env=env, cwd=ROOT,
     )
+    if env_name != "FLOXER_TPU_DEVICE_TRACEBACK":
+        assert proc.returncode == 0, proc.stderr
+        assert output.read_bytes() == reference_sam
+        return
     assert proc.returncode != 0
-    assert "not yet ported" in proc.stderr
+    assert "FLOXER_TPU_DEVICE_TRACEBACK" in proc.stderr
+    assert "Hopper" in proc.stderr
+    assert not output.exists()
+
+    from floxer_tpu_torch.ops import traceback_device
+
+    tasks = []
+    original = traceback_device.banded_cigar_traceback_device_batch
+
+    def counting(batch, device, **kwargs):
+        tasks.extend(batch)
+        return original(batch, device, **kwargs)
+
+    monkeypatch.setattr(
+        traceback_device, "banded_cigar_traceback_device_batch", counting
+    )
+    monkeypatch.setenv(env_name, "1")
+    cli = parse_and_validate(cli_args(data_dir, output))
+    assert pipeline.run(cli, device=CPU) == 0
+    assert tasks, "no traceback ran on the device"
+    assert output.read_bytes() == reference_sam
 
 
 def test_no_accelerator_on_this_host_means_host_waves(tmp_path, data_dir):

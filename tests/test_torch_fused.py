@@ -199,10 +199,17 @@ def test_host_only_verifier_matches_sequential():
         assert _as_tuples(w) == _as_tuples(g)
 
 
-def test_bucketed_device_batcher_is_not_ported():
-    """Without resident banks a device-routed bucket has no ported path:
-    the verifier raises instead of running the bucket elsewhere."""
+def test_bucketed_device_batcher_is_not_ported(monkeypatch):
+    """The bucketed device batcher is ported: without resident banks a
+    device-routed bucket runs as a host-slice kernel call on the
+    verifier's device (the plain versions on the CPU), and the alignments
+    equal the sequential verifier's. use_device=True sends every bucket to
+    the device, whatever its size."""
+    monkeypatch.setattr(vb, "MIN_DEVICE_CELLS", 10**12)
     references, items = _make_workload(seed=7, num_queries=4, k=6)
+    want = _run_sequential(
+        references, items, VerificationKind.HIERARCHICAL, 0.05, False, True
+    )
     verifier = BatchVerifier(
         references,
         kind=VerificationKind.HIERARCHICAL,
@@ -210,6 +217,11 @@ def test_bucketed_device_batcher_is_not_ported():
         without_cigar=False,
         use_interval_optimization=True,
         use_device=True,
+        device=CPU,
     )
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        verifier.process(items)
+    calls = vb._BATCH_TIMERS["calls"]
+    got = verifier.process(items)
+    assert vb._BATCH_TIMERS["calls"] > calls, "no bucket ran on the device"
+    assert verifier._fused_dispatches == 0
+    for w, g in zip(want, got):
+        assert _as_tuples(w) == _as_tuples(g)
