@@ -7,7 +7,8 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, one line each on stdout, any failure exits non-zero:
   env      a CUDA device of capability >= 9.0; the card's name and power
            limit as nvidia-smi reports them
-  build    nvcc builds csrc/*.cu for sm_90a (seconds)
+  build    nvcc builds csrc/*.cu for sm_90a (seconds); the research
+           scripts' library (scripts/csrc/*.cu) builds beside it
   kernels  K1/K2/K3 against their plain PyTorch versions on the card on
            seeded cases (exact (dist, end) equality), K1 at the 20 kb root
            shape against the native host engine and the numpy band mirror;
@@ -15,6 +16,16 @@ Phases, one line each on stdout, any failure exits non-zero:
            tasks and against the host traceback (dp_reference, native) on
            every accepted root of a seeded batch; kernel, plain-version
            and host-pool times
+  scripts  the research scripts' kernels K5-K8 (floxer_tpu_torch.scripts):
+           every variant against its plain version on the card at
+           COMPARE_TEXT columns (exact); K5 full at K1's end columns on
+           K1's operands of the kernels phase; every variant timed at the
+           scripts' 23040 columns on the entry points' inputs (us/col
+           beside K1's at the root shape), K5 full = r4 there, and each
+           output there equal to its plain version, run on CPU copies of
+           the same inputs in worker processes since the kernels phase
+           ended; then the three entry points' main() as a user runs them
+           (python -m floxer_tpu_torch.scripts.<name>)
   toy_e2e  python -m floxer_tpu_torch --engine device on tests/data: the
            reference's expected records, empty stdout
   e2e      a simulated E. coli-sized genome (4.6 Mb) with 200 reads of
@@ -35,10 +46,14 @@ Phases, one line each on stdout, any failure exits non-zero:
 Each path is driven with the launch counts set to 0 just before it and
 read just after (server jobs report theirs in their stage split line). The
 line before the last is the kernel table as JSON (K1-K3 launches of pass
-A, K4 of pass C); the last line is {"ok": true, "device": {...}}.
+A, K4 of pass C, K5-K8 of the entry points' run); the last line is
+{"ok": true, "device": {...}}.
 """
 
+import contextlib
+import functools
 import importlib.util
+import io
 import json
 import os
 import subprocess
@@ -58,6 +73,15 @@ ROOT_SHAPE = (256, 20600, 1442, 256)
 TRACEBACK_TASKS = 128
 TRACEBACK_ERROR = 0.066
 E2E_READS = 200
+# text columns at which K5-K8 are held against their plain versions (the
+# plain versions loop over columns in Python, so the scripts' 23040 would
+# take minutes); rows and band words are the scripts' own
+COMPARE_TEXT = 1280
+# processes that run K5-K8's plain versions at the scripts' 23040 columns
+# on the CPU while the card runs on, and how long the scripts phase waits
+# for them at its end
+PLAIN_WORKERS = 4
+PLAIN_TIMEOUT = 600
 # runs the port's CLI with jax unimportable, as on a machine without jax
 JAX_BLOCKED = (
     "import runpy, sys; sys.modules['jax'] = None; "
@@ -142,17 +166,15 @@ def pad(seqs, width=None):
 def run_kernel_phase(device, rng):
     """Each kernel against its plain version on identical card tensors;
     K1 at the root shape against the native engine and the numpy mirror.
-    Returns the per-kernel table rows (launch counts filled in later)."""
+    Returns the per-kernel table rows (launch counts filled in later) and
+    K1's (operands, end columns) of both K1 checks."""
     import numpy as np
     import torch
 
     from floxer_tpu.native import native_myers_distance_batch
     from floxer_tpu.ops.myers_banded import myers_banded_np
     from floxer_tpu_torch.ops import cuda_myers, cuda_myers_banded, cuda_myers_large
-    from floxer_tpu_torch.ops.cuda_myers_banded import (
-        pack_nibbles,
-        prepare_banded_batch,
-    )
+    from floxer_tpu_torch.ops.cuda_myers_banded import banded_operands
     from floxer_tpu_torch.ops.myers import build_peq_vectorized, u32_tensor
 
     def to_dev(array):
@@ -167,20 +189,15 @@ def run_kernel_phase(device, rng):
 
     # ---- K1 inputs (host packers, as the reference's host wrapper does)
     def banded_args(patterns, texts, budgets, band_words):
-        num_text = -(-max(len(t) for t in texts) // 8) * 8
-        vp0, planes0, stream, scalars = prepare_banded_batch(
-            patterns, np.asarray(budgets), band_words, num_text
+        texts_u8, lens = pad(texts)
+        operands, num_text = banded_operands(
+            patterns, texts_u8, lens, np.asarray(budgets), band_words, device
         )
-        texts_u8, lens = pad(texts, num_text)
-        scalars[0][:, 0] = lens
-        return (
-            u32_tensor(vp0, device), u32_tensor(planes0, device),
-            u32_tensor(pack_nibbles(texts_u8), device),
-            u32_tensor(stream, device),
-            to_dev(np.concatenate(scalars, axis=1)), band_words, num_text,
-        )
+        return (*operands, band_words, num_text)
 
     rows = {}
+    # K1's operands and end columns, which K5 `full` must reproduce
+    k1_ends = []
     # K1 seeded small cases (test_pallas_myers_banded.py's generator)
     patterns, texts, budgets = [], [], []
     for _ in range(64):
@@ -196,10 +213,11 @@ def run_kernel_phase(device, rng):
         texts.append(text)
         budgets.append(budget)
     args = banded_args(patterns, texts, budgets, 128)
-    _, _, err_small = compare(
+    got, _, err_small = compare(
         cuda_myers_banded.myers_banded, cuda_myers_banded.myers_banded_plain, args
     )
     check(err_small == 0, f"K1 differs from its plain version ({err_small})")
+    k1_ends.append((args[:5], got[1]))
 
     # K1 at the 20 kb root shape: T=256, m ~ 20.6k, k = 1442, BW = 256
     T, m_root, k_root, bw_root = ROOT_SHAPE
@@ -221,6 +239,7 @@ def run_kernel_phase(device, rng):
     )
     check(err_root == 0, f"K1 differs from its plain version at the root "
           f"shape ({err_root})")
+    k1_ends.append((args[:5], got[1]))
     native_dist, native_end = native_myers_distance_batch(
         texts, patterns, num_threads=min(8, os.cpu_count() or 1),
         budgets=budgets,
@@ -239,6 +258,8 @@ def run_kernel_phase(device, rng):
     cuda_myers_banded.myers_banded_plain(*args)
     torch.cuda.synchronize()
     k1_plain_ms = (time.monotonic() - t0) * 1000
+    # the launch lasts as long as its longest task: tlen - 1 columns
+    k1_columns = max(len(t) for t in texts) - 1
     rows["K1"] = {
         "name": "myers_banded", "route": "cuda",
         "source": cuda_myers_banded.SOURCE,
@@ -247,6 +268,7 @@ def run_kernel_phase(device, rng):
         "ms": k1_ms, "plain_ms": k1_plain_ms,
         "shape": f"T={T} m={m_root} k={k_root} BW={bw_root} "
                  f"n~{m_root + 2 * k_root + 600}",
+        "us_per_col": k1_ms * 1000 / k1_columns, "columns": k1_columns,
     }
 
     # ---- K2 (test_pallas_myers.py's generator, then a timing shape of
@@ -322,7 +344,7 @@ def run_kernel_phase(device, rng):
         "plain_ms": (time.monotonic() - t0) * 1000,
         "shape": "B=256 m=1376 n=1376..1435 Wp=128",
     }
-    return rows
+    return rows, k1_ends
 
 
 def run_traceback_phase(device, rng):
@@ -414,6 +436,204 @@ def run_traceback_phase(device, rng):
     }
 
 
+def script_arrays(num_text):
+    """The scripts' seeded inputs at num_text columns, as their entry points
+    make them (numpy): K5's operands, the texts of K6-K8, K8's jstar."""
+    from floxer_tpu_torch.scripts import ablate_banded_kernel as k5
+    from floxer_tpu_torch.scripts import microbench_carry_scaling as k78
+    from floxer_tpu_torch.scripts import microbench_column_loop as k6
+
+    return (k5.script_inputs(num_text), k6.script_texts(num_text),
+            k78.script_jstar(num_text))
+
+
+def script_cases(device, arrays):
+    """(kernel, label, launch, plain) for every variant of K5-K8 on
+    `arrays` (script_arrays) as tensors on `device`."""
+    import torch
+
+    from floxer_tpu_torch.scripts import ablate_banded_kernel as k5
+    from floxer_tpu_torch.scripts import microbench_carry_scaling as k78
+    from floxer_tpu_torch.scripts import microbench_column_loop as k6
+
+    inputs, texts, jstar = arrays
+    operands = k5.device_operands(inputs, device)
+    texts = torch.from_numpy(texts).to(device)
+    jstar = torch.from_numpy(jstar).to(device)
+    P = functools.partial
+    return (
+        [("K5", v, P(k5.ablate_banded, *operands, v),
+          P(k5.ablate_banded_plain, *operands, v)) for v in k5.VARIANTS]
+        + [("K6", v, P(k6.column_loop, texts, v),
+            P(k6.column_loop_plain, texts, v)) for v in k6.VARIANTS]
+        + [("K7", "carry={} ops={} rolls={}".format(*c),
+            P(k78.carry_scaling, texts, *c),
+            P(k78.carry_scaling_plain, texts, *c)) for c in k78.CONFIGS]
+        + [("K8", f"bcast={b}", P(k78.bcast, texts, jstar, b),
+            P(k78.bcast_plain, texts, jstar, b)) for b in k78.BCASTS]
+    )
+
+
+def host_arrays(result):
+    """A kernel's output tensor or (dist, end) pair as int64 arrays."""
+    tensors = result if isinstance(result, tuple) else (result,)
+    return [t.cpu().numpy().astype("int64") for t in tensors]
+
+
+# the plain versions' cases in a worker process (set by _plain_init)
+_PLAIN_CASES = None
+
+
+def _plain_init(arrays):
+    global _PLAIN_CASES
+    import torch
+
+    torch.set_num_threads(1)
+    _PLAIN_CASES = script_cases(torch.device("cpu"), arrays)
+
+
+def _plain_run(index):
+    """One variant's plain version on the CPU: (outputs, seconds)."""
+    plain = _PLAIN_CASES[index][3]
+    started = time.monotonic()
+    outputs = host_arrays(plain())
+    return outputs, time.monotonic() - started
+
+
+def start_full_width_plain(arrays):
+    """The plain versions of every K5-K8 case on CPU copies of `arrays`, in
+    PLAIN_WORKERS spawned processes (no CUDA), while the card runs on:
+    (pool, async result of [(outputs, seconds)] in script_cases' order).
+    The caller terminates the pool."""
+    import multiprocessing
+
+    from floxer_tpu_torch.scripts import ablate_banded_kernel as k5
+    from floxer_tpu_torch.scripts import microbench_carry_scaling as k78
+    from floxer_tpu_torch.scripts import microbench_column_loop as k6
+
+    count = (len(k5.VARIANTS) + len(k6.VARIANTS) + len(k78.CONFIGS)
+             + len(k78.BCASTS))
+    pool = multiprocessing.get_context("spawn").Pool(
+        min(PLAIN_WORKERS, os.cpu_count() or 1), _plain_init, (arrays,)
+    )
+    return pool, pool.map_async(_plain_run, range(count), chunksize=1)
+
+
+def run_scripts_phase(device, scripts_build, k1_row, k1_ends, full_arrays,
+                      full_plain):
+    """K5-K8: every variant against its plain version at COMPARE_TEXT
+    columns on the card; K5 `full` at K1's end columns on K1's operands;
+    every variant timed at the scripts' full width on `full_arrays`, its
+    output held against `full_plain` (the plain versions on CPU copies of
+    the same arrays); then the three entry points' main() with the launch
+    counts set to 0 just before. Returns (phase fields, table rows)."""
+    import numpy as np
+    import torch
+
+    from floxer_tpu_torch.ops import _build
+    from floxer_tpu_torch.scripts import NUM_TEXT
+    from floxer_tpu_torch.scripts import ablate_banded_kernel as k5
+    from floxer_tpu_torch.scripts import microbench_carry_scaling as k78
+    from floxer_tpu_torch.scripts import microbench_column_loop as k6
+
+    scripts_build.result()  # re-raises a failed build
+    variants = {}
+    for kernel, label, launch, plain in script_cases(
+        device, script_arrays(COMPARE_TEXT)
+    ):
+        got = host_arrays(launch())
+        torch.cuda.synchronize()
+        started = time.monotonic()
+        want = host_arrays(plain())
+        plain_ms = (time.monotonic() - started) * 1000
+        err = max(int(np.max(np.abs(g - w))) for g, w in zip(got, want))
+        check(err == 0, f"{kernel} {label} differs from its plain version "
+              f"({err})")
+        variants[(kernel, label)] = {
+            "max_abs_err": err, f"ms_{COMPARE_TEXT}": cuda_ms(launch, 5),
+            f"plain_ms_{COMPARE_TEXT}": plain_ms,
+        }
+    for operands, k1_end in k1_ends:
+        _, end = k5.ablate_banded(*k5.from_banded_operands(*operands), "full")
+        check(np.array_equal(end.cpu().numpy(), k1_end),
+              f"K5 full and K1 end columns differ on {len(k1_end)} tasks")
+    full_outputs = []
+    for kernel, label, launch, _ in script_cases(device, full_arrays):
+        ms = cuda_ms(launch, 3)
+        full_outputs.append(host_arrays(launch()))
+        variants[(kernel, label)].update(
+            {f"ms_{NUM_TEXT}": ms, "us_per_col": ms * 1000 / NUM_TEXT}
+        )
+    full, r4 = (full_outputs[k5.VARIANTS.index(v)] for v in ("full", "r4"))
+    check(all(np.array_equal(a, b) for a, b in zip(full, r4)),
+          "K5 full and r4 differ")
+    started = time.monotonic()
+    plain_results = full_plain.get(timeout=PLAIN_TIMEOUT)
+    plain_wait_s = time.monotonic() - started
+    for (kernel, label), got, (want, seconds) in zip(
+        list(variants), full_outputs, plain_results
+    ):
+        err = max(int(np.max(np.abs(g - w))) for g, w in zip(got, want))
+        check(err == 0, f"{kernel} {label} differs from its plain version at "
+              f"{NUM_TEXT} columns ({err})")
+        variants[(kernel, label)].update({
+            f"max_abs_err_{NUM_TEXT}": err, f"plain_cpu_s_{NUM_TEXT}": seconds,
+        })
+
+    # the entry points as a user runs them
+    reset_launches()
+    printed = {}
+    for module in (k5, k6, k78):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            code = module.main()
+        lines = out.getvalue().splitlines()
+        check(code == 0, f"{module.__name__} exited {code}")
+        printed[module.__name__.rsplit(".", 1)[1]] = lines
+    launches = {"K5": k5.LAUNCHES, "K6": k6.LAUNCHES,
+                "K7": k78.CARRY_LAUNCHES, "K8": k78.BCAST_LAUNCHES}
+    for name, count in launches.items():
+        check(count > 0, f"{name} was never launched by its entry point")
+    check(all(len(lines) == 1 + n for lines, n in zip(
+        printed.values(), (len(k5.VARIANTS), len(k6.VARIANTS),
+                           len(k78.CONFIGS) + len(k78.BCASTS)))),
+        f"unexpected entry point output: {printed}")
+
+    table = {}
+    for kernel, name, module, replaces, representative in (
+        ("K5", "ablate_banded", k5, k5.REPLACES, "full"),
+        ("K6", "column_loop", k6, k6.REPLACES, "elementwise"),
+        ("K7", "carry_scaling", k78, k78.REPLACES, "carry=10 ops=80 rolls=12"),
+        ("K8", "bcast", k78, k78.BCAST_REPLACES, "bcast=18"),
+    ):
+        rows = [v for (k, _), v in variants.items() if k == kernel]
+        rep = variants[(kernel, representative)]
+        table[kernel] = {
+            "name": name, "route": "cuda", "source": module.SOURCE,
+            "replaces": replaces, "launches": launches[kernel],
+            "max_abs_err": max(
+                max(r["max_abs_err"], r[f"max_abs_err_{NUM_TEXT}"])
+                for r in rows
+            ),
+            "ms": rep[f"ms_{COMPARE_TEXT}"],
+            "plain_ms": rep[f"plain_ms_{COMPARE_TEXT}"],
+        }
+    fields = {
+        "nvcc_seconds": _build.SCRIPTS.last_build_seconds,
+        "library": str(_build.SCRIPTS.path().relative_to(ROOT)),
+        "shape": f"rows=32 BW=256 compare on the card at n={COMPARE_TEXT}, "
+                 f"timed and compared with the plain versions on the CPU "
+                 f"at n={NUM_TEXT}",
+        "plain_wait_s": plain_wait_s,
+        "k5_full_at_k1_end_tasks": sum(len(end) for _, end in k1_ends),
+        "k1_us_per_col": k1_row["us_per_col"],
+        "k5_full_us_per_col": variants[("K5", "full")]["us_per_col"],
+        "variants": {f"{k} {label}": v for (k, label), v in variants.items()},
+        "launches": launches, "entry_points": printed,
+    }
+    return fields, table
+
+
 def load_e2e_checks():
     spec = importlib.util.spec_from_file_location(
         "floxer_e2e_checks", ROOT / "tests" / "test_e2e.py"
@@ -464,10 +684,18 @@ def reset_launches() -> None:
         cuda_myers_large,
         traceback_device,
     )
+    from floxer_tpu_torch.scripts import (
+        ablate_banded_kernel,
+        microbench_carry_scaling,
+        microbench_column_loop,
+    )
 
     for module in (cuda_myers_banded, cuda_myers, cuda_myers_large,
-                   traceback_device):
+                   traceback_device, ablate_banded_kernel,
+                   microbench_column_loop):
         module.LAUNCHES = 0
+    microbench_carry_scaling.CARRY_LAUNCHES = 0
+    microbench_carry_scaling.BCAST_LAUNCHES = 0
 
 
 def run_logged_launches(logfile: Path) -> dict:
@@ -720,21 +948,42 @@ def main() -> int:
 
     from floxer_tpu_torch.ops import _build
 
+    # the research scripts' library builds beside the aligner's: every
+    # nvcc starts now
+    builder = ThreadPoolExecutor(max_workers=1)
+    scripts_build = builder.submit(_build.SCRIPTS.load)
+    builder.shutdown(wait=False)
     started = time.monotonic()
-    _build.load_library()
+    _build.ALIGNER.load()
     phase("build", seconds=time.monotonic() - started,
-          nvcc_seconds=_build.last_build_seconds,
-          library=str(_build.library_path().relative_to(ROOT)))
+          nvcc_seconds=_build.ALIGNER.last_build_seconds,
+          library=str(_build.ALIGNER.path().relative_to(ROOT)))
 
     import numpy as np
 
     rng = np.random.default_rng(SEED)
-    rows = run_kernel_phase(device, rng)
+    rows, k1_ends = run_kernel_phase(device, rng)
     rows["K4"] = run_traceback_phase(device, rng)
     phase("kernels", **{name: {k: v for k, v in row.items()
                                if k not in ("name", "route", "source",
                                             "replaces")}
                         for name, row in rows.items()})
+
+    # the plain versions of K5-K8 at full width start on the CPU once
+    # K1-K4 are timed, and are read at the end of the scripts phase
+    from floxer_tpu_torch.scripts import NUM_TEXT
+
+    full_arrays = script_arrays(NUM_TEXT)
+    pool, full_plain = start_full_width_plain(full_arrays)
+    try:
+        fields, script_rows = run_scripts_phase(
+            device, scripts_build, rows["K1"], k1_ends, full_arrays,
+            full_plain,
+        )
+    finally:
+        pool.terminate()
+        pool.join()
+    phase("scripts", **fields)
 
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         workdir = Path(tmp)
@@ -752,10 +1001,12 @@ def main() -> int:
     for name in ("K1", "K2", "K3"):
         rows[name]["launches"] = launches[name]
     rows["K4"]["launches"] = launches_c["K4"]
+    rows.update(script_rows)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms")
     print(json.dumps({"kernels": [
-        {k: rows[name][k] for k in keys} for name in ("K1", "K2", "K3", "K4")
+        {k: rows[name][k] for k in keys}
+        for name in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,10 +1,13 @@
-"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+"""Build and load the hand-written CUDA kernels.
 
-The kernels have a plain C interface and are compiled with nvcc for
-Hopper (sm_90a) into one shared library under build/floxer_tpu_torch_kernels/
-at first use, then loaded with ctypes. The library name carries a hash of
-the sources, so an edited kernel is never served from a stale build. A file
-lock keeps concurrent processes from building the same library twice.
+Each source set is compiled with nvcc for Hopper (sm_90a), one nvcc per
+source file, all started together, and linked into its own shared library
+under build/floxer_tpu_torch_kernels/ at first use, then loaded with
+ctypes: the aligner's kernels (csrc/*.cu, `ALIGNER`) and the
+research scripts' kernels (scripts/csrc/*.cu, `SCRIPTS`), so the aligner
+never builds the research kernels. A library's name carries a hash of its
+sources, so an edited kernel is never served from a stale build. A file
+lock per library keeps concurrent processes from building it twice.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine without nvcc or a GPU.
@@ -18,12 +21,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
 
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
-CSRC_DIR = _PACKAGE_DIR / "csrc"
 BUILD_DIR = _PACKAGE_DIR.parent / "build" / "floxer_tpu_torch_kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -32,26 +35,6 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points: name -> argtypes (pointers and the stream as c_void_p);
-# every entry returns cudaGetLastError() as an int
-_SIGNATURES = {
-    # vp0, planes0, texts, stream, scalars, T, band_words, text_words,
-    # dist, end, stream
-    "floxer_myers_banded": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    # peq, plen, texts, tlen, B, num_words, num_text, dist, end, stream
-    "floxer_myers_small": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    # peq, plen, texts, tlen, B, words_padded, num_text, dist, end, stream
-    "floxer_myers_large": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    # windows, patterns, n_lens, m_lens, end_cols, distances, T, m_pad,
-    # w_pad, n_pad, dirs, ops, num_ops, begin_cols, stream
-    "floxer_traceback_banded": [
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-    ],
-}
-
-_lock = threading.Lock()
-_library = None
-last_build_seconds: float | None = None
 
 
 def _nvcc() -> str:
@@ -64,74 +47,133 @@ def _nvcc() -> str:
             return candidate
     raise RuntimeError(
         "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA "
-        "kernels are built from floxer_tpu_torch/csrc at first use"
+        "kernels are built from floxer_tpu_torch's .cu sources at first use"
     )
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC_DIR.glob("*.cu"))
+class KernelLibrary:
+    """One shared library built from every `*.cu` file of `csrc_dir`.
+
+    `signatures` maps each C entry point to its argtypes (pointers and the
+    stream as c_void_p); every entry returns cudaGetLastError() as an int.
+    """
+
+    def __init__(self, csrc_dir: Path, stem: str, signatures: dict):
+        self.csrc_dir = csrc_dir
+        self.stem = stem
+        self.signatures = signatures
+        self.last_build_seconds: float | None = None
+        self._lock = threading.Lock()
+        self._library = None
+
+    def sources(self) -> list[Path]:
+        return sorted(self.csrc_dir.glob("*.cu"))
+
+    def path(self) -> Path:
+        digest = hashlib.sha256()
+        for source in self.sources():
+            digest.update(source.name.encode())
+            digest.update(source.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"{self.stem}_{digest.hexdigest()[:16]}.so"
+
+    def _build(self, target: Path) -> None:
+        """Compile every source to an object file, one nvcc each, all
+        started together, then link them into `target` (under the build
+        lock)."""
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(BUILD_DIR / f"{self.stem}.lock", "w") as lock_file:
+            fcntl.flock(lock_file, fcntl.LOCK_EX)
+            try:
+                if target.exists():
+                    return
+                started = time.monotonic()
+                nvcc = _nvcc()
+                compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+                with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+                    objects = [
+                        Path(tmp_dir) / f"{s.stem}.o" for s in self.sources()
+                    ]
+                    compiles = [
+                        subprocess.Popen(
+                            [nvcc, *compile_flags, "-c", str(s), "-o", str(o)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True,
+                        )
+                        for s, o in zip(self.sources(), objects)
+                    ]
+                    logs = [p.communicate()[0] for p in compiles]
+                    if any(p.returncode != 0 for p in compiles):
+                        raise RuntimeError(
+                            f"nvcc failed building {self.stem}:\n"
+                            + "".join(logs)
+                        )
+                    tmp = Path(tmp_dir) / target.name
+                    result = subprocess.run(
+                        [nvcc, *NVCC_FLAGS, *map(str, objects), "-o", str(tmp)],
+                        capture_output=True, text=True,
+                    )
+                    if result.returncode != 0:
+                        raise RuntimeError(
+                            f"nvcc failed linking {self.stem}:\n"
+                            + result.stdout + result.stderr
+                        )
+                    os.replace(tmp, target)
+                self.last_build_seconds = time.monotonic() - started
+            finally:
+                fcntl.flock(lock_file, fcntl.LOCK_UN)
+
+    def load(self) -> ctypes.CDLL:
+        """The library, built on first use. Raises when the build or the
+        load fails; there is no fallback."""
+        with self._lock:
+            if self._library is None:
+                target = self.path()
+                if not target.exists():
+                    self._build(target)
+                library = ctypes.CDLL(str(target))
+                for name, argtypes in self.signatures.items():
+                    fn = getattr(library, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                self._library = library
+            return self._library
+
+    def launch(self, name: str, *args) -> None:
+        """Call one C entry point; raise on a non-zero cudaError_t."""
+        code = getattr(self.load(), name)(*args)
+        if code != 0:
+            raise RuntimeError(f"{name}: CUDA launch failed with error {code}")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256()
-    for source in _sources():
-        digest.update(source.name.encode())
-        digest.update(source.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libfloxer_kernels_{digest.hexdigest()[:16]}.so"
+ALIGNER = KernelLibrary(_PACKAGE_DIR / "csrc", "libfloxer_kernels", {
+    # vp0, planes0, texts, stream, scalars, T, band_words, text_words,
+    # dist, end, stream
+    "floxer_myers_banded": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # peq, plen, texts, tlen, B, num_words, num_text, dist, end, stream
+    "floxer_myers_small": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # peq, plen, texts, tlen, B, words_padded, num_text, dist, end, stream
+    "floxer_myers_large": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # windows, patterns, n_lens, m_lens, end_cols, distances, T, m_pad,
+    # w_pad, n_pad, dirs, ops, num_ops, begin_cols, stream
+    "floxer_traceback_banded": [
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+    ],
+})
 
+SCRIPTS = KernelLibrary(_PACKAGE_DIR / "scripts" / "csrc", "libfloxer_scripts", {
+    # vp0, planes0, texts, pattern stream, scalars, rows, band_words,
+    # num_text, variant flags, dist, end, stream
+    "floxer_ablate_banded": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # texts, rows, num_text, variant, out, stream
+    "floxer_column_loop": [_P, _I, _I, _I, _P, _P],
+    # texts, rows, num_text, n_carry, n_ops, n_rolls, out, stream
+    "floxer_carry_scaling": [_P, _I, _I, _I, _I, _I, _P, _P],
+    # texts, jstar, rows, num_text, n_bcast, out, stream
+    "floxer_bcast": [_P, _P, _I, _I, _I, _P, _P],
+})
 
-def _build(target: Path) -> None:
-    """Compile csrc/*.cu into `target` (under the build lock)."""
-    global last_build_seconds
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "build.lock", "w") as lock_file:
-        fcntl.flock(lock_file, fcntl.LOCK_EX)
-        try:
-            if target.exists():
-                return
-            started = time.monotonic()
-            tmp = target.with_suffix(f".tmp{os.getpid()}.so")
-            command = [
-                _nvcc(), *NVCC_FLAGS,
-                *[str(s) for s in _sources()], "-o", str(tmp),
-            ]
-            result = subprocess.run(command, capture_output=True, text=True)
-            if result.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    "nvcc failed building the CUDA kernels:\n"
-                    + result.stdout + result.stderr
-                )
-            os.replace(tmp, target)
-            last_build_seconds = time.monotonic() - started
-        finally:
-            fcntl.flock(lock_file, fcntl.LOCK_UN)
-
-
-def load_library() -> ctypes.CDLL:
-    """The kernel library, built on first use. Raises when the build or
-    the load fails; there is no fallback."""
-    global _library
-    with _lock:
-        if _library is None:
-            target = library_path()
-            if not target.exists():
-                _build(target)
-            library = ctypes.CDLL(str(target))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(library, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _library = library
-        return _library
-
-
-def launch(name: str, *args) -> None:
-    """Call one C entry point; raise on a non-zero cudaError_t."""
-    code = getattr(load_library(), name)(*args)
-    if code != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {code}")
+launch = ALIGNER.launch
 
 
 def check_operand(tensor, name: str, shape: tuple, dtype, device) -> None:

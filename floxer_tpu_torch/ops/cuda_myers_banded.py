@@ -259,6 +259,25 @@ def myers_banded_host(
     end_col) per task, as int32 tensors on `device` with sync=False.
     Requires 0 < budget < m and band_words*32 >= n - m + 2*budget + 1 for
     every task. No pad rows: the kernel stops each task at its tlen."""
+    operands, num_text = banded_operands(
+        patterns, texts, text_lengths, budgets, band_words, device
+    )
+    dist, end = myers_banded(*operands, band_words, num_text)
+    if not sync:
+        return dist, end
+    return dist.cpu().numpy(), end.cpu().numpy()
+
+
+def banded_operands(
+    patterns: list[np.ndarray],
+    texts: np.ndarray,  # [T, Np] padded uint8
+    text_lengths: np.ndarray,
+    budgets: np.ndarray,
+    band_words: int,
+    device: torch.device,
+):
+    """The host packing of myers_banded_host: ((vp0, planes0, texts_packed,
+    stream_packed, scalars) on `device`, num_text)."""
     T = len(patterns)
     num_text = -(-max(texts.shape[1], 1) // 8) * 8
     vp0, planes0, stream, scalars = prepare_banded_batch(
@@ -267,16 +286,11 @@ def myers_banded_host(
     scalars[COL_TLEN][:, 0] = text_lengths
     texts_u8 = np.zeros((T, num_text), dtype=np.uint8)
     texts_u8[:, : texts.shape[1]] = texts
-    dist, end = myers_banded(
+    return (
         u32_tensor(vp0, device),
         u32_tensor(planes0, device),
         u32_tensor(pack_nibbles(texts_u8), device),
         u32_tensor(stream, device),
         torch.from_numpy(np.concatenate(scalars, axis=1)).to(device),
-        band_words,
-        num_text,
-    )
-    if not sync:
-        return dist, end
-    return dist.cpu().numpy(), end.cpu().numpy()
+    ), num_text
 

@@ -1,5 +1,5 @@
-"""floxer_tpu_torch on the card: each CUDA kernel against its plain
-PyTorch version, a fused wave on the card against the same wave on the
+"""floxer_tpu_torch on the card: each CUDA kernel (K1-K8) against its
+plain PyTorch version, a fused wave on the card against the same wave on the
 CPU, and the CLI's --engine device against the host engine.
 
 Every test here needs a CUDA device and skips without one. The module
@@ -22,6 +22,11 @@ from floxer_tpu_torch.ops.cuda_myers_banded import myers_banded_host
 from floxer_tpu_torch.ops.cuda_myers_large import myers_large_host
 from floxer_tpu_torch.ops.fused_verify import FusedBatch
 from floxer_tpu_torch.ops.resident import ResidentBank
+from floxer_tpu_torch.scripts import (
+    ablate_banded_kernel,
+    microbench_carry_scaling,
+    microbench_column_loop,
+)
 from test_e2e import check_output_records, parse_sam
 
 DATA = Path(__file__).resolve().parent / "data"
@@ -240,3 +245,83 @@ def test_engine_device_mode_matches_host_engine(
     assert (tmp_path / "device.sam").read_bytes() == (
         tmp_path / "host.sam"
     ).read_bytes()
+
+
+# the research scripts' kernels K5-K8 (floxer_tpu_torch.scripts) at the
+# scripts' 32 rows and 256 band words, on 512 text columns
+SCRIPT_TEXT = 512
+
+
+@pytest.mark.parametrize("variant", ablate_banded_kernel.VARIANTS)
+def test_ablation_kernel_matches_plain(cuda_device, variant):
+    """K5: each variant equals its plain version; r4 also equals full."""
+    operands = ablate_banded_kernel.device_operands(
+        ablate_banded_kernel.script_inputs(SCRIPT_TEXT), cuda_device
+    )
+    launches = ablate_banded_kernel.LAUNCHES
+    got = ablate_banded_kernel.ablate_banded(*operands, variant)
+    assert ablate_banded_kernel.LAUNCHES == launches + 1
+    want = ablate_banded_kernel.ablate_banded_plain(*operands, variant)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+    if variant == "r4":
+        full = ablate_banded_kernel.ablate_banded(*operands, "full")
+        for g, f in zip(got, full):
+            assert torch.equal(g.cpu(), f.cpu())
+
+
+@pytest.mark.parametrize("band_words", [128, 256])
+def test_ablation_full_ends_where_k1_ends(cuda_device, band_words):
+    """K5's column is a copy of K1's (csrc/myers_banded.cu): on K1's
+    operands K5 `full` ends every task at K1's end column, so a change to
+    one kernel's column that the other lacks fails here."""
+    rng = np.random.default_rng(band_words + 1)
+    patterns, texts = cases(rng, 96, 60, 2000)
+    budgets = np.asarray([max(1, len(p) // 10) for p in patterns])
+    txt, tlen = pad(texts)
+    operands, num_text = cuda_myers_banded.banded_operands(
+        patterns, txt, tlen, budgets, band_words, cuda_device
+    )
+    _, k1_end = cuda_myers_banded.myers_banded(*operands, band_words, num_text)
+    launches = ablate_banded_kernel.LAUNCHES
+    _, k5_end = ablate_banded_kernel.ablate_banded(
+        *ablate_banded_kernel.from_banded_operands(*operands), "full"
+    )
+    assert ablate_banded_kernel.LAUNCHES == launches + 1
+    assert torch.equal(k5_end.cpu(), k1_end.cpu())
+    assert bool((k1_end > 0).all())
+
+
+@pytest.mark.parametrize("variant", microbench_column_loop.VARIANTS)
+def test_column_loop_kernel_matches_plain(cuda_device, variant):
+    texts = torch.from_numpy(microbench_column_loop.script_texts(SCRIPT_TEXT))
+    texts = texts.to(cuda_device)
+    launches = microbench_column_loop.LAUNCHES
+    got = microbench_column_loop.column_loop(texts, variant)
+    assert microbench_column_loop.LAUNCHES == launches + 1
+    want = microbench_column_loop.column_loop_plain(texts, variant)
+    assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.parametrize("config", microbench_carry_scaling.CONFIGS)
+def test_carry_scaling_kernel_matches_plain(cuda_device, config):
+    texts = torch.from_numpy(microbench_column_loop.script_texts(SCRIPT_TEXT))
+    texts = texts.to(cuda_device)
+    launches = microbench_carry_scaling.CARRY_LAUNCHES
+    got = microbench_carry_scaling.carry_scaling(texts, *config)
+    assert microbench_carry_scaling.CARRY_LAUNCHES == launches + 1
+    want = microbench_carry_scaling.carry_scaling_plain(texts, *config)
+    assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.parametrize("n_bcast", microbench_carry_scaling.BCASTS)
+def test_bcast_kernel_matches_plain(cuda_device, n_bcast):
+    texts = torch.from_numpy(microbench_column_loop.script_texts(SCRIPT_TEXT))
+    texts = texts.to(cuda_device)
+    jstar = torch.from_numpy(microbench_carry_scaling.script_jstar(SCRIPT_TEXT))
+    jstar = jstar.to(cuda_device)
+    launches = microbench_carry_scaling.BCAST_LAUNCHES
+    got = microbench_carry_scaling.bcast(texts, jstar, n_bcast)
+    assert microbench_carry_scaling.BCAST_LAUNCHES == launches + 1
+    want = microbench_carry_scaling.bcast_plain(texts, jstar, n_bcast)
+    assert torch.equal(got.cpu(), want.cpu())

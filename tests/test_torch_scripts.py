@@ -1,0 +1,358 @@
+"""floxer_tpu_torch.scripts (K5-K8) against the research scripts' own
+Pallas kernels in interpret mode.
+
+The scripts (scripts/tpu_ablate_banded_kernel.py,
+scripts/tpu_microbench_column_loop.py,
+scripts/tpu_microbench_carry_scaling.py) probe for a TPU and time their
+kernels when imported, so each test takes only their kernel builders and
+`run` functions from the source, with the script's own constants and N cut
+to 256 columns (two blocks of 128), and runs `pl.pallas_call` in interpret
+mode. On the CPU each port entry runs its plain PyTorch version
+(tests/test_torch_cuda.py holds the CUDA kernels against those on the
+card). Every comparison is exact, on whole output arrays.
+"""
+
+import ast
+import functools
+import subprocess
+import sys
+import types
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from floxer_tpu_torch.scripts import ablate_banded_kernel as k5
+from floxer_tpu_torch.scripts import microbench_carry_scaling as k78
+from floxer_tpu_torch.scripts import microbench_column_loop as k6
+
+ROOT = Path(__file__).resolve().parent.parent
+N = 256
+CONSTANTS = {"S", "SUBLANES", "LANES", "BW", "TOP_BIT", "N"}
+
+
+def script_tree(name: str) -> ast.Module:
+    return ast.parse((ROOT / "scripts" / name).read_text())
+
+
+@functools.lru_cache(maxsize=None)
+def load_script(name: str, functions: tuple) -> dict:
+    """The script's `functions` and constants (N replaced), executed in a
+    namespace whose `pl.pallas_call` runs in interpret mode."""
+    tree = script_tree(name)
+    constants = [
+        node for node in tree.body
+        if isinstance(node, ast.Assign)
+        and {getattr(t, "id", None) for t in node.targets} <= CONSTANTS
+    ]
+    defs = [
+        node for node in tree.body
+        if isinstance(node, ast.FunctionDef) and node.name in functions
+    ]
+    assert sorted(node.name for node in defs) == sorted(functions)
+    interpret_pl = types.SimpleNamespace(
+        **{k: getattr(pl, k) for k in dir(pl) if not k.startswith("__")}
+    )
+    interpret_pl.pallas_call = functools.partial(pl.pallas_call, interpret=True)
+    namespace = dict(
+        jax=jax, jnp=jnp, pl=interpret_pl, pltpu=pltpu, np=np,
+        functools=functools,
+    )
+    module = ast.Module(body=constants, type_ignores=[])
+    exec(compile(module, name, "exec"), namespace)
+    namespace["N"] = N
+    exec(compile(ast.Module(body=defs, type_ignores=[]), name, "exec"), namespace)
+    return namespace
+
+
+def script_lists(name: str) -> list:
+    """The literal lists the script loops over (and a VARIANTS list)."""
+    lists = []
+    for node in script_tree(name).body:
+        literal = isinstance(getattr(node, "iter", None), (ast.List, ast.Tuple))
+        if isinstance(node, ast.For) and literal:
+            lists.append(list(ast.literal_eval(node.iter)))
+        elif isinstance(node, ast.Assign) and any(
+            getattr(t, "id", None) == "VARIANTS" for t in node.targets
+        ):
+            lists.append(list(ast.literal_eval(node.value)))
+    return lists
+
+
+def words(tensor: torch.Tensor) -> np.ndarray:
+    """int32 tensor holding uint32 words -> uint32 array."""
+    return tensor.numpy().view(np.uint32)
+
+
+def texts_for(seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 5, size=(32, N)).astype(np.int32)
+
+
+def test_port_lists_are_the_scripts_lists():
+    assert script_lists("tpu_microbench_column_loop.py") == [list(k6.VARIANTS)]
+    assert script_lists("tpu_microbench_carry_scaling.py") == [
+        list(k78.CONFIGS), list(k78.BCASTS)
+    ]
+    assert script_lists("tpu_ablate_banded_kernel.py") == [list(k5.VARIANTS)]
+
+
+@pytest.mark.parametrize("variant", k6.VARIANTS)
+def test_column_loop_matches_pallas(variant):
+    run = load_script("tpu_microbench_column_loop.py", ("make_kernel", "run"))["run"]
+    texts = texts_for(0)
+    want = np.asarray(run(jnp.asarray(texts), variant))
+    got = k6.column_loop(torch.from_numpy(texts), variant)
+    assert got.shape == (32, 256) and got.dtype == torch.int32
+    np.testing.assert_array_equal(words(got), want)
+
+
+@pytest.mark.parametrize("config", k78.CONFIGS)
+def test_carry_scaling_matches_pallas(config):
+    run = load_script(
+        "tpu_microbench_carry_scaling.py", ("make_kernel", "run")
+    )["run"]
+    texts = texts_for(2)
+    want = np.asarray(run(jnp.asarray(texts), *config))
+    got = k78.carry_scaling(torch.from_numpy(texts), *config)
+    np.testing.assert_array_equal(words(got), want)
+
+
+@pytest.mark.parametrize("n_bcast", k78.BCASTS)
+def test_bcast_matches_pallas(n_bcast):
+    run = load_script(
+        "tpu_microbench_carry_scaling.py", ("make_bcast_kernel", "run_bcast")
+    )["run_bcast"]
+    texts = texts_for(0)
+    jstar = k78.script_jstar(N)
+    scal = jnp.asarray(jstar[:, None])
+    want = np.asarray(run(jnp.asarray(texts), scal, n_bcast))
+    got = k78.bcast(torch.from_numpy(texts), torch.from_numpy(jstar), n_bcast)
+    np.testing.assert_array_equal(words(got), want)
+
+
+def ablation_inputs(seed: int):
+    """Seed 0: the script's own generator at N columns. Seed 1: jstar,
+    topshift and tlen spread over (and past) the columns, mfrozen 0 or 1,
+    so rows slide the whole run, freeze early or never score."""
+    if seed == 0:
+        return k5.script_inputs(N)
+    rng = np.random.default_rng(seed)
+    vp0 = rng.integers(0, 2**32, size=(32, 256), dtype=np.uint32)
+    planes0 = rng.integers(0, 2**32, size=(32, 4, 256), dtype=np.uint32)
+    texts = rng.integers(0, 5, size=(32, N)).astype(np.int32)
+    stream = rng.integers(0, 5, size=(32, N)).astype(np.int32)
+    scalars = np.stack(
+        [
+            rng.integers(0, N + 8, size=32),  # tlen
+            rng.integers(0, N + 8, size=32),  # jstar
+            rng.integers(0, N + 8, size=32),  # topshift
+            rng.integers(0, 2, size=32),  # mfrozen
+            rng.integers(0, 64, size=32),  # minit
+            rng.integers(0, 64, size=32),  # binit
+        ],
+        axis=1,
+    ).astype(np.int32)
+    return vp0, planes0, texts, stream, scalars
+
+
+def pallas_ablation(inputs, variant):
+    run = load_script("tpu_ablate_banded_kernel.py", ("make_kernel", "run"))["run"]
+    vp0, planes0, texts, stream, scalars = inputs
+    dist, end = run(
+        jnp.asarray(vp0), jnp.asarray(planes0), jnp.asarray(texts),
+        jnp.asarray(stream),
+        tuple(jnp.asarray(scalars[:, i : i + 1]) for i in range(6)), variant,
+    )
+    return np.asarray(dist)[:, 0], np.asarray(end)[:, 0]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("variant", k5.VARIANTS)
+def test_ablation_matches_pallas(variant, seed):
+    inputs = ablation_inputs(seed)
+    want = pallas_ablation(inputs, variant)
+    got = k5.ablate_banded(*k5.device_operands(inputs, torch.device("cpu")), variant)
+    np.testing.assert_array_equal(got[0].numpy(), want[0])
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ablation_full_equals_radix4(seed):
+    """The radix-4 scan changes the carry scan's rounds, not its result:
+    the script's kernel gives the same output for both, and so does the
+    port; seed 1 also scores (some rows end past their start column)."""
+    inputs = ablation_inputs(seed)
+    full, r4 = (pallas_ablation(inputs, v) for v in ("full", "r4"))
+    np.testing.assert_array_equal(full, r4)
+    operands = k5.device_operands(inputs, torch.device("cpu"))
+    got = k5.ablate_banded(*operands, "r4")
+    np.testing.assert_array_equal(got[0].numpy(), full[0])
+    if seed == 1:
+        assert (full[1] > 0).any() and (full[1] < N).any()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ablation_full_ends_where_k1_ends(seed):
+    """K5's column is a copy of K1's (csrc/myers_banded.cu): on K1's
+    operands, `full` ends every task at K1's end column. The card test of
+    the same name holds the two CUDA kernels to it."""
+    from floxer_tpu_torch.ops.cuda_myers_banded import (
+        banded_operands,
+        myers_banded,
+    )
+
+    rng = np.random.default_rng(seed)
+    patterns, texts = [], []
+    for _ in range(24):
+        m = int(rng.integers(60, 300))
+        n = int(rng.integers(m, m + 2 * (m // 10) + 60))
+        text = rng.integers(1, 5, size=n).astype(np.uint8)
+        start = int(rng.integers(0, n - m + 1))
+        pattern = text[start : start + m].copy()
+        for pos in rng.integers(0, m, size=int(rng.integers(0, m // 12 + 2))):
+            pattern[pos] = 1 + (pattern[pos] % 4)
+        patterns.append(pattern)
+        texts.append(text)
+    padded = np.zeros((len(texts), max(map(len, texts))), dtype=np.uint8)
+    for i, text in enumerate(texts):
+        padded[i, : len(text)] = text
+    lengths = np.asarray([len(t) for t in texts], dtype=np.int32)
+    budgets = np.asarray([max(1, len(p) // 10) for p in patterns])
+    operands, num_text = banded_operands(
+        patterns, padded, lengths, budgets, 32, torch.device("cpu")
+    )
+    _, k1_end = myers_banded(*operands, 32, num_text)
+    _, k5_end = k5.ablate_banded(*k5.from_banded_operands(*operands), "full")
+    np.testing.assert_array_equal(k5_end.numpy(), k1_end.numpy())
+    assert (k1_end.numpy() > 0).all()
+
+
+def test_launch_wrappers_refuse_cpu_tensors():
+    texts = torch.from_numpy(texts_for(0))
+    jstar = torch.zeros(32, dtype=torch.int32)
+    operands = k5.device_operands(k5.script_inputs(N), torch.device("cpu"))
+    before = (k5.LAUNCHES, k6.LAUNCHES, k78.CARRY_LAUNCHES, k78.BCAST_LAUNCHES)
+    for call in (
+        lambda: k5.ablate_banded_cuda(*operands, "full"),
+        lambda: k6.column_loop_cuda(texts, "empty"),
+        lambda: k78.carry_scaling_cuda(texts, 3, 0, 0),
+        lambda: k78.bcast_cuda(texts, jstar, 4),
+    ):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call()
+    after = (k5.LAUNCHES, k6.LAUNCHES, k78.CARRY_LAUNCHES, k78.BCAST_LAUNCHES)
+    assert after == before
+
+
+def test_unknown_variants_and_configurations_are_refused():
+    """On both routes: a configuration outside the script's lists never
+    falls back to the plain version."""
+    texts = torch.from_numpy(texts_for(0))
+    jstar = torch.zeros(32, dtype=torch.int32)
+    operands = k5.device_operands(k5.script_inputs(N), torch.device("cpu"))
+    for call in (
+        lambda: k5.ablate_banded(*operands, "noslide+noeq"),
+        lambda: k5.ablate_banded_cuda(*operands, "nokogge"),
+        lambda: k6.column_loop(texts, "bogus"),
+        lambda: k6.column_loop_cuda(texts, "Rolls"),
+        lambda: k78.carry_scaling(texts, 3, 40, 0),
+        lambda: k78.carry_scaling_cuda(texts, 14, 80, 12),
+        lambda: k78.bcast(texts, jstar, 5),
+        lambda: k78.bcast_cuda(texts, jstar, 20),
+    ):
+        with pytest.raises(ValueError, match="variant|configuration|n_bcast"):
+            call()
+    with pytest.raises(ValueError, match="shape"):
+        k78.bcast(texts, jstar[:8], 4)
+    with pytest.raises(ValueError, match="int32"):
+        k6.column_loop(texts.to(torch.int64), "empty")
+
+
+MODULES = ("ablate_banded_kernel", "microbench_column_loop",
+           "microbench_carry_scaling")
+JAX_BLOCKED = "import sys; sys.modules['jax'] = None; "
+
+
+def test_scripts_import_without_jax():
+    imports = "; ".join(f"import floxer_tpu_torch.scripts.{m}" for m in MODULES)
+    proc = subprocess.run(
+        [sys.executable, "-c", JAX_BLOCKED + imports],
+        capture_output=True, text=True, cwd=ROOT, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_entry_point_without_a_gpu_exits_nonzero_silently(module):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU")
+    proc = subprocess.run(
+        [
+            sys.executable, "-c",
+            JAX_BLOCKED + "import runpy; runpy.run_module("
+            f"'floxer_tpu_torch.scripts.{module}', run_name='__main__')",
+        ],
+        capture_output=True, text=True, cwd=ROOT, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert proc.stdout == ""
+    assert "GPU" in proc.stderr
+
+
+FAKE_NVCC = """#!/bin/sh
+# writes its -o target; a source that holds BROKEN does not compile
+out=""; src=""; prev=""
+for arg in "$@"; do
+  [ "$prev" = "-o" ] && out="$arg"
+  case "$arg" in *.cu) src="$arg";; esac
+  prev="$arg"
+done
+if [ -n "$src" ] && grep -q BROKEN "$src"; then echo "error in $src"; exit 1; fi
+echo built > "$out"
+"""
+
+
+def test_each_source_set_builds_its_own_library(tmp_path, monkeypatch):
+    """One nvcc per source, then a link, into a library named by the
+    sources' hash; a failed compile raises and leaves no library. The
+    aligner's and the scripts' libraries share no source."""
+    from floxer_tpu_torch.ops import _build
+
+    assert [s.name for s in _build.ALIGNER.sources()] == [
+        "myers_banded.cu", "myers_large.cu", "myers_small.cu",
+        "traceback_banded.cu",
+    ]
+    assert [s.name for s in _build.SCRIPTS.sources()] == [
+        "ablate_banded_kernel.cu", "microbench_carry_scaling.cu",
+        "microbench_column_loop.cu",
+    ]
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("a.cu", "b.cu"):
+        (csrc / name).write_text("// a kernel\n")
+    library = _build.KernelLibrary(csrc, "libtest", {})
+    built = library.path()
+    library._build(built)
+    assert built.read_text() == "built\n"
+    assert library.last_build_seconds is not None
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == [
+        "libtest.lock", built.name,
+    ]
+    (csrc / "b.cu").write_text("BROKEN\n")
+    broken = library.path()
+    assert broken != built
+    with pytest.raises(RuntimeError, match="(?s)nvcc failed building libtest.*b.cu"):
+        library._build(broken)
+    assert not broken.exists()
