@@ -9,13 +9,29 @@ Phases, one line each on stdout, any failure exits non-zero:
            limit as nvidia-smi reports them
   build    nvcc builds csrc/*.cu for sm_90a (seconds); the research
            scripts' library (scripts/csrc/*.cu) builds beside it
+  ptxas    what nvcc -Xptxas -v reported, in the aligner's own build, for
+           every instance of K1's register kernel
+           (myers_banded_reg_kernel<R>): registers, stack and spill bytes
+           (a spill or a stack frame fails the run); and from the
+           library's SASS (cuobjdump) the instructions of each instance's
+           two column loops, sliding and frozen
   kernels  K1/K2/K3 against their plain PyTorch versions on the card on
-           seeded cases (exact (dist, end) equality), K1 at the 20 kb root
-           shape against the native host engine and the numpy band mirror;
-           K4 (banded traceback) against its plain version on 2 root-shape
-           tasks and against the host traceback (dp_reference, native) on
-           every accepted root of a seeded batch; kernel, plain-version
-           and host-pool times
+           seeded cases (exact (dist, end) equality). K1 has two kernels:
+           the register kernel at every instantiated width and the
+           shared-memory kernel at a 640-word band, each against the plain
+           version (run on CPU copies of the operands in worker processes
+           that start before the build), and the 640-word band driven once
+           through myers_banded with the counts at 0 (it must take the
+           shared-memory kernel). K1 at the 20 kb root shape, on the 256
+           band words its tasks need and on the 384 the fused wave runs its
+           root level at: the register kernel against the plain version,
+           the native host engine, the numpy band mirror and the
+           shared-memory kernel, and both kernels timed in turns (shared,
+           register, register, shared); K4 (banded
+           traceback) against its plain version on 2 root-shape tasks and
+           against the host traceback (dp_reference, native) on every
+           accepted root of a seeded batch; kernel, plain-version and
+           host-pool times, and each kernel's bound (see `bound`)
   scripts  the research scripts' kernels K5-K8 (floxer_tpu_torch.scripts):
            every variant against its plain version on the card at
            COMPARE_TEXT columns (exact); K5 full at K1's end columns on
@@ -31,8 +47,9 @@ Phases, one line each on stdout, any failure exits non-zero:
   e2e      a simulated E. coli-sized genome (4.6 Mb) with 200 reads of
            20 kb at 7% error: pass A --engine device (every wave fused on
            the CUDA kernels), pass B on the native host engine only; SAM
-           files byte-identical, K1-K3 launched in pass A. Pass B is the
-           oracle of every pass below.
+           files byte-identical, K1-K3 launched in pass A, and every K1
+           launch of pass A on the register kernel. Pass B is the oracle of
+           every pass below.
   traceback  pass C: --engine device with FLOXER_TPU_DEVICE_TRACEBACK=1
            (root CIGARs by K4); SAM = pass B, K4 launched
   legacy   pass D: --engine device with FLOXER_TPU_LEGACY_VERIFY=1 (the
@@ -42,12 +59,17 @@ Phases, one line each on stdout, any failure exits non-zero:
            --server --engine device jobs: SAM = pass B, the second job hits
            the resident bank cache; --shutdown-server and the daemon exit 0
   profile  --engine device --profile DIR: a torch.profiler trace naming
-           K1's kernel, SAM = pass B
+           K1's register kernel, SAM = pass B
+  long_reads  pass E: 6 reads of 40 kb at 12% error on a 1 Mb genome with
+           -p 0.15 (LONG_READS), --engine device against its own pass B:
+           the roots' bands are wider than 512 words, so the shared-memory
+           K1 runs; SAM identical
 Each path is driven with the launch counts set to 0 just before it and
 read just after (server jobs report theirs in their stage split line). The
-line before the last is the kernel table as JSON (K1-K3 launches of pass
-A, K4 of pass C, K5-K8 of the entry points' run); the last line is
-{"ok": true, "device": {...}}.
+line before the last is the kernel table as JSON (K1 rows at the 384-word
+root band; K1-K3 launches of pass A, the shared-memory K1's of pass E, K4
+of pass C, K5-K8 of the entry points' run), each kernel with its bound;
+the last line is {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -55,7 +77,9 @@ import functools
 import importlib.util
 import io
 import json
+import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -82,6 +106,44 @@ COMPARE_TEXT = 1280
 # for them at its end
 PLAIN_WORKERS = 4
 PLAIN_TIMEOUT = 600
+# K1's exactness sweep: seeded cases per band width (every width of the
+# register kernel, then WIDE_BAND_WORDS, wider than its widest, for the
+# shared-memory kernel), and the processes that run the plain versions
+SWEEP_CASES = 48
+WIDE_BAND_WORDS = 640
+SWEEP_WORKERS = 3
+# the card's memory rate for the bounds (NVIDIA's H100 SXM data sheet) and
+# its int32 issue rate per SM and clock: four sub-partitions, each
+# dispatching one 32-lane warp instruction per clock, to the integer pipe
+# (LOP3, IADD3, SHF, ISETP, SEL) or to the FMA pipe (IMAD); together the
+# pipes that run these instructions issue at most that
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_CLOCK_PER_SM = 128
+# int32 ops the functions need, counted as sm_90 runs them: LOP3 is any
+# function of three registers, IADD3 a three-term add with carry in and
+# out, SHF a funnel shift; loads, shuffles and work that is the same for
+# every word of a task (warp-uniform) are not counted.
+# K1, K5 per band word and text column: Eq 2 (a LOP3 of the three char
+# planes on the column char's truth table, then OR the all-match plane),
+# Eq & Vp 1, the add with its carry 1, Xh 1, Ph 1, Mh 1, Xv 1, the two
+# one-bit shifts 2, Vp 1, Vn 1; plus one funnel shift per array of the six
+# while the band slides
+BANDED_OPS, SLIDE_OPS = 12, 6
+# full Myers (K2, K3) per pattern word: the same step with Eq a Peq load
+FULL_OPS = 10
+# K4 per band cell: the substitution compare, the diagonal and vertical
+# adds (2), their min, the running min-plus (2), the cell's value (2), the
+# direction code (two compares and a select), its packing
+TRACEBACK_OPS = 12
+# K1 at the root shape's tasks on the band the fused wave gives the root
+# level: its windows reach past 256 words, and a segment runs at its
+# widest task's band (27 of pass A's 59 K1 launches ran at 384 words)
+ROOT_WAVE_BAND_WORDS = 384
+# pass E: a few long reads at a high error rate, whose PEX roots need
+# bands wider than the register kernel's widest (512 words), so the
+# fused wave runs them on the shared-memory K1: genome bp, reads, read
+# length, read error rate, the aligner's -p
+LONG_READS = (1_000_000, 6, 40_000, 0.12, 0.15)
 # runs the port's CLI with jax unimportable, as on a machine without jax
 JAX_BLOCKED = (
     "import runpy, sys; sys.modules['jax'] = None; "
@@ -163,19 +225,137 @@ def pad(seqs, width=None):
     return out, np.asarray([len(s) for s in seqs], dtype=np.int32)
 
 
-def run_kernel_phase(device, rng):
-    """Each kernel against its plain version on identical card tensors;
-    K1 at the root shape against the native engine and the numpy mirror.
-    Returns the per-kernel table rows (launch counts filled in later) and
-    K1's (operands, end columns) of both K1 checks."""
+def k1_sweep_cases(seed):
+    """[(band_words, operands as numpy arrays, num_text)]: SWEEP_CASES
+    seeded tasks at every width of the register kernel, then at
+    WIDE_BAND_WORDS."""
     import numpy as np
     import torch
 
-    from floxer_tpu.native import native_myers_distance_batch
-    from floxer_tpu.ops.myers_banded import myers_banded_np
+    from floxer_tpu_torch.ops.cuda_myers_banded import (
+        REGISTER_BAND_WORDS,
+        band_cases,
+        banded_operands,
+    )
+
+    rng = np.random.default_rng(seed)
+    cases = []
+    for band_words in (*REGISTER_BAND_WORDS, WIDE_BAND_WORDS):
+        patterns, texts, budgets = band_cases(rng, SWEEP_CASES, band_words)
+        texts_u8, lens = pad(texts)
+        operands, num_text = banded_operands(
+            patterns, texts_u8, lens, budgets, band_words, torch.device("cpu")
+        )
+        cases.append((band_words, [t.numpy() for t in operands], num_text))
+    return cases
+
+
+def _k1_plain(case):
+    """K1's plain version on one sweep case, on the CPU (worker process)."""
+    import torch
+
+    from floxer_tpu_torch.ops.cuda_myers_banded import myers_banded_plain
+
+    torch.set_num_threads(1)
+    band_words, arrays, num_text = case
+    started = time.monotonic()
+    out = myers_banded_plain(
+        *(torch.from_numpy(a) for a in arrays), band_words, num_text
+    )
+    return [t.numpy() for t in out], time.monotonic() - started
+
+
+def card_peaks(device) -> dict:
+    """The rates the bounds divide by: int32 ops/s =
+    INT32_OPS_PER_CLOCK_PER_SM x the SMs x the max SM clock nvidia-smi
+    reads; the memory rate of the data sheet."""
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return {
+        "sm_count": sms, "max_sm_clock_mhz": mhz,
+        "int32_ops_per_s": INT32_OPS_PER_CLOCK_PER_SM * sms * mhz * 1e6,
+        "bytes_per_s": HBM_BYTES_PER_S,
+    }
+
+
+def bound(ops, nbytes, peaks) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of the ops over the int32 issue
+    rate and the bytes (each input read once, each output written once)
+    over the memory rate."""
+    ops_ms = ops / peaks["int32_ops_per_s"] * 1e3
+    bytes_ms = nbytes / peaks["bytes_per_s"] * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def bound_fields(bound_and_by) -> dict:
+    """A table row's bound keys; no PyTorch call computes a Myers
+    distance or a traceback, so no library time."""
+    bound_ms, bound_by = bound_and_by
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def banded_ops(band_words, tlen, jstar, num_text) -> int:
+    """K1's int32 ops on these tasks: every task runs its own columns
+    1..min(tlen - 1, num_text) and slides on the first min(j*, that)."""
+    import numpy as np
+
+    tlen = np.asarray(tlen, dtype=np.int64)
+    columns = np.clip(np.minimum(tlen - 1, num_text), 0, None)
+    sliding = np.clip(np.minimum(np.asarray(jstar, np.int64), columns), 0, None)
+    return int(band_words * (BANDED_OPS * columns + SLIDE_OPS * sliding).sum())
+
+
+def k1_bound(args, peaks) -> tuple[float, str]:
+    """K1's bound on its operands (vp0, planes0, texts, stream, scalars,
+    band_words, num_text)."""
+    from floxer_tpu_torch.ops import cuda_myers_banded as k1
+
+    scalars = args[4].cpu().numpy()
+    ops = banded_ops(args[5], scalars[:, k1.COL_TLEN],
+                     scalars[:, k1.COL_JSTAR], args[6])
+    return bound(ops, tensor_bytes(*args[:5]) + 8 * args[0].shape[0], peaks)
+
+
+def full_bound(args, peaks) -> tuple[float, str]:
+    """K2's or K3's bound on (peq, plen, texts, tlen): FULL_OPS per pattern
+    word each task needs per column of its text."""
+    import numpy as np
+
+    plen = args[1].cpu().numpy().astype(np.int64)
+    tlen = args[3].cpu().numpy().astype(np.int64)
+    ops = FULL_OPS * int((-(-plen // 32) * tlen).sum())
+    return bound(ops, tensor_bytes(*args) + 8 * len(plen), peaks)
+
+
+def run_kernel_phase(device, rng, peaks, sweep, sweep_plain):
+    """Each kernel against its plain version on identical card tensors;
+    K1 at the root shape, on 256 band words and on ROOT_WAVE_BAND_WORDS,
+    against the plain version, the native engine, the numpy mirror and its
+    other kernel, both kernels timed in turns; K1's sweep (`sweep`,
+    k1_sweep_cases) against the plain versions' results (`sweep_plain`, an
+    async result of _k1_plain per case). Returns the per-kernel table rows
+    (launch counts filled in later), K1's (operands, end columns) of two
+    K1 checks, and the sweep's fields."""
+    import numpy as np
+    import torch
+
+    from floxer_tpu_torch.native import native_myers_distance_batch
     from floxer_tpu_torch.ops import cuda_myers, cuda_myers_banded, cuda_myers_large
     from floxer_tpu_torch.ops.cuda_myers_banded import banded_operands
     from floxer_tpu_torch.ops.myers import build_peq_vectorized, u32_tensor
+    from floxer_tpu_torch.ops.myers_banded import myers_banded_np
 
     def to_dev(array):
         return torch.from_numpy(np.ascontiguousarray(array)).to(device)
@@ -219,7 +399,8 @@ def run_kernel_phase(device, rng):
     check(err_small == 0, f"K1 differs from its plain version ({err_small})")
     k1_ends.append((args[:5], got[1]))
 
-    # K1 at the 20 kb root shape: T=256, m ~ 20.6k, k = 1442, BW = 256
+    # K1 at the 20 kb root shape: T=256, m ~ 20.6k, k = 1442, on the
+    # 256-word band the tasks need and on the fused wave's root band
     T, m_root, k_root, bw_root = ROOT_SHAPE
     genome = rng.integers(1, 5, size=400_000).astype(np.uint8)
     patterns, texts = [], []
@@ -233,42 +414,112 @@ def run_kernel_phase(device, rng):
         )
         texts.append(window)
     budgets = [k_root] * T
-    args = banded_args(patterns, texts, budgets, bw_root)
-    got, want, err_root = compare(
-        cuda_myers_banded.myers_banded, cuda_myers_banded.myers_banded_plain, args
-    )
-    check(err_root == 0, f"K1 differs from its plain version at the root "
-          f"shape ({err_root})")
-    k1_ends.append((args[:5], got[1]))
     native_dist, native_end = native_myers_distance_batch(
         texts, patterns, num_threads=min(8, os.cpu_count() or 1),
         budgets=budgets,
     )
-    accepted = native_dist <= k_root
-    check(bool(accepted.all()), "root-shape cases must all be within budget")
-    check(np.array_equal(got[0], native_dist) and np.array_equal(
-        got[1], native_end), "K1 differs from the native engine at the root "
-          "shape")
-    for i in range(2):  # the numpy band mirror is slow: a subset
-        mirror = myers_banded_np(patterns[i], texts[i], k_root)
-        check((int(got[0][i]), int(got[1][i])) == mirror,
-              f"K1 differs from myers_banded_np on root task {i}")
-    k1_ms = cuda_ms(lambda: cuda_myers_banded.myers_banded(*args), 5)
-    t0 = time.monotonic()
-    cuda_myers_banded.myers_banded_plain(*args)
-    torch.cuda.synchronize()
-    k1_plain_ms = (time.monotonic() - t0) * 1000
+    check(bool((native_dist <= k_root).all()),
+          "root-shape cases must all be within budget")
+    # the numpy band mirror is slow: a subset
+    mirror = [myers_banded_np(patterns[i], texts[i], k_root) for i in range(2)]
     # the launch lasts as long as its longest task: tlen - 1 columns
     k1_columns = max(len(t) for t in texts) - 1
-    rows["K1"] = {
-        "name": "myers_banded", "route": "cuda",
-        "source": cuda_myers_banded.SOURCE,
-        "replaces": cuda_myers_banded.REPLACES,
-        "max_abs_err": max(err_small, err_root),
-        "ms": k1_ms, "plain_ms": k1_plain_ms,
-        "shape": f"T={T} m={m_root} k={k_root} BW={bw_root} "
-                 f"n~{m_root + 2 * k_root + 600}",
-        "us_per_col": k1_ms * 1000 / k1_columns, "columns": k1_columns,
+    k1_root = {}
+    for band_words in (bw_root, ROOT_WAVE_BAND_WORDS):
+        check(band_words in cuda_myers_banded.REGISTER_BAND_WORDS,
+              f"{band_words} words is not a register kernel width")
+        args = banded_args(patterns, texts, budgets, band_words)
+        got = [t.cpu().numpy() for t in
+               cuda_myers_banded.myers_banded_register(*args)]
+        shared = [t.cpu().numpy() for t in
+                  cuda_myers_banded.myers_banded_shared(*args)]
+        t0 = time.monotonic()
+        want = [t.cpu().numpy() for t in
+                cuda_myers_banded.myers_banded_plain(*args)]
+        plain_ms = (time.monotonic() - t0) * 1000
+        err = max(int(np.max(np.abs(g.astype(np.int64) - w)))
+                  for g, w in zip(got, want))
+        at = f"at the root shape on {band_words} band words"
+        check(err == 0, f"K1 differs from its plain version {at} ({err})")
+        check(all(np.array_equal(g, h) for g, h in zip(got, shared)),
+              f"K1's register and shared-memory kernels differ {at}")
+        check(np.array_equal(got[0], native_dist)
+              and np.array_equal(got[1], native_end),
+              f"K1 differs from the native engine {at}")
+        for i, pair in enumerate(mirror):
+            check((int(got[0][i]), int(got[1][i])) == pair,
+                  f"K1 differs from myers_banded_np on root task {i} {at}")
+        if band_words == bw_root:
+            k1_ends.append((args[:5], got[1]))
+        # both kernels on the same operands, in turns: shared, register,
+        # register, shared
+        turns = {"register": [], "shared": []}
+        for name in ("shared", "register", "register", "shared"):
+            kernel = getattr(cuda_myers_banded, f"myers_banded_{name}")
+            turns[name].append(cuda_ms(lambda: kernel(*args), 5))
+        bound_ms, bound_by = k1_bound(args, peaks)
+        case = {"max_abs_err": err, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "shape": f"T={T} m={m_root} k={k_root} BW={band_words} "
+                         f"n~{m_root + 2 * k_root + 600}",
+                "columns": k1_columns}
+        for name, turn in turns.items():
+            ms = sum(turn) / len(turn)
+            case[name] = {"ms": ms, "turns_ms": turn,
+                          "us_per_col": ms * 1000 / k1_columns,
+                          "bound_share": bound_ms / ms}
+        k1_root[band_words] = case
+    # the table's K1 rows: both kernels on the fused wave's root band
+    wave = k1_root[ROOT_WAVE_BAND_WORDS]
+    for key, name, kernel in (("K1", "myers_banded_reg", "register"),
+                              ("K1s", "myers_banded_shared", "shared")):
+        rows[key] = {
+            "name": name, "route": "cuda",
+            "source": cuda_myers_banded.SOURCE,
+            "replaces": cuda_myers_banded.REPLACES,
+            "max_abs_err": max(err_small, *(c["max_abs_err"]
+                                            for c in k1_root.values())),
+            "ms": wave[kernel]["ms"], "plain_ms": wave["plain_ms"],
+            "bound_ms": wave["bound_ms"], "bound_by": wave["bound_by"],
+            "library_ms": None, "shape": wave["shape"],
+            "us_per_col": wave[kernel]["us_per_col"],
+        }
+    rows["K1"]["root"] = {f"BW={bw}": case for bw, case in k1_root.items()}
+
+    # ---- K1's sweep: the register kernel at every width and the
+    # shared-memory kernel at WIDE_BAND_WORDS, each against the plain
+    # version on CPU copies of the same operands
+    sweep_errors = {}
+    plain_results = sweep_plain.get(timeout=600)
+    for (band_words, arrays, num_text), (want, plain_s) in zip(
+        sweep, plain_results
+    ):
+        sweep_args = (*(to_dev(a) for a in arrays), band_words, num_text)
+        if band_words in cuda_myers_banded.REGISTER_BAND_WORDS:
+            kernels = ("register", "shared")
+        else:
+            kernels = ("shared",)
+            # the wide band through the routing entry, counted alone: it
+            # must take the shared-memory kernel
+            reset_launches()
+            cuda_myers_banded.myers_banded(*sweep_args)
+            torch.cuda.synchronize()
+            wide = (cuda_myers_banded.REGISTER_LAUNCHES,
+                    cuda_myers_banded.SHARED_LAUNCHES)
+            check(wide == (0, 1), f"a {band_words}-word band took the "
+                  f"kernels (register, shared) {wide} times")
+        for name in kernels:
+            kernel = getattr(cuda_myers_banded, f"myers_banded_{name}")
+            got = [t.cpu().numpy() for t in kernel(*sweep_args)]
+            err = max(int(np.max(np.abs(g.astype(np.int64) - w)))
+                      for g, w in zip(got, want))
+            check(err == 0, f"K1's {name} kernel differs from its plain "
+                  f"version at {band_words} band words ({err})")
+            sweep_errors[f"{name} BW={band_words}"] = err
+        sweep_errors[f"plain_cpu_s BW={band_words}"] = plain_s
+    sweep_fields = {
+        "tasks_per_width": SWEEP_CASES, "max_abs_err": sweep_errors,
+        "wide_band_launches": {"register": 0, "shared": 1},
     }
 
     # ---- K2 (test_pallas_myers.py's generator, then a timing shape of
@@ -303,6 +554,7 @@ def run_kernel_phase(device, rng):
         "source": cuda_myers.SOURCE, "replaces": cuda_myers.REPLACES,
         "max_abs_err": max(err2, err2t), "ms": k2_ms,
         "plain_ms": (time.monotonic() - t0) * 1000,
+        **bound_fields(full_bound(args2, peaks)),
         "shape": "B=2048 m=172 n=172..231",
     }
 
@@ -342,20 +594,21 @@ def run_kernel_phase(device, rng):
         "replaces": cuda_myers_large.REPLACES,
         "max_abs_err": max(err3, err3t), "ms": k3_ms,
         "plain_ms": (time.monotonic() - t0) * 1000,
+        **bound_fields(full_bound(args3, peaks)),
         "shape": "B=256 m=1376 n=1376..1435 Wp=128",
     }
-    return rows, k1_ends
+    return rows, k1_ends, sweep_fields
 
 
-def run_traceback_phase(device, rng):
+def run_traceback_phase(device, rng, peaks):
     """K4 at the 20 kb root shape: equal to its plain version on two tasks
     and to the host traceback (native/traceback.cpp through dp_reference)
     on every accepted root of a seeded batch. Returns the table row."""
     import numpy as np
     import torch
 
-    from floxer_tpu.native import native_myers_distance_batch
-    from floxer_tpu.ops import dp_reference
+    from floxer_tpu_torch.native import native_myers_distance_batch
+    from floxer_tpu_torch.ops import dp_reference
     from floxer_tpu_torch.ops import traceback_device as td
 
     _, m_root, k_root, _ = ROOT_SHAPE
@@ -425,10 +678,14 @@ def run_traceback_phase(device, rng):
               for k, p in zip(kernel_out, plain_out))
     check(err == 0, f"K4 differs from its plain version ({err})")
     k4_ms = cuda_ms(lambda: td.banded_directions_and_walk(*args, **shape), 3)
+    # the band's cells: 2d + 1 per pattern row of each task
+    cells = sum(len(p) * (2 * d + 1) for _, p, _, d in pair)
     return {
         "name": "traceback_banded", "route": "cuda",
         "source": td.SOURCE, "replaces": td.REPLACES,
         "max_abs_err": err, "ms": k4_ms, "plain_ms": plain_ms,
+        **bound_fields(bound(TRACEBACK_OPS * cells, tensor_bytes(*args),
+                             peaks)),
         "shape": f"T=2 m={len(pair[0][1])} d={pair[0][3]},{pair[1][3]} "
                  f"m_pad={m_pad} w_pad={w_pad}",
         "host_equal_tasks": len(tasks),
@@ -445,6 +702,37 @@ def script_arrays(num_text):
 
     return (k5.script_inputs(num_text), k6.script_texts(num_text),
             k78.script_jstar(num_text))
+
+
+def script_bounds(arrays, peaks) -> dict:
+    """K5-K8's bound fields for their representative variants on
+    script_arrays' `arrays`, per band word and column, counted as the
+    constants above count: K5 `full` runs K1's column on every row's
+    columns; K6 `elementwise` 20 x (xor, or, add) plus the accumulating
+    IADD3 (v1 is the same in every word); K7 carry=10 ops=80 rolls=12 the
+    char's xor and the carried sum's add (the carried arrays but the first
+    are the same in every word), 80 x (shift, LOP3) and 12 xors; K8
+    bcast=18 one predicated xor per condition plus the char's add."""
+    import numpy as np
+
+    inputs, texts, jstar = arrays
+    rows, num_text = texts.shape
+    band_words = inputs[0].shape[1]
+    word_cols = rows * band_words * num_text
+    out_bytes = rows * band_words * 4
+    k5_ops = banded_ops(band_words, np.full(rows, num_text + 1),
+                        inputs[4][:, 1], num_text)
+    k5_bytes = sum(a.nbytes for a in inputs) + 8 * rows
+    return {
+        "K5": bound_fields(bound(k5_ops, k5_bytes, peaks)),
+        "K6": bound_fields(bound((20 * 3 + 1) * word_cols,
+                                 texts.nbytes + out_bytes, peaks)),
+        "K7": bound_fields(bound((2 + 80 * 2 + 12) * word_cols,
+                                 texts.nbytes + out_bytes, peaks)),
+        "K8": bound_fields(bound((18 + 1) * word_cols,
+                                 texts.nbytes + jstar.nbytes + out_bytes,
+                                 peaks)),
+    }
 
 
 def script_cases(device, arrays):
@@ -520,7 +808,7 @@ def start_full_width_plain(arrays):
 
 
 def run_scripts_phase(device, scripts_build, k1_row, k1_ends, full_arrays,
-                      full_plain):
+                      full_plain, peaks):
     """K5-K8: every variant against its plain version at COMPARE_TEXT
     columns on the card; K5 `full` at K1's end columns on K1's operands;
     every variant timed at the scripts' full width on `full_arrays`, its
@@ -538,9 +826,8 @@ def run_scripts_phase(device, scripts_build, k1_row, k1_ends, full_arrays,
 
     scripts_build.result()  # re-raises a failed build
     variants = {}
-    for kernel, label, launch, plain in script_cases(
-        device, script_arrays(COMPARE_TEXT)
-    ):
+    compare_arrays = script_arrays(COMPARE_TEXT)
+    for kernel, label, launch, plain in script_cases(device, compare_arrays):
         got = host_arrays(launch())
         torch.cuda.synchronize()
         started = time.monotonic()
@@ -600,6 +887,7 @@ def run_scripts_phase(device, scripts_build, k1_row, k1_ends, full_arrays,
         f"unexpected entry point output: {printed}")
 
     table = {}
+    bounds = script_bounds(compare_arrays, peaks)
     for kernel, name, module, replaces, representative in (
         ("K5", "ablate_banded", k5, k5.REPLACES, "full"),
         ("K6", "column_loop", k6, k6.REPLACES, "elementwise"),
@@ -617,6 +905,7 @@ def run_scripts_phase(device, scripts_build, k1_row, k1_ends, full_arrays,
             ),
             "ms": rep[f"ms_{COMPARE_TEXT}"],
             "plain_ms": rep[f"plain_ms_{COMPARE_TEXT}"],
+            **bounds[kernel],
         }
     fields = {
         "nvcc_seconds": _build.SCRIPTS.last_build_seconds,
@@ -626,7 +915,10 @@ def run_scripts_phase(device, scripts_build, k1_row, k1_ends, full_arrays,
                  f"at n={NUM_TEXT}",
         "plain_wait_s": plain_wait_s,
         "k5_full_at_k1_end_tasks": sum(len(end) for _, end in k1_ends),
-        "k1_us_per_col": k1_row["us_per_col"],
+        "k1_us_per_col_bw256": {
+            name: k1_row["root"]["BW=256"][name]["us_per_col"]
+            for name in ("register", "shared")
+        },
         "k5_full_us_per_col": variants[("K5", "full")]["us_per_col"],
         "variants": {f"{k} {label}": v for (k, label), v in variants.items()},
         "launches": launches, "entry_points": printed,
@@ -690,10 +982,11 @@ def reset_launches() -> None:
         microbench_column_loop,
     )
 
-    for module in (cuda_myers_banded, cuda_myers, cuda_myers_large,
-                   traceback_device, ablate_banded_kernel,
-                   microbench_column_loop):
+    for module in (cuda_myers, cuda_myers_large, traceback_device,
+                   ablate_banded_kernel, microbench_column_loop):
         module.LAUNCHES = 0
+    cuda_myers_banded.REGISTER_LAUNCHES = 0
+    cuda_myers_banded.SHARED_LAUNCHES = 0
     microbench_carry_scaling.CARRY_LAUNCHES = 0
     microbench_carry_scaling.BCAST_LAUNCHES = 0
 
@@ -707,20 +1000,24 @@ def run_logged_launches(logfile: Path) -> dict:
 
 
 class E2E:
-    """The simulated 20 kb workload and its runs; pass B (native host
-    engine only) is the oracle every other pass is held to."""
+    """A simulated workload and its runs (by default the 20 kb one); pass
+    B (native host engine only) is the oracle every other pass is held
+    to."""
 
-    def __init__(self, workdir: Path, num_reads: int):
-        from floxer_tpu.tools.simulated_dataset import main as simulate
+    def __init__(self, workdir: Path, num_reads: int, genome_bp=4_600_000,
+                 read_len=20_000, read_error=0.07, query_error=0.08):
+        from floxer_tpu_torch.tools.simulated_dataset import main as simulate
 
+        workdir.mkdir(exist_ok=True)
         self.workdir = workdir
         self.num_reads = num_reads
+        self.query_error = query_error
         self.genome = workdir / "genome.fasta"
         self.reads = workdir / "reads.fastq"
         check(simulate([
             "create", "-g", str(self.genome), "-r", str(self.reads),
-            "-c", "4600000", "-n", "1", "-l", "20000",
-            "-m", str(num_reads), "-e", "0.07", "-s", str(SEED),
+            "-c", str(genome_bp), "-n", "1", "-l", str(read_len),
+            "-m", str(num_reads), "-e", str(read_error), "-s", str(SEED),
         ]) == 0, "simulated_dataset create failed")
 
     def argv(self, name, extra=()):
@@ -729,9 +1026,19 @@ class E2E:
             "--index", str(self.workdir / "index.npz"),
             "--output", str(self.workdir / f"{name}.sam"),
             "--logfile", str(self.workdir / f"{name}.log"),
-            "-p", "0.08", "--interval-optimization", "--threads", "4",
-            "--batch-size", "100", *extra,
+            "-p", str(self.query_error), "--interval-optimization",
+            "--threads", "4", "--batch-size", "100", *extra,
         ]
+
+    def run_host_pass(self) -> None:
+        """Pass B: the native host engine only (no torch kernel); it also
+        builds and saves the index every pass loads."""
+        from floxer_tpu_torch import pipeline
+        from floxer_tpu_torch.cli import parse_and_validate
+
+        cli = parse_and_validate(self.argv("pass_b"))
+        check(pipeline.run(cli, use_device=False) == 0,
+              f"pass B in {self.workdir.name} failed")
 
     def sam(self, name) -> bytes:
         return (self.workdir / f"{name}.sam").read_bytes()
@@ -741,9 +1048,11 @@ class E2E:
 
     def run_device_pass(self, name, extra=(), env=None):
         """One --engine device run in this process with the launch counts
-        set to 0 just before it; (launches, fused dispatches)."""
+        set to 0 just before it; (launches, fused dispatches). The launches
+        also hold K1's split by kernel (K1_register, K1_shared)."""
         from floxer_tpu_torch import pipeline, verify_batch
         from floxer_tpu_torch.__main__ import main
+        from floxer_tpu_torch.ops import cuda_myers_banded
 
         env = env or {}
         os.environ.update(env)
@@ -752,6 +1061,8 @@ class E2E:
             reset_launches()
             code = main(self.argv(name, ["--engine", "device", *extra]))
             launches = pipeline.kernel_launches()
+            launches["K1_register"] = cuda_myers_banded.REGISTER_LAUNCHES
+            launches["K1_shared"] = cuda_myers_banded.SHARED_LAUNCHES
         finally:
             for key in env:
                 del os.environ[key]
@@ -764,13 +1075,9 @@ class E2E:
 def run_e2e(device, e2e: E2E):
     import torch
 
-    from floxer_tpu.cli import parse_and_validate
     from floxer_tpu_torch import pipeline, verify_batch
 
-    # pass B first: the native host engine only (no torch kernel); it also
-    # builds and saves the index every pass loads
-    cli = parse_and_validate(e2e.argv("pass_b"))
-    check(pipeline.run(cli, use_device=False) == 0, "pass B failed")
+    e2e.run_host_pass()
 
     # pass A: every wave fused on the card. The warmup (kernel build and
     # one tiny launch per kernel) runs first, so the counts below are the
@@ -801,6 +1108,10 @@ def run_e2e(device, e2e: E2E):
     check(fused > 0, "pass A made no fused dispatch")
     for name in ("K1", "K2", "K3"):
         check(launches[name] > 0, f"{name} was never launched in pass A")
+    check(launches["K1_register"] == launches["K1"]
+          and launches["K1_shared"] == 0,
+          f"pass A's K1 launches did not all take the register kernel: "
+          f"{launches}")
     check(mapped > 0, "no read mapped")
     return result, launches
 
@@ -835,6 +1146,27 @@ def run_legacy_pass(e2e: E2E):
         "stage_split": align_seconds(e2e.workdir / "pass_d.log")[1],
         "launches": launches, "sam_identical": True,
     }
+
+
+def run_long_pass(e2e: E2E):
+    """Pass E: the LONG_READS workload with --engine device against its own
+    pass B. Its PEX roots need bands over 512 words, so the fused wave runs
+    them on the shared-memory K1 (counted apart from the register
+    kernel's inner nodes)."""
+    e2e.run_host_pass()
+    launches, fused = e2e.run_device_pass("pass_e")
+    check(launches["K1_shared"] > 0,
+          f"pass E launched no shared-memory K1: {launches}")
+    return {
+        "reads": e2e.num_reads, "genome_bp": LONG_READS[0],
+        "read_len": LONG_READS[2], "read_error": LONG_READS[3],
+        "query_error": e2e.query_error,
+        "align_s": e2e.seconds("pass_e"),
+        "pass_b_align_s": e2e.seconds("pass_b"),
+        "stage_split": align_seconds(e2e.workdir / "pass_e.log")[1],
+        "launches": launches, "fused_dispatches": fused,
+        "sam_identical": True,
+    }, launches
 
 
 def run_server_pass(e2e: E2E):
@@ -919,12 +1251,90 @@ def run_profile_pass(e2e: E2E):
     traces = list(trace_dir.glob("*.json"))
     check(len(traces) == 1, f"expected one trace in {trace_dir}: {traces}")
     text = traces[0].read_text()
-    check("myers_banded_kernel" in text, "the trace does not name K1")
+    check("myers_banded_reg_kernel" in text,
+          "the trace does not name K1's register kernel")
     return {
         "align_s": e2e.seconds("pass_p"), "trace_bytes": len(text),
-        "k1_events": text.count("myers_banded_kernel"),
+        "k1_events": text.count("myers_banded_reg_kernel"),
         "launches": launches, "sam_identical": True,
+        **trace_breakdown(json.loads(text)),
     }
+
+
+def trace_breakdown(trace: dict, top: int = 6) -> dict:
+    """Device time of a torch.profiler Chrome trace: the kernels' summed
+    time by name (the `top` largest), the union of the kernel and copy
+    intervals (device busy) and the first-to-last device span, in s."""
+    intervals, by_name = [], {}
+    for event in trace.get("traceEvents", []):
+        if event.get("ph") != "X" or event.get("cat") not in (
+            "kernel", "gpu_memcpy", "gpu_memset"
+        ):
+            continue
+        start, dur = float(event["ts"]), float(event.get("dur", 0))
+        intervals.append((start, start + dur))
+        if event["cat"] == "kernel":
+            name = event["name"].replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].removeprefix("void ")
+            count, total = by_name.get(name, (0, 0.0))
+            by_name[name] = (count + 1, total + dur)
+    check(bool(intervals), "the trace holds no device activity")
+    intervals.sort()
+    busy, (cur_start, cur_end) = 0.0, intervals[0]
+    for start, end in intervals[1:]:
+        if start > cur_end:
+            busy += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    busy += cur_end - cur_start
+    kernels_s = sum(total for _, total in by_name.values()) / 1e6
+    largest = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return {
+        "device_busy_s": busy / 1e6,
+        "device_span_s": (intervals[-1][1] - intervals[0][0]) / 1e6,
+        "kernel_s": kernels_s,
+        "kernel_launches": sum(count for count, _ in by_name.values()),
+        "kernels_by_time": [
+            {"name": name[:80], "launches": count, "s": total / 1e6,
+             "share": total / 1e6 / kernels_s}
+            for name, (count, total) in largest
+        ],
+    }
+
+
+def ptxas_phase() -> dict:
+    """K1's register kernel instances as the aligner's build compiled them:
+    what ptxas -v reported (registers, stack, spills) and, from the
+    library's SASS, the instructions of each column loop (the sliding
+    loop, then the frozen one; a loop runs once per text column) and those
+    per band word. Fails on a missing instance, a spill or a stack frame."""
+    from floxer_tpu_torch.ops import _build
+    from floxer_tpu_torch.ops.cuda_myers_banded import REGISTER_BAND_WORDS
+
+    def by_width(found: dict) -> dict:
+        out = {}
+        for name, value in found.items():
+            width = re.search(r"myers_banded_reg_kernelILi(\d+)E", name)
+            if width:
+                out[int(width.group(1))] = value
+        check(sorted(out) == [bw // 32 for bw in REGISTER_BAND_WORDS],
+              f"the register kernel's instances are R = {sorted(out)}")
+        return out
+
+    usage = by_width(_build.ALIGNER.ptxas_usage())
+    loops = by_width(_build.sass_loops(_build.ALIGNER.sass()))
+    for r, found in usage.items():
+        check(found.get("spill_stores", 1) == 0
+              and found.get("spill_loads", 1) == 0
+              and found.get("stack", 1) == 0,
+              f"myers_banded_reg_kernel<{r}> spills or keeps a stack "
+              f"frame: {found}")
+        check(len(loops[r]) == 2, f"myers_banded_reg_kernel<{r}> has "
+              f"innermost loops of {loops[r]} instructions, not two")
+    return {f"R={r}": {**usage[r], "sass_loop_instructions": loops[r],
+                       "per_band_word": [n / r for n in loops[r]]}
+            for r in sorted(usage)}
 
 
 def main() -> int:
@@ -942,9 +1352,36 @@ def main() -> int:
     )
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     card = smi.stdout.strip().splitlines()[0]
+    peaks = card_peaks(device)
     phase("env", torch=torch.__version__, cuda=torch.version.cuda,
-          capability=list(torch.cuda.get_device_capability(0)))
+          capability=list(torch.cuda.get_device_capability(0)), **peaks)
     print(card, flush=True)
+
+    # the plain versions of K1's sweep and of K5-K8 at full width run on
+    # the CPU in worker processes from now on, while the kernels build and
+    # the card runs on
+    from floxer_tpu_torch.scripts import NUM_TEXT
+
+    sweep = k1_sweep_cases(SEED + 1)
+    full_arrays = script_arrays(NUM_TEXT)
+    sweep_pool = multiprocessing.get_context("spawn").Pool(SWEEP_WORKERS)
+    pools = [sweep_pool]
+    try:
+        sweep_plain = sweep_pool.map_async(_k1_plain, sweep, chunksize=1)
+        full_pool, full_plain = start_full_width_plain(full_arrays)
+        pools.append(full_pool)
+        return run_all(device, peaks, sweep, sweep_plain, full_arrays,
+                       full_plain)
+    finally:
+        for pool in pools:
+            pool.terminate()
+            pool.join()
+
+
+def run_all(device, peaks, sweep, sweep_plain, full_arrays,
+            full_plain) -> int:
+    import numpy as np
+    import torch
 
     from floxer_tpu_torch.ops import _build
 
@@ -958,31 +1395,22 @@ def main() -> int:
     phase("build", seconds=time.monotonic() - started,
           nvcc_seconds=_build.ALIGNER.last_build_seconds,
           library=str(_build.ALIGNER.path().relative_to(ROOT)))
-
-    import numpy as np
+    phase("ptxas", kernel="myers_banded_reg_kernel<R>", **ptxas_phase())
 
     rng = np.random.default_rng(SEED)
-    rows, k1_ends = run_kernel_phase(device, rng)
-    rows["K4"] = run_traceback_phase(device, rng)
-    phase("kernels", **{name: {k: v for k, v in row.items()
-                               if k not in ("name", "route", "source",
-                                            "replaces")}
-                        for name, row in rows.items()})
+    rows, k1_ends, sweep_fields = run_kernel_phase(
+        device, rng, peaks, sweep, sweep_plain
+    )
+    rows["K4"] = run_traceback_phase(device, rng, peaks)
+    phase("kernels", k1_sweep=sweep_fields,
+          **{name: {k: v for k, v in row.items()
+                    if k not in ("name", "route", "source", "replaces")}
+             for name, row in rows.items()})
 
-    # the plain versions of K5-K8 at full width start on the CPU once
-    # K1-K4 are timed, and are read at the end of the scripts phase
-    from floxer_tpu_torch.scripts import NUM_TEXT
-
-    full_arrays = script_arrays(NUM_TEXT)
-    pool, full_plain = start_full_width_plain(full_arrays)
-    try:
-        fields, script_rows = run_scripts_phase(
-            device, scripts_build, rows["K1"], k1_ends, full_arrays,
-            full_plain,
-        )
-    finally:
-        pool.terminate()
-        pool.join()
+    fields, script_rows = run_scripts_phase(
+        device, scripts_build, rows["K1"], k1_ends, full_arrays,
+        full_plain, peaks,
+    )
     phase("scripts", **fields)
 
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
@@ -997,16 +1425,22 @@ def main() -> int:
         phase("legacy", **run_legacy_pass(e2e))
         phase("server", **run_server_pass(e2e))
         phase("profile", **run_profile_pass(e2e))
+        long = E2E(workdir / "long", LONG_READS[1], LONG_READS[0],
+                   *LONG_READS[2:])
+        result, launches_e = run_long_pass(long)
+        phase("long_reads", **result)
 
     for name in ("K1", "K2", "K3"):
         rows[name]["launches"] = launches[name]
+    rows["K1s"]["launches"] = launches_e["K1_shared"]
     rows["K4"]["launches"] = launches_c["K4"]
     rows.update(script_rows)
     keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms")
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [
         {k: rows[name][k] for k in keys}
-        for name in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
+        for name in ("K1", "K1s", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,8 +1,8 @@
 """CLI entry point: python -m floxer_tpu_torch ... (the floxer_tpu CLI,
 verifying on an NVIDIA Hopper GPU).
 
-The arguments are floxer_tpu's (floxer_tpu.cli); the options this port does
-not cover yet are rejected with a non-zero exit (see ROADMAP.md).
+The arguments are floxer_tpu's (this package's copy of its cli.py); the
+options this port does not cover yet are rejected with a non-zero exit (see ROADMAP.md).
 
 Server mode (server.py), as in floxer_tpu:
   python -m floxer_tpu_torch --serve SOCKET             run the daemon
@@ -45,7 +45,7 @@ def main(argv=None) -> int:
 
         return run_via_server(server_path, argv)
 
-    from floxer_tpu.cli import parse_and_validate
+    from .cli import parse_and_validate
 
     from .pipeline import run
 

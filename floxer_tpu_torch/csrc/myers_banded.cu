@@ -12,19 +12,49 @@
 // integer ops over the band (a multi-word add whose carry crosses every
 // word, two one-bit shifts across words) fed by one 4-bit text char and
 // one 4-bit pattern char. A few bytes enter per column, so memory is idle:
-// the kernel is bound by integer-op latency along the column chain.
+// the kernel is bound by int32 issue and, with one warp per task and under
+// two tasks per SM at the root shape, by the latency of the per-column
+// dependency chain.
 //
-// Design: one warp per task, so a column is one warp step with no block
-// barrier. Lane l owns the contiguous band words [l*R, (l+1)*R), R = BW/32.
-// The multi-word add ripples inside each lane's run and carries between
-// lanes by a warp (generate, propagate) scan with __shfl_up_sync; the
-// one-bit band slide and the one-bit horizontal shift carry their boundary
-// bits between lanes by __shfl_down_sync / __shfl_up_sync. State lives in
-// shared memory, interleaved so that word i of lane l sits at [i*32 + l]
-// (no bank conflicts, no lane reads another lane's words), which takes any
-// band width without a template per width. Each task stops at its own
-// tlen, which is what the TPU kernel's per-group bound computes, because
-// only columns with col < tlen can improve the result.
+// Two kernels compute the same function; the wrapper picks one by band
+// width. Both run one warp per task, so a column is one warp step with no
+// block barrier, and lane l owns the contiguous band words
+// [l*R, (l+1)*R), R = BW/32.
+//
+// myers_banded_reg_kernel<R> (R = 1, 2, 4, 8, 12, 16; BW up to 512 words):
+// the band state (VP VN and the four char planes) lives in registers,
+// x[R] per lane, indexed only by compile-time constants in unrolled loops,
+// and nothing is read or written in shared memory inside the column loop.
+// Per column:
+//   - the slide is one funnel shift per word and array; the six boundary
+//     bits of word 0 cross lanes in one packed __shfl_down_sync, and lane
+//     31 takes the entering row's bits from the pattern char;
+//   - the multi-word add has no serial carry chain: the carry between
+//     lanes is a 32-lane carry-lookahead in one 32-bit add: with Gm and Pm
+//     the ballots of the runs' generate and propagate bits (exclusive per
+//     run), the carry into lane l is bit l of (A + Gm) ^ A ^ Gm,
+//     A = Gm | Pm (two ballots against the eleven shuffles of a 5-round
+//     scan); inside the run the same identity on R-bit masks of the
+//     words' generate and propagate bits, with the lane's carry added at
+//     bit 0, gives every word's carry (it replaced an in-lane ripple of
+//     two to three dependent ops per word: the same function, a shorter
+//     chain);
+//   - the horizontal shift is one funnel shift per word plus one
+//     __shfl_up_sync of the lane's top bits;
+//   - the band bottom is the top bit of lane 31's last word, so lane 31
+//     keeps the scores and writes the result, without a broadcast;
+//   - the sliding and the frozen columns run in two loops, and the next
+//     packed text and pattern words are loaded one 8-column step ahead.
+//
+// myers_banded_kernel (any other width, i.e. bands wider than 512 words):
+// state in shared memory, interleaved so that word i of lane l sits at
+// [i*32 + l] (no bank conflicts, no lane reads another lane's words),
+// which takes any band width without a template per width; the carry is a
+// warp (generate, propagate) scan with __shfl_up_sync.
+//
+// Each task stops at its own tlen, which is what the TPU kernel's
+// per-group bound computes, because only columns with col < tlen can
+// improve the result.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -223,6 +253,227 @@ __global__ void myers_banded_kernel(
   }
 }
 
+// ---- register kernel -----------------------------------------------------
+
+// Slide one band array one bit toward word 0; bit 0 of `entering` enters at
+// the top of this lane's last word.
+template <int R>
+__device__ __forceinline__ void slide_reg(uint32_t (&x)[R],
+                                          uint32_t entering) {
+#pragma unroll
+  for (int i = 0; i < R - 1; ++i) x[i] = __funnelshift_r(x[i], x[i + 1], 1);
+  x[R - 1] = __funnelshift_r(x[R - 1], entering, 1);
+}
+
+// The OR of x[0..R) as a tree of compile-time depth log2(R).
+template <int R>
+__device__ __forceinline__ uint32_t or_tree(uint32_t (&x)[R]) {
+#pragma unroll
+  for (int step = 1; step < R; step <<= 1) {
+#pragma unroll
+    for (int i = 0; i + step < R; i += 2 * step) x[i] |= x[i + step];
+  }
+  return x[0];
+}
+
+// One text column on register state. Returns the score delta at the band
+// bottom (meaningful in lane 31 only).
+template <int R, bool kSliding>
+__device__ __forceinline__ int column_reg(
+    uint32_t (&vp)[R], uint32_t (&vn)[R], uint32_t (&p0)[R],
+    uint32_t (&p1)[R], uint32_t (&p2)[R], uint32_t (&am)[R], uint32_t tch,
+    uint32_t pch, uint32_t pessim, int lane) {
+  // 1) band slide: every array moves one bit toward word 0; the row
+  // entering at the bottom gets a pessimistic VP bit and the plane bits of
+  // its pattern char
+  if (kSliding) {
+    const uint32_t head = (vp[0] & 1u) | ((vn[0] & 1u) << 1) |
+                          ((p0[0] & 1u) << 2) | ((p1[0] & 1u) << 3) |
+                          ((p2[0] & 1u) << 4) | ((am[0] & 1u) << 5);
+    uint32_t nxt = __shfl_down_sync(kFull, head, 1);
+    if (lane == 31) nxt = 1u | ((pch & 7u) << 2);
+    slide_reg<R>(vp, nxt);
+    slide_reg<R>(vn, nxt >> 1);
+    slide_reg<R>(p0, nxt >> 2);
+    slide_reg<R>(p1, nxt >> 3);
+    slide_reg<R>(p2, nxt >> 4);
+    slide_reg<R>(am, nxt >> 5);
+  }
+
+  // 2) Eq from the char bit-planes, and each word's carry generate and
+  // propagate bit of the add eq & vp + vp, as R-bit masks of the lane's
+  // run; they are exclusive (a word that propagates, t == ~0, cannot
+  // overflow)
+  const uint32_t x0 = (tch & 1u) ? 0u : kFull;
+  const uint32_t x1 = (tch & 2u) ? 0u : kFull;
+  const uint32_t x2 = (tch & 4u) ? 0u : kFull;
+  uint32_t eq[R], t[R], gen[R], prop[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    eq[i] = ((p0[i] ^ x0) & (p1[i] ^ x1) & (p2[i] ^ x2)) | am[i];
+    const uint32_t a = eq[i] & vp[i];
+    t[i] = a + vp[i];
+    gen[i] = (t[i] < a ? 1u : 0u) << i;
+    prop[i] = (t[i] == kFull ? 1u : 0u) << i;
+  }
+  const uint32_t gen_run = or_tree<R>(gen);
+  const uint32_t prop_run = or_tree<R>(prop);
+  const uint32_t any_run = gen_run | prop_run;
+  // the run generates a carry (its add from carry-in 0 overflows) or
+  // propagates one (every word propagates)
+  const uint32_t G = (any_run + gen_run) >> R;
+  const bool P = prop_run == (1u << R) - 1u;
+  // carry-lookahead across the 32 lanes in one add, then across the run's
+  // words in another: bit i of `carries` is the carry into word i
+  const uint32_t gm = __ballot_sync(kFull, G != 0u);
+  const uint32_t pm = __ballot_sync(kFull, P);
+  const uint32_t any = gm | pm;
+  const uint32_t carry_in = (((any + gm) ^ any ^ gm) >> lane) & 1u;
+  const uint32_t carries = (any_run + gen_run + carry_in) ^ any_run ^ gen_run;
+
+  // 3) the add with carries and the horizontal deltas; Xv parks in vn
+  uint32_t ph[R], mh[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const uint32_t sum = t[i] + ((carries >> i) & 1u);
+    const uint32_t xh = (sum ^ vp[i]) | eq[i];
+    ph[i] = vn[i] | ~(xh | vp[i]);
+    mh[i] = vp[i] & xh;
+    vn[i] = eq[i] | vn[i];
+  }
+
+  // 4) horizontal deltas shift down one row; the delta entering at word 0
+  // is +1 (pessimistic) once the top stored row is a real row
+  const uint32_t top = (ph[R - 1] >> 31) | ((mh[R - 1] >> 31) << 1);
+  uint32_t hcarry = __shfl_up_sync(kFull, top, 1);
+  if (lane == 0) hcarry = pessim;
+  const uint32_t ph_sh0 = (ph[0] << 1) | (hcarry & 1u);
+  const uint32_t mh_sh0 = (mh[0] << 1) | ((hcarry >> 1) & 1u);
+  vp[0] = mh_sh0 | ~(vn[0] | ph_sh0);
+  vn[0] = ph_sh0 & vn[0];
+#pragma unroll
+  for (int i = 1; i < R; ++i) {
+    const uint32_t ph_sh = __funnelshift_l(ph[i - 1], ph[i], 1);
+    const uint32_t mh_sh = __funnelshift_l(mh[i - 1], mh[i], 1);
+    vp[i] = mh_sh | ~(vn[i] | ph_sh);
+    vn[i] = ph_sh & vn[i];
+  }
+  // 5) the score delta at the band bottom: the top bit of the last word
+  return static_cast<int>(top & 1u) - static_cast<int>(top >> 1);
+}
+
+template <int R>
+__global__ void __launch_bounds__(32) myers_banded_reg_kernel(
+    const uint32_t* __restrict__ vp0,      // [T, BW]
+    const uint32_t* __restrict__ planes0,  // [T, 4, BW]
+    const uint32_t* __restrict__ texts,    // [T, NW] 8 nibbles per word
+    const uint32_t* __restrict__ pstream,  // [T, NW] 8 nibbles per word
+    const int32_t* __restrict__ scalars,   // [T, 6]
+    int T, int NW,
+    int32_t* __restrict__ dist, int32_t* __restrict__ end_col) {
+  constexpr int BW = 32 * R;
+  const int task = blockIdx.x;
+  const int lane = threadIdx.x;
+  if (task >= T) return;
+
+  uint32_t vp[R], vn[R], p0[R], p1[R], p2[R], am[R];
+  const size_t row = static_cast<size_t>(task) * BW + lane * R;
+  const size_t prow = static_cast<size_t>(task) * 4 * BW + lane * R;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    vp[i] = vp0[row + i];
+    vn[i] = 0u;
+    p0[i] = planes0[prow + i];
+    p1[i] = planes0[prow + BW + i];
+    p2[i] = planes0[prow + 2 * BW + i];
+    am[i] = planes0[prow + 3 * BW + i];
+  }
+
+  const int32_t* sc = scalars + static_cast<size_t>(task) * 6;
+  const int tlen = sc[0];
+  const int jstar = sc[1];
+  const int topshift = sc[2];
+  const uint32_t mfrozen = sc[3] != 0 ? 1u : 0u;
+  const int m = sc[4];
+  const int k = sc[5];
+  int s_bot = k;
+  int s_m = m;
+  int best = m;
+  int best_end = 0;
+
+  const uint32_t* trow = texts + static_cast<size_t>(task) * NW;
+  const uint32_t* srow = pstream + static_cast<size_t>(task) * NW;
+  const int last_col = min(tlen - 1, NW * 8);
+  // the band slides on columns 1..slide_end, is frozen after
+  const int slide_end = min(jstar, last_col);
+  uint32_t tword = 0u, sword = 0u;
+  uint32_t tnext = last_col >= 1 ? __ldg(trow) : 0u;
+  uint32_t snext = last_col >= 1 ? __ldg(srow) : 0u;
+
+  int col = 1;
+  for (; col <= slide_end; ++col) {
+    const int j = col - 1;
+    if ((j & 7) == 0) {
+      tword = tnext;
+      sword = snext;
+      const int w = (j >> 3) + 1;
+      if (w < NW) {
+        tnext = __ldg(trow + w);
+        snext = __ldg(srow + w);
+      }
+    }
+    const uint32_t tch = tword & 0xfu;
+    const uint32_t pch = sword & 0xfu;
+    tword >>= 4;
+    sword >>= 4;
+    s_bot += 1 + column_reg<R, true>(vp, vn, p0, p1, p2, am, tch, pch,
+                                     col >= topshift ? 1u : 0u, lane);
+  }
+  if (slide_end >= 1 && slide_end == jstar) {
+    // column j* was the last sliding one: row m sits at the band bottom
+    s_m = s_bot;
+    if (s_m <= best) {
+      best = s_m;
+      best_end = jstar;
+    }
+  }
+  for (; col <= last_col; ++col) {
+    const int j = col - 1;
+    if ((j & 7) == 0) {
+      tword = tnext;
+      const int w = (j >> 3) + 1;
+      if (w < NW) tnext = __ldg(trow + w);
+    }
+    const uint32_t tch = tword & 0xfu;
+    tword >>= 4;
+    s_m += column_reg<R, false>(vp, vn, p0, p1, p2, am, tch, 0u, mfrozen,
+                                lane);
+    if (s_m <= best) {
+      best = s_m;
+      best_end = col;
+    }
+  }
+  if (lane == 31) {
+    dist[task] = best;
+    end_col[task] = best_end;
+  }
+}
+
+template <int R>
+int launch_reg(const void* vp0, const void* planes0, const void* texts,
+               const void* pattern_stream, const void* scalars, int T,
+               int text_words, void* dist, void* end_col, void* stream) {
+  myers_banded_reg_kernel<R>
+      <<<T, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint32_t*>(vp0),
+          static_cast<const uint32_t*>(planes0),
+          static_cast<const uint32_t*>(texts),
+          static_cast<const uint32_t*>(pattern_stream),
+          static_cast<const int32_t*>(scalars), T, text_words,
+          static_cast<int32_t*>(dist), static_cast<int32_t*>(end_col));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int floxer_myers_banded(
@@ -249,4 +500,29 @@ extern "C" int floxer_myers_banded(
       static_cast<const int32_t*>(scalars), T, band_words, text_words,
       static_cast<int32_t*>(dist), static_cast<int32_t*>(end_col));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The register kernel at the instantiated widths (the cases below; the
+// wrapper's REGISTER_BAND_WORDS); other widths are refused, and the
+// wrapper sends them to floxer_myers_banded.
+extern "C" int floxer_myers_banded_reg(
+    const void* vp0, const void* planes0, const void* texts,
+    const void* pattern_stream, const void* scalars, int T, int band_words,
+    int text_words, void* dist, void* end_col, void* stream) {
+  if (T == 0) return 0;
+#define FLOXER_REG_CASE(R)                                                  \
+  case 32 * R:                                                              \
+    return launch_reg<R>(vp0, planes0, texts, pattern_stream, scalars, T,   \
+                         text_words, dist, end_col, stream);
+  switch (band_words) {
+    FLOXER_REG_CASE(1)
+    FLOXER_REG_CASE(2)
+    FLOXER_REG_CASE(4)
+    FLOXER_REG_CASE(8)
+    FLOXER_REG_CASE(12)
+    FLOXER_REG_CASE(16)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef FLOXER_REG_CASE
 }

@@ -19,6 +19,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -32,6 +33,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
+# per source: ptxas reports every kernel's registers, stack and spills,
+# kept beside the library (KernelLibrary.log_path)
+COMPILE_FLAGS = ["-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -74,8 +78,13 @@ class KernelLibrary:
         for source in self.sources():
             digest.update(source.name.encode())
             digest.update(source.read_bytes())
-        digest.update(" ".join(NVCC_FLAGS).encode())
+        digest.update(" ".join(NVCC_FLAGS + COMPILE_FLAGS).encode())
         return BUILD_DIR / f"{self.stem}_{digest.hexdigest()[:16]}.so"
+
+    def log_path(self) -> Path:
+        """The compilers' output of the library's build (ptxas -v's
+        report of every kernel)."""
+        return self.path().with_suffix(".log")
 
     def _build(self, target: Path) -> None:
         """Compile every source to an object file, one nvcc each, all
@@ -89,7 +98,9 @@ class KernelLibrary:
                     return
                 started = time.monotonic()
                 nvcc = _nvcc()
-                compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+                compile_flags = [
+                    *(f for f in NVCC_FLAGS if f != "-shared"), *COMPILE_FLAGS
+                ]
                 with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
                     objects = [
                         Path(tmp_dir) / f"{s.stem}.o" for s in self.sources()
@@ -118,6 +129,9 @@ class KernelLibrary:
                             f"nvcc failed linking {self.stem}:\n"
                             + result.stdout + result.stderr
                         )
+                    log = Path(tmp_dir) / "build.log"
+                    log.write_text("".join(logs))
+                    os.replace(log, target.with_suffix(".log"))
                     os.replace(tmp, target)
                 self.last_build_seconds = time.monotonic() - started
             finally:
@@ -139,6 +153,24 @@ class KernelLibrary:
                 self._library = library
             return self._library
 
+    def ptxas_usage(self) -> dict[str, dict[str, int]]:
+        """Per kernel, what ptxas -v reported when the built library was
+        compiled (parse_ptxas_log of log_path)."""
+        return parse_ptxas_log(self.log_path().read_text())
+
+    def sass(self) -> str:
+        """The built library's machine code as `cuobjdump -sass` prints it
+        (the CUDA toolkit's, beside nvcc). Raises when cuobjdump fails."""
+        result = subprocess.run(
+            [str(Path(_nvcc()).parent / "cuobjdump"), "-sass",
+             str(self.path())],
+            capture_output=True, text=True,
+        )
+        if result.returncode != 0:
+            raise RuntimeError(f"cuobjdump failed on {self.path()}:\n"
+                               + result.stdout + result.stderr)
+        return result.stdout
+
     def launch(self, name: str, *args) -> None:
         """Call one C entry point; raise on a non-zero cudaError_t."""
         code = getattr(self.load(), name)(*args)
@@ -148,8 +180,9 @@ class KernelLibrary:
 
 ALIGNER = KernelLibrary(_PACKAGE_DIR / "csrc", "libfloxer_kernels", {
     # vp0, planes0, texts, stream, scalars, T, band_words, text_words,
-    # dist, end, stream
+    # dist, end, stream (both K1 kernels)
     "floxer_myers_banded": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "floxer_myers_banded_reg": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # peq, plen, texts, tlen, B, num_words, num_text, dist, end, stream
     "floxer_myers_small": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # peq, plen, texts, tlen, B, words_padded, num_text, dist, end, stream
@@ -174,6 +207,61 @@ SCRIPTS = KernelLibrary(_PACKAGE_DIR / "scripts" / "csrc", "libfloxer_scripts", 
 })
 
 launch = ALIGNER.launch
+
+
+def parse_ptxas_log(text: str) -> dict[str, dict[str, int]]:
+    """ptxas -v's info lines -> {mangled kernel name: {"registers",
+    "stack", "spill_stores", "spill_loads"}}."""
+    usage: dict[str, dict[str, int]] = {}
+    name = None
+    for line in text.splitlines():
+        found = re.search(
+            r"(?:Compiling entry function|Function properties for) '?([\w$]+)",
+            line,
+        )
+        if found:
+            name = found.group(1)
+            usage.setdefault(name, {})
+        found = re.search(
+            r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+            r"(\d+) bytes spill loads", line,
+        )
+        if found and name:
+            usage[name].update(zip(
+                ("stack", "spill_stores", "spill_loads"),
+                map(int, found.groups()),
+            ))
+        found = re.search(r"Used (\d+) registers", line)
+        if found and name:
+            usage[name]["registers"] = int(found.group(1))
+    return usage
+
+
+def sass_loops(text: str) -> dict[str, list[int]]:
+    """`cuobjdump -sass` output -> {mangled kernel name: the instruction
+    count of each innermost loop (a branch back to an earlier address and
+    the instructions from there to it), in address order}."""
+    loops_of = {}
+    for function in re.split(r"\n\s*Function : ", "\n" + text)[1:]:
+        name = function.split(None, 1)[0]
+        code = [
+            (int(address, 16), body) for address, body in
+            re.findall(r"/\*([0-9a-f]+)\*/\s+([^;]*);", function)
+        ]
+        index = {address: i for i, (address, _) in enumerate(code)}
+        loops = []
+        for i, (address, body) in enumerate(code):
+            found = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", body)
+            if found:
+                target = int(found.group(1), 16)
+                if target < address and target in index:
+                    loops.append((index[target], i))
+        loops_of[name] = [
+            last - first + 1 for first, last in sorted(loops)
+            if not any(first <= f and l <= last and (f, l) != (first, last)
+                       for f, l in loops)
+        ]
+    return loops_of
 
 
 def check_operand(tensor, name: str, shape: tuple, dtype, device) -> None:

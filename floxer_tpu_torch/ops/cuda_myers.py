@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from floxer_tpu.alphabet import SIGMA
+from ..alphabet import SIGMA
 
 from ._build import check_operand, launch
 from .myers import (

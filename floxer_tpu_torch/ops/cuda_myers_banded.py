@@ -1,11 +1,15 @@
 """K1: banded sliding-window Myers, the production verification kernel.
 
 Counterpart of floxer_tpu/ops/pallas_myers_banded.py. `myers_banded`
-launches the hand-written CUDA kernel (csrc/myers_banded.cu) for CUDA
-tensors and runs `myers_banded_plain`, the same recurrence as vectorized
-PyTorch with a Python loop over text columns, for CPU tensors. The host
-packers `pack_nibbles` and `prepare_banded_batch` are copied from the
-reference module, which imports jax.
+launches one of two hand-written CUDA kernels (csrc/myers_banded.cu) for
+CUDA tensors, chosen by band width alone: the register kernel
+(`myers_banded_register`) at the widths in REGISTER_BAND_WORDS, the
+shared-memory kernel (`myers_banded_shared`) at any other; both compute the
+same function and count their launches apart. For CPU tensors it runs
+`myers_banded_plain`, the same recurrence as vectorized PyTorch with a
+Python loop over text columns. The host packers `pack_nibbles` and
+`prepare_banded_batch` are copied from the reference module, which imports
+jax.
 
 Kernel operands (uint32 words travel as int32 tensors with the same bits):
   vp0 [T, BW], planes0 [T, 4, BW] (three char bit-planes + the all-match
@@ -24,8 +28,19 @@ from .myers import MASK32, WORD, u32_tensor, widen
 
 SOURCE = "floxer_tpu_torch/csrc/myers_banded.cu"
 REPLACES = "floxer_tpu/ops/pallas_myers_banded.py:96"
-# kernel launches in this process (read and reset by chip_smoke.py)
-LAUNCHES = 0
+# band widths (32-bit words) the register kernel is instantiated at: the
+# cases of floxer_myers_banded_reg in csrc/myers_banded.cu (R = BW / 32
+# words per lane)
+REGISTER_BAND_WORDS = (32, 64, 128, 256, 384, 512)
+# kernel launches in this process, per kernel (read and reset by
+# chip_smoke.py); `launches()` is K1's total
+REGISTER_LAUNCHES = 0
+SHARED_LAUNCHES = 0
+
+
+def launches() -> int:
+    """K1's launches in this process, both kernels together."""
+    return REGISTER_LAUNCHES + SHARED_LAUNCHES
 
 (COL_TLEN, COL_JSTAR, COL_TOPSHIFT, COL_MFROZEN, COL_M, COL_K) = range(6)
 NUM_SCALARS = 6
@@ -104,8 +119,22 @@ def myers_banded(
     band_words: int,
     num_text: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(dist, end) int32 [T] on the operands' device: the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+    """(dist, end) int32 [T] on the operands' device: for CUDA tensors the
+    register kernel at REGISTER_BAND_WORDS and the shared-memory kernel at
+    any other width, the plain version for CPU tensors."""
+    args = (vp0, planes0, texts_packed, stream_packed, scalars, band_words,
+            num_text)
+    if vp0.device.type != "cpu":
+        if band_words in REGISTER_BAND_WORDS:
+            return myers_banded_register(*args)
+        return myers_banded_shared(*args)
+    _check_operands(*args)
+    return myers_banded_plain(*args)
+
+
+def _check_operands(
+    vp0, planes0, texts_packed, stream_packed, scalars, band_words, num_text
+):
     T = vp0.shape[0]
     if band_words % WORD or num_text % 8:
         raise ValueError("band_words must be a multiple of 32, num_text of 8")
@@ -117,36 +146,56 @@ def myers_banded(
         (scalars, "scalars", (T, NUM_SCALARS)),
     ):
         check_operand(tensor, name, shape, torch.int32, vp0.device)
-    if vp0.device.type == "cpu":
-        return myers_banded_plain(
-            vp0, planes0, texts_packed, stream_packed, scalars,
-            band_words, num_text,
-        )
-    return _myers_banded_cuda(
-        vp0, planes0, texts_packed, stream_packed, scalars,
-        band_words, num_text,
-    )
 
 
-def _myers_banded_cuda(
-    vp0, planes0, texts_packed, stream_packed, scalars, band_words, num_text
-):
-    global LAUNCHES
+def _launch_cuda(entry, vp0, planes0, texts_packed, stream_packed, scalars,
+                 band_words, num_text):
+    """One launch of a C entry point; (dist, end) and whether it ran."""
     T = vp0.shape[0]
     dist = torch.empty(T, dtype=torch.int32, device=vp0.device)
     end = torch.empty(T, dtype=torch.int32, device=vp0.device)
     if T == 0:
-        return dist, end
+        return dist, end, False
     with torch.cuda.device(vp0.device):
         launch(
-            "floxer_myers_banded",
+            entry,
             vp0.data_ptr(), planes0.data_ptr(), texts_packed.data_ptr(),
             stream_packed.data_ptr(), scalars.data_ptr(),
             T, band_words, num_text // 8, dist.data_ptr(), end.data_ptr(),
             torch.cuda.current_stream(vp0.device).cuda_stream,
         )
-    LAUNCHES += 1
+    return dist, end, True
+
+
+def myers_banded_register(*args):
+    """The register kernel on CUDA operands (myers_banded's arguments);
+    raises at a band width outside REGISTER_BAND_WORDS."""
+    global REGISTER_LAUNCHES
+    _check_cuda(*args)
+    if args[5] not in REGISTER_BAND_WORDS:
+        raise ValueError(
+            f"the register kernel takes band_words in {REGISTER_BAND_WORDS}, "
+            f"got {args[5]}"
+        )
+    dist, end, ran = _launch_cuda("floxer_myers_banded_reg", *args)
+    REGISTER_LAUNCHES += ran
     return dist, end
+
+
+def myers_banded_shared(*args):
+    """The shared-memory kernel on CUDA operands (myers_banded's
+    arguments), at any band width."""
+    global SHARED_LAUNCHES
+    _check_cuda(*args)
+    dist, end, ran = _launch_cuda("floxer_myers_banded", *args)
+    SHARED_LAUNCHES += ran
+    return dist, end
+
+
+def _check_cuda(*args):
+    _check_operands(*args)
+    if args[0].device.type != "cuda":
+        raise ValueError(f"a CUDA kernel got operands on {args[0].device}")
 
 
 def _nibble(packed: torch.Tensor, j: int) -> torch.Tensor:
@@ -166,6 +215,15 @@ def _exclusive_carries(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
         p = p & p_up
         d *= 2
     return torch.nn.functional.pad(g[:, :-1], (1, 0))
+
+
+def _ballot_carries(g: int, p: int) -> int:
+    """The register kernel's carry across a warp (csrc/myers_banded.cu), on
+    plain ints: bit l of `g` and `p` is lane l's run generate and propagate
+    bit (exclusive, g & p == 0), and bit l of the result is the carry into
+    lane l, from one 32-bit carry-lookahead add."""
+    a = g | p
+    return ((a + g) ^ a ^ g) & MASK32
 
 
 def myers_banded_plain(
@@ -294,3 +352,29 @@ def banded_operands(
         torch.from_numpy(np.concatenate(scalars, axis=1)).to(device),
     ), num_text
 
+
+def band_cases(rng: np.random.Generator, count: int, band_words: int):
+    """Seeded K1 tasks that fit a band of band_words words
+    (n - m + 2k + 1 <= 32 * band_words): patterns shorter and longer than
+    the band, windows from m - k to the band's limit, and some text chars
+    6..15 as fused windows carry past their end. (patterns, texts,
+    budgets) for banded_operands, after padding the texts."""
+    bits = WORD * band_words
+    patterns, texts, budgets = [], [], []
+    for _ in range(count):
+        k = int(rng.integers(1, min(200, bits // 6)))
+        m = int(rng.integers(k + 1, k + 2 + min(2 * bits, 2400)))
+        n = int(rng.integers(max(1, m - k), m + min(bits - 2 * k, 600)))
+        pattern = rng.integers(1, 5, size=m).astype(np.uint8)
+        noisy = pattern.copy()
+        for pos in rng.integers(0, m, size=int(rng.integers(0, k + 2))):
+            noisy[pos] = 1 + (noisy[pos] % 4)
+        lead = rng.integers(1, 5, size=int(rng.integers(0, k + 1)))
+        tail = rng.integers(1, 5, size=n)
+        text = np.concatenate([lead, noisy, tail]).astype(np.uint8)[:n]
+        if rng.random() < 0.2:
+            text[::9] = rng.integers(6, 16, size=len(text[::9]))
+        patterns.append(pattern)
+        texts.append(text)
+        budgets.append(k)
+    return patterns, texts, np.asarray(budgets)

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from floxer_tpu.alphabet import SIGMA
+from ..alphabet import SIGMA
 
 from ._build import check_operand, launch
 from .cuda_myers_banded import _exclusive_carries

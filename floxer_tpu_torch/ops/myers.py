@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from floxer_tpu.alphabet import SIGMA
+from ..alphabet import SIGMA
 
 WORD = 32
 # patterns up to this many words use the register kernel (K2); beyond it

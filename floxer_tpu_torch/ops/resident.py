@@ -25,7 +25,7 @@ import threading
 import numpy as np
 import torch
 
-from floxer_tpu.alphabet import SIGMA
+from ..alphabet import SIGMA
 
 from .cuda_myers import myers_small
 from .cuda_myers_banded import myers_banded

@@ -2,8 +2,9 @@
 
 Counterpart of floxer_tpu/pipeline.py. Reading, index build or load, the
 native scheme search, anchor choice, tracebacks and SAM/BAM writing are
-the reference's jax-free host code, imported from floxer_tpu. What this
-module carries is the device wiring of the batched engines: the device
+this package's copies of the reference's jax-free host code (the
+pipeline's own host helpers are in pipeline_host.py). What this module
+carries is the device wiring of the batched engines: the device
 choice, the resident reference bank (cached across a server's jobs), the
 warmup that builds the CUDA kernels off the align loop, the verifier of
 this package, and --profile through torch.profiler.
@@ -22,11 +23,12 @@ import time
 import numpy as np
 import torch
 
-from floxer_tpu.cli import CommandLineInput
-from floxer_tpu.io.sam import AlignmentOutput
-from floxer_tpu.io.sequence_io import Queries, read_references
-from floxer_tpu.output import write_alignments_for_query
-from floxer_tpu.pipeline import (
+from .backend import accelerator_available
+from .cli import CommandLineInput
+from .io.sam import AlignmentOutput
+from .io.sequence_io import Queries, read_references
+from .output import write_alignments_for_query
+from .pipeline_host import (
     _apply_search_stats,
     _pretty_elapsed_suffix,
     build_or_load_index,
@@ -36,10 +38,8 @@ from floxer_tpu.pipeline import (
     process_query,
     search_query_pure,
 )
-from floxer_tpu.stats import SearchAndAlignmentStatistics
-from floxer_tpu.verify import VerificationKind
-
-from .backend import accelerator_available
+from .stats import SearchAndAlignmentStatistics
+from .verify import VerificationKind
 
 logger = logging.getLogger("floxer-tpu")
 
@@ -69,7 +69,7 @@ def kernel_launches() -> dict[str, int]:
     )
 
     return {
-        "K1": cuda_myers_banded.LAUNCHES,
+        "K1": cuda_myers_banded.launches(),
         "K2": cuda_myers.LAUNCHES,
         "K3": cuda_myers_large.LAUNCHES,
         "K4": traceback_device.LAUNCHES,

@@ -1,10 +1,11 @@
 """K5: the banded Myers kernel's column, ablated section by section.
 
 Counterpart of scripts/tpu_ablate_banded_kernel.py. It ablates the port's
-production kernel K1 (csrc/myers_banded.cu): csrc/ablate_banded_kernel.cu
-is K1's column body with each section (band slide, Eq, carry scan, score,
-horizontal shift, second stream) behind a compile-time flag, one template
-instance per variant of the script. `ablate_banded` launches it for CUDA
+K1 as its shared-memory kernel computes it (csrc/myers_banded.cu, the
+kernel of bands wider than the register kernel's):
+csrc/ablate_banded_kernel.cu is that column body with each section (band
+slide, Eq, carry scan, score, horizontal shift, second stream) behind a
+compile-time flag, one template instance per variant of the script. `ablate_banded` launches it for CUDA
 tensors and runs `ablate_banded_plain` for CPU tensors.
 
 It computes the TPU script's function, whose outputs only consume every

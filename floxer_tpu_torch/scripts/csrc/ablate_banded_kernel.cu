@@ -2,19 +2,21 @@
 //
 // Replaces scripts/tpu_ablate_banded_kernel.py::make_kernel, which times
 // the banded kernel's column body with one section removed at a time. It
-// ablates THIS port's production kernel, K1 (csrc/myers_banded.cu): the
-// body below is K1's column, section by section, and each section can be
-// switched off by a compile-time flag (one template instance per variant
-// of the script):
-//   slide      K1's band slide (myers_banded.cu:117-132), plus s_bot += 1
+// ablates THIS port's K1 as its shared-memory kernel computes it
+// (myers_banded_kernel in csrc/myers_banded.cu, which runs every K1 launch
+// wider than the register kernel's widths): the body below is that
+// kernel's column, section by section, and each section can be switched
+// off by a compile-time flag (one template instance per variant of the
+// script):
+//   slide      K1's band slide (myers_banded.cu:143-158), plus s_bot += 1
 //              while sliding                                  kNoSlide
-//   Eq         Eq from the bit-planes (:134-150); off: eq = P0^P1^P2^AM^ch
+//   Eq         Eq from the bit-planes (:160-176); off: eq = P0^P1^P2^AM^ch
 //                                                              kNoEq
-//   carry      the in-run ripple and the warp (G, P) scan (:151-161, the
-//              carries of :163-179); off: sum = (eq & vp) + vp  kNoKs
-//   score      d_bot, s_bot, s_m (:181-193) and the best update (:215-
-//              218); off: best += 1, best_end += 1 every column kNoScore
-//   hshift     the one-bit horizontal shift (:195-213); off: ph, mh as
+//   carry      the in-run ripple and the warp (G, P) scan (:177-187, the
+//              carries of :189-205); off: sum = (eq & vp) + vp  kNoKs
+//   score      d_bot, s_bot, s_m (:207-219) and the best update (:241-
+//              244); off: best += 1, best_end += 1 every column kNoScore
+//   hshift     the one-bit horizontal shift (:221-239); off: ph, mh as
 //              they are                                        kNoHshift
 //   stream2    the entering pattern char; off: it is 0         kNoStream2
 //   radix-4    the warp scan in 3 rounds with shuffles at d, 2d, 3d (the

@@ -48,7 +48,7 @@ class _JobLogHandler(logging.Handler):
 
 
 def _execute_job(request: dict, send_line) -> int:
-    from floxer_tpu.cli import parse_and_validate
+    from .cli import parse_and_validate
 
     from . import pipeline
 

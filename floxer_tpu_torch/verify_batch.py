@@ -43,7 +43,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from floxer_tpu.intervals import VerifiedIntervals
+from .intervals import VerifiedIntervals
 
 
 _TRACEBACK_POOL = None
@@ -61,18 +61,18 @@ def _traceback_pool():
         )
     return _TRACEBACK_POOL
 
-from floxer_tpu.cigar import Cigar
-from floxer_tpu.ops import dp_reference
-from floxer_tpu.ops.dp_reference import Orientation, QueryAlignment
+from .cigar import Cigar
+from .ops import dp_reference
+from .ops.dp_reference import Orientation, QueryAlignment
 
 
 def _cigar_value(cigar):
     """Cigar containers are immutable — share them; plain op lists are
     defensively copied (they may be memo-shared across alignments)."""
     return cigar if isinstance(cigar, Cigar) else list(cigar)
-from floxer_tpu.pex import PexNode, PexTree
-from floxer_tpu.search_host import Anchor, SearchResult
-from floxer_tpu.verify import (
+from .pex import PexNode, PexTree
+from .search_host import Anchor, SearchResult
+from .verify import (
     QueryAlignments,
     SpanConfig,
     VerificationKind,
@@ -632,7 +632,7 @@ class _TaskBatcher:
                 on_device = size_qualifies and self._device()
             if not on_device:
                 t0 = _time.monotonic()
-                from floxer_tpu.native import native_myers_distance_batch
+                from .native import native_myers_distance_batch
 
                 native = native_myers_distance_batch(
                     [self.windows[i] for i in slots],
@@ -851,7 +851,7 @@ class BatchVerifier:
         """Per-leaf walk chains as a lazy ChainTable, memoized on the tree
         (trees are shared across same-length queries via cached_pex_tree;
         only walks that actually compute ever materialize node objects)."""
-        from floxer_tpu.pex import ChainTable
+        from .pex import ChainTable
 
         cache = getattr(tree, "_chain_cache", None)
         if cache is None:
@@ -901,7 +901,7 @@ class BatchVerifier:
         selects it too)."""
         import os
 
-        from floxer_tpu.native import get_library
+        from .native import get_library
 
         self._soa_active = get_library() is not None and not os.environ.get(
             "FLOXER_TPU_LEGACY_VERIFY"
@@ -935,7 +935,7 @@ class BatchVerifier:
             )
 
     def _build_walk_table(self, items: list[_QueryItem]) -> _WalkTable:
-        from floxer_tpu.utils.mathutils import float_aware_ceil
+        from .utils.mathutils import float_aware_ceil
 
         ref_lengths = np.array(
             [len(r.rank_sequence) for r in self.references], dtype=np.int64
@@ -1010,7 +1010,7 @@ class BatchVerifier:
         import os
         import time as _time
 
-        from floxer_tpu.native import native_cache_scan
+        from .native import native_cache_scan
 
         log = logging.getLogger("floxer-tpu")
         t0 = _time.monotonic()
@@ -1606,7 +1606,7 @@ class BatchVerifier:
         simulation for ALL walks) but defers per-level span construction
         to _ensure_levels — only the few percent of walks that actually
         compute ever need their inner levels."""
-        from floxer_tpu.utils.mathutils import float_aware_ceil
+        from .utils.mathutils import float_aware_ceil
 
         ref_lengths = [len(r.rank_sequence) for r in self.references]
         walks = []

@@ -12,15 +12,19 @@ import numpy as np
 import pytest
 import torch
 
-import floxer_tpu.native as native
 import floxer_tpu.verify_batch as jax_vb
 import floxer_tpu.warm_shapes as warm_shapes
+import floxer_tpu_torch.native as native
 from floxer_tpu.ops import resident as jres
 from floxer_tpu.ops.pallas_myers_banded import EFFECTIVE_GROUP
-from floxer_tpu.verify import VerificationKind
 from floxer_tpu_torch import verify_batch as vb
 from floxer_tpu_torch.ops import resident as tres
-from test_verify_batch import _as_tuples, _make_workload, _run_sequential
+from floxer_tpu_torch.verify import VerificationKind
+from test_torch_fused import (
+    assert_same_alignments,
+    port_workload,
+    reference_alignments,
+)
 
 CPU = torch.device("cpu")
 
@@ -228,11 +232,10 @@ def test_legacy_path_matches_sequential(
     missing native library; with use_device its buckets run on the CPU
     device (resident banks for the forward tasks, host slices for the
     reversed without-CIGAR batch)."""
-    references, items = _make_workload(seed=42)
-    want = _run_sequential(
-        references, items, VerificationKind.HIERARCHICAL, 0.3,
-        without_cigar, interval_opt,
+    want = reference_alignments(
+        42, VerificationKind.HIERARCHICAL, 0.3, without_cigar, interval_opt
     )
+    references, items = port_workload(seed=42)
     if mode == "legacy_env":
         monkeypatch.setenv("FLOXER_TPU_LEGACY_VERIFY", "1")
     else:
@@ -254,6 +257,4 @@ def test_legacy_path_matches_sequential(
     got = verifier.process(items)
     assert not verifier._soa_active
     assert (vb._BATCH_TIMERS["calls"] > calls) == use_device
-    for qi, (w, g) in enumerate(zip(want, got)):
-        assert _as_tuples(w) == _as_tuples(g), f"query {qi}"
-        assert w.best_num_errors == g.best_num_errors
+    assert_same_alignments(want, got)

@@ -14,11 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from floxer_tpu.cli import parse_and_validate
+from floxer_tpu_torch.cli import parse_and_validate
 from floxer_tpu_torch import pipeline
 from floxer_tpu_torch.ops import cuda_myers, cuda_myers_banded, cuda_myers_large
 from floxer_tpu_torch.ops.cuda_myers import myers_small_host
-from floxer_tpu_torch.ops.cuda_myers_banded import myers_banded_host
+from floxer_tpu_torch.ops.cuda_myers_banded import band_cases, myers_banded_host
 from floxer_tpu_torch.ops.cuda_myers_large import myers_large_host
 from floxer_tpu_torch.ops.fused_verify import FusedBatch
 from floxer_tpu_torch.ops.resident import ResidentBank
@@ -77,11 +77,62 @@ def test_banded_kernel_matches_plain(cuda_device, band_words):
     patterns, texts = cases(rng, 96, 60, 2000)
     budgets = np.asarray([max(1, len(p) // 10) for p in patterns])
     txt, tlen = pad(texts)
-    launches = cuda_myers_banded.LAUNCHES
+    launches = cuda_myers_banded.launches()
     got = myers_banded_host(patterns, txt, tlen, budgets, band_words, cuda_device)
-    assert cuda_myers_banded.LAUNCHES == launches + 1
+    assert cuda_myers_banded.launches() == launches + 1
     want = myers_banded_host(patterns, txt, tlen, budgets, band_words, CPU)
     np.testing.assert_array_equal(got, want)
+
+
+def band_args(rng, band_words, device, count=48):
+    patterns, texts, budgets = band_cases(rng, count, band_words)
+    txt, tlen = pad(texts)
+    operands, num_text = cuda_myers_banded.banded_operands(
+        patterns, txt, tlen, budgets, band_words, device
+    )
+    return (*operands, band_words, num_text)
+
+
+def k1_counts():
+    return (cuda_myers_banded.REGISTER_LAUNCHES,
+            cuda_myers_banded.SHARED_LAUNCHES)
+
+
+@pytest.mark.parametrize("band_words", cuda_myers_banded.REGISTER_BAND_WORDS)
+def test_register_kernel_matches_plain_and_shared(cuda_device, band_words):
+    """K1's register kernel at each instantiated width equals the plain
+    version and the shared-memory kernel on the same operands, and
+    myers_banded routes the width to it."""
+    args = band_args(np.random.default_rng(band_words + 7), band_words,
+                     cuda_device)
+    before = k1_counts()
+    register = cuda_myers_banded.myers_banded_register(*args)
+    shared = cuda_myers_banded.myers_banded_shared(*args)
+    routed = cuda_myers_banded.myers_banded(*args)
+    assert k1_counts() == (before[0] + 2, before[1] + 1)
+    plain = cuda_myers_banded.myers_banded_plain(
+        *(t.cpu() for t in args[:5]), *args[5:]
+    )
+    for want, *got in zip(plain, register, shared, routed):
+        for tensor in got:
+            assert torch.equal(tensor.cpu(), want)
+
+
+def test_wide_band_runs_the_shared_kernel(cuda_device):
+    """A 640-word band is wider than the register kernel's widest: it goes
+    to the shared-memory kernel, equal to the plain version, and the
+    register kernel refuses it."""
+    args = band_args(np.random.default_rng(640), 640, cuda_device, count=24)
+    before = k1_counts()
+    got = cuda_myers_banded.myers_banded(*args)
+    assert k1_counts() == (before[0], before[1] + 1)
+    plain = cuda_myers_banded.myers_banded_plain(
+        *(t.cpu() for t in args[:5]), *args[5:]
+    )
+    for g, w in zip(got, plain):
+        assert torch.equal(g.cpu(), w)
+    with pytest.raises(ValueError):
+        cuda_myers_banded.myers_banded_register(*args)
 
 
 @pytest.mark.parametrize("max_m", [33, 257])
@@ -111,7 +162,7 @@ def test_large_kernel_matches_plain(cuda_device, max_m):
 def traceback_tasks(rng, count, length, error_rate):
     """Root-like traceback tasks: a window, a mutated slice of it as the
     pattern, (end_col, distance) from the native full Myers engine."""
-    from floxer_tpu.native import native_myers_distance_batch
+    from floxer_tpu_torch.native import native_myers_distance_batch
 
     windows, patterns = [], []
     for _ in range(count):
@@ -134,7 +185,7 @@ def traceback_tasks(rng, count, length, error_rate):
 def test_traceback_kernel_matches_plain(cuda_device, length, error_rate):
     """K4 at two band widths (w_pad 256 and 1536): the card's walk ops equal
     the plain version's, and the batched CIGARs equal the host traceback."""
-    from floxer_tpu.ops import dp_reference
+    from floxer_tpu_torch.ops import dp_reference
     from floxer_tpu_torch.ops import traceback_device
 
     rng = np.random.default_rng(length)
@@ -207,7 +258,7 @@ def test_engine_device_matches_host_engine(cuda_device, tmp_path):
 @pytest.fixture(scope="module")
 def simulated(tmp_path_factory):
     """A 300 kb genome and 8 reads of 5 kb at 7% error."""
-    from floxer_tpu.tools.simulated_dataset import main as simulate
+    from floxer_tpu_torch.tools.simulated_dataset import main as simulate
 
     workdir = tmp_path_factory.mktemp("simulated")
     assert simulate([

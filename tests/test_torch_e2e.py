@@ -17,7 +17,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from floxer_tpu.cli import parse_and_validate
+from floxer_tpu_torch.cli import parse_and_validate
 from floxer_tpu_torch import pipeline
 from floxer_tpu_torch.__main__ import main
 from floxer_tpu_torch.backend import accelerator_available

@@ -5,7 +5,12 @@ FusedBatch: per-task (distance, end) equal to floxer_tpu's FusedBatch with
 interpret-mode Pallas kernels on random multi-stage waves. BatchVerifier:
 byte-identical alignments to the sequential verifier on the workloads of
 tests/test_verify_batch.py, with every wave fused (on the CPU through the
-kernels' plain versions)."""
+kernels' plain versions).
+
+Each side's inputs come from its own package: the reference runs on
+test_verify_batch's workload, the port on the same workload built from
+its own copies of the host modules (`port_workload`), and alignments are
+compared by value (`values`)."""
 
 import numpy as np
 import pytest
@@ -13,14 +18,101 @@ import torch
 
 import floxer_tpu.ops.fused_verify as jax_fused
 from floxer_tpu.ops.resident import ResidentBank as JaxBank
-from floxer_tpu.verify import VerificationKind
+from floxer_tpu.verify import VerificationKind as RefKind
 from floxer_tpu_torch import verify_batch as vb
+from floxer_tpu_torch.alphabet import reverse_complement
+from floxer_tpu_torch.index.fmindex import FmIndex
+from floxer_tpu_torch.io.sequence_io import QueryRecord
 from floxer_tpu_torch.ops.fused_verify import FusedBatch
 from floxer_tpu_torch.ops.resident import ResidentBank
-from floxer_tpu_torch.verify_batch import BatchVerifier
-from test_verify_batch import _as_tuples, _make_workload, _run_sequential
+from floxer_tpu_torch.pex import BuildStrategy, build_pex_tree
+from floxer_tpu_torch.search_host import (
+    AnchorChoiceStrategy,
+    AnchorGroupOrder,
+    SearchConfig,
+    Searcher,
+)
+from floxer_tpu_torch.verify import ReferenceRecord, VerificationKind
+from floxer_tpu_torch.verify_batch import BatchVerifier, _QueryItem
+from test_verify_batch import _make_workload, _run_sequential
 
 CPU = torch.device("cpu")
+
+
+def port_workload(seed, num_queries=6, read_len=60, k=4, seed_errors=1):
+    """test_verify_batch._make_workload's workload (same seed, same reads,
+    same search) built from the port's own modules: (references, items)."""
+    rng = np.random.default_rng(seed)
+    references = [
+        ReferenceRecord("ref0", rng.integers(1, 5, size=800).astype(np.uint8), 0),
+        ReferenceRecord("ref1", rng.integers(1, 5, size=400).astype(np.uint8), 1),
+    ]
+    index = FmIndex([r.rank_sequence for r in references])
+    searcher = Searcher(
+        index,
+        len(references),
+        SearchConfig(
+            max_num_anchors_hard=500,
+            max_num_anchors_soft=50,
+            anchor_group_order=AnchorGroupOrder.COUNT_FIRST,
+            anchor_choice_strategy=AnchorChoiceStrategy.ROUND_ROBIN,
+            erase_useless_anchors=True,
+        ),
+    )
+    items = []
+    for qi in range(num_queries):
+        ref = references[qi % 2]
+        start = int(rng.integers(0, len(ref.rank_sequence) - read_len))
+        read = ref.rank_sequence[start : start + read_len].copy()
+        for _ in range(int(rng.integers(0, k))):
+            pos = int(rng.integers(0, read_len))
+            read[pos] = 1 + (read[pos] % 4)
+        record = QueryRecord(
+            id=f"q{qi}",
+            rank_sequence=read,
+            reverse_complement_rank_sequence=reverse_complement(read),
+            quality="I" * read_len,
+            internal_id=qi,
+        )
+        tree = build_pex_tree(read_len, k, seed_errors, BuildStrategy.RECURSIVE)
+        seeds = tree.generate_seeds(1)
+        fwd = searcher.search_seeds(seeds, record.rank_sequence)
+        rc = searcher.search_seeds(
+            seeds, record.reverse_complement_rank_sequence
+        )
+        items.append(_QueryItem(record, tree, fwd, rc))
+    return references, items
+
+
+def reference_alignments(seed, kind, ratio, without_cigar, interval_opt,
+                         **workload):
+    """The reference's sequential verifier on its own workload; `kind` is
+    the port's VerificationKind, mapped to the reference's by value."""
+    references, items = _make_workload(seed=seed, **workload)
+    return _run_sequential(
+        references, items, RefKind(kind.value), ratio, without_cigar,
+        interval_opt,
+    )
+
+
+def values(alignments):
+    """A QueryAlignments of either package as plain values: per reference,
+    (start, errors, orientation name, CIGAR tuples) per alignment."""
+    return [
+        [
+            (a.start_in_reference, a.num_errors, a.orientation.value,
+             tuple(a.cigar))
+            for a in per_ref
+        ]
+        for per_ref in alignments.per_reference
+    ]
+
+
+def assert_same_alignments(want, got):
+    assert len(want) == len(got)
+    for qi, (w, g) in enumerate(zip(want, got)):
+        assert values(w) == values(g), f"query {qi}"
+        assert w.best_num_errors == g.best_num_errors
 
 
 def stage_wave(seed, jax_batch_for, port_batch_for):
@@ -102,10 +194,8 @@ def test_fused_batch_empty_wave():
     "kind", [VerificationKind.HIERARCHICAL, VerificationKind.DIRECT_FULL]
 )
 def test_fused_verifier_matches_sequential(interval_opt, without_cigar, kind):
-    references, items = _make_workload(seed=42)
-    want = _run_sequential(
-        references, items, kind, 0.3, without_cigar, interval_opt
-    )
+    want = reference_alignments(42, kind, 0.3, without_cigar, interval_opt)
+    references, items = port_workload(seed=42)
     verifier = BatchVerifier(
         references,
         kind=kind,
@@ -117,17 +207,16 @@ def test_fused_verifier_matches_sequential(interval_opt, without_cigar, kind):
     )
     got = verifier.process(items)
     assert verifier._fused_dispatches > 0, "fused path never dispatched"
-    for qi, (w, g) in enumerate(zip(want, got)):
-        assert _as_tuples(w) == _as_tuples(g), f"query {qi}"
-        assert w.best_num_errors == g.best_num_errors
+    assert_same_alignments(want, got)
 
 
 @pytest.mark.parametrize("seed", [1, 7, 13])
 def test_fused_verifier_matches_sequential_more_seeds(seed):
-    references, items = _make_workload(seed=seed, num_queries=4, k=6)
-    want = _run_sequential(
-        references, items, VerificationKind.HIERARCHICAL, 0.05, False, True
+    want = reference_alignments(
+        seed, VerificationKind.HIERARCHICAL, 0.05, False, True,
+        num_queries=4, k=6,
     )
+    references, items = port_workload(seed=seed, num_queries=4, k=6)
     verifier = BatchVerifier(
         references,
         kind=VerificationKind.HIERARCHICAL,
@@ -139,8 +228,7 @@ def test_fused_verifier_matches_sequential_more_seeds(seed):
     )
     got = verifier.process(items)
     assert verifier._fused_dispatches > 0
-    for w, g in zip(want, got):
-        assert _as_tuples(w) == _as_tuples(g)
+    assert_same_alignments(want, got)
 
 
 def test_split_wave_matches_sequential(monkeypatch):
@@ -161,10 +249,11 @@ def test_split_wave_matches_sequential(monkeypatch):
         return real_flat(self, walks, items, subset, max_depth=max_depth)
 
     monkeypatch.setattr(BatchVerifier, "_compute_walks_flat", spy)
-    references, items = _make_workload(seed=5, num_queries=6, k=6)
-    want = _run_sequential(
-        references, items, VerificationKind.HIERARCHICAL, 0.05, False, True
+    want = reference_alignments(
+        5, VerificationKind.HIERARCHICAL, 0.05, False, True,
+        num_queries=6, k=6,
     )
+    references, items = port_workload(seed=5, num_queries=6, k=6)
     verifier = BatchVerifier(
         references,
         kind=VerificationKind.HIERARCHICAL,
@@ -176,15 +265,15 @@ def test_split_wave_matches_sequential(monkeypatch):
     )
     got = verifier.process(items)
     assert verifier._fused_dispatches > 0 and host_waves
-    for w, g in zip(want, got):
-        assert _as_tuples(w) == _as_tuples(g)
+    assert_same_alignments(want, got)
 
 
 def test_host_only_verifier_matches_sequential():
-    references, items = _make_workload(seed=7, num_queries=4, k=6)
-    want = _run_sequential(
-        references, items, VerificationKind.HIERARCHICAL, 0.05, False, True
+    want = reference_alignments(
+        7, VerificationKind.HIERARCHICAL, 0.05, False, True,
+        num_queries=4, k=6,
     )
+    references, items = port_workload(seed=7, num_queries=4, k=6)
     verifier = BatchVerifier(
         references,
         kind=VerificationKind.HIERARCHICAL,
@@ -195,8 +284,7 @@ def test_host_only_verifier_matches_sequential():
     )
     got = verifier.process(items)
     assert verifier._fused_dispatches == 0
-    for w, g in zip(want, got):
-        assert _as_tuples(w) == _as_tuples(g)
+    assert_same_alignments(want, got)
 
 
 def test_bucketed_device_batcher_is_not_ported(monkeypatch):
@@ -206,10 +294,11 @@ def test_bucketed_device_batcher_is_not_ported(monkeypatch):
     equal the sequential verifier's. use_device=True sends every bucket to
     the device, whatever its size."""
     monkeypatch.setattr(vb, "MIN_DEVICE_CELLS", 10**12)
-    references, items = _make_workload(seed=7, num_queries=4, k=6)
-    want = _run_sequential(
-        references, items, VerificationKind.HIERARCHICAL, 0.05, False, True
+    want = reference_alignments(
+        7, VerificationKind.HIERARCHICAL, 0.05, False, True,
+        num_queries=4, k=6,
     )
+    references, items = port_workload(seed=7, num_queries=4, k=6)
     verifier = BatchVerifier(
         references,
         kind=VerificationKind.HIERARCHICAL,
@@ -223,5 +312,4 @@ def test_bucketed_device_batcher_is_not_ported(monkeypatch):
     got = verifier.process(items)
     assert vb._BATCH_TIMERS["calls"] > calls, "no bucket ran on the device"
     assert verifier._fused_dispatches == 0
-    for w, g in zip(want, got):
-        assert _as_tuples(w) == _as_tuples(g)
+    assert_same_alignments(want, got)

@@ -5,9 +5,14 @@ On the CPU each entry point runs its kernel's plain PyTorch version
 (tests/test_torch_cuda.py holds the CUDA kernels against those plain
 versions on the card). Every comparison of (distance, end) is exact."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from floxer_tpu.ops.device_dp import pad_batch
 from floxer_tpu.ops.dp_reference import _rightmost_argmin, semi_global_dp_matrix
@@ -187,3 +192,83 @@ def test_operands_are_validated_on_the_cpu_route():
         cuda_myers_banded.myers_banded(
             *(torch.zeros((1, 8), dtype=torch.int32),) * 5, 8, 8
         )
+
+
+# per lane: 0 kills the carry, 1 generates it, 2 propagates it (a run's
+# generate and propagate bits are exclusive)
+LANE_STATES = st.lists(st.integers(0, 2), min_size=32, max_size=32)
+
+
+@settings(max_examples=300, deadline=None)
+@given(LANE_STATES)
+def test_ballot_carry_equals_the_word_scan(states):
+    """K1's register kernel carries between lanes with one 32-bit
+    carry-lookahead add on the lanes' generate and propagate ballots;
+    the carry into every lane equals the plain version's Kogge-Stone scan
+    over the same (G, P) vectors."""
+    g = [int(s == 1) for s in states]
+    p = [int(s == 2) for s in states]
+    want = cuda_myers_banded._exclusive_carries(
+        torch.tensor([g], dtype=torch.int64),
+        torch.tensor([p], dtype=torch.int64),
+    )[0].tolist()
+    got = cuda_myers_banded._ballot_carries(
+        sum(bit << lane for lane, bit in enumerate(g)),
+        sum(bit << lane for lane, bit in enumerate(p)),
+    )
+    assert [(got >> lane) & 1 for lane in range(32)] == want
+
+
+def test_register_widths_are_the_kernel_sources():
+    """REGISTER_BAND_WORDS lists exactly the widths csrc/myers_banded.cu
+    instantiates the register kernel at (R = BW / 32 words per lane)."""
+    source = (
+        Path(__file__).resolve().parent.parent / cuda_myers_banded.SOURCE
+    ).read_text()
+    instances = {
+        32 * int(r) for r in re.findall(r"^\s*FLOXER_REG_CASE\((\d+)\)$",
+                                        source, re.M)
+    }
+    assert instances == set(cuda_myers_banded.REGISTER_BAND_WORDS)
+    assert {bw // 32 for bw in instances} >= {1, 2, 4, 8, 12, 16}
+
+
+@pytest.mark.parametrize("band_words", [128, 640])
+def test_banded_kernels_refuse_cpu_operands(band_words):
+    """On the CPU myers_banded runs the plain version at every width and
+    counts no launch; the kernels' own wrappers refuse CPU tensors."""
+    patterns, texts, budgets = banded_cases(4, count=4)
+    txt, tlen = pad_batch(texts)
+    operands, num_text = cuda_myers_banded.banded_operands(
+        patterns, txt, tlen, np.asarray(budgets), band_words, CPU
+    )
+    before = cuda_myers_banded.launches()
+    dist, _ = cuda_myers_banded.myers_banded(*operands, band_words, num_text)
+    assert cuda_myers_banded.launches() == before
+    assert dist.device == CPU
+    for kernel in (cuda_myers_banded.myers_banded_register,
+                   cuda_myers_banded.myers_banded_shared):
+        with pytest.raises(ValueError, match="CUDA kernel"):
+            kernel(*operands, band_words, num_text)
+
+
+@pytest.mark.parametrize(
+    "band_words", (*cuda_myers_banded.REGISTER_BAND_WORDS, 640)
+)
+def test_band_cases_fit_their_band(band_words):
+    """The card tests' and chip_smoke.py's K1 generator gives tasks the
+    band holds (n - m + 2k + 1 <= 32 * band_words, 0 < k < m, windows
+    from m - k chars), reproducibly from the seed."""
+    draw = [
+        cuda_myers_banded.band_cases(np.random.default_rng(band_words), 24,
+                                     band_words)
+        for _ in range(2)
+    ]
+    patterns, texts, budgets = draw[0]
+    assert len(patterns) == len(texts) == len(budgets) == 24
+    for pattern, text, k in zip(patterns, texts, budgets):
+        m, n = len(pattern), len(text)
+        assert 0 < k < m and n >= m - k
+        assert n - m + 2 * k + 1 <= 32 * band_words
+    for a, b in zip(draw[0], draw[1]):
+        assert all(np.array_equal(x, y) for x, y in zip(a, b))

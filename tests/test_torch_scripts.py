@@ -347,12 +347,87 @@ def test_each_source_set_builds_its_own_library(tmp_path, monkeypatch):
     library._build(built)
     assert built.read_text() == "built\n"
     assert library.last_build_seconds is not None
-    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == [
-        "libtest.lock", built.name,
-    ]
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == sorted([
+        "libtest.lock", built.name, built.with_suffix(".log").name,
+    ])
     (csrc / "b.cu").write_text("BROKEN\n")
     broken = library.path()
     assert broken != built
     with pytest.raises(RuntimeError, match="(?s)nvcc failed building libtest.*b.cu"):
         library._build(broken)
     assert not broken.exists()
+
+
+FAKE_NVCC_PTXAS = """#!/bin/sh
+# writes its -o target; with -Xptxas -v it reports one kernel per source
+out=""; src=""; prev=""; verbose=""
+for arg in "$@"; do
+  [ "$prev" = "-o" ] && out="$arg"
+  [ "$prev" = "-Xptxas" ] && [ "$arg" = "-v" ] && verbose=1
+  case "$arg" in *.cu) src="$arg";; esac
+  prev="$arg"
+done
+if [ -n "$verbose" ] && [ -n "$src" ]; then
+  k=$(basename "$src" .cu)
+  echo "ptxas info    : Compiling entry function '_Z1${k}v' for 'sm_90a'"
+  echo "ptxas info    : Function properties for _Z1${k}v"
+  echo "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+  echo "ptxas info    : Used 42 registers, used 0 barriers"
+fi
+echo built > "$out"
+"""
+
+
+def test_ptxas_report_is_kept_from_the_build(tmp_path, monkeypatch):
+    """Every source compiles with -Xptxas -v, and the compilers' output is
+    kept beside the library, so its register and spill report comes from
+    the build itself."""
+    from floxer_tpu_torch.ops import _build
+
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text(FAKE_NVCC_PTXAS)
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("a.cu", "b.cu"):
+        (csrc / name).write_text("// a kernel\n")
+    library = _build.KernelLibrary(csrc, "libtest", {})
+    library._build(library.path())
+    assert library.log_path().exists()
+    assert library.ptxas_usage() == {
+        f"_Z1{k}v": {"stack": 0, "spill_stores": 0, "spill_loads": 0,
+                     "registers": 42}
+        for k in "ab"
+    }
+
+
+SASS = """
+\t\tFunction : _Z4loopv
+        /*0000*/                   MOV R1, c[0x0][0x28] ;      /* 0x000 */
+        /*0010*/                   IADD3 R2, R1, 0x1, RZ ;     /* 0x000 */
+        /*0020*/               @P0 BRA 0x40 ;                  /* 0x000 */
+        /*0030*/                   LOP3.LUT R3, R2, R1, RZ, 0x96, !PT ;
+        /*0040*/                   SHF.R.U32.HI R2, RZ, 0x1, R2 ;
+        /*0050*/               @!P1 BRA 0x10 ;
+        /*0060*/                   IMAD R4, R2, R3, RZ ;
+        /*0070*/                   IADD3 R4, R4, 0x1, RZ ;
+        /*0080*/               @!P2 BRA 0x60 ;
+        /*0090*/               @!P3 BRA 0x10 ;
+        /*00a0*/                   EXIT ;
+        /*00b0*/                   BRA 0xb0;
+\t\tFunction : _Z5flatv
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_sass_loops_counts_innermost_loops():
+    """sass_loops reads cuobjdump -sass: a branch back to an earlier
+    address closes a loop; only loops holding no other loop count, a
+    forward branch inside one does not split it, and the trailing
+    self-branch is no loop."""
+    from floxer_tpu_torch.ops import _build
+
+    assert _build.sass_loops(SASS) == {"_Z4loopv": [5, 3], "_Z5flatv": []}

@@ -20,7 +20,7 @@ from pathlib import Path
 
 import torch
 
-from floxer_tpu.cli import parse_and_validate
+from floxer_tpu_torch.cli import parse_and_validate
 from floxer_tpu_torch import pipeline
 
 ROOT = Path(__file__).resolve().parent.parent

@@ -154,11 +154,11 @@ def test_batch_verifier_device_traceback_end_to_end(monkeypatch):
     """The port's BatchVerifier with FLOXER_TPU_DEVICE_TRACEBACK=1 on a CPU
     device emits the host pool's alignments (begin + CIGAR), and without a
     device it refuses instead of running the tracebacks elsewhere."""
-    from floxer_tpu.verify import VerificationKind
+    from floxer_tpu_torch.verify import VerificationKind
     from floxer_tpu_torch.verify_batch import BatchVerifier
-    from test_verify_batch import _as_tuples, _make_workload
+    from test_torch_fused import assert_same_alignments, port_workload
 
-    references, items = _make_workload(seed=11)
+    references, items = port_workload(seed=11)
 
     def run(device):
         verifier = BatchVerifier(
@@ -190,7 +190,6 @@ def test_batch_verifier_device_traceback_end_to_end(monkeypatch):
     monkeypatch.setenv("FLOXER_TPU_DEVICE_TRACEBACK", "1")
     got = run(CPU)
     assert calls["tasks"] > 0, "device traceback path was never exercised"
-    for qi, (w, g) in enumerate(zip(want, got)):
-        assert _as_tuples(w) == _as_tuples(g), f"query {qi}"
+    assert_same_alignments(want, got)
     with pytest.raises(ValueError, match="device"):
         run(None)
