@@ -10,11 +10,13 @@ Phases, one line each on stdout, any failure exits non-zero:
   build    nvcc builds csrc/*.cu for sm_90a (seconds); the research
            scripts' library (scripts/csrc/*.cu) builds beside it
   ptxas    what nvcc -Xptxas -v reported, in the aligner's own build, for
-           every instance of K1's register kernel
-           (myers_banded_reg_kernel<R>): registers, stack and spill bytes
+           every instance of the register kernels: K1's
+           myers_banded_reg_kernel<R>, K3's myers_large_reg_kernel<R> and
+           K2's myers_small_kernel<G>: registers, stack and spill bytes
            (a spill or a stack frame fails the run); and from the
            library's SASS (cuobjdump) the instructions of each instance's
-           two column loops, sliding and frozen
+           column loops (K1 sliding and frozen, K3 one per group count, K2
+           one)
   kernels  K1/K2/K3 against their plain PyTorch versions on the card on
            seeded cases (exact (dist, end) equality). K1 has two kernels:
            the register kernel at every instantiated width and the
@@ -27,7 +29,16 @@ Phases, one line each on stdout, any failure exits non-zero:
            root level at: the register kernel against the plain version,
            the native host engine, the numpy band mirror and the
            shared-memory kernel, and both kernels timed in turns (shared,
-           register, register, shared); K4 (banded
+           register, register, shared). K2 at every W = 1..8 (its
+           instances of G = 1, 2, 4, 8 lanes per task), tasks of 1..W
+           words, garbage chars, tlen 0 and 1 and m == 0 in each launch,
+           and timed at 2048 tasks of 172 chars. K3 has two kernels too:
+           the register kernel at every instance (Wp = 32..512 words,
+           tasks of 1 to Wp/32 groups in one launch) and the shared-memory
+           kernel at 640 words, each against the plain version, the
+           640-word state driven once through myers_large with the counts
+           at 0, and both timed in turns at 256 tasks of 1376 chars on 128
+           words; K4 (banded
            traceback) against its plain version on 2 root-shape tasks and
            against the host traceback (dp_reference, native) on every
            accepted root of a seeded batch; kernel, plain-version and
@@ -48,8 +59,8 @@ Phases, one line each on stdout, any failure exits non-zero:
            20 kb at 7% error: pass A --engine device (every wave fused on
            the CUDA kernels), pass B on the native host engine only; SAM
            files byte-identical, K1-K3 launched in pass A, and every K1
-           launch of pass A on the register kernel. Pass B is the oracle of
-           every pass below.
+           and K3 launch of pass A on its register kernel. Pass B is the
+           oracle of every pass below.
   traceback  pass C: --engine device with FLOXER_TPU_DEVICE_TRACEBACK=1
            (root CIGARs by K4); SAM = pass B, K4 launched
   legacy   pass D: --engine device with FLOXER_TPU_LEGACY_VERIFY=1 (the
@@ -59,16 +70,20 @@ Phases, one line each on stdout, any failure exits non-zero:
            --server --engine device jobs: SAM = pass B, the second job hits
            the resident bank cache; --shutdown-server and the daemon exit 0
   profile  --engine device --profile DIR: a torch.profiler trace naming
-           K1's register kernel, SAM = pass B
+           K1's register kernel, SAM = pass B; device time by kernel
   long_reads  pass E: 6 reads of 40 kb at 12% error on a 1 Mb genome with
-           -p 0.15 (LONG_READS), --engine device against its own pass B:
+           -p 0.15 (LONG_READS) and 2 reads that run off the chromosome's
+           end (OVERHANG_READS), --engine device against its own pass B:
            the roots' bands are wider than 512 words, so the shared-memory
-           K1 runs; SAM identical
+           K1 runs, and the overhanging reads' roots, cut short by the
+           chromosome's end, run full on the shared-memory K3; SAM
+           identical
 Each path is driven with the launch counts set to 0 just before it and
 read just after (server jobs report theirs in their stage split line). The
 line before the last is the kernel table as JSON (K1 rows at the 384-word
-root band; K1-K3 launches of pass A, the shared-memory K1's of pass E, K4
-of pass C, K5-K8 of the entry points' run), each kernel with its bound;
+root band; K1-K3 launches of pass A, the shared-memory K1's and K3's of
+pass E, K4 of pass C, K5-K8 of the entry points' run), each kernel with
+its bound;
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -106,12 +121,20 @@ COMPARE_TEXT = 1280
 # for them at its end
 PLAIN_WORKERS = 4
 PLAIN_TIMEOUT = 600
+# SM clock cycles the card spins before a timed run of launches (~10 ms at
+# 1.98 GHz), longer than the host takes to enqueue them
+ENQUEUE_CYCLES = 20_000_000
 # K1's exactness sweep: seeded cases per band width (every width of the
 # register kernel, then WIDE_BAND_WORDS, wider than its widest, for the
 # shared-memory kernel), and the processes that run the plain versions
 SWEEP_CASES = 48
 WIDE_BAND_WORDS = 640
 SWEEP_WORKERS = 3
+# K3's exactness sweep: seeded tasks per width (every instance of the
+# register kernel, then WIDE_LARGE_WORDS, wider than its widest, for the
+# shared-memory kernel); K2's takes 75 tasks at every W
+LARGE_CASES = 12
+WIDE_LARGE_WORDS = 640
 # the card's memory rate for the bounds (NVIDIA's H100 SXM data sheet) and
 # its int32 issue rate per SM and clock: four sub-partitions, each
 # dispatching one 32-lane warp instruction per clock, to the integer pipe
@@ -144,6 +167,9 @@ ROOT_WAVE_BAND_WORDS = 384
 # fused wave runs them on the shared-memory K1: genome bp, reads, read
 # length, read error rate, the aligner's -p
 LONG_READS = (1_000_000, 6, 40_000, 0.12, 0.15)
+# pass E also maps reads that run off the chromosome's end: how many, and
+# how many of their chars come from the chromosome (the rest is random)
+OVERHANG_READS = (2, 25_000)
 # runs the port's CLI with jax unimportable, as on a machine without jax
 JAX_BLOCKED = (
     "import runpy, sys; sys.modules['jax'] = None; "
@@ -163,13 +189,17 @@ def check(condition: bool, message: str) -> None:
 
 def cuda_ms(fn, repeats: int) -> float:
     """Mean milliseconds of fn() on the card (CUDA events, after one warm
-    call)."""
+    call). The card spins for ENQUEUE_CYCLES first, so the host has
+    enqueued every timed launch before the first runs: the events time
+    the launches back to back, not the host's per-call overhead, which
+    is longer than a K2 or K3 launch."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(ENQUEUE_CYCLES)
     start.record()
     for _ in range(repeats):
         fn()
@@ -354,7 +384,11 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain):
     from floxer_tpu_torch.native import native_myers_distance_batch
     from floxer_tpu_torch.ops import cuda_myers, cuda_myers_banded, cuda_myers_large
     from floxer_tpu_torch.ops.cuda_myers_banded import banded_operands
-    from floxer_tpu_torch.ops.myers import build_peq_vectorized, u32_tensor
+    from floxer_tpu_torch.ops.myers import (
+        build_peq_vectorized,
+        full_myers_operands,
+        u32_tensor,
+    )
     from floxer_tpu_torch.ops.myers_banded import myers_banded_np
 
     def to_dev(array):
@@ -522,8 +556,9 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain):
         "wide_band_launches": {"register": 0, "shared": 1},
     }
 
-    # ---- K2 (test_pallas_myers.py's generator, then a timing shape of
-    # 2048 inner nodes of 172 chars)
+    # ---- K2 (test_pallas_myers.py's generator, then every instance of
+    # G lanes per task at W = 1..8 on full_myers_operands, then a timing
+    # shape of 2048 inner nodes of 172 chars)
     def small_args(patterns, texts):
         pat, plen = pad(patterns)
         txt, tlen = pad(texts)
@@ -540,6 +575,14 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain):
     _, _, err2 = compare(cuda_myers.myers_small, cuda_myers.myers_small_plain,
                          small_args(patterns, txt_garbage))
     check(err2 == 0, f"K2 differs from its plain version ({err2})")
+    k2_instances = {}
+    for words, lanes in sorted(cuda_myers.LANES_FOR_WORDS.items()):
+        args = full_myers_operands(rng, 75, words, True, device)
+        _, _, err = compare(cuda_myers.myers_small_cuda,
+                            cuda_myers.myers_small_plain, args)
+        check(err == 0, f"K2 at W={words} (G={lanes}) differs from its "
+              f"plain version ({err})")
+        k2_instances[f"W={words} G={lanes}"] = err
     patterns, texts = small_cases(rng, 2048, 172, 173)
     args2 = small_args(patterns, texts)
     _, _, err2t = compare(cuda_myers.myers_small, cuda_myers.myers_small_plain,
@@ -549,16 +592,24 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain):
     t0 = time.monotonic()
     cuda_myers.myers_small_plain(*args2)
     torch.cuda.synchronize()
+    k2_bound = full_bound(args2, peaks)
+    # the launch lasts as long as its longest task: tlen - 1 columns
+    k2_columns = int(args2[3].max()) - 1
     rows["K2"] = {
         "name": "myers_small", "route": "cuda",
         "source": cuda_myers.SOURCE, "replaces": cuda_myers.REPLACES,
-        "max_abs_err": max(err2, err2t), "ms": k2_ms,
-        "plain_ms": (time.monotonic() - t0) * 1000,
-        **bound_fields(full_bound(args2, peaks)),
-        "shape": "B=2048 m=172 n=172..231",
+        "max_abs_err": max(err2, err2t, *k2_instances.values()),
+        "ms": k2_ms, "plain_ms": (time.monotonic() - t0) * 1000,
+        **bound_fields(k2_bound), "bound_share": k2_bound[0] / k2_ms,
+        "shape": "B=2048 m=172 n=172..231 W=6 G=8", "columns": k2_columns,
+        "us_per_col": k2_ms * 1000 / k2_columns,
+        "instances_max_abs_err": k2_instances,
     }
 
-    # ---- K3 (test_pallas_myers_large.py's generator, then a timing shape
+    # ---- K3 (test_pallas_myers_large.py's generator at Wp = 128; the
+    # register kernel at every instance on full_myers_operands, tasks of
+    # 1 to R groups in one launch, and the shared-memory kernel at
+    # WIDE_LARGE_WORDS; then both kernels timed in turns at a timing shape
     # of 256 inner nodes of 1376 chars)
     def large_args(patterns, texts, words_padded):
         pat, plen = pad(patterns)
@@ -579,24 +630,69 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain):
                          cuda_myers_large.myers_large_plain,
                          large_args(patterns, txt_garbage, 128))
     check(err3 == 0, f"K3 differs from its plain version ({err3})")
+    k3_instances = {}
+    for words in (*cuda_myers_large.REGISTER_WORDS, WIDE_LARGE_WORDS):
+        args = full_myers_operands(rng, LARGE_CASES, words, False, device)
+        if words in cuda_myers_large.REGISTER_WORDS:
+            kernels = ("register", "shared")
+        else:
+            kernels = ("shared",)
+            # the wide pattern state through the routing entry, counted
+            # alone: it must take the shared-memory kernel
+            reset_launches()
+            cuda_myers_large.myers_large(*args)
+            torch.cuda.synchronize()
+            wide = (cuda_myers_large.REGISTER_LAUNCHES,
+                    cuda_myers_large.SHARED_LAUNCHES)
+            check(wide == (0, 1), f"{words} pattern words took the K3 "
+                  f"kernels (register, shared) {wide} times")
+        want = [t.cpu().numpy() for t in
+                cuda_myers_large.myers_large_plain(*args)]
+        for name in kernels:
+            kernel = getattr(cuda_myers_large, f"myers_large_{name}")
+            got = [t.cpu().numpy() for t in kernel(*args)]
+            err = max(int(np.max(np.abs(g.astype(np.int64) - w)))
+                      for g, w in zip(got, want))
+            check(err == 0, f"K3's {name} kernel differs from its plain "
+                  f"version at Wp={words} ({err})")
+            k3_instances[f"{name} Wp={words}"] = err
     patterns, texts = small_cases(rng, 256, 1376, 1377)
     args3 = large_args(patterns, texts, 128)
-    _, _, err3t = compare(cuda_myers_large.myers_large,
-                          cuda_myers_large.myers_large_plain, args3)
+    want = [t.cpu().numpy()
+            for t in cuda_myers_large.myers_large_plain(*args3)]
+    err3t = 0
+    for name in ("register", "shared"):
+        kernel = getattr(cuda_myers_large, f"myers_large_{name}")
+        got = [t.cpu().numpy() for t in kernel(*args3)]
+        err3t = max(err3t, *(int(np.max(np.abs(g.astype(np.int64) - w)))
+                             for g, w in zip(got, want)))
     check(err3t == 0, f"K3 differs from its plain version ({err3t})")
-    k3_ms = cuda_ms(lambda: cuda_myers_large.myers_large(*args3), 10)
+    # both kernels on the same operands, in turns: shared, register,
+    # register, shared
+    turns = {"register": [], "shared": []}
+    for name in ("shared", "register", "register", "shared"):
+        kernel = getattr(cuda_myers_large, f"myers_large_{name}")
+        turns[name].append(cuda_ms(lambda: kernel(*args3), 10))
     t0 = time.monotonic()
     cuda_myers_large.myers_large_plain(*args3)
     torch.cuda.synchronize()
-    rows["K3"] = {
-        "name": "myers_large", "route": "cuda",
-        "source": cuda_myers_large.SOURCE,
-        "replaces": cuda_myers_large.REPLACES,
-        "max_abs_err": max(err3, err3t), "ms": k3_ms,
-        "plain_ms": (time.monotonic() - t0) * 1000,
-        **bound_fields(full_bound(args3, peaks)),
-        "shape": "B=256 m=1376 n=1376..1435 Wp=128",
-    }
+    plain3_ms = (time.monotonic() - t0) * 1000
+    k3_bound = full_bound(args3, peaks)
+    k3_columns = int(args3[3].max()) - 1
+    for key, name, kernel in (("K3", "myers_large_reg", "register"),
+                              ("K3s", "myers_large_shared", "shared")):
+        ms = sum(turns[kernel]) / len(turns[kernel])
+        rows[key] = {
+            "name": name, "route": "cuda",
+            "source": cuda_myers_large.SOURCE,
+            "replaces": cuda_myers_large.REPLACES,
+            "max_abs_err": max(err3, err3t, *k3_instances.values()),
+            "ms": ms, "turns_ms": turns[kernel], "plain_ms": plain3_ms,
+            **bound_fields(k3_bound), "bound_share": k3_bound[0] / ms,
+            "shape": "B=256 m=1376 n=1376..1435 Wp=128 (R=4, 2 groups)",
+            "columns": k3_columns, "us_per_col": ms * 1000 / k3_columns,
+        }
+    rows["K3"]["instances_max_abs_err"] = k3_instances
     return rows, k1_ends, sweep_fields
 
 
@@ -982,11 +1078,12 @@ def reset_launches() -> None:
         microbench_column_loop,
     )
 
-    for module in (cuda_myers, cuda_myers_large, traceback_device,
-                   ablate_banded_kernel, microbench_column_loop):
+    for module in (cuda_myers, traceback_device, ablate_banded_kernel,
+                   microbench_column_loop):
         module.LAUNCHES = 0
-    cuda_myers_banded.REGISTER_LAUNCHES = 0
-    cuda_myers_banded.SHARED_LAUNCHES = 0
+    for module in (cuda_myers_banded, cuda_myers_large):
+        module.REGISTER_LAUNCHES = 0
+        module.SHARED_LAUNCHES = 0
     microbench_carry_scaling.CARRY_LAUNCHES = 0
     microbench_carry_scaling.BCAST_LAUNCHES = 0
 
@@ -1011,6 +1108,8 @@ class E2E:
         workdir.mkdir(exist_ok=True)
         self.workdir = workdir
         self.num_reads = num_reads
+        self.read_len = read_len
+        self.read_error = read_error
         self.query_error = query_error
         self.genome = workdir / "genome.fasta"
         self.reads = workdir / "reads.fastq"
@@ -1049,10 +1148,11 @@ class E2E:
     def run_device_pass(self, name, extra=(), env=None):
         """One --engine device run in this process with the launch counts
         set to 0 just before it; (launches, fused dispatches). The launches
-        also hold K1's split by kernel (K1_register, K1_shared)."""
+        also hold K1's and K3's split by kernel (K1_register, K1_shared,
+        K3_register, K3_shared)."""
         from floxer_tpu_torch import pipeline, verify_batch
         from floxer_tpu_torch.__main__ import main
-        from floxer_tpu_torch.ops import cuda_myers_banded
+        from floxer_tpu_torch.ops import cuda_myers_banded, cuda_myers_large
 
         env = env or {}
         os.environ.update(env)
@@ -1061,8 +1161,10 @@ class E2E:
             reset_launches()
             code = main(self.argv(name, ["--engine", "device", *extra]))
             launches = pipeline.kernel_launches()
-            launches["K1_register"] = cuda_myers_banded.REGISTER_LAUNCHES
-            launches["K1_shared"] = cuda_myers_banded.SHARED_LAUNCHES
+            for kernel, module in (("K1", cuda_myers_banded),
+                                   ("K3", cuda_myers_large)):
+                launches[f"{kernel}_register"] = module.REGISTER_LAUNCHES
+                launches[f"{kernel}_shared"] = module.SHARED_LAUNCHES
         finally:
             for key in env:
                 del os.environ[key]
@@ -1108,10 +1210,11 @@ def run_e2e(device, e2e: E2E):
     check(fused > 0, "pass A made no fused dispatch")
     for name in ("K1", "K2", "K3"):
         check(launches[name] > 0, f"{name} was never launched in pass A")
-    check(launches["K1_register"] == launches["K1"]
-          and launches["K1_shared"] == 0,
-          f"pass A's K1 launches did not all take the register kernel: "
-          f"{launches}")
+    for name in ("K1", "K3"):
+        check(launches[f"{name}_register"] == launches[name]
+              and launches[f"{name}_shared"] == 0,
+              f"pass A's {name} launches did not all take the register "
+              f"kernel: {launches}")
     check(mapped > 0, "no read mapped")
     return result, launches
 
@@ -1148,17 +1251,46 @@ def run_legacy_pass(e2e: E2E):
     }
 
 
-def run_long_pass(e2e: E2E):
-    """Pass E: the LONG_READS workload with --engine device against its own
-    pass B. Its PEX roots need bands over 512 words, so the fused wave runs
-    them on the shared-memory K1 (counted apart from the register
-    kernel's inner nodes)."""
+def append_overhanging_reads(e2e: E2E, rng) -> None:
+    """Add OVERHANG_READS[0] reads to the workload that run off the end of
+    the genome's (one) chromosome: the chromosome's last OVERHANG_READS[1]
+    chars, mutated at the workload's read error rate, then random chars up
+    to the read length, as reads that span a contig end of a draft
+    assembly do. Their roots verify against windows that the chromosome
+    end cuts shorter than m - k, so the fused wave runs them full (K3) at
+    over 512 pattern words, on the shared-memory kernel."""
+    import numpy as np
+
+    letters = np.frombuffer(b"ACGT", dtype=np.uint8)
+    genome = b"".join(
+        line.strip() for line in e2e.genome.read_bytes().splitlines()
+        if not line.startswith(b">")
+    )
+    codes = np.searchsorted(letters, np.frombuffer(genome, np.uint8)) + 1
+    count, inside = OVERHANG_READS
+    with open(e2e.reads, "a") as handle:
+        for i in range(count):
+            read = mutate(rng, codes[-inside:], e2e.read_error)
+            tail = rng.integers(1, 5, size=max(0, e2e.read_len - len(read)))
+            text = letters[np.concatenate([read, tail]) - 1].tobytes().decode()
+            handle.write(f"@overhang_{i}\n{text}\n+\n{'I' * len(text)}\n")
+
+
+def run_long_pass(e2e: E2E, rng):
+    """Pass E: the LONG_READS workload, with overhanging reads appended,
+    with --engine device against its own pass B. Its PEX roots need bands
+    over 512 words, so the fused wave runs them on the shared-memory K1,
+    and the overhanging reads' roots take the shared-memory K3 (each
+    counted apart from its register kernel's launches)."""
+    append_overhanging_reads(e2e, rng)
     e2e.run_host_pass()
     launches, fused = e2e.run_device_pass("pass_e")
-    check(launches["K1_shared"] > 0,
-          f"pass E launched no shared-memory K1: {launches}")
+    for name in ("K1", "K3"):
+        check(launches[f"{name}_shared"] > 0,
+              f"pass E launched no shared-memory {name}: {launches}")
     return {
-        "reads": e2e.num_reads, "genome_bp": LONG_READS[0],
+        "reads": e2e.num_reads, "overhanging_reads": OVERHANG_READS[0],
+        "genome_bp": LONG_READS[0],
         "read_len": LONG_READS[2], "read_error": LONG_READS[3],
         "query_error": e2e.query_error,
         "align_s": e2e.seconds("pass_e"),
@@ -1263,7 +1395,8 @@ def run_profile_pass(e2e: E2E):
 
 def trace_breakdown(trace: dict, top: int = 6) -> dict:
     """Device time of a torch.profiler Chrome trace: the kernels' summed
-    time by name (the `top` largest), the union of the kernel and copy
+    time by name (the `top` largest) and by CUDA kernel K1-K4 (both of a
+    kernel's variants together), the union of the kernel and copy
     intervals (device busy) and the first-to-last device span, in s."""
     intervals, by_name = [], {}
     for event in trace.get("traceEvents", []):
@@ -1290,7 +1423,16 @@ def trace_breakdown(trace: dict, top: int = 6) -> dict:
     busy += cur_end - cur_start
     kernels_s = sum(total for _, total in by_name.values()) / 1e6
     largest = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    families = {}
+    for name, (count, total) in by_name.items():
+        for key, prefix in (("K1", "myers_banded"), ("K2", "myers_small"),
+                            ("K3", "myers_large"), ("K4", "traceback")):
+            if name.startswith(prefix):
+                family = families.setdefault(key, {"launches": 0, "s": 0.0})
+                family["launches"] += count
+                family["s"] += total / 1e6
     return {
+        "kernels_by_family": families,
         "device_busy_s": busy / 1e6,
         "device_span_s": (intervals[-1][1] - intervals[0][0]) / 1e6,
         "kernel_s": kernels_s,
@@ -1304,37 +1446,51 @@ def trace_breakdown(trace: dict, top: int = 6) -> dict:
 
 
 def ptxas_phase() -> dict:
-    """K1's register kernel instances as the aligner's build compiled them:
-    what ptxas -v reported (registers, stack, spills) and, from the
-    library's SASS, the instructions of each column loop (the sliding
-    loop, then the frozen one; a loop runs once per text column) and those
-    per band word. Fails on a missing instance, a spill or a stack frame."""
+    """The register kernels' instances as the aligner's build compiled
+    them: K1's myers_banded_reg_kernel<R>, K3's myers_large_reg_kernel<R>
+    and K2's myers_small_kernel<G>. For each, what ptxas -v reported
+    (registers, stack, spills) and, from the library's SASS, the
+    instructions of each column loop (a loop runs once per text column):
+    K1 two (sliding, then frozen; also per band word), K3 one per group
+    count 1..R (a task runs the loop of its own), K2 one. Fails on a
+    missing instance, a spill, a stack frame or another loop count."""
     from floxer_tpu_torch.ops import _build
+    from floxer_tpu_torch.ops.cuda_myers import LANES_FOR_WORDS
     from floxer_tpu_torch.ops.cuda_myers_banded import REGISTER_BAND_WORDS
+    from floxer_tpu_torch.ops.cuda_myers_large import REGISTER_WORDS
 
-    def by_width(found: dict) -> dict:
-        out = {}
-        for name, value in found.items():
-            width = re.search(r"myers_banded_reg_kernelILi(\d+)E", name)
-            if width:
-                out[int(width.group(1))] = value
-        check(sorted(out) == [bw // 32 for bw in REGISTER_BAND_WORDS],
-              f"the register kernel's instances are R = {sorted(out)}")
-        return out
-
-    usage = by_width(_build.ALIGNER.ptxas_usage())
-    loops = by_width(_build.sass_loops(_build.ALIGNER.sass()))
-    for r, found in usage.items():
-        check(found.get("spill_stores", 1) == 0
-              and found.get("spill_loads", 1) == 0
-              and found.get("stack", 1) == 0,
-              f"myers_banded_reg_kernel<{r}> spills or keeps a stack "
-              f"frame: {found}")
-        check(len(loops[r]) == 2, f"myers_banded_reg_kernel<{r}> has "
-              f"innermost loops of {loops[r]} instructions, not two")
-    return {f"R={r}": {**usage[r], "sass_loop_instructions": loops[r],
-                       "per_band_word": [n / r for n in loops[r]]}
-            for r in sorted(usage)}
+    usage = _build.ALIGNER.ptxas_usage()
+    loops = _build.sass_loops(_build.ALIGNER.sass())
+    report = {}
+    for kernel, instances, loop_count in (
+        ("myers_banded_reg_kernel", [w // 32 for w in REGISTER_BAND_WORDS],
+         lambda r: 2),
+        ("myers_large_reg_kernel", [w // 32 for w in REGISTER_WORDS],
+         lambda r: r),
+        ("myers_small_kernel", sorted(set(LANES_FOR_WORDS.values())),
+         lambda g: 1),
+    ):
+        names = {}
+        for name in usage:
+            found = re.search(rf"{kernel}ILi(\d+)E", name)
+            if found:
+                names[int(found.group(1))] = name
+        check(sorted(names) == instances,
+              f"{kernel}'s instances are {sorted(names)}, not {instances}")
+        for n, name in sorted(names.items()):
+            found = usage[name]
+            check(found.get("spill_stores", 1) == 0
+                  and found.get("spill_loads", 1) == 0
+                  and found.get("stack", 1) == 0,
+                  f"{kernel}<{n}> spills or keeps a stack frame: {found}")
+            check(len(loops[name]) == loop_count(n),
+                  f"{kernel}<{n}> has innermost loops of {loops[name]} "
+                  f"instructions, not {loop_count(n)}")
+            entry = {**found, "sass_loop_instructions": loops[name]}
+            if kernel == "myers_banded_reg_kernel":
+                entry["per_band_word"] = [i / n for i in loops[name]]
+            report[f"{kernel}<{n}>"] = entry
+    return report
 
 
 def main() -> int:
@@ -1395,7 +1551,7 @@ def run_all(device, peaks, sweep, sweep_plain, full_arrays,
     phase("build", seconds=time.monotonic() - started,
           nvcc_seconds=_build.ALIGNER.last_build_seconds,
           library=str(_build.ALIGNER.path().relative_to(ROOT)))
-    phase("ptxas", kernel="myers_banded_reg_kernel<R>", **ptxas_phase())
+    phase("ptxas", **ptxas_phase())
 
     rng = np.random.default_rng(SEED)
     rows, k1_ends, sweep_fields = run_kernel_phase(
@@ -1427,12 +1583,13 @@ def run_all(device, peaks, sweep, sweep_plain, full_arrays,
         phase("profile", **run_profile_pass(e2e))
         long = E2E(workdir / "long", LONG_READS[1], LONG_READS[0],
                    *LONG_READS[2:])
-        result, launches_e = run_long_pass(long)
+        result, launches_e = run_long_pass(long, rng)
         phase("long_reads", **result)
 
     for name in ("K1", "K2", "K3"):
         rows[name]["launches"] = launches[name]
     rows["K1s"]["launches"] = launches_e["K1_shared"]
+    rows["K3s"]["launches"] = launches_e["K3_shared"]
     rows["K4"]["launches"] = launches_c["K4"]
     rows.update(script_rows)
     keys = ("name", "route", "source", "replaces", "launches",
@@ -1440,7 +1597,8 @@ def run_all(device, peaks, sweep, sweep_plain, full_arrays,
             "library_ms")
     print(json.dumps({"kernels": [
         {k: rows[name][k] for k in keys}
-        for name in ("K1", "K1s", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
+        for name in ("K1", "K1s", "K2", "K3", "K3s", "K4", "K5", "K6", "K7",
+                     "K8")
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

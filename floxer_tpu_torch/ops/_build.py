@@ -6,7 +6,9 @@ under build/floxer_tpu_torch_kernels/ at first use, then loaded with
 ctypes: the aligner's kernels (csrc/*.cu, `ALIGNER`) and the
 research scripts' kernels (scripts/csrc/*.cu, `SCRIPTS`), so the aligner
 never builds the research kernels. A library's name carries a hash of its
-sources, so an edited kernel is never served from a stale build. A file
+sources and of the headers beside them (*.cuh, which the sources include
+by a quoted path, so nvcc finds them beside the including file), so an
+edited kernel or header is never served from a stale build. A file
 lock per library keeps concurrent processes from building it twice.
 
 Nothing here runs at import time: the CPU tests import every module of the
@@ -71,11 +73,16 @@ class KernelLibrary:
         self._library = None
 
     def sources(self) -> list[Path]:
+        """The files nvcc compiles, one object each."""
         return sorted(self.csrc_dir.glob("*.cu"))
+
+    def headers(self) -> list[Path]:
+        """The headers the sources include."""
+        return sorted(self.csrc_dir.glob("*.cuh"))
 
     def path(self) -> Path:
         digest = hashlib.sha256()
-        for source in self.sources():
+        for source in self.sources() + self.headers():
             digest.update(source.name.encode())
             digest.update(source.read_bytes())
         digest.update(" ".join(NVCC_FLAGS + COMPILE_FLAGS).encode())
@@ -186,7 +193,9 @@ ALIGNER = KernelLibrary(_PACKAGE_DIR / "csrc", "libfloxer_kernels", {
     # peq, plen, texts, tlen, B, num_words, num_text, dist, end, stream
     "floxer_myers_small": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # peq, plen, texts, tlen, B, words_padded, num_text, dist, end, stream
+    # (both K3 kernels)
     "floxer_myers_large": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "floxer_myers_large_reg": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # windows, patterns, n_lens, m_lens, end_cols, distances, T, m_pad,
     # w_pad, n_pad, dirs, ops, num_ops, begin_cols, stream
     "floxer_traceback_banded": [

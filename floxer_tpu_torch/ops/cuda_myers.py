@@ -1,10 +1,11 @@
 """K2: full Myers for patterns of at most 8 words (256 chars).
 
 Counterpart of floxer_tpu/ops/pallas_myers.py. `myers_small` launches the
-hand-written CUDA kernel (csrc/myers_small.cu) for CUDA tensors and runs
-`myers_small_plain` for CPU tensors. Operands keep the Pallas kernel's
-layouts: peq [W, 6, B] (uint32 bits in int32), plen [B], texts [N, B]
-(chars 0..15, anything >= 6 matches nothing), tlen [B] -> dist, end [B].
+hand-written CUDA kernel (csrc/myers_small.cu, `myers_small_cuda`) for
+CUDA tensors and runs `myers_small_plain` for CPU tensors. Operands keep
+the Pallas kernel's layouts: peq [W, 6, B] (uint32 bits in int32), plen
+[B], texts [N, B] (chars 0..15, anything >= 6 matches nothing), tlen [B]
+-> dist, end [B].
 """
 
 from __future__ import annotations
@@ -21,6 +22,10 @@ from .myers import (
 
 SOURCE = "floxer_tpu_torch/csrc/myers_small.cu"
 REPLACES = "floxer_tpu/ops/pallas_myers.py:38"
+# the lanes per task of the kernel instance each word count W launches
+# (myers_small_kernel<G>, G the smallest power of two >= W): the cases of
+# floxer_myers_small in csrc/myers_small.cu
+LANES_FOR_WORDS = {1: 1, 2: 2, 3: 4, 4: 4, 5: 8, 6: 8, 7: 8, 8: 8}
 # kernel launches in this process (read and reset by chip_smoke.py)
 LAUNCHES = 0
 
@@ -33,6 +38,13 @@ def myers_small(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dist, end) int32 [B]: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors."""
+    _check_operands(peq, plen, texts, tlen)
+    if peq.device.type == "cpu":
+        return myers_small_plain(peq, plen, texts, tlen)
+    return myers_small_cuda(peq, plen, texts, tlen)
+
+
+def _check_operands(peq, plen, texts, tlen):
     W, _, B = peq.shape
     if not 1 <= W <= MAX_UNROLLED_WORDS:
         raise ValueError(f"myers_small takes 1..8 pattern words, got {W}")
@@ -43,13 +55,15 @@ def myers_small(
         (tlen, "tlen", (B,)),
     ):
         check_operand(tensor, name, shape, torch.int32, peq.device)
-    if peq.device.type == "cpu":
-        return myers_small_plain(peq, plen, texts, tlen)
-    return _myers_small_cuda(peq, plen, texts, tlen)
 
 
-def _myers_small_cuda(peq, plen, texts, tlen):
+def myers_small_cuda(peq, plen, texts, tlen):
+    """The kernel on CUDA operands (myers_small's arguments); raises on
+    CPU tensors."""
     global LAUNCHES
+    _check_operands(peq, plen, texts, tlen)
+    if peq.device.type != "cuda":
+        raise ValueError(f"a CUDA kernel got operands on {peq.device}")
     W, _, B = peq.shape
     dist = torch.empty(B, dtype=torch.int32, device=peq.device)
     end = torch.empty(B, dtype=torch.int32, device=peq.device)
@@ -64,6 +78,18 @@ def _myers_small_cuda(peq, plen, texts, tlen):
         )
     LAUNCHES += 1
     return dist, end
+
+
+def _group_ballot_carries(gen: int, prop: int, lanes: int) -> int:
+    """The kernel's carries (csrc/myers_small.cu), on plain ints: the warp
+    holds 32 / lanes tasks of `lanes` lanes each, bit l of `gen` and `prop`
+    is lane l's generate and propagate bit (exclusive), and bit l of the
+    result is the carry into lane l. One 32-bit lookahead add with each
+    task's top lane masked out of both, so no carry crosses into the next
+    task."""
+    keep = MASK32 ^ sum(1 << lane for lane in range(lanes - 1, WORD, lanes))
+    g, a = gen & keep, (gen | prop) & keep
+    return ((a + g) ^ a ^ g) & MASK32
 
 
 def myers_small_plain(peq, plen, texts, tlen):

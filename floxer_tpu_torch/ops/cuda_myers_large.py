@@ -1,11 +1,15 @@
 """K3: full Myers for patterns of more than 256 chars.
 
 Counterpart of floxer_tpu/ops/pallas_myers_large.py. `myers_large`
-launches the hand-written CUDA kernel (csrc/myers_large.cu) for CUDA
-tensors and runs `myers_large_plain` for CPU tensors. Operands keep the
-Pallas kernel's layouts: peq [B, 6, Wp] (Wp a multiple of 32; uint32 bits
-in int32), plen [B], texts [B, N] (chars 0..15, anything >= 6 matches
-nothing), tlen [B] -> dist, end [B].
+launches one of two hand-written CUDA kernels (csrc/myers_large.cu) for
+CUDA tensors, chosen by the padded word count Wp alone: the register
+kernel (`myers_large_register`) for Wp up to the widest of
+REGISTER_WORDS, the shared-memory kernel (`myers_large_shared`) above;
+both compute the same function and count their launches apart. For CPU
+tensors it runs `myers_large_plain`. Operands keep the Pallas kernel's
+layouts: peq [B, 6, Wp] (Wp a multiple of 32; uint32 bits in int32), plen
+[B], texts [B, N] (chars 0..15, anything >= 6 matches nothing), tlen [B]
+-> dist, end [B].
 """
 
 from __future__ import annotations
@@ -21,10 +25,22 @@ from .myers import MASK32, WORD, build_peq_vectorized, u32_tensor, widen
 
 SOURCE = "floxer_tpu_torch/csrc/myers_large.cu"
 REPLACES = "floxer_tpu/ops/pallas_myers_large.py:48"
-# kernel launches in this process (read and reset by chip_smoke.py)
-LAUNCHES = 0
+# the widths (pattern words) of the register kernel's instances: the cases
+# of floxer_myers_large_reg in csrc/myers_large.cu (R = words / 32 groups
+# of 32 words, one word per lane); a launch takes the smallest instance
+# that holds Wp
+REGISTER_WORDS = (32, 64, 128, 256, 384, 512)
+# kernel launches in this process, per kernel (read and reset by
+# chip_smoke.py); `launches()` is K3's total
+REGISTER_LAUNCHES = 0
+SHARED_LAUNCHES = 0
 # word-axis padding of the host entry (the Pallas kernel's lane tile)
 WORD_TILE = 128
+
+
+def launches() -> int:
+    """K3's launches in this process, both kernels together."""
+    return REGISTER_LAUNCHES + SHARED_LAUNCHES
 
 
 def myers_large(
@@ -33,8 +49,18 @@ def myers_large(
     texts: torch.Tensor,
     tlen: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(dist, end) int32 [B]: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    """(dist, end) int32 [B]: for CUDA tensors the register kernel up to
+    REGISTER_WORDS' widest Wp and the shared-memory kernel above, the
+    plain version for CPU tensors."""
+    _check_operands(peq, plen, texts, tlen)
+    if peq.device.type == "cpu":
+        return myers_large_plain(peq, plen, texts, tlen)
+    if peq.shape[2] <= REGISTER_WORDS[-1]:
+        return myers_large_register(peq, plen, texts, tlen)
+    return myers_large_shared(peq, plen, texts, tlen)
+
+
+def _check_operands(peq, plen, texts, tlen):
     B, _, Wp = peq.shape
     if Wp == 0 or Wp % WORD:
         raise ValueError(f"myers_large needs a multiple of 32 words, got {Wp}")
@@ -45,27 +71,68 @@ def myers_large(
         (tlen, "tlen", (B,)),
     ):
         check_operand(tensor, name, shape, torch.int32, peq.device)
-    if peq.device.type == "cpu":
-        return myers_large_plain(peq, plen, texts, tlen)
-    return _myers_large_cuda(peq, plen, texts, tlen)
 
 
-def _myers_large_cuda(peq, plen, texts, tlen):
-    global LAUNCHES
+def _launch_cuda(entry, peq, plen, texts, tlen):
+    """One launch of a C entry point on CUDA operands; (dist, end) and
+    whether it ran."""
+    _check_operands(peq, plen, texts, tlen)
+    if peq.device.type != "cuda":
+        raise ValueError(f"a CUDA kernel got operands on {peq.device}")
     B, _, Wp = peq.shape
     dist = torch.empty(B, dtype=torch.int32, device=peq.device)
     end = torch.empty(B, dtype=torch.int32, device=peq.device)
     if B == 0:
-        return dist, end
+        return dist, end, False
     with torch.cuda.device(peq.device):
         launch(
-            "floxer_myers_large",
+            entry,
             peq.data_ptr(), plen.data_ptr(), texts.data_ptr(),
             tlen.data_ptr(), B, Wp, texts.shape[1], dist.data_ptr(),
             end.data_ptr(), torch.cuda.current_stream(peq.device).cuda_stream,
         )
-    LAUNCHES += 1
+    return dist, end, True
+
+
+def myers_large_register(peq, plen, texts, tlen):
+    """The register kernel on CUDA operands (myers_large's arguments);
+    raises above REGISTER_WORDS' widest Wp."""
+    global REGISTER_LAUNCHES
+    if peq.shape[2] > REGISTER_WORDS[-1]:
+        raise ValueError(
+            f"the register kernel takes up to {REGISTER_WORDS[-1]} words, "
+            f"got {peq.shape[2]}"
+        )
+    dist, end, ran = _launch_cuda("floxer_myers_large_reg", peq, plen, texts,
+                                  tlen)
+    REGISTER_LAUNCHES += ran
     return dist, end
+
+
+def myers_large_shared(peq, plen, texts, tlen):
+    """The shared-memory kernel on CUDA operands (myers_large's
+    arguments), at any Wp."""
+    global SHARED_LAUNCHES
+    dist, end, ran = _launch_cuda("floxer_myers_large", peq, plen, texts,
+                                  tlen)
+    SHARED_LAUNCHES += ran
+    return dist, end
+
+
+def _chained_ballot_carries(gen: list[int], prop: list[int]) -> list[int]:
+    """The register kernel's carries (csrc/myers_full_column.cuh
+    `lookahead_carries`, chained in csrc/myers_large.cu), on plain ints:
+    bit l of gen[i] and prop[i] is the generate and propagate bit of word
+    32i + l (exclusive), and bit l of the result's [i] is the carry into
+    that word. Within a group one 32-bit lookahead add; the add's carry
+    out of lane 31 is the carry into the next group's lane 0."""
+    carries, carry_in = [], 0
+    for g, p in zip(gen, prop):
+        a = g | p
+        total = a + g + carry_in
+        carries.append((total ^ a ^ g) & MASK32)
+        carry_in = total >> 32
+    return carries
 
 
 def myers_large_plain(peq, plen, texts, tlen):

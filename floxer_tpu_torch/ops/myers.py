@@ -114,3 +114,57 @@ def myers_distance(
     return myers_small_host(
         patterns, pattern_lengths, texts, text_lengths, device, sync
     )
+
+
+def full_myers_operands(
+    rng: np.random.Generator,
+    count: int,
+    words: int,
+    small: bool,
+    device: torch.device,
+    max_chars: int | None = None,
+):
+    """Seeded operands of K2 (small=True: peq [W, 6, B], texts [N, B]) or
+    K3 (peq [B, 6, Wp], texts [B, N]) at `words` pattern words, for the
+    card tests and chip_smoke.py: (peq, plen, texts, tlen) on `device`.
+    Pattern lengths cycle over every word (K2) or every group of 32 words
+    (K3) up to max_chars (32 * words by default), so one launch holds tasks
+    of every size the width takes; each text holds a mutated copy of its
+    pattern, with chars 6..15 at every 7th column (garbage past a fused
+    window); task 0 has m == 0, tasks 1 and 2 tlen 0 and 1."""
+    top = min(max_chars or WORD * words, WORD * words)
+    step = WORD if small else WORD * WORD
+    spans = [(lo, min(lo + step, top + 1)) for lo in range(1, top + 1, step)]
+    patterns, texts = [], []
+    for i in range(count):
+        lo, hi = spans[i % len(spans)]
+        m = int(rng.integers(lo, hi))
+        n = int(rng.integers(m, m + 2 * (m // 10) + 60))
+        text = rng.integers(1, 5, size=n).astype(np.uint8)
+        start = int(rng.integers(0, max(1, n - m)))
+        pattern = text[start : start + m].copy()
+        for pos in rng.integers(0, m, size=int(rng.integers(0, m // 12 + 2))):
+            pattern[pos] = 1 + (pattern[pos] % 4)
+        text[::7] = rng.integers(6, 16, size=len(text[::7]))
+        patterns.append(pattern)
+        texts.append(text)
+    plen = np.asarray([len(p) for p in patterns], dtype=np.int32)
+    tlen = np.asarray([len(t) for t in texts], dtype=np.int32)
+    pat = np.zeros((count, max(plen.max(), 1)), dtype=np.uint8)
+    txt = np.zeros((count, max(tlen.max(), 1)), dtype=np.int32)
+    for i, (p, t) in enumerate(zip(patterns, texts)):
+        pat[i, : len(p)] = p
+        txt[i, : len(t)] = t
+    plen[0] = 0
+    tlen[1], tlen[2] = 0, 1
+    peq = np.zeros((count, SIGMA, words), dtype=np.uint32)
+    built = build_peq_vectorized(pat, plen)
+    peq[:, :, : built.shape[2]] = built[:, :, :words]
+    if small:
+        peq, txt = np.transpose(peq, (2, 1, 0)), txt.T
+    return (
+        u32_tensor(peq, device),
+        torch.from_numpy(plen).to(device),
+        torch.from_numpy(np.ascontiguousarray(txt)).to(device),
+        torch.from_numpy(tlen).to(device),
+    )

@@ -71,7 +71,7 @@ def kernel_launches() -> dict[str, int]:
     return {
         "K1": cuda_myers_banded.launches(),
         "K2": cuda_myers.LAUNCHES,
-        "K3": cuda_myers_large.LAUNCHES,
+        "K3": cuda_myers_large.launches(),
         "K4": traceback_device.LAUNCHES,
     }
 

@@ -21,6 +21,7 @@ from floxer_tpu_torch.ops.cuda_myers import myers_small_host
 from floxer_tpu_torch.ops.cuda_myers_banded import band_cases, myers_banded_host
 from floxer_tpu_torch.ops.cuda_myers_large import myers_large_host
 from floxer_tpu_torch.ops.fused_verify import FusedBatch
+from floxer_tpu_torch.ops.myers import full_myers_operands
 from floxer_tpu_torch.ops.resident import ResidentBank
 from floxer_tpu_torch.scripts import (
     ablate_banded_kernel,
@@ -153,10 +154,64 @@ def test_large_kernel_matches_plain(cuda_device, max_m):
     patterns, texts = cases(rng, 40, 257, max_m, garbage_every=7)
     pat, plen = pad(patterns)
     txt, tlen = pad(texts)
-    launches = cuda_myers_large.LAUNCHES
+    launches = cuda_myers_large.launches()
     got = myers_large_host(pat, plen, txt, tlen, cuda_device)
-    assert cuda_myers_large.LAUNCHES == launches + 1
+    assert cuda_myers_large.launches() == launches + 1
     np.testing.assert_array_equal(got, myers_large_host(pat, plen, txt, tlen, CPU))
+
+
+@pytest.mark.parametrize("words", sorted(cuda_myers.LANES_FOR_WORDS))
+def test_small_kernel_every_instance_matches_plain(cuda_device, words):
+    """K2 at each word count W (its instance of LANES_FOR_WORDS[W] lanes
+    per task), tasks of 1..W words in one launch: equal to the plain
+    version, one launch counted."""
+    args = full_myers_operands(np.random.default_rng(words), 75, words,
+                               True, cuda_device)
+    launches = cuda_myers.LAUNCHES
+    got = cuda_myers.myers_small_cuda(*args)
+    assert cuda_myers.LAUNCHES == launches + 1
+    want = cuda_myers.myers_small_plain(*(t.cpu() for t in args))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def k3_counts():
+    return (cuda_myers_large.REGISTER_LAUNCHES,
+            cuda_myers_large.SHARED_LAUNCHES)
+
+
+@pytest.mark.parametrize("words", cuda_myers_large.REGISTER_WORDS)
+def test_large_register_kernel_matches_plain_and_shared(cuda_device, words):
+    """K3's register kernel at each instance, tasks of 1 to words / 32
+    groups in one launch: equal to the plain version and the shared-memory
+    kernel, and myers_large routes the width to it."""
+    args = full_myers_operands(np.random.default_rng(words + 3), 12, words,
+                               False, cuda_device)
+    before = k3_counts()
+    register = cuda_myers_large.myers_large_register(*args)
+    shared = cuda_myers_large.myers_large_shared(*args)
+    routed = cuda_myers_large.myers_large(*args)
+    assert k3_counts() == (before[0] + 2, before[1] + 1)
+    want = cuda_myers_large.myers_large_plain(*(t.cpu() for t in args))
+    for w, *got in zip(want, register, shared, routed):
+        for tensor in got:
+            assert torch.equal(tensor.cpu(), w)
+
+
+def test_wide_large_runs_the_shared_kernel(cuda_device):
+    """640 pattern words are wider than the register kernel's widest: the
+    shared-memory kernel takes them, equal to the plain version, and the
+    register kernel refuses them."""
+    args = full_myers_operands(np.random.default_rng(640), 6, 640, False,
+                               cuda_device)
+    before = k3_counts()
+    got = cuda_myers_large.myers_large(*args)
+    assert k3_counts() == (before[0], before[1] + 1)
+    want = cuda_myers_large.myers_large_plain(*(t.cpu() for t in args))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    with pytest.raises(ValueError):
+        cuda_myers_large.myers_large_register(*args)
 
 
 def traceback_tasks(rng, count, length, error_rate):

@@ -287,7 +287,7 @@ def test_host_only_verifier_matches_sequential():
     assert_same_alignments(want, got)
 
 
-def test_bucketed_device_batcher_is_not_ported(monkeypatch):
+def test_bucketed_device_batcher_runs_host_slices(monkeypatch):
     """The bucketed device batcher is ported: without resident banks a
     device-routed bucket runs as a host-slice kernel call on the
     verifier's device (the plain versions on the CPU), and the alignments

@@ -24,7 +24,7 @@ from floxer_tpu_torch.ops import cuda_myers, cuda_myers_banded, cuda_myers_large
 from floxer_tpu_torch.ops.cuda_myers import myers_small_host
 from floxer_tpu_torch.ops.cuda_myers_banded import myers_banded_host
 from floxer_tpu_torch.ops.cuda_myers_large import myers_large_host
-from floxer_tpu_torch.ops.myers import myers_distance
+from floxer_tpu_torch.ops.myers import full_myers_operands, myers_distance
 
 CPU = torch.device("cpu")
 
@@ -156,10 +156,10 @@ def test_myers_distance_dispatch_by_word_count():
         patterns, texts = full_cases(5, 6, max_m - 100, max_m)
         pat, plen = pad_batch(patterns)
         txt, tlen = pad_batch(texts)
-        before = (cuda_myers.LAUNCHES, cuda_myers_large.LAUNCHES)
+        before = (cuda_myers.LAUNCHES, cuda_myers_large.launches())
         dist, end = myers_distance(pat, plen, txt, tlen, CPU)
         # the plain versions launch nothing
-        assert (cuda_myers.LAUNCHES, cuda_myers_large.LAUNCHES) == before
+        assert (cuda_myers.LAUNCHES, cuda_myers_large.launches()) == before
         for i, (pattern, text) in enumerate(zip(patterns, texts)):
             assert (int(dist[i]), int(end[i])) == oracle(pattern, text)
 
@@ -272,3 +272,125 @@ def test_band_cases_fit_their_band(band_words):
         assert n - m + 2 * k + 1 <= 32 * band_words
     for a, b in zip(draw[0], draw[1]):
         assert all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def lane_vectors(states):
+    """Per-lane 0 (kill), 1 (generate), 2 (propagate) -> the generate and
+    propagate bits as lists."""
+    return [int(s == 1) for s in states], [int(s == 2) for s in states]
+
+
+def mask_of(bits):
+    return sum(bit << lane for lane, bit in enumerate(bits))
+
+
+def word_scan(g, p):
+    """The plain versions' carries into each word of one multi-word add."""
+    return cuda_myers_banded._exclusive_carries(
+        torch.tensor([g], dtype=torch.int64),
+        torch.tensor([p], dtype=torch.int64),
+    )[0].tolist()
+
+
+@settings(max_examples=300, deadline=None)
+@given(LANE_STATES, st.sampled_from(sorted(set(cuda_myers.LANES_FOR_WORDS.values()))))
+def test_group_ballot_carry_equals_each_tasks_word_scan(states, lanes):
+    """K2 holds 32 / lanes tasks per warp and carries with one lookahead
+    add on the warp's ballots, each task's top lane masked out: the carry
+    into every lane equals the plain version's scan over that task's own
+    words alone, so no carry crosses from one task into the next."""
+    g, p = lane_vectors(states)
+    got = cuda_myers._group_ballot_carries(mask_of(g), mask_of(p), lanes)
+    for first in range(0, 32, lanes):
+        task = slice(first, first + lanes)
+        want = word_scan(g[task], p[task])
+        assert [(got >> lane) & 1 for lane in range(first, first + lanes)] == want
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.integers(1, 16).flatmap(
+    lambda groups: st.lists(st.integers(0, 2), min_size=32 * groups,
+                            max_size=32 * groups)
+))
+def test_chained_group_carries_equal_the_word_scan(states):
+    """K3's register kernel carries within each group of 32 words by one
+    lookahead add and from group to group through that add's carry out:
+    the carry into every word equals the plain version's scan over all
+    the task's words."""
+    g, p = lane_vectors(states)
+    groups = len(states) // 32
+    got = cuda_myers_large._chained_ballot_carries(
+        [mask_of(g[32 * i : 32 * i + 32]) for i in range(groups)],
+        [mask_of(p[32 * i : 32 * i + 32]) for i in range(groups)],
+    )
+    flat = [(got[w // 32] >> (w % 32)) & 1 for w in range(len(states))]
+    assert flat == word_scan(g, p)
+
+
+def kernel_source(module) -> str:
+    return (Path(__file__).resolve().parent.parent / module.SOURCE).read_text()
+
+
+def test_full_myers_instances_are_the_kernel_sources():
+    """REGISTER_WORDS lists exactly the widths csrc/myers_large.cu
+    instantiates K3's register kernel at (R = words / 32 groups), and
+    LANES_FOR_WORDS the lanes per task csrc/myers_small.cu launches K2 at
+    for each word count: the smallest power of two that holds W words."""
+    instances = {
+        32 * int(r) for r in re.findall(
+            r"^\s*FLOXER_LARGE_REG_CASE\((\d+)\)$",
+            kernel_source(cuda_myers_large), re.M,
+        )
+    }
+    assert instances == set(cuda_myers_large.REGISTER_WORDS)
+    assert {w // 32 for w in instances} >= {1, 2, 4, 8, 12, 16}
+    cases = {
+        int(w): int(g) for w, g in re.findall(
+            r"^\s*FLOXER_SMALL_CASE\((\d+), (\d+)\)$",
+            kernel_source(cuda_myers), re.M,
+        )
+    }
+    assert cases == cuda_myers.LANES_FOR_WORDS
+    assert sorted(cases) == list(range(1, 9))
+    for words, lanes in cases.items():
+        assert lanes >= words and lanes & (lanes - 1) == 0
+        assert lanes == 1 or lanes // 2 < words
+
+
+@pytest.mark.parametrize("words", [3, 128, 640])
+def test_full_myers_kernels_refuse_cpu_operands(words):
+    """On the CPU myers_small and myers_large run the plain version and
+    count no launch; the kernels' own entries refuse CPU tensors."""
+    small = words <= 8
+    args = full_myers_operands(np.random.default_rng(words), 6, words, small,
+                               CPU, max_chars=300)
+    before = (cuda_myers.LAUNCHES, cuda_myers_large.launches())
+    entry = cuda_myers.myers_small if small else cuda_myers_large.myers_large
+    dist, _ = entry(*args)
+    assert (cuda_myers.LAUNCHES, cuda_myers_large.launches()) == before
+    assert dist.device == CPU
+    kernels = ((cuda_myers.myers_small_cuda,) if small else
+               (cuda_myers_large.myers_large_register,
+                cuda_myers_large.myers_large_shared))
+    for kernel in kernels:
+        with pytest.raises(ValueError, match="CUDA kernel|register kernel"):
+            kernel(*args)
+
+
+@pytest.mark.parametrize("words,small", [(1, True), (5, True), (8, True),
+                                         (64, False), (512, False)])
+def test_full_myers_operands_span_every_size(words, small):
+    """The card tests' and chip_smoke.py's K2/K3 generator puts tasks of
+    every word count (K2) or group count (K3) the width takes into one
+    launch, with a dead task (m == 0), tlen 0 and 1, and garbage chars,
+    reproducibly from the seed."""
+    draw = [full_myers_operands(np.random.default_rng(words), 40, words,
+                                small, CPU) for _ in range(2)]
+    peq, plen, texts, tlen = draw[0]
+    assert all(torch.equal(a, b) for a, b in zip(*draw))
+    unit = 32 if small else 1024
+    sizes = set((-(-plen[plen > 0] // unit)).tolist())
+    assert sizes == set(range(1, -(-32 * words // unit) + 1))
+    assert int(plen[0]) == 0 and tlen[1:3].tolist() == [0, 1]
+    assert int(texts.max()) >= 6
+    assert tuple(peq.shape) == ((words, 6, 40) if small else (40, 6, words))

@@ -358,6 +358,27 @@ def test_each_source_set_builds_its_own_library(tmp_path, monkeypatch):
     assert not broken.exists()
 
 
+def test_an_edited_header_changes_the_library(tmp_path):
+    """A library's name hashes the headers beside its sources too (the
+    aligner's K2 and K3 include csrc/myers_full_column.cuh), so an edited
+    header is never served from a stale build; nvcc compiles the .cu files
+    only."""
+    from floxer_tpu_torch.ops import _build
+
+    assert [h.name for h in _build.ALIGNER.headers()] == [
+        "myers_full_column.cuh"
+    ]
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text('#include "a.cuh"\n')
+    (csrc / "a.cuh").write_text("// one\n")
+    library = _build.KernelLibrary(csrc, "libtest", {})
+    assert [s.name for s in library.sources()] == ["a.cu"]
+    before = library.path()
+    (csrc / "a.cuh").write_text("// two\n")
+    assert library.path() != before
+
+
 FAKE_NVCC_PTXAS = """#!/bin/sh
 # writes its -o target; with -Xptxas -v it reports one kernel per source
 out=""; src=""; prev=""; verbose=""
