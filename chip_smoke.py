@@ -11,20 +11,25 @@ Phases, one line each on stdout, any failure exits non-zero:
            scripts' library (scripts/csrc/*.cu) builds beside it
   ptxas    what nvcc -Xptxas -v reported, in the aligner's own build, for
            every instance of the register kernels: K1's
-           myers_banded_reg_kernel<R>, K3's myers_large_reg_kernel<R> and
-           K2's myers_small_kernel<G>: registers, stack and spill bytes
-           (a spill or a stack frame fails the run); and from the
-           library's SASS (cuobjdump) the instructions of each instance's
-           column loops (K1 sliding and frozen, K3 one per group count, K2
-           one)
+           myers_banded_reg_kernel<R> and multi-warp
+           myers_banded_wide_kernel, K3's myers_large_reg_kernel<R> and
+           multi-warp myers_large_wide_kernel, and K2's
+           myers_small_kernel<G>:
+           registers, stack and spill bytes (a spill or a stack frame
+           fails the run); and from the library's SASS (cuobjdump) the
+           instructions of each instance's column loops (K1 sliding and
+           frozen, K3 one per group count, K2 one)
   kernels  K1/K2/K3 against their plain PyTorch versions on the card on
-           seeded cases (exact (dist, end) equality). K1 has two kernels:
-           the register kernel at every instantiated width and the
-           shared-memory kernel at a 640-word band, each against the plain
-           version (run on CPU copies of the operands in worker processes
-           that start before the build), and the 640-word band driven once
-           through myers_banded with the counts at 0 (it must take the
-           shared-memory kernel). K1 at the 20 kb root shape, on the 256
+           seeded cases (exact (dist, end) equality). K1 has three
+           kernels: the register kernel at every instantiated width, the
+           multi-warp kernel at the SWEEP_WIDE_BANDS widths and the
+           shared-memory kernel at those and at a
+           2176-word band (past the multi-warp kernel's widest), each
+           against the plain version (run on CPU copies of the operands in
+           worker processes that start before the build), and each width
+           past the register kernel's driven once through myers_banded
+           with the counts at 0 (it must take the multi-warp kernel, at
+           2176 words the shared-memory one). K1 at the 20 kb root shape, on the 256
            band words its tasks need and on the 384 the fused wave runs its
            root level at: the register kernel against the plain version,
            the native host engine, the numpy band mirror and the
@@ -32,17 +37,28 @@ Phases, one line each on stdout, any failure exits non-zero:
            register, register, shared). K2 at every W = 1..8 (its
            instances of G = 1, 2, 4, 8 lanes per task), tasks of 1..W
            words, garbage chars, tlen 0 and 1 and m == 0 in each launch,
-           and timed at 2048 tasks of 172 chars. K3 has two kernels too:
+           and timed at 2048 tasks of 172 chars. K3 has three kernels too:
            the register kernel at every instance (Wp = 32..512 words,
-           tasks of 1 to Wp/32 groups in one launch) and the shared-memory
-           kernel at 640 words, each against the plain version, the
-           640-word state driven once through myers_large with the counts
-           at 0, and both timed in turns at 256 tasks of 1376 chars on 128
-           words; K4 (banded
+           tasks of 1 to Wp/32 groups in one launch), the multi-warp kernel
+           at 544, 1280 and 2048 words (tasks spread up to the width's last
+           group) and the shared-memory kernel at those and at 2080 words,
+           each against the plain version, each width past the register
+           kernel's driven once through myers_large with the counts at 0,
+           and the register and shared-memory kernels timed in turns at
+           256 tasks of 1376 chars on 128 words; K4 (banded
            traceback) against its plain version on 2 root-shape tasks and
            against the host traceback (dp_reference, native) on every
            accepted root of a seeded batch; kernel, plain-version and
            host-pool times, and each kernel's bound (see `bound`)
+  long_shapes  the multi-warp kernels at pass E's shapes, in turns with the
+           shared-memory kernels on the same operands and held to them and
+           to the native host engine: K1 at 64 roots of 40 kb reads
+           (k = 6000) on 1024 and 640 band words (pass E's) and on 2048
+           (the multi-warp kernel's widest); K3 at 64 overhanging roots on
+           1280 pattern words; each width driven once through the routing
+           entry with the counts at 0; each with its bound; and the plain
+           versions once on the card, on K1's 1024 words and on K3's
+           shape (one to two minutes each), every kernel equal to them
   scripts  the research scripts' kernels K5-K8 (floxer_tpu_torch.scripts):
            every variant against its plain version on the card at
            COMPARE_TEXT columns (exact); K5 full at K1's end columns on
@@ -74,16 +90,19 @@ Phases, one line each on stdout, any failure exits non-zero:
   long_reads  pass E: 6 reads of 40 kb at 12% error on a 1 Mb genome with
            -p 0.15 (LONG_READS) and 2 reads that run off the chromosome's
            end (OVERHANG_READS), --engine device against its own pass B:
-           the roots' bands are wider than 512 words, so the shared-memory
-           K1 runs, and the overhanging reads' roots, cut short by the
-           chromosome's end, run full on the shared-memory K3; SAM
-           identical
+           the roots' bands are wider than 512 words, so the multi-warp K1
+           runs, and the overhanging reads' roots, cut short by the
+           chromosome's end, run full on the multi-warp K3 (no launch of
+           either shared-memory kernel); SAM identical; its device kernel
+           seconds; then pass E again under --profile, its device time by
+           kernel from the trace
 Each path is driven with the launch counts set to 0 just before it and
 read just after (server jobs report theirs in their stage split line). The
-line before the last is the kernel table as JSON (K1 rows at the 384-word
-root band; K1-K3 launches of pass A, the shared-memory K1's and K3's of
-pass E, K4 of pass C, K5-K8 of the entry points' run), each kernel with
-its bound;
+line before the last is the kernel table as JSON (K1 at the 384-word
+root band, K1w and K1s at pass E's 1024-word root shape, K3w and K3s at
+its 1280-word overhang shape; K1-K3 launches of pass A, the multi-warp
+and shared-memory K1's and K3's of pass E, K4 of pass C, K5-K8 of the
+entry points' run), each kernel with its bound;
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -125,16 +144,37 @@ PLAIN_TIMEOUT = 600
 # 1.98 GHz), longer than the host takes to enqueue them
 ENQUEUE_CYCLES = 20_000_000
 # K1's exactness sweep: seeded cases per band width (every width of the
-# register kernel, then WIDE_BAND_WORDS, wider than its widest, for the
-# shared-memory kernel), and the processes that run the plain versions
+# register kernel; SWEEP_WIDE_CASES at SWEEP_WIDE_BANDS for the
+# multi-warp kernel's instances, then at WIDE_BAND_WORDS, wider than its
+# widest, for the shared-memory kernel), and the processes that run the
+# plain versions (K1's, and K3's past the register kernel's widest)
 SWEEP_CASES = 48
-WIDE_BAND_WORDS = 640
+SWEEP_WIDE_CASES = 16
+SWEEP_WIDE_BANDS = (640, 1024, 2048)
+WIDE_BAND_WORDS = 2176
 SWEEP_WORKERS = 3
 # K3's exactness sweep: seeded tasks per width (every instance of the
-# register kernel, then WIDE_LARGE_WORDS, wider than its widest, for the
-# shared-memory kernel); K2's takes 75 tasks at every W
+# register kernel; SWEEP_WIDE_LARGE (words, longest pattern) for the
+# multi-warp kernel, its tasks spread up to that pattern's group; then
+# WIDE_LARGE_WORDS, wider than its widest, for the shared-memory kernel,
+# on patterns of up to WIDE_LARGE_CHARS chars); K2's takes 75 tasks at
+# every W
 LARGE_CASES = 12
-WIDE_LARGE_WORDS = 640
+SWEEP_WIDE_LARGE = ((544, None), (1280, 20_480), (2048, 16_384))
+WIDE_LARGE_WORDS = 2080
+WIDE_LARGE_CHARS = 3000
+# pass E's shapes, where the multi-warp kernels are timed in turns with
+# the shared-memory ones: K1 at the long reads' roots (tasks, pattern
+# length, budget, window chars past m, band widths: the root bands pass E
+# runs, the first the table's and the plain version's, then the multi-warp
+# kernel's widest on the same roots) and K3 at the overhanging reads'
+# (tasks, pattern length, chars of it from the window's end, window
+# length, pattern words)
+LONG_ROOT_SHAPE = (64, 40_000, 6_000, 7_800, (1024, 640, 2048))
+OVERHANG_SHAPE = (64, 40_000, 25_000, 30_000, 1280)
+# timed launches a turn of the shared-memory kernels at those shapes
+# (~0.2 s each)
+LONG_SHARED_REPEATS = 1
 # the card's memory rate for the bounds (NVIDIA's H100 SXM data sheet) and
 # its int32 issue rate per SM and clock: four sub-partitions, each
 # dispatching one 32-lane warp instruction per clock, to the integer pipe
@@ -178,8 +218,13 @@ JAX_BLOCKED = (
 )
 
 
+STARTED = time.monotonic()
+
+
 def phase(name: str, **fields) -> None:
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    """One phase's line, with the script's seconds so far."""
+    print(json.dumps({"phase": name, "at_s": time.monotonic() - STARTED,
+                      **fields}), flush=True)
 
 
 def check(condition: bool, message: str) -> None:
@@ -257,8 +302,8 @@ def pad(seqs, width=None):
 
 def k1_sweep_cases(seed):
     """[(band_words, operands as numpy arrays, num_text)]: SWEEP_CASES
-    seeded tasks at every width of the register kernel, then at
-    WIDE_BAND_WORDS."""
+    seeded tasks at every width of the register kernel, at
+    SWEEP_WIDE_BANDS, then at WIDE_BAND_WORDS."""
     import numpy as np
     import torch
 
@@ -270,14 +315,52 @@ def k1_sweep_cases(seed):
 
     rng = np.random.default_rng(seed)
     cases = []
-    for band_words in (*REGISTER_BAND_WORDS, WIDE_BAND_WORDS):
-        patterns, texts, budgets = band_cases(rng, SWEEP_CASES, band_words)
+    for band_words in (*REGISTER_BAND_WORDS, *SWEEP_WIDE_BANDS,
+                       WIDE_BAND_WORDS):
+        count = (SWEEP_CASES if band_words in REGISTER_BAND_WORDS
+                 else SWEEP_WIDE_CASES)
+        patterns, texts, budgets = band_cases(rng, count, band_words)
         texts_u8, lens = pad(texts)
         operands, num_text = banded_operands(
             patterns, texts_u8, lens, budgets, band_words, torch.device("cpu")
         )
         cases.append((band_words, [t.numpy() for t in operands], num_text))
     return cases
+
+
+def k3_sweep_cases(seed):
+    """[(words, operands as numpy arrays)]: LARGE_CASES seeded tasks
+    (full_myers_operands) at each of SWEEP_WIDE_LARGE, spread up to its
+    longest pattern, then at WIDE_LARGE_WORDS on patterns of up to
+    WIDE_LARGE_CHARS chars."""
+    import numpy as np
+    import torch
+
+    from floxer_tpu_torch.ops.myers import full_myers_operands
+
+    rng = np.random.default_rng(seed)
+    cases = []
+    for words, max_chars in (*SWEEP_WIDE_LARGE,
+                             (WIDE_LARGE_WORDS, WIDE_LARGE_CHARS)):
+        args = full_myers_operands(
+            rng, LARGE_CASES, words, False, torch.device("cpu"),
+            max_chars=max_chars, spread=words != WIDE_LARGE_WORDS,
+        )
+        cases.append((words, [t.numpy() for t in args]))
+    return cases
+
+
+def _k3_plain(case):
+    """K3's plain version on one sweep case, on the CPU (worker process)."""
+    import torch
+
+    from floxer_tpu_torch.ops.cuda_myers_large import myers_large_plain
+
+    torch.set_num_threads(1)
+    _, arrays = case
+    started = time.monotonic()
+    out = myers_large_plain(*(torch.from_numpy(a) for a in arrays))
+    return [t.numpy() for t in out], time.monotonic() - started
 
 
 def _k1_plain(case):
@@ -369,15 +452,19 @@ def full_bound(args, peaks) -> tuple[float, str]:
     return bound(ops, tensor_bytes(*args) + 8 * len(plen), peaks)
 
 
-def run_kernel_phase(device, rng, peaks, sweep, sweep_plain):
+def run_kernel_phase(device, rng, peaks, sweep, sweep_plain, large_sweep,
+                     large_plain):
     """Each kernel against its plain version on identical card tensors;
     K1 at the root shape, on 256 band words and on ROOT_WAVE_BAND_WORDS,
     against the plain version, the native engine, the numpy mirror and its
     other kernel, both kernels timed in turns; K1's sweep (`sweep`,
     k1_sweep_cases) against the plain versions' results (`sweep_plain`, an
-    async result of _k1_plain per case). Returns the per-kernel table rows
-    (launch counts filled in later), K1's (operands, end columns) of two
-    K1 checks, and the sweep's fields."""
+    async result of _k1_plain per case), and K3's past the register
+    kernel's widest (`large_sweep`, k3_sweep_cases, against `large_plain`,
+    of _k3_plain) likewise. Returns the table rows K1, K2, K3 (launch
+    counts filled in later), K1's (operands, end columns) of two K1
+    checks, the sweep's fields, and the plain versions' times at the
+    sweeps' widths (run_long_shapes' rows carry them)."""
     import numpy as np
     import torch
 
@@ -503,26 +590,26 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain):
                           "us_per_col": ms * 1000 / k1_columns,
                           "bound_share": bound_ms / ms}
         k1_root[band_words] = case
-    # the table's K1 rows: both kernels on the fused wave's root band
+    # the table's K1 row: the register kernel on the fused wave's root
+    # band (the shared-memory kernel's turns beside it, under "root")
     wave = k1_root[ROOT_WAVE_BAND_WORDS]
-    for key, name, kernel in (("K1", "myers_banded_reg", "register"),
-                              ("K1s", "myers_banded_shared", "shared")):
-        rows[key] = {
-            "name": name, "route": "cuda",
-            "source": cuda_myers_banded.SOURCE,
-            "replaces": cuda_myers_banded.REPLACES,
-            "max_abs_err": max(err_small, *(c["max_abs_err"]
-                                            for c in k1_root.values())),
-            "ms": wave[kernel]["ms"], "plain_ms": wave["plain_ms"],
-            "bound_ms": wave["bound_ms"], "bound_by": wave["bound_by"],
-            "library_ms": None, "shape": wave["shape"],
-            "us_per_col": wave[kernel]["us_per_col"],
-        }
-    rows["K1"]["root"] = {f"BW={bw}": case for bw, case in k1_root.items()}
+    rows["K1"] = {
+        "name": "myers_banded_reg", "route": "cuda",
+        "source": cuda_myers_banded.SOURCE,
+        "replaces": cuda_myers_banded.REPLACES,
+        "max_abs_err": max(err_small, *(c["max_abs_err"]
+                                        for c in k1_root.values())),
+        "ms": wave["register"]["ms"], "plain_ms": wave["plain_ms"],
+        "bound_ms": wave["bound_ms"], "bound_by": wave["bound_by"],
+        "library_ms": None, "shape": wave["shape"],
+        "us_per_col": wave["register"]["us_per_col"],
+        "root": {f"BW={bw}": case for bw, case in k1_root.items()},
+    }
 
-    # ---- K1's sweep: the register kernel at every width and the
-    # shared-memory kernel at WIDE_BAND_WORDS, each against the plain
-    # version on CPU copies of the same operands
+    # ---- K1's sweep: the register kernel at every width, the multi-warp
+    # kernel at SWEEP_WIDE_BANDS and the shared-memory kernel at those and
+    # at WIDE_BAND_WORDS, each against the plain version on CPU copies of
+    # the same operands
     sweep_errors = {}
     plain_results = sweep_plain.get(timeout=600)
     for (band_words, arrays, num_text), (want, plain_s) in zip(
@@ -530,20 +617,24 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain):
     ):
         sweep_args = (*(to_dev(a) for a in arrays), band_words, num_text)
         if band_words in cuda_myers_banded.REGISTER_BAND_WORDS:
-            kernels = ("register", "shared")
+            kernels = [("register", cuda_myers_banded.myers_banded_register),
+                       ("shared", cuda_myers_banded.myers_banded_shared)]
         else:
-            kernels = ("shared",)
-            # the wide band through the routing entry, counted alone: it
-            # must take the shared-memory kernel
+            wide = band_words in cuda_myers_banded.WIDE_BAND_WORDS
+            kernels = [("shared", cuda_myers_banded.myers_banded_shared)]
+            if wide:
+                kernels.insert(0, ("wide",
+                                   cuda_myers_banded.myers_banded_wide))
+            # the band through the routing entry, counted alone: it must
+            # take the multi-warp kernel, past its widest the shared one
             reset_launches()
             cuda_myers_banded.myers_banded(*sweep_args)
             torch.cuda.synchronize()
-            wide = (cuda_myers_banded.REGISTER_LAUNCHES,
-                    cuda_myers_banded.SHARED_LAUNCHES)
-            check(wide == (0, 1), f"a {band_words}-word band took the "
-                  f"kernels (register, shared) {wide} times")
-        for name in kernels:
-            kernel = getattr(cuda_myers_banded, f"myers_banded_{name}")
+            routed = launch_split(cuda_myers_banded)
+            expected = (0, 1, 0) if wide else (0, 0, 1)
+            check(routed == expected, f"a {band_words}-word band took the "
+                  f"kernels (register, wide, shared) {routed} times")
+        for name, kernel in kernels:
             got = [t.cpu().numpy() for t in kernel(*sweep_args)]
             err = max(int(np.max(np.abs(g.astype(np.int64) - w)))
                       for g, w in zip(got, want))
@@ -553,7 +644,8 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain):
         sweep_errors[f"plain_cpu_s BW={band_words}"] = plain_s
     sweep_fields = {
         "tasks_per_width": SWEEP_CASES, "max_abs_err": sweep_errors,
-        "wide_band_launches": {"register": 0, "shared": 1},
+        "routed_past_register": "multi-warp at SWEEP_WIDE_BANDS, shared "
+                                f"at {WIDE_BAND_WORDS}",
     }
 
     # ---- K2 (test_pallas_myers.py's generator, then every instance of
@@ -631,23 +723,33 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain):
                          large_args(patterns, txt_garbage, 128))
     check(err3 == 0, f"K3 differs from its plain version ({err3})")
     k3_instances = {}
-    for words in (*cuda_myers_large.REGISTER_WORDS, WIDE_LARGE_WORDS):
-        args = full_myers_operands(rng, LARGE_CASES, words, False, device)
+    # the widths past the register kernel's: their cases and plain
+    # versions come from the sweep's worker processes
+    large_results = dict(zip((words for words, _ in large_sweep),
+                             large_plain.get(timeout=600)))
+    wide_arrays = dict(large_sweep)
+    for words in (*cuda_myers_large.REGISTER_WORDS,
+                  *(words for words, _ in large_sweep)):
         if words in cuda_myers_large.REGISTER_WORDS:
+            args = full_myers_operands(rng, LARGE_CASES, words, False, device)
             kernels = ("register", "shared")
+            want = [t.cpu().numpy() for t in
+                    cuda_myers_large.myers_large_plain(*args)]
         else:
-            kernels = ("shared",)
-            # the wide pattern state through the routing entry, counted
-            # alone: it must take the shared-memory kernel
+            args = tuple(to_dev(a) for a in wide_arrays[words])
+            past = words > cuda_myers_large.WIDE_WORDS
+            kernels = ("shared",) if past else ("wide", "shared")
+            want, _ = large_results[words]
+            # the pattern state through the routing entry, counted alone:
+            # it must take the multi-warp kernel, past its widest the
+            # shared-memory one
             reset_launches()
             cuda_myers_large.myers_large(*args)
             torch.cuda.synchronize()
-            wide = (cuda_myers_large.REGISTER_LAUNCHES,
-                    cuda_myers_large.SHARED_LAUNCHES)
-            check(wide == (0, 1), f"{words} pattern words took the K3 "
-                  f"kernels (register, shared) {wide} times")
-        want = [t.cpu().numpy() for t in
-                cuda_myers_large.myers_large_plain(*args)]
+            routed = launch_split(cuda_myers_large)
+            expected = (0, 0, 1) if past else (0, 1, 0)
+            check(routed == expected, f"{words} pattern words took the K3 "
+                  f"kernels (register, wide, shared) {routed} times")
         for name in kernels:
             kernel = getattr(cuda_myers_large, f"myers_large_{name}")
             got = [t.cpu().numpy() for t in kernel(*args)]
@@ -679,21 +781,203 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain):
     plain3_ms = (time.monotonic() - t0) * 1000
     k3_bound = full_bound(args3, peaks)
     k3_columns = int(args3[3].max()) - 1
-    for key, name, kernel in (("K3", "myers_large_reg", "register"),
-                              ("K3s", "myers_large_shared", "shared")):
-        ms = sum(turns[kernel]) / len(turns[kernel])
+    # the table's K3 row: the register kernel, the shared-memory kernel's
+    # turns beside it
+    ms = sum(turns["register"]) / 2
+    rows["K3"] = {
+        "name": "myers_large_reg", "route": "cuda",
+        "source": cuda_myers_large.SOURCE,
+        "replaces": cuda_myers_large.REPLACES,
+        "max_abs_err": max(err3, err3t, *k3_instances.values()),
+        "ms": ms, "turns_ms": turns["register"], "plain_ms": plain3_ms,
+        **bound_fields(k3_bound), "bound_share": k3_bound[0] / ms,
+        "shape": "B=256 m=1376 n=1376..1435 Wp=128 (R=4, 2 groups)",
+        "columns": k3_columns, "us_per_col": ms * 1000 / k3_columns,
+        "shared_turns_ms": turns["shared"],
+        "instances_max_abs_err": k3_instances,
+    }
+    return rows, k1_ends, sweep_fields
+
+
+def run_long_shapes(device, peaks):
+    """The multi-warp kernels at pass E's shapes, each timed in turns with
+    the shared-memory kernel on the same operands (shared, multi-warp,
+    multi-warp, shared) and held to it and to the native host engine: K1
+    at LONG_ROOT_SHAPE on each of its band widths and K3 at
+    OVERHANG_SHAPE; each width once through the routing entry with the
+    counts at 0. The plain versions run once on the card, on K1's first
+    width and on K3's shape, and every kernel there equals them. Returns
+    the table rows K1w, K1s, K3w, K3s and the phase's fields."""
+    import numpy as np
+    import torch
+
+    from floxer_tpu_torch.native import native_myers_distance_batch
+    from floxer_tpu_torch.ops import cuda_myers_banded as k1
+    from floxer_tpu_torch.ops import cuda_myers_large as k3
+    from floxer_tpu_torch.ops.myers import build_peq_vectorized, u32_tensor
+
+    rng = np.random.default_rng(SEED + 2)
+    threads = min(8, os.cpu_count() or 1)
+    genome = rng.integers(1, 5, size=2_000_000).astype(np.uint8)
+
+    def turns_of(kernels, repeats):
+        """{name: [ms per turn]}: the first kernel, the second twice, the
+        first again."""
+        first, second = kernels
+        turns = {first: [], second: []}
+        for name in (first, second, second, first):
+            turns[name].append(cuda_ms(kernels[name], repeats[name]))
+        return turns
+
+    def mean(values):
+        return sum(values) / len(values)
+
+    def max_err(got, want):
+        return max(int(np.max(np.abs(g.astype(np.int64) - w)))
+                   for g, w in zip(got, want))
+
+    def plain_on_card(plain, args):
+        """(outputs as numpy, ms) of one call of a plain version."""
+        torch.cuda.synchronize()
+        started = time.monotonic()
+        out = [t.cpu().numpy() for t in plain(*args)]
+        return out, (time.monotonic() - started) * 1000
+
+    errors = {"K1w": 0, "K1s": 0, "K3w": 0, "K3s": 0}
+
+    # ---- K1: the long reads' roots, on each band width
+    T, m, k, extra, widths = LONG_ROOT_SHAPE
+    patterns, texts = [], []
+    for _ in range(T):
+        n = m + extra + int(rng.integers(0, 400))
+        start = int(rng.integers(0, len(genome) - n))
+        window = genome[start : start + n]
+        offset = int(rng.integers(0, extra // 2))
+        patterns.append(mutate(rng, window[offset : offset + m], 0.12)[:m])
+        texts.append(window)
+    check(all(len(t) - len(p) + 2 * k + 1 <= 32 * min(widths)
+              for p, t in zip(patterns, texts)),
+          "a long root's band does not fit its width")
+    native = native_myers_distance_batch(
+        texts, patterns, num_threads=threads, budgets=[k] * T
+    )
+    check(bool((native[0] <= k).all()), "long roots must be within budget")
+    texts_u8, lens = pad(texts)
+    k1_fields = {}
+    for band_words in widths:
+        operands, num_text = k1.banded_operands(
+            patterns, texts_u8, lens, np.full(T, k), band_words, device
+        )
+        args = (*operands, band_words, num_text)
+        reset_launches()
+        routed = [t.cpu().numpy() for t in k1.myers_banded(*args)]
+        check(launch_split(k1) == (0, 1, 0), f"a {band_words}-word long "
+              f"root took the K1 kernels {launch_split(k1)}")
+        references = [native, routed]
+        if band_words == widths[0]:
+            plain, k1_plain_ms = plain_on_card(k1.myers_banded_plain, args)
+            references.append(plain)
+        kernels = {"shared": functools.partial(k1.myers_banded_shared, *args),
+                   "wide": functools.partial(k1.myers_banded_wide, *args)}
+        for name, kernel in kernels.items():
+            got = [t.cpu().numpy() for t in kernel()]
+            err = max(max_err(got, want) for want in references)
+            check(err == 0, f"K1 {name} differs from the native engine or "
+                  f"the plain version at the long root shape on "
+                  f"{band_words} words ({err})")
+            key = "K1s" if name == "shared" else "K1w"
+            errors[key] = max(errors[key], err)
+        turns = turns_of(kernels, {"shared": LONG_SHARED_REPEATS, "wide": 5})
+        bound_ms, bound_by = k1_bound(args, peaks)
+        columns = max(len(t) for t in texts) - 1
+        k1_fields[f"BW={band_words}"] = {
+            "bound_ms": bound_ms, "bound_by": bound_by, "columns": columns,
+            **{name: {"ms": mean(turn), "turns_ms": turn,
+                      "us_per_col": mean(turn) * 1000 / columns,
+                      "bound_share": bound_ms / mean(turn)}
+               for name, turn in turns.items()},
+        }
+    shape = (f"T={T} m={m} k={k} n~{m + extra + 200} "
+             f"BW={widths[0]} (pass E's long roots)")
+    first = k1_fields[f"BW={widths[0]}"]
+    first["plain_ms"] = k1_plain_ms
+    rows = {}
+    for key, name, label in (("K1w", "myers_banded_wide", "wide"),
+                             ("K1s", "myers_banded_shared", "shared")):
         rows[key] = {
             "name": name, "route": "cuda",
-            "source": cuda_myers_large.SOURCE,
-            "replaces": cuda_myers_large.REPLACES,
-            "max_abs_err": max(err3, err3t, *k3_instances.values()),
-            "ms": ms, "turns_ms": turns[kernel], "plain_ms": plain3_ms,
-            **bound_fields(k3_bound), "bound_share": k3_bound[0] / ms,
-            "shape": "B=256 m=1376 n=1376..1435 Wp=128 (R=4, 2 groups)",
-            "columns": k3_columns, "us_per_col": ms * 1000 / k3_columns,
+            "source": k1.WIDE_SOURCE if key == "K1w" else k1.SOURCE,
+            "replaces": k1.REPLACES, "max_abs_err": errors[key],
+            "ms": first[label]["ms"], "plain_ms": k1_plain_ms,
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": None, "shape": shape,
+            "us_per_col": first[label]["us_per_col"],
         }
-    rows["K3"]["instances_max_abs_err"] = k3_instances
-    return rows, k1_ends, sweep_fields
+
+    # ---- K3: the overhanging reads' roots: the window's last `inside`
+    # chars, mutated, then random chars up to m
+    B, m3, inside, n3, words = OVERHANG_SHAPE
+    patterns3, texts3 = [], []
+    for _ in range(B):
+        start = int(rng.integers(0, len(genome) - n3))
+        window = genome[start : start + n3]
+        read = mutate(rng, window[n3 - inside :], 0.12)
+        tail = rng.integers(1, 5, size=max(0, m3 - len(read)))
+        patterns3.append(np.concatenate([read, tail]).astype(np.uint8)[:m3])
+        texts3.append(window)
+    pat, plen = pad(patterns3)
+    txt, tlen = pad(texts3)
+    peq = build_peq_vectorized(pat, plen)
+    check(peq.shape[2] <= words, "an overhang root exceeds its width")
+    padded = np.zeros(peq.shape[:2] + (words,), dtype=np.uint32)
+    padded[:, :, : peq.shape[2]] = peq
+    args3 = (
+        u32_tensor(padded, device),
+        torch.from_numpy(plen).to(device),
+        torch.from_numpy(txt.astype(np.int32)).to(device),
+        torch.from_numpy(tlen).to(device),
+    )
+    native3 = native_myers_distance_batch(texts3, patterns3,
+                                          num_threads=threads)
+    reset_launches()
+    routed3 = [t.cpu().numpy() for t in k3.myers_large(*args3)]
+    check(launch_split(k3) == (0, 1, 0), f"the {words}-word overhang roots "
+          f"took the K3 kernels {launch_split(k3)}")
+    plain3, k3_plain_ms = plain_on_card(k3.myers_large_plain, args3)
+    kernels3 = {"shared": functools.partial(k3.myers_large_shared, *args3),
+                "wide": functools.partial(k3.myers_large_wide, *args3)}
+    for name, kernel in kernels3.items():
+        got = [t.cpu().numpy() for t in kernel()]
+        err = max(max_err(got, want) for want in (native3, routed3, plain3))
+        check(err == 0, f"K3 {name} differs from the native engine or the "
+              f"plain version at the overhang shape ({err})")
+        errors["K3s" if name == "shared" else "K3w"] = err
+    turns3 = turns_of(kernels3, {"shared": LONG_SHARED_REPEATS, "wide": 5})
+    bound3 = full_bound(args3, peaks)
+    columns3 = int(tlen.max()) - 1
+    k3_fields = {
+        "bound_ms": bound3[0], "bound_by": bound3[1], "columns": columns3,
+        "plain_ms": k3_plain_ms,
+        **{name: {"ms": mean(turn), "turns_ms": turn,
+                  "us_per_col": mean(turn) * 1000 / columns3,
+                  "bound_share": bound3[0] / mean(turn)}
+           for name, turn in turns3.items()},
+    }
+    shape3 = (f"B={B} m={m3} n={n3} Wp={words} (pass E's overhanging "
+              f"roots)")
+    for key, name, label in (("K3w", "myers_large_wide", "wide"),
+                             ("K3s", "myers_large_shared", "shared")):
+        rows[key] = {
+            "name": name, "route": "cuda",
+            "source": k3.WIDE_SOURCE if key == "K3w" else k3.SOURCE,
+            "replaces": k3.REPLACES, "max_abs_err": errors[key],
+            "ms": k3_fields[label]["ms"], "plain_ms": k3_plain_ms,
+            **bound_fields(bound3), "shape": shape3,
+            "us_per_col": k3_fields[label]["us_per_col"],
+        }
+    fields = {"k1": {"shape": shape, **k1_fields},
+              "k3": {"shape": shape3, **k3_fields}}
+    return rows, fields
 
 
 def run_traceback_phase(device, rng, peaks):
@@ -1083,9 +1367,16 @@ def reset_launches() -> None:
         module.LAUNCHES = 0
     for module in (cuda_myers_banded, cuda_myers_large):
         module.REGISTER_LAUNCHES = 0
+        module.WIDE_LAUNCHES = 0
         module.SHARED_LAUNCHES = 0
     microbench_carry_scaling.CARRY_LAUNCHES = 0
     microbench_carry_scaling.BCAST_LAUNCHES = 0
+
+
+def launch_split(module) -> tuple[int, int, int]:
+    """K1's or K3's launches by kernel: (register, multi-warp, shared)."""
+    return (module.REGISTER_LAUNCHES, module.WIDE_LAUNCHES,
+            module.SHARED_LAUNCHES)
 
 
 def run_logged_launches(logfile: Path) -> dict:
@@ -1148,8 +1439,8 @@ class E2E:
     def run_device_pass(self, name, extra=(), env=None):
         """One --engine device run in this process with the launch counts
         set to 0 just before it; (launches, fused dispatches). The launches
-        also hold K1's and K3's split by kernel (K1_register, K1_shared,
-        K3_register, K3_shared)."""
+        also hold K1's and K3's split by kernel (K1_register, K1_wide,
+        K1_shared, and K3's likewise)."""
         from floxer_tpu_torch import pipeline, verify_batch
         from floxer_tpu_torch.__main__ import main
         from floxer_tpu_torch.ops import cuda_myers_banded, cuda_myers_large
@@ -1163,8 +1454,9 @@ class E2E:
             launches = pipeline.kernel_launches()
             for kernel, module in (("K1", cuda_myers_banded),
                                    ("K3", cuda_myers_large)):
-                launches[f"{kernel}_register"] = module.REGISTER_LAUNCHES
-                launches[f"{kernel}_shared"] = module.SHARED_LAUNCHES
+                for split, count in zip(("register", "wide", "shared"),
+                                        launch_split(module)):
+                    launches[f"{kernel}_{split}"] = count
         finally:
             for key in env:
                 del os.environ[key]
@@ -1279,16 +1571,24 @@ def append_overhanging_reads(e2e: E2E, rng) -> None:
 def run_long_pass(e2e: E2E, rng):
     """Pass E: the LONG_READS workload, with overhanging reads appended,
     with --engine device against its own pass B. Its PEX roots need bands
-    over 512 words, so the fused wave runs them on the shared-memory K1,
-    and the overhanging reads' roots take the shared-memory K3 (each
-    counted apart from its register kernel's launches)."""
+    over 512 words, so the fused wave runs them on the multi-warp K1, and
+    the overhanging reads' roots take the multi-warp K3 (each counted
+    apart from its other kernels' launches); no launch of either
+    shared-memory kernel."""
+    from floxer_tpu_torch import verify_batch
+
     append_overhanging_reads(e2e, rng)
     e2e.run_host_pass()
+    kernel_before = verify_batch._BATCH_TIMERS["kernel"]
     launches, fused = e2e.run_device_pass("pass_e")
+    device_kernel_s = verify_batch._BATCH_TIMERS["kernel"] - kernel_before
     for name in ("K1", "K3"):
-        check(launches[f"{name}_shared"] > 0,
-              f"pass E launched no shared-memory {name}: {launches}")
+        check(launches[f"{name}_wide"] > 0
+              and launches[f"{name}_shared"] == 0,
+              f"pass E's long {name} launches did not all take the "
+              f"multi-warp kernel: {launches}")
     return {
+        "device_kernel_s": device_kernel_s,
         "reads": e2e.num_reads, "overhanging_reads": OVERHANG_READS[0],
         "genome_bp": LONG_READS[0],
         "read_len": LONG_READS[2], "read_error": LONG_READS[3],
@@ -1299,6 +1599,22 @@ def run_long_pass(e2e: E2E, rng):
         "launches": launches, "fused_dispatches": fused,
         "sam_identical": True,
     }, launches
+
+
+def run_long_profile_pass(e2e: E2E):
+    """Pass E again under --profile: its device time by kernel from the
+    trace (the multi-warp K1 and K3 named in it); SAM identical."""
+    trace_dir = e2e.workdir / "trace_e"
+    launches, _ = e2e.run_device_pass(
+        "pass_ep", extra=["--profile", str(trace_dir)]
+    )
+    traces = list(trace_dir.glob("*.json"))
+    check(len(traces) == 1, f"expected one trace in {trace_dir}: {traces}")
+    text = traces[0].read_text()
+    for kernel in ("myers_banded_wide_kernel", "myers_large_wide_kernel"):
+        check(kernel in text, f"pass E's trace does not name {kernel}")
+    return {"align_s": e2e.seconds("pass_ep"), "launches": launches,
+            "sam_identical": True, **trace_breakdown(json.loads(text))}
 
 
 def run_server_pass(e2e: E2E):
@@ -1452,11 +1768,17 @@ def ptxas_phase() -> dict:
     (registers, stack, spills) and, from the library's SASS, the
     instructions of each column loop (a loop runs once per text column):
     K1 two (sliding, then frozen; also per band word), K3 one per group
-    count 1..R (a task runs the loop of its own), K2 one. Fails on a
-    missing instance, a spill, a stack frame or another loop count."""
+    count 1..R (a task runs the loop of its own), K2 one; and the
+    multi-warp kernels (K1 myers_banded_wide_kernel, two loops; K3
+    myers_large_wide_kernel, one per group count 1..4 and any other
+    innermost loop the compiler made). Fails on a missing instance, a
+    spill, a stack frame or another loop count."""
     from floxer_tpu_torch.ops import _build
     from floxer_tpu_torch.ops.cuda_myers import LANES_FOR_WORDS
-    from floxer_tpu_torch.ops.cuda_myers_banded import REGISTER_BAND_WORDS
+    from floxer_tpu_torch.ops.cuda_myers_banded import (
+        REGISTER_BAND_WORDS,
+        WIDE_WORDS_PER_LANE,
+    )
     from floxer_tpu_torch.ops.cuda_myers_large import REGISTER_WORDS
 
     usage = _build.ALIGNER.ptxas_usage()
@@ -1490,6 +1812,26 @@ def ptxas_phase() -> dict:
             if kernel == "myers_banded_reg_kernel":
                 entry["per_band_word"] = [i / n for i in loops[name]]
             report[f"{kernel}<{n}>"] = entry
+    # the multi-warp kernels: K1's two column loops (sliding, frozen); K3's
+    # column loop per group count 1..4 (listed with any other innermost
+    # loop the compiler made)
+    for kernel, enough in (("myers_banded_wide_kernel", lambda n: n == 2),
+                           ("myers_large_wide_kernel", lambda n: n >= 4)):
+        names = [name for name in usage if kernel in name]
+        check(len(names) == 1, f"{kernel} is compiled as {names}")
+        found = usage[names[0]]
+        check(found.get("spill_stores", 1) == 0
+              and found.get("spill_loads", 1) == 0
+              and found.get("stack", 1) == 0,
+              f"{kernel} spills or keeps a stack frame: {found}")
+        kernel_loops = loops[names[0]]
+        check(enough(len(kernel_loops)),
+              f"{kernel} has innermost loops of {kernel_loops} instructions")
+        entry = {**found, "sass_loop_instructions": kernel_loops}
+        if kernel == "myers_banded_wide_kernel":
+            entry["per_lane_word"] = [i / WIDE_WORDS_PER_LANE
+                                      for i in kernel_loops]
+        report[kernel] = entry
     return report
 
 
@@ -1519,22 +1861,25 @@ def main() -> int:
     from floxer_tpu_torch.scripts import NUM_TEXT
 
     sweep = k1_sweep_cases(SEED + 1)
+    large_sweep = k3_sweep_cases(SEED + 3)
     full_arrays = script_arrays(NUM_TEXT)
     sweep_pool = multiprocessing.get_context("spawn").Pool(SWEEP_WORKERS)
     pools = [sweep_pool]
     try:
+        large_plain = sweep_pool.map_async(_k3_plain, large_sweep,
+                                           chunksize=1)
         sweep_plain = sweep_pool.map_async(_k1_plain, sweep, chunksize=1)
         full_pool, full_plain = start_full_width_plain(full_arrays)
         pools.append(full_pool)
-        return run_all(device, peaks, sweep, sweep_plain, full_arrays,
-                       full_plain)
+        return run_all(device, peaks, (sweep, sweep_plain),
+                       (large_sweep, large_plain), full_arrays, full_plain)
     finally:
         for pool in pools:
             pool.terminate()
             pool.join()
 
 
-def run_all(device, peaks, sweep, sweep_plain, full_arrays,
+def run_all(device, peaks, k1_sweep, k3_sweep, full_arrays,
             full_plain) -> int:
     import numpy as np
     import torch
@@ -1555,13 +1900,17 @@ def run_all(device, peaks, sweep, sweep_plain, full_arrays,
 
     rng = np.random.default_rng(SEED)
     rows, k1_ends, sweep_fields = run_kernel_phase(
-        device, rng, peaks, sweep, sweep_plain
+        device, rng, peaks, *k1_sweep, *k3_sweep
     )
     rows["K4"] = run_traceback_phase(device, rng, peaks)
     phase("kernels", k1_sweep=sweep_fields,
           **{name: {k: v for k, v in row.items()
                     if k not in ("name", "route", "source", "replaces")}
              for name, row in rows.items()})
+    # the multi-warp and shared-memory rows, at pass E's shapes
+    long_rows, long_fields = run_long_shapes(device, peaks)
+    rows.update(long_rows)
+    phase("long_shapes", **long_fields)
 
     fields, script_rows = run_scripts_phase(
         device, scripts_build, rows["K1"], k1_ends, full_arrays,
@@ -1584,12 +1933,14 @@ def run_all(device, peaks, sweep, sweep_plain, full_arrays,
         long = E2E(workdir / "long", LONG_READS[1], LONG_READS[0],
                    *LONG_READS[2:])
         result, launches_e = run_long_pass(long, rng)
+        result["profiled"] = run_long_profile_pass(long)
         phase("long_reads", **result)
 
     for name in ("K1", "K2", "K3"):
         rows[name]["launches"] = launches[name]
-    rows["K1s"]["launches"] = launches_e["K1_shared"]
-    rows["K3s"]["launches"] = launches_e["K3_shared"]
+    for name in ("K1", "K3"):
+        rows[f"{name}w"]["launches"] = launches_e[f"{name}_wide"]
+        rows[f"{name}s"]["launches"] = launches_e[f"{name}_shared"]
     rows["K4"]["launches"] = launches_c["K4"]
     rows.update(script_rows)
     keys = ("name", "route", "source", "replaces", "launches",
@@ -1597,8 +1948,8 @@ def run_all(device, peaks, sweep, sweep_plain, full_arrays,
             "library_ms")
     print(json.dumps({"kernels": [
         {k: rows[name][k] for k in keys}
-        for name in ("K1", "K1s", "K2", "K3", "K3s", "K4", "K5", "K6", "K7",
-                     "K8")
+        for name in ("K1", "K1w", "K1s", "K2", "K3", "K3w", "K3s", "K4", "K5",
+                     "K6", "K7", "K8")
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

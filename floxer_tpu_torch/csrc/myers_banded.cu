@@ -16,10 +16,10 @@
 // two tasks per SM at the root shape, by the latency of the per-column
 // dependency chain.
 //
-// Two kernels compute the same function; the wrapper picks one by band
-// width. Both run one warp per task, so a column is one warp step with no
-// block barrier, and lane l owns the contiguous band words
-// [l*R, (l+1)*R), R = BW/32.
+// Two kernels here and a third in myers_banded_wide.cu compute the same
+// function; the wrapper picks one by band width. The two here run one warp
+// per task, so a column is one warp step with no block barrier, and lane
+// l owns the contiguous band words [l*R, (l+1)*R), R = BW/32.
 //
 // myers_banded_reg_kernel<R> (R = 1, 2, 4, 8, 12, 16; BW up to 512 words):
 // the band state (VP VN and the four char planes) lives in registers,
@@ -46,7 +46,9 @@
 //   - the sliding and the frozen columns run in two loops, and the next
 //     packed text and pattern words are loaded one 8-column step ahead.
 //
-// myers_banded_kernel (any other width, i.e. bands wider than 512 words):
+// myers_banded_kernel (any width the register kernels do not take: past
+// 2048 words, or not a 128-word tile past 512; myers_banded_wide.cu's
+// multi-warp register kernel takes the 128-word tiles of 640-2048 words):
 // state in shared memory, interleaved so that word i of lane l sits at
 // [i*32 + l] (no bank conflicts, no lane reads another lane's words),
 // which takes any band width without a template per width; the carry is a
@@ -59,9 +61,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "myers_banded_column.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+using floxer_banded::head_bits;
+using floxer_banded::kFull;
+using floxer_banded::or_tree;
+using floxer_banded::slide_reg;
 constexpr int kArrays = 9;  // VP VN P0 P1 P2 AM EQ PH MH
 
 // Slide one band array one bit toward word 0; `entering` is the bit that
@@ -255,27 +262,6 @@ __global__ void myers_banded_kernel(
 
 // ---- register kernel -----------------------------------------------------
 
-// Slide one band array one bit toward word 0; bit 0 of `entering` enters at
-// the top of this lane's last word.
-template <int R>
-__device__ __forceinline__ void slide_reg(uint32_t (&x)[R],
-                                          uint32_t entering) {
-#pragma unroll
-  for (int i = 0; i < R - 1; ++i) x[i] = __funnelshift_r(x[i], x[i + 1], 1);
-  x[R - 1] = __funnelshift_r(x[R - 1], entering, 1);
-}
-
-// The OR of x[0..R) as a tree of compile-time depth log2(R).
-template <int R>
-__device__ __forceinline__ uint32_t or_tree(uint32_t (&x)[R]) {
-#pragma unroll
-  for (int step = 1; step < R; step <<= 1) {
-#pragma unroll
-    for (int i = 0; i + step < R; i += 2 * step) x[i] |= x[i + step];
-  }
-  return x[0];
-}
-
 // One text column on register state. Returns the score delta at the band
 // bottom (meaningful in lane 31 only).
 template <int R, bool kSliding>
@@ -287,9 +273,7 @@ __device__ __forceinline__ int column_reg(
   // entering at the bottom gets a pessimistic VP bit and the plane bits of
   // its pattern char
   if (kSliding) {
-    const uint32_t head = (vp[0] & 1u) | ((vn[0] & 1u) << 1) |
-                          ((p0[0] & 1u) << 2) | ((p1[0] & 1u) << 3) |
-                          ((p2[0] & 1u) << 4) | ((am[0] & 1u) << 5);
+    const uint32_t head = head_bits(vp[0], vn[0], p0[0], p1[0], p2[0], am[0]);
     uint32_t nxt = __shfl_down_sync(kFull, head, 1);
     if (lane == 31) nxt = 1u | ((pch & 7u) << 2);
     slide_reg<R>(vp, nxt);

@@ -12,9 +12,10 @@
 // crosses every word; one 4-byte char and the char's Peq row enter per
 // column, so the per-column latency chain bounds it, not memory.
 //
-// Two kernels compute the same function; the wrapper picks one by the
-// padded word count Wp alone. Both run one warp per task and stop each
-// task at its own tlen.
+// Two kernels here and a third in myers_large_wide.cu compute the same
+// function; the wrapper picks one by the padded word count Wp alone. The
+// two here run one warp per task; all three stop each task at its own
+// tlen.
 //
 // myers_large_reg_kernel<R> (Wp <= 32 * R words; R = 1, 2, 4, 8, 12, 16,
 // so Wp up to 512): one pattern word per lane. Group i holds words
@@ -36,7 +37,8 @@
 // so no Eq waits on a load. The lane that owns row m keeps the score and
 // writes the result.
 //
-// myers_large_kernel (any wider Wp): VP/VN and per-column scratch in
+// myers_large_kernel (Wp past 2048; myers_large_wide.cu's multi-warp
+// register kernel takes 544-2048): VP/VN and per-column scratch in
 // shared memory, interleaved [i*32 + lane] (conflict-free, lane-private),
 // lane l owning words [l*R, (l+1)*R) with R = Wp/32, the carry of the
 // multi-word add scanned across lanes with __shfl_up_sync (generate,

@@ -187,15 +187,17 @@ class KernelLibrary:
 
 ALIGNER = KernelLibrary(_PACKAGE_DIR / "csrc", "libfloxer_kernels", {
     # vp0, planes0, texts, stream, scalars, T, band_words, text_words,
-    # dist, end, stream (both K1 kernels)
+    # dist, end, stream (the three K1 kernels)
     "floxer_myers_banded": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "floxer_myers_banded_reg": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "floxer_myers_banded_wide": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # peq, plen, texts, tlen, B, num_words, num_text, dist, end, stream
     "floxer_myers_small": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # peq, plen, texts, tlen, B, words_padded, num_text, dist, end, stream
-    # (both K3 kernels)
+    # (the three K3 kernels)
     "floxer_myers_large": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "floxer_myers_large_reg": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "floxer_myers_large_wide": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # windows, patterns, n_lens, m_lens, end_cols, distances, T, m_pad,
     # w_pad, n_pad, dirs, ops, num_ops, begin_cols, stream
     "floxer_traceback_banded": [

@@ -1,11 +1,13 @@
 """K1: banded sliding-window Myers, the production verification kernel.
 
 Counterpart of floxer_tpu/ops/pallas_myers_banded.py. `myers_banded`
-launches one of two hand-written CUDA kernels (csrc/myers_banded.cu) for
-CUDA tensors, chosen by band width alone: the register kernel
-(`myers_banded_register`) at the widths in REGISTER_BAND_WORDS, the
-shared-memory kernel (`myers_banded_shared`) at any other; both compute the
-same function and count their launches apart. For CPU tensors it runs
+launches one of three hand-written CUDA kernels for CUDA tensors, chosen by
+band width alone: the one-warp register kernel (`myers_banded_register`,
+csrc/myers_banded.cu) at the widths in REGISTER_BAND_WORDS, the multi-warp
+register kernel (`myers_banded_wide`, csrc/myers_banded_wide.cu) at those
+in WIDE_BAND_WORDS, the shared-memory kernel (`myers_banded_shared`,
+csrc/myers_banded.cu) at any other; all three compute the same function
+and count their launches apart. For CPU tensors it runs
 `myers_banded_plain`, the same recurrence as vectorized PyTorch with a
 Python loop over text columns. The host packers `pack_nibbles` and
 `prepare_banded_batch` are copied from the reference module, which imports
@@ -27,20 +29,31 @@ from ._build import check_operand, launch
 from .myers import MASK32, WORD, u32_tensor, widen
 
 SOURCE = "floxer_tpu_torch/csrc/myers_banded.cu"
+WIDE_SOURCE = "floxer_tpu_torch/csrc/myers_banded_wide.cu"
 REPLACES = "floxer_tpu/ops/pallas_myers_banded.py:96"
 # band widths (32-bit words) the register kernel is instantiated at: the
 # cases of floxer_myers_banded_reg in csrc/myers_banded.cu (R = BW / 32
 # words per lane)
 REGISTER_BAND_WORDS = (32, 64, 128, 256, 384, 512)
+# the multi-warp kernel's words per lane R (kWordsPerLane in
+# csrc/myers_banded_wide.cu): it runs a band of a multiple of 32 R words up
+# to WIDE_MAX_WORDS in BW / (32 R) warps; myers_banded sends it every
+# 128-word tile (the fused wave's and the batcher's) past the register
+# kernel's widest up to WIDE_MAX_WORDS
+WIDE_WORDS_PER_LANE = 4
+WIDE_MAX_WORDS = 2048
+WIDE_BAND_WORDS = tuple(range(REGISTER_BAND_WORDS[-1] + 128,
+                              WIDE_MAX_WORDS + 1, 128))
 # kernel launches in this process, per kernel (read and reset by
 # chip_smoke.py); `launches()` is K1's total
 REGISTER_LAUNCHES = 0
+WIDE_LAUNCHES = 0
 SHARED_LAUNCHES = 0
 
 
 def launches() -> int:
-    """K1's launches in this process, both kernels together."""
-    return REGISTER_LAUNCHES + SHARED_LAUNCHES
+    """K1's launches in this process, the three kernels together."""
+    return REGISTER_LAUNCHES + WIDE_LAUNCHES + SHARED_LAUNCHES
 
 (COL_TLEN, COL_JSTAR, COL_TOPSHIFT, COL_MFROZEN, COL_M, COL_K) = range(6)
 NUM_SCALARS = 6
@@ -120,13 +133,16 @@ def myers_banded(
     num_text: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dist, end) int32 [T] on the operands' device: for CUDA tensors the
-    register kernel at REGISTER_BAND_WORDS and the shared-memory kernel at
-    any other width, the plain version for CPU tensors."""
+    register kernel at REGISTER_BAND_WORDS, the multi-warp kernel at
+    WIDE_BAND_WORDS and the shared-memory kernel at any other width, the
+    plain version for CPU tensors."""
     args = (vp0, planes0, texts_packed, stream_packed, scalars, band_words,
             num_text)
     if vp0.device.type != "cpu":
         if band_words in REGISTER_BAND_WORDS:
             return myers_banded_register(*args)
+        if band_words in WIDE_BAND_WORDS:
+            return myers_banded_wide(*args)
         return myers_banded_shared(*args)
     _check_operands(*args)
     return myers_banded_plain(*args)
@@ -179,6 +195,24 @@ def myers_banded_register(*args):
         )
     dist, end, ran = _launch_cuda("floxer_myers_banded_reg", *args)
     REGISTER_LAUNCHES += ran
+    return dist, end
+
+
+def myers_banded_wide(*args):
+    """The multi-warp register kernel on CUDA operands (myers_banded's
+    arguments); raises at a band width that is not a multiple of
+    32 WIDE_WORDS_PER_LANE words up to WIDE_MAX_WORDS."""
+    global WIDE_LAUNCHES
+    band_words = args[5]
+    if band_words % (WORD * WIDE_WORDS_PER_LANE) or band_words > WIDE_MAX_WORDS:
+        raise ValueError(
+            f"the multi-warp kernel takes a multiple of "
+            f"{WORD * WIDE_WORDS_PER_LANE} words up to {WIDE_MAX_WORDS}, got "
+            f"{band_words}"
+        )
+    _check_cuda(*args)
+    dist, end, ran = _launch_cuda("floxer_myers_banded_wide", *args)
+    WIDE_LAUNCHES += ran
     return dist, end
 
 

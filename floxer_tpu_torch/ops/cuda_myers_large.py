@@ -1,12 +1,14 @@
 """K3: full Myers for patterns of more than 256 chars.
 
 Counterpart of floxer_tpu/ops/pallas_myers_large.py. `myers_large`
-launches one of two hand-written CUDA kernels (csrc/myers_large.cu) for
-CUDA tensors, chosen by the padded word count Wp alone: the register
-kernel (`myers_large_register`) for Wp up to the widest of
-REGISTER_WORDS, the shared-memory kernel (`myers_large_shared`) above;
-both compute the same function and count their launches apart. For CPU
-tensors it runs `myers_large_plain`. Operands keep the Pallas kernel's
+launches one of three hand-written CUDA kernels for CUDA tensors, chosen
+by the padded word count Wp alone: the one-warp register kernel
+(`myers_large_register`, csrc/myers_large.cu) for Wp up to the widest of
+REGISTER_WORDS, the multi-warp register kernel (`myers_large_wide`,
+csrc/myers_large_wide.cu) up to WIDE_WORDS, the shared-memory kernel
+(`myers_large_shared`, csrc/myers_large.cu) above; all three compute the
+same function and count their launches apart. For CPU tensors it runs
+`myers_large_plain`. Operands keep the Pallas kernel's
 layouts: peq [B, 6, Wp] (Wp a multiple of 32; uint32 bits in int32), plen
 [B], texts [B, N] (chars 0..15, anything >= 6 matches nothing), tlen [B]
 -> dist, end [B].
@@ -24,23 +26,28 @@ from .cuda_myers_banded import _exclusive_carries
 from .myers import MASK32, WORD, build_peq_vectorized, u32_tensor, widen
 
 SOURCE = "floxer_tpu_torch/csrc/myers_large.cu"
+WIDE_SOURCE = "floxer_tpu_torch/csrc/myers_large_wide.cu"
 REPLACES = "floxer_tpu/ops/pallas_myers_large.py:48"
 # the widths (pattern words) of the register kernel's instances: the cases
 # of floxer_myers_large_reg in csrc/myers_large.cu (R = words / 32 groups
 # of 32 words, one word per lane); a launch takes the smallest instance
 # that holds Wp
 REGISTER_WORDS = (32, 64, 128, 256, 384, 512)
+# the widest Wp the multi-warp kernel takes (csrc/myers_large_wide.cu, in
+# ceil(Wp / 128) warps of four 32-word groups)
+WIDE_WORDS = 2048
 # kernel launches in this process, per kernel (read and reset by
 # chip_smoke.py); `launches()` is K3's total
 REGISTER_LAUNCHES = 0
+WIDE_LAUNCHES = 0
 SHARED_LAUNCHES = 0
 # word-axis padding of the host entry (the Pallas kernel's lane tile)
 WORD_TILE = 128
 
 
 def launches() -> int:
-    """K3's launches in this process, both kernels together."""
-    return REGISTER_LAUNCHES + SHARED_LAUNCHES
+    """K3's launches in this process, the three kernels together."""
+    return REGISTER_LAUNCHES + WIDE_LAUNCHES + SHARED_LAUNCHES
 
 
 def myers_large(
@@ -50,13 +57,15 @@ def myers_large(
     tlen: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dist, end) int32 [B]: for CUDA tensors the register kernel up to
-    REGISTER_WORDS' widest Wp and the shared-memory kernel above, the
-    plain version for CPU tensors."""
+    REGISTER_WORDS' widest Wp, the multi-warp kernel up to WIDE_WORDS and
+    the shared-memory kernel above, the plain version for CPU tensors."""
     _check_operands(peq, plen, texts, tlen)
     if peq.device.type == "cpu":
         return myers_large_plain(peq, plen, texts, tlen)
     if peq.shape[2] <= REGISTER_WORDS[-1]:
         return myers_large_register(peq, plen, texts, tlen)
+    if peq.shape[2] <= WIDE_WORDS:
+        return myers_large_wide(peq, plen, texts, tlen)
     return myers_large_shared(peq, plen, texts, tlen)
 
 
@@ -106,6 +115,21 @@ def myers_large_register(peq, plen, texts, tlen):
     dist, end, ran = _launch_cuda("floxer_myers_large_reg", peq, plen, texts,
                                   tlen)
     REGISTER_LAUNCHES += ran
+    return dist, end
+
+
+def myers_large_wide(peq, plen, texts, tlen):
+    """The multi-warp register kernel on CUDA operands (myers_large's
+    arguments), at any Wp up to WIDE_WORDS; raises above."""
+    global WIDE_LAUNCHES
+    if peq.shape[2] > WIDE_WORDS:
+        raise ValueError(
+            f"the multi-warp kernel takes up to {WIDE_WORDS} words, got "
+            f"{peq.shape[2]}"
+        )
+    dist, end, ran = _launch_cuda("floxer_myers_large_wide", peq, plen,
+                                  texts, tlen)
+    WIDE_LAUNCHES += ran
     return dist, end
 
 

@@ -123,13 +123,16 @@ def full_myers_operands(
     small: bool,
     device: torch.device,
     max_chars: int | None = None,
+    spread: bool = False,
 ):
     """Seeded operands of K2 (small=True: peq [W, 6, B], texts [N, B]) or
     K3 (peq [B, 6, Wp], texts [B, N]) at `words` pattern words, for the
     card tests and chip_smoke.py: (peq, plen, texts, tlen) on `device`.
     Pattern lengths cycle over every word (K2) or every group of 32 words
     (K3) up to max_chars (32 * words by default), so one launch holds tasks
-    of every size the width takes; each text holds a mutated copy of its
+    of every size the width takes (with spread=True the sizes spread evenly
+    from the smallest to the largest over the tasks, so fewer tasks than
+    sizes still reach the largest); each text holds a mutated copy of its
     pattern, with chars 6..15 at every 7th column (garbage past a fused
     window); task 0 has m == 0, tasks 1 and 2 tlen 0 and 1."""
     top = min(max_chars or WORD * words, WORD * words)
@@ -137,7 +140,9 @@ def full_myers_operands(
     spans = [(lo, min(lo + step, top + 1)) for lo in range(1, top + 1, step)]
     patterns, texts = [], []
     for i in range(count):
-        lo, hi = spans[i % len(spans)]
+        at = (i * (len(spans) - 1) // max(count - 1, 1) if spread
+              else i % len(spans))
+        lo, hi = spans[at]
         m = int(rng.integers(lo, hi))
         n = int(rng.integers(m, m + 2 * (m // 10) + 60))
         text = rng.integers(1, 5, size=n).astype(np.uint8)

@@ -47,7 +47,11 @@ NOT_PORTED = "is not yet ported to floxer_tpu_torch, see ROADMAP.md"
 
 
 def unsupported_options(cli: CommandLineInput) -> list[str]:
-    """The options of the reference CLI this port rejects."""
+    """The options of the reference CLI this port rejects, and a
+    multi-process environment: the reference joins a process set when
+    JAX_COORDINATOR_ADDRESS is set (with JAX_NUM_PROCESSES processes) and
+    shards the queries by process, which the port would otherwise ignore
+    (every process aligning every query to the same output)."""
     found = []
     if getattr(cli, "device_search", False):
         found.append("--device-search")
@@ -55,6 +59,13 @@ def unsupported_options(cli: CommandLineInput) -> list[str]:
         found.append("--index-shards > 1")
     if cli.num_hosts > 1 or cli.host_id != 0:
         found.append("--num-hosts / --host-id (multi-host runs)")
+    processes = os.environ.get("JAX_NUM_PROCESSES", "").strip()
+    if os.environ.get("JAX_COORDINATOR_ADDRESS") or (
+        processes.isdigit() and int(processes) > 1
+    ):
+        found.append(
+            "JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES (multi-process runs)"
+        )
     return found
 
 

@@ -96,6 +96,7 @@ def band_args(rng, band_words, device, count=48):
 
 def k1_counts():
     return (cuda_myers_banded.REGISTER_LAUNCHES,
+            cuda_myers_banded.WIDE_LAUNCHES,
             cuda_myers_banded.SHARED_LAUNCHES)
 
 
@@ -110,7 +111,7 @@ def test_register_kernel_matches_plain_and_shared(cuda_device, band_words):
     register = cuda_myers_banded.myers_banded_register(*args)
     shared = cuda_myers_banded.myers_banded_shared(*args)
     routed = cuda_myers_banded.myers_banded(*args)
-    assert k1_counts() == (before[0] + 2, before[1] + 1)
+    assert k1_counts() == (before[0] + 2, before[1], before[2] + 1)
     plain = cuda_myers_banded.myers_banded_plain(
         *(t.cpu() for t in args[:5]), *args[5:]
     )
@@ -120,20 +121,57 @@ def test_register_kernel_matches_plain_and_shared(cuda_device, band_words):
 
 
 def test_wide_band_runs_the_shared_kernel(cuda_device):
-    """A 640-word band is wider than the register kernel's widest: it goes
-    to the shared-memory kernel, equal to the plain version, and the
-    register kernel refuses it."""
-    args = band_args(np.random.default_rng(640), 640, cuda_device, count=24)
+    """A 2176-word band is wider than the multi-warp kernel's widest: it
+    goes to the shared-memory kernel, equal to the plain version, and the
+    register kernels refuse it."""
+    args = band_args(np.random.default_rng(640), 2176, cuda_device, count=24)
     before = k1_counts()
     got = cuda_myers_banded.myers_banded(*args)
-    assert k1_counts() == (before[0], before[1] + 1)
+    assert k1_counts() == (before[0], before[1], before[2] + 1)
     plain = cuda_myers_banded.myers_banded_plain(
         *(t.cpu() for t in args[:5]), *args[5:]
     )
     for g, w in zip(got, plain):
         assert torch.equal(g.cpu(), w)
-    with pytest.raises(ValueError):
-        cuda_myers_banded.myers_banded_register(*args)
+    for kernel in (cuda_myers_banded.myers_banded_register,
+                   cuda_myers_banded.myers_banded_wide):
+        with pytest.raises(ValueError):
+            kernel(*args)
+
+
+@pytest.mark.parametrize("band_words", [128, 256, 384, 640, 1024, 2048])
+def test_banded_wide_kernel_matches_plain(cuda_device, band_words):
+    """K1's multi-warp kernel through its explicit entry at one to three
+    warps and at routed widths: equal to the plain version, one launch
+    counted."""
+    args = band_args(np.random.default_rng(band_words + 4), band_words,
+                     cuda_device, count=32)
+    before = k1_counts()
+    got = cuda_myers_banded.myers_banded_wide(*args)
+    assert k1_counts() == (before[0], before[1] + 1, before[2])
+    # the plain version on the card (on the host a 2048-word band takes
+    # seconds per case)
+    plain = cuda_myers_banded.myers_banded_plain(*args)
+    for g, w in zip(got, plain):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("band_words", [640, 1024, 2048])
+def test_wide_band_runs_the_multi_warp_kernel(cuda_device, band_words):
+    """myers_banded sends a 640-, 1024- or 2048-word band to the multi-warp
+    kernel (counts from 0: one wide launch, no other), equal to the plain
+    version and to the shared-memory kernel."""
+    args = band_args(np.random.default_rng(band_words + 5), band_words,
+                     cuda_device, count=24)
+    cuda_myers_banded.REGISTER_LAUNCHES = 0
+    cuda_myers_banded.WIDE_LAUNCHES = 0
+    cuda_myers_banded.SHARED_LAUNCHES = 0
+    got = cuda_myers_banded.myers_banded(*args)
+    assert k1_counts() == (0, 1, 0)
+    shared = cuda_myers_banded.myers_banded_shared(*args)
+    plain = cuda_myers_banded.myers_banded_plain(*args)
+    for g, s, w in zip(got, shared, plain):
+        assert torch.equal(g, w) and torch.equal(s, w)
 
 
 @pytest.mark.parametrize("max_m", [33, 257])
@@ -177,6 +215,7 @@ def test_small_kernel_every_instance_matches_plain(cuda_device, words):
 
 def k3_counts():
     return (cuda_myers_large.REGISTER_LAUNCHES,
+            cuda_myers_large.WIDE_LAUNCHES,
             cuda_myers_large.SHARED_LAUNCHES)
 
 
@@ -191,7 +230,7 @@ def test_large_register_kernel_matches_plain_and_shared(cuda_device, words):
     register = cuda_myers_large.myers_large_register(*args)
     shared = cuda_myers_large.myers_large_shared(*args)
     routed = cuda_myers_large.myers_large(*args)
-    assert k3_counts() == (before[0] + 2, before[1] + 1)
+    assert k3_counts() == (before[0] + 2, before[1], before[2] + 1)
     want = cuda_myers_large.myers_large_plain(*(t.cpu() for t in args))
     for w, *got in zip(want, register, shared, routed):
         for tensor in got:
@@ -199,19 +238,54 @@ def test_large_register_kernel_matches_plain_and_shared(cuda_device, words):
 
 
 def test_wide_large_runs_the_shared_kernel(cuda_device):
-    """640 pattern words are wider than the register kernel's widest: the
-    shared-memory kernel takes them, equal to the plain version, and the
-    register kernel refuses them."""
-    args = full_myers_operands(np.random.default_rng(640), 6, 640, False,
-                               cuda_device)
+    """2080 pattern words are wider than the multi-warp kernel's widest:
+    the shared-memory kernel takes them, equal to the plain version, and
+    the register kernels refuse them."""
+    args = full_myers_operands(np.random.default_rng(640), 6, 2080, False,
+                               cuda_device, max_chars=3000)
     before = k3_counts()
     got = cuda_myers_large.myers_large(*args)
-    assert k3_counts() == (before[0], before[1] + 1)
+    assert k3_counts() == (before[0], before[1], before[2] + 1)
     want = cuda_myers_large.myers_large_plain(*(t.cpu() for t in args))
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
-    with pytest.raises(ValueError):
-        cuda_myers_large.myers_large_register(*args)
+    for kernel in (cuda_myers_large.myers_large_register,
+                   cuda_myers_large.myers_large_wide):
+        with pytest.raises(ValueError):
+            kernel(*args)
+
+
+@pytest.mark.parametrize("words", [32, 128, 256, 544, 1280, 2048])
+def test_large_wide_kernel_matches_plain(cuda_device, words):
+    """K3's multi-warp kernel through its explicit entry, at one to sixteen
+    warps, tasks spread from one group to the width's last in one launch:
+    equal to the plain version, one launch counted."""
+    args = full_myers_operands(np.random.default_rng(words + 9), 12, words,
+                               False, cuda_device, spread=True)
+    before = k3_counts()
+    got = cuda_myers_large.myers_large_wide(*args)
+    assert k3_counts() == (before[0], before[1] + 1, before[2])
+    # the plain version on the card (tasks of up to 65k chars)
+    want = cuda_myers_large.myers_large_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("words", [544, 1280, 2048])
+def test_wide_large_runs_the_multi_warp_kernel(cuda_device, words):
+    """myers_large sends 544, 1280 or 2048 pattern words to the multi-warp
+    kernel (counts from 0: one wide launch, no other), equal to the
+    shared-memory kernel on the same operands."""
+    args = full_myers_operands(np.random.default_rng(words + 11), 8, words,
+                               False, cuda_device, max_chars=4000)
+    cuda_myers_large.REGISTER_LAUNCHES = 0
+    cuda_myers_large.WIDE_LAUNCHES = 0
+    cuda_myers_large.SHARED_LAUNCHES = 0
+    got = cuda_myers_large.myers_large(*args)
+    assert k3_counts() == (0, 1, 0)
+    shared = cuda_myers_large.myers_large_shared(*args)
+    for g, s in zip(got, shared):
+        assert torch.equal(g.cpu(), s.cpu())
 
 
 def traceback_tasks(rng, count, length, error_rate):

@@ -394,3 +394,398 @@ def test_full_myers_operands_span_every_size(words, small):
     assert int(plen[0]) == 0 and tlen[1:3].tolist() == [0, 1]
     assert int(texts.max()) >= 6
     assert tuple(peq.shape) == ((words, 6, 40) if small else (40, 6, words))
+
+
+# ---- the multi-warp kernels (csrc/myers_banded_wide.cu,
+# csrc/myers_large_wide.cu), emulated lane by lane and warp by warp on
+# numpy int64 words masked to 32 bits
+
+MASK = 0xFFFFFFFF
+LANES = np.arange(32, dtype=np.int64)
+
+
+def ballot(bits):
+    """Per-lane 0/1 bits [..., 32] -> the warp's ballot masks [...]."""
+    return (bits.astype(np.int64) << LANES).sum(-1)
+
+
+def bits_of(mask, count):
+    """Masks [...] -> bits [..., count]."""
+    return (mask[..., None] >> np.arange(count, dtype=np.int64)) & 1
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.integers(1, 16), st.sampled_from([1, 2, 4]), st.data())
+def test_warp_lookahead_and_carry_select_equal_the_word_scan(warps, R, data):
+    """K1's multi-warp carry: per warp the lanes' run (G, P) give two
+    ballots and the warp's (G, P); the carry into each warp is the same
+    one-add lookahead over the warps' (G, P) masks; before the barrier
+    each lane computes its run's carries for carry-in 0 and 1 into its
+    warp, and after it selects by the warp's carry. The carry into every
+    word equals the plain version's scan over the whole band."""
+    states = data.draw(st.lists(st.integers(0, 2), min_size=32 * warps * R,
+                                max_size=32 * warps * R))
+    g, p = lane_vectors(states)
+    gen = np.asarray(g, dtype=np.int64).reshape(warps, 32, R)
+    prop = np.asarray(p, dtype=np.int64).reshape(warps, 32, R)
+    words = np.arange(R, dtype=np.int64)
+    gen_run = (gen << words).sum(-1)
+    prop_run = (prop << words).sum(-1)
+    any_run = gen_run | prop_run
+    gm = ballot(((any_run + gen_run) >> R) != 0)
+    pm = ballot(prop_run == (1 << R) - 1)
+    any_ = gm | pm
+    warp_g = (any_ + gm) >> 32
+    warp_p = (pm == MASK).astype(np.int64)
+    warp_carries = cuda_myers_banded._ballot_carries(
+        mask_of(warp_g.tolist()), mask_of(warp_p.tolist())
+    )
+    runs = []
+    for cin in (0, 1):
+        lanes_in = bits_of(((any_ + gm + cin) ^ any_ ^ gm) & MASK, 32)
+        runs.append((any_run + gen_run + lanes_in) ^ any_run ^ gen_run)
+    cin_w = bits_of(np.asarray(warp_carries), warps)[:, None]
+    chosen = np.where(cin_w != 0, runs[1], runs[0])
+    got = bits_of(chosen, R).reshape(-1).tolist()
+    assert got == word_scan(g, p)
+
+
+def emulate_banded_wide(args, warps, R):
+    """csrc/myers_banded_wide.cu's kernel on K1's operands (numpy, as
+    myers_banded takes them) at `warps` warps of 32 lanes with R words each:
+    per column the in-warp steps, the (G, P) words and the top bits each
+    warp publishes, the carry into each warp from the warps' masks, the
+    heads lane 31 takes from the warp above; the sliding and frozen columns
+    and the scores as the kernel runs them. Tasks run together, each masked
+    to its own columns."""
+    vp0, planes0, texts_packed, stream_packed, scalars, band_words, _ = args
+    assert band_words == 32 * warps * R
+    T = vp0.shape[0]
+    shape = (T, warps, 32, R)
+
+    def unsigned(a):
+        return a.astype(np.int64) & MASK
+
+    vp = unsigned(vp0).reshape(shape)
+    vn = np.zeros(shape, dtype=np.int64)
+    p0, p1, p2, am = (unsigned(planes0[:, i]).reshape(shape) for i in range(4))
+    texts, stream = unsigned(texts_packed), unsigned(stream_packed)
+    sc = scalars.astype(np.int64)
+    tlen, jstar, topshift = sc[:, 0], sc[:, 1], sc[:, 2]
+    mfrozen, m, k = (sc[:, 3] != 0).astype(np.int64), sc[:, 4], sc[:, 5]
+    num_words = texts.shape[1]
+    last_col = np.minimum(tlen - 1, num_words * 8)
+    slide_end = np.minimum(jstar, last_col)
+    s_bot, s_m, best = k.copy(), m.copy(), m.copy()
+    best_end = np.zeros(T, dtype=np.int64)
+    words = np.arange(R, dtype=np.int64)
+    warp_ids = np.arange(warps, dtype=np.int64)
+
+    def head_bits(vp_, vn_, p0_, p1_, p2_, am_):
+        return ((vp_ & 1) | ((vn_ & 1) << 1) | ((p0_ & 1) << 2)
+                | ((p1_ & 1) << 3) | ((p2_ & 1) << 4) | ((am_ & 1) << 5))
+
+    # lane 31's head: the initial word 0 of the warp above
+    head = np.zeros((T, warps), dtype=np.int64)
+    head[:, :-1] = head_bits(vp[:, 1:, 0, 0], 0, p0[:, 1:, 0, 0],
+                             p1[:, 1:, 0, 0], p2[:, 1:, 0, 0], am[:, 1:, 0, 0])
+
+    def slide(x, entering):
+        nxt = np.concatenate([x[..., 1:] & 1, (entering & 1)[..., None]], -1)
+        return (x >> 1) | (nxt << 31)
+
+    for col in range(1, int(last_col.max(initial=0)) + 1):
+        j = col - 1
+        live = col <= last_col
+        sliding = live & (col <= slide_end)
+        tch = (texts[:, j >> 3] >> (4 * (j & 7))) & 0xF
+        pch = (stream[:, j >> 3] >> (4 * (j & 7))) & 0xF
+        old = (vp, vn, p0, p1, p2, am)
+
+        # 1) slide; the top warp's lane 31 takes the pattern char
+        head[:, -1] = 1 | ((pch & 7) << 2)
+        nxt = np.roll(head_bits(*(x[..., 0] for x in old)), -1, axis=2)
+        nxt[:, :, 31] = head
+        slid = [slide(x, nxt >> shift) for shift, x in enumerate(old)]
+        sl = sliding[:, None, None, None]
+        vp, vn, p0, p1, p2, am = (np.where(sl, s, x) for s, x in zip(slid, old))
+
+        # 2) Eq, the adds, the runs' and the warps' (G, P), both carry-ins
+        planes = [np.where((tch & bit)[:, None, None, None] != 0, 0, MASK)
+                  for bit in (1, 2, 4)]
+        eq = ((p0 ^ planes[0]) & (p1 ^ planes[1]) & (p2 ^ planes[2])) | am
+        a = eq & vp
+        t = (a + vp) & MASK
+        gen_run = (((a + vp) >> 32) << words).sum(-1)
+        prop_run = ((t == MASK).astype(np.int64) << words).sum(-1)
+        any_run = gen_run | prop_run
+        gm = ballot(((any_run + gen_run) >> R) != 0)
+        pm = ballot(prop_run == (1 << R) - 1)
+        any_ = gm | pm
+        runs = [
+            (any_run + gen_run + bits_of(((any_ + gm + c) ^ any_ ^ gm) & MASK, 32))
+            ^ any_run ^ gen_run
+            for c in (0, 1)
+        ]
+        low = (((any_ + gm) >> 32) | ((pm == MASK).astype(np.int64) << 1)
+               | (((eq[:, :, 0, 0] | vn[:, :, 0, 0]) & 1) << 2)
+               | (head_bits(0, 0, p0[:, :, 0, 0], p1[:, :, 0, 0],
+                            p2[:, :, 0, 0], am[:, :, 0, 0]) << 1))
+
+        # 3) after the barrier: the carry into each warp, the deltas
+        warp_carries = [cuda_myers_banded._ballot_carries(
+            mask_of((low[i] & 1).tolist()), mask_of(((low[i] >> 1) & 1).tolist())
+        ) for i in range(T)]
+        cin = bits_of(np.asarray(warp_carries, dtype=np.int64), warps)
+        runs_in = np.where(cin[..., None] != 0, runs[1], runs[0])
+        carry = (runs_in[..., None] >> words) & 1
+        xh = (((t + carry) & MASK) ^ vp) | eq
+        ph, mh = vn | ((xh | vp) ^ MASK), vp & xh
+        xv = eq | vn
+        top = (ph[..., R - 1] >> 31) | ((mh[..., R - 1] >> 31) << 1)
+        # 4) after the second barrier the shift; lane 0 takes the warp
+        # below's top bits
+        pessim = np.where(sliding, col >= topshift, mfrozen).astype(np.int64)
+        below = np.empty((T, warps), dtype=np.int64)
+        below[:, 0] = pessim
+        below[:, 1:] = top[:, :-1, 31]
+        hcarry = np.roll(top, 1, axis=2)
+        hcarry[:, :, 0] = below
+        ph_sh = ((ph << 1) & MASK) | np.concatenate(
+            [(hcarry & 1)[..., None], ph[..., :-1] >> 31], -1)
+        mh_sh = ((mh << 1) & MASK) | np.concatenate(
+            [(hcarry >> 1)[..., None], mh[..., :-1] >> 31], -1)
+        new_vp = mh_sh | ((xv | ph_sh) ^ MASK)
+        new_vn = ph_sh & xv
+        lv = live[:, None, None, None]
+        vp, vn = np.where(lv, new_vp, vp), np.where(lv, new_vn, vn)
+        # 5) lane 31's next head from the warp above's published word
+        above = low[:, np.minimum(warp_ids + 1, warps - 1)]
+        top31 = top[:, :, 31]
+        ph_t, mh_t, xv_a = top31 & 1, top31 >> 1, (above >> 2) & 1
+        next_head = (((mh_t | ((xv_a | ph_t) ^ 1)) & 1) | ((ph_t & xv_a) << 1)
+                     | (((above >> 3) & 15) << 2))
+        head = np.where(sliding[:, None], next_head, head)
+        # 6) the scores of the top warp's lane 31
+        d = (top31[:, -1] & 1) - (top31[:, -1] >> 1)
+        frozen = live & ~sliding
+        s_bot = np.where(sliding, s_bot + 1 + d, s_bot)
+        s_m = np.where(frozen, s_m + d, s_m)
+        improves = frozen & (s_m <= best)
+        best = np.where(improves, s_m, best)
+        best_end = np.where(improves, col, best_end)
+        turn = (col == slide_end) & (slide_end >= 1) & (slide_end == jstar)
+        s_m = np.where(turn, s_bot, s_m)
+        improves = turn & (s_m <= best)
+        best = np.where(improves, s_m, best)
+        best_end = np.where(improves, jstar, best_end)
+    return best, best_end
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("warps,R", [(2, 1), (4, 1), (2, 2), (3, 2), (4, 2)])
+def test_banded_wide_emulation_equals_plain(warps, R, seed):
+    """The multi-warp K1 column (slide with the heads from the warp above,
+    the warps' carry lookahead, the shift with the top bits from the warp
+    below, the scores of the top warp) emulated lane by lane equals
+    myers_banded_plain on two seeds' tasks, tlen 0 and 1 among them, some
+    with chars 6..15 in their texts."""
+    band_words = 32 * warps * R
+    rng = np.random.default_rng(band_words + warps + 97 * seed)
+    patterns, texts, budgets = cuda_myers_banded.band_cases(rng, 12, band_words)
+    texts[3] = texts[3].copy()
+    texts[3][::5] = 9  # garbage chars in at least one task
+    txt, tlen = pad_batch(texts)
+    operands, num_text = cuda_myers_banded.banded_operands(
+        patterns, txt, tlen, budgets, band_words, CPU
+    )
+    operands[4][0, cuda_myers_banded.COL_TLEN] = 0
+    operands[4][1, cuda_myers_banded.COL_TLEN] = 1
+    want = cuda_myers_banded.myers_banded_plain(*operands, band_words, num_text)
+    got = emulate_banded_wide(
+        (*(t.numpy() for t in operands), band_words, num_text), warps, R
+    )
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+    assert int(want[1][0]) == 0 and int(want[0][0]) == int(operands[4][0, 4])
+
+
+def emulate_large_wide(args, warps, R):
+    """csrc/myers_large_wide.cu's kernel on K3's operands (numpy) at `warps`
+    warps of R groups of 32 words: each task runs its ceil(m / 1024)
+    groups on ceil(groups / R) warps; at step s warp w runs chunk s - w of
+    32 columns, reading the carry out and lane 31's top bits the warp below
+    published for that chunk at step s - 1 (ring slot (s - 1) & 1) and
+    publishing its own (slot s & 1); the top warp keeps the score. All
+    warps of a step run at once, as the barrier between steps allows."""
+    peq, plen, texts, tlen = (a.astype(np.int64) for a in args)
+    peq &= MASK
+    B, _, Wp = peq.shape
+    N = texts.shape[1]
+    assert Wp == 32 * warps * R
+    # Peq rows by word [B, 7, Wp] with the zero row 6
+    rows = np.concatenate([peq, np.zeros((B, 1, Wp), dtype=np.int64)], 1)
+    ncols = np.maximum(np.minimum(tlen - 1, N), 0)
+    msb_word = np.floor_divide(plen - 1, 32)
+    dead = (msb_word < 0) | (msb_word >= Wp)
+    groups = np.where(dead, 1, (msb_word >> 5) + 1)
+    active = -(-groups // R)
+    my_groups = np.clip(groups[:, None] - R * np.arange(warps), 0, R)
+    chunks = -(-ncols // 32)
+    steps = chunks + active - 1
+    word = (32 * (R * np.arange(warps)[:, None] + np.arange(R))[..., None]
+            + LANES)  # [W, R, 32]
+    vp = np.where(word[None] <= msb_word[:, None, None, None], MASK, 0)
+    vn = np.zeros_like(vp)
+    score, best = plen.copy(), plen.copy()
+    best_end = np.zeros(B, dtype=np.int64)
+    ring = np.zeros((2, B, warps, 32), dtype=np.int64)
+    top_warp = active - 1
+    last_group = my_groups[np.arange(B), top_warp] - 1
+    msb_lane, msb_bit = msb_word & 31, (plen - 1) & 31
+    wi = np.arange(warps)
+    for step in range(int(steps.max(initial=0))):
+        chunk = np.tile(step - wi, (B, 1))  # [B, W]
+        runs = (chunk >= 0) & (chunk < chunks[:, None]) & (wi < active[:, None])
+        from_below = np.zeros((B, warps, 32), dtype=np.int64)
+        from_below[:, 1:] = ring[(step - 1) & 1, :, :-1]
+        for q in range(32):
+            col = 32 * chunk + q
+            live = runs & (col < ncols[:, None])
+            c = np.take_along_axis(texts, np.clip(col, 0, N - 1), 1)
+            c = np.where((col < N) & (c < 6), c, 6)
+            eq = np.take_along_axis(
+                rows, c[:, :, None], 1
+            )  # [B, W, Wp] rows of each warp's char
+            eq = np.take_along_axis(eq, np.broadcast_to(
+                word.reshape(1, warps, -1), (B, warps, 32 * R)
+            ), 2).reshape(vp.shape)
+            a = eq & vp
+            t = (a + vp) & MASK
+            gm, pm = ballot((a + vp) >> 32), ballot(t == MASK)  # [B, W, R]
+            cin = from_below[:, :, q] & 1
+            carry = np.zeros_like(vp)
+            couts = np.zeros((B, warps, R), dtype=np.int64)
+            for i in range(R):
+                any_ = gm[..., i] | pm[..., i]
+                total = any_ + gm[..., i] + cin
+                carry[:, :, i] = bits_of(((total ^ any_ ^ gm[..., i]) & MASK), 32)
+                cin = total >> 32
+                couts[..., i] = cin
+            xh = (((t + carry) & MASK) ^ vp) | eq
+            ph, mh = vn | ((xh | vp) ^ MASK), vp & xh
+            xv = eq | vn
+            top = (ph >> 31) | ((mh >> 31) << 1)
+            rotated = np.roll(top, 1, axis=3)  # lane l: lane l - 1's
+            below = np.concatenate(
+                [(from_below[:, :, q] >> 1)[:, :, None], rotated[:, :, :-1, 0]], 2
+            )
+            rotated[..., 0] = below
+            ph_sh = ((ph << 1) & MASK) | (rotated & 1)
+            mh_sh = ((mh << 1) & MASK) | (rotated >> 1)
+            lv = live[:, :, None, None]
+            vp = np.where(lv, mh_sh | ((xv | ph_sh) ^ MASK), vp)
+            vn = np.where(lv, ph_sh & xv, vn)
+            # publish: the carry out of the warp's last group and its lane
+            # 31's top bits (every warp but the top one)
+            last = np.clip(my_groups - 1, 0, R - 1)
+            cout = np.take_along_axis(couts, last[..., None], 2)[..., 0]
+            top31 = np.take_along_axis(top[..., 31], last[..., None], 2)[..., 0]
+            publish = live & (wi < top_warp[:, None])
+            ring[step & 1, :, :, q] = np.where(
+                publish, cout | (top31 << 1), ring[step & 1, :, :, q]
+            )
+            # the score in the top warp's lane that owns row m
+            tw = np.arange(B), top_warp
+            bits_ph = (ph[tw][np.arange(B), last_group, msb_lane] >> msb_bit) & 1
+            bits_mh = (mh[tw][np.arange(B), last_group, msb_lane] >> msb_bit) & 1
+            scored = live[tw] & ~dead
+            score = np.where(scored, score + bits_ph - bits_mh, score)
+            improves = scored & (score <= best)
+            best = np.where(improves, score, best)
+            best_end = np.where(improves, col[tw] + 1, best_end)
+    best_end = np.where(dead, ncols, best_end)
+    return np.where(dead, plen, best), best_end
+
+
+@pytest.mark.parametrize("warps,R", [(2, 1), (3, 1), (2, 2), (4, 2)])
+def test_large_wide_wavefront_emulation_equals_plain(warps, R):
+    """K3's skewed wavefront (each task on its own groups' warps, chunks of
+    32 columns a step behind the warp below, the carry out and top bits
+    through a two-slot ring, the top warp's score) emulated lane by lane
+    equals myers_large_plain on seeded tasks of every group count, with
+    m == 0, tlen 0 and 1 and chars 6..15 among them."""
+    words = 32 * warps * R
+    args = full_myers_operands(np.random.default_rng(words + R), 3 * warps * R,
+                               words, False, CPU)
+    want = cuda_myers_large.myers_large_plain(*args)
+    got = emulate_large_wide([t.numpy() for t in args], warps, R)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+
+
+def test_wide_instances_are_the_kernel_sources():
+    """WIDE_WORDS_PER_LANE and WIDE_MAX_WORDS are csrc/myers_banded_wide.cu's
+    kWordsPerLane and kMaxBandWords, and WIDE_WORDS is
+    csrc/myers_large_wide.cu's kMaxWords; WIDE_BAND_WORDS holds every
+    128-word tile from past the register kernel's widest to 2048, each a
+    width the kernel takes, and myers_large's wide range covers 544..2048."""
+    root = Path(__file__).resolve().parent.parent / "floxer_tpu_torch" / "csrc"
+
+    def constant(source, name):
+        found = re.findall(rf"^constexpr int {name} = (\d+);$",
+                           (root / source).read_text(), re.M)
+        assert len(found) == 1, (source, name)
+        return int(found[0])
+
+    R = cuda_myers_banded.WIDE_WORDS_PER_LANE
+    assert constant("myers_banded_wide.cu", "kWordsPerLane") == R
+    assert (constant("myers_banded_wide.cu", "kMaxBandWords")
+            == cuda_myers_banded.WIDE_MAX_WORDS)
+    assert cuda_myers_banded.WIDE_BAND_WORDS == tuple(range(640, 2049, 128))
+    assert all(bw % (32 * R) == 0 for bw in cuda_myers_banded.WIDE_BAND_WORDS)
+    assert (constant("myers_large_wide.cu", "kMaxWords")
+            == cuda_myers_large.WIDE_WORDS)
+    assert cuda_myers_large.REGISTER_WORDS[-1] + 32 == 544
+    assert cuda_myers_large.WIDE_WORDS >= 2048
+
+
+@pytest.mark.parametrize("band_words", [1024, 2176])
+def test_wide_and_past_wide_bands_refuse_cpu_operands(band_words):
+    """On the CPU myers_banded runs the plain version at a multi-warp width
+    and past it, counting no launch; the multi-warp wrapper refuses CPU
+    tensors, a width past 2048 words and one that is not a multiple of
+    128 words."""
+    patterns, texts, budgets = banded_cases(5, count=3)
+    txt, tlen = pad_batch(texts)
+    operands, num_text = cuda_myers_banded.banded_operands(
+        patterns, txt, tlen, np.asarray(budgets), band_words, CPU
+    )
+    before = cuda_myers_banded.launches()
+    dist, _ = cuda_myers_banded.myers_banded(*operands, band_words, num_text)
+    assert cuda_myers_banded.launches() == before and dist.device == CPU
+    with pytest.raises(ValueError, match="CUDA kernel|multi-warp"):
+        cuda_myers_banded.myers_banded_wide(*operands, band_words, num_text)
+    operands, num_text = cuda_myers_banded.banded_operands(
+        patterns, txt, tlen, np.asarray(budgets), band_words - 32, CPU
+    )
+    with pytest.raises(ValueError, match="multi-warp"):
+        cuda_myers_banded.myers_banded_wide(*operands, band_words - 32,
+                                            num_text)
+
+
+@pytest.mark.parametrize("words,count", [(544, 12), (2048, 12)])
+def test_spread_operands_reach_the_widest_group(words, count):
+    """full_myers_operands(spread=True) spreads K3's tasks from the first
+    groups to the width's last (task 0 keeps m == 0), so a dozen tasks
+    reach every warp of the multi-warp kernel; without spread the same
+    count stops short."""
+    args = full_myers_operands(np.random.default_rng(words), count, words,
+                               False, CPU, spread=True)
+    plen = args[1].numpy()
+    groups = -(-plen[1:] // 1024)
+    assert groups[0] <= -(-words // 32 // (count - 1)) + 1
+    assert groups[-1] == words // 32 and np.all(np.diff(groups) >= 0)
+    cycled = full_myers_operands(np.random.default_rng(words), count, words,
+                                 False, CPU)[1].numpy()
+    assert -(-cycled.max() // 1024) < words // 32
