@@ -46,10 +46,22 @@ Phases, one line each on stdout, any failure exits non-zero:
            kernel's driven once through myers_large with the counts at 0,
            and the register and shared-memory kernels timed in turns at
            256 tasks of 1376 chars on 128 words; K4 (banded
-           traceback) against its plain version on 2 root-shape tasks and
-           against the host traceback (dp_reference, native) on every
-           accepted root of a seeded batch; kernel, plain-version and
-           host-pool times, and each kernel's bound (see `bound`)
+           traceback, one kernel whose blocks each run their task's
+           layout): every accepted root of a seeded batch of 20 kb roots
+           (tools/k4_bench.py's root20k) in exactly one launch, equal to
+           the host traceback (dp_reference, native) and timed against
+           the 8-thread host pool (batch_s, host_pool_s); the kernel
+           against its plain version on 2 root-shape tasks; its ms on
+           those 2 and on the batch, each with its bound and its time
+           without the walk; the mixed batch (one 40 kb root at -p 0.15
+           among them) in one launch, each task in its own layout, equal
+           to the host traceback; ptxas -v of the kernel (a spill or a
+           stack frame fails the run); then each wider layout (K4_WIDE:
+           16 and 32 register cells a lane, 64 shared-row cells) against
+           the plain version on one task of its width and on the tool's
+           30, 40 or 80 kb roots against the host traceback, timed with
+           its bound; kernel and plain-version times, and each kernel's
+           bound (see `bound`)
   long_shapes  the multi-warp kernels at pass E's shapes, in turns with the
            shared-memory kernels on the same operands and held to them and
            to the native host engine: K1 at 64 roots of 40 kb reads
@@ -78,7 +90,14 @@ Phases, one line each on stdout, any failure exits non-zero:
            and K3 launch of pass A on its register kernel. Pass B is the
            oracle of every pass below.
   traceback  pass C: --engine device with FLOXER_TPU_DEVICE_TRACEBACK=1
-           (root CIGARs by K4); SAM = pass B, K4 launched
+           (root CIGARs by K4); SAM = pass B, K4 launched; its K4
+           launches and align seconds beside pass A's
+  process_set  pass F: pass A's arguments in two processes on the one
+           card, joined as the reference's process set
+           (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES, JAX_PROCESS_ID; gloo
+           on the host): each process's stage split shows K1 launches,
+           stdout stays empty, process 0's merged SAM = pass B; each
+           process's align seconds and the merge line
   legacy   pass D: --engine device with FLOXER_TPU_LEGACY_VERIFY=1 (the
            legacy object path: the bucketed batcher through resident banks
            and host slices); SAM = pass B, K1 and K2/K3 launched
@@ -94,15 +113,17 @@ Phases, one line each on stdout, any failure exits non-zero:
            runs, and the overhanging reads' roots, cut short by the
            chromosome's end, run full on the multi-warp K3 (no launch of
            either shared-memory kernel); SAM identical; its device kernel
-           seconds; then pass E again under --profile, its device time by
-           kernel from the trace
+           seconds; then pass E again under --profile and with the
+           roots' CIGARs by K4 (FLOXER_TPU_DEVICE_TRACEBACK=1, its 16- or
+           32-cell layout), its device time by kernel from the trace
 Each path is driven with the launch counts set to 0 just before it and
 read just after (server jobs report theirs in their stage split line). The
 line before the last is the kernel table as JSON (K1 at the 384-word
 root band, K1w and K1s at pass E's 1024-word root shape, K3w and K3s at
 its 1280-word overhang shape; K1-K3 launches of pass A, the multi-warp
-and shared-memory K1's and K3's of pass E, K4 of pass C, K5-K8 of the
-entry points' run), each kernel with its bound;
+and shared-memory K1's and K3's of pass E, K4 of pass C, its wider
+layouts' of passes C and E under --profile, K5-K8 of the entry points'
+run), each kernel with its bound;
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -127,9 +148,20 @@ SEED = 20261016
 # K1 at the PEX root shape of 20 kb reads: tasks, pattern length, budget,
 # band words (32-bit)
 ROOT_SHAPE = (256, 20600, 1442, 256)
-# K4 at the same root shape: tasks of the seeded batch, read error rate
-TRACEBACK_TASKS = 128
-TRACEBACK_ERROR = 0.066
+# K4 at the same root shape: tools/k4_bench.py's "root20k" batch (128
+# seeded 20 kb roots), then its "mixed" batch (one 40 kb root at -p 0.15
+# in place of the last). K4's wider layouts: (row key, kernel name,
+# layout, the tool's timed shape, and the plain version's task: pattern
+# length, error rate, budget, a band about as wide as the timed shape's
+# on fewer rows, since the plain version takes ~1 ms a row)
+K4_WIDE = (
+    ("K4r16", "traceback_banded_reg16", "reg16", "root30k",
+     (12_000, 0.35, 4_500)),
+    ("K4r32", "traceback_banded_reg32", "reg32", "root40k",
+     (16_000, 0.45, 6_000)),
+    ("K4s", "traceback_banded_shared64", "shared64", "root80k",
+     (24_000, 0.6, 12_000)),
+)
 E2E_READS = 200
 # text columns at which K5-K8 are held against their plain versions (the
 # plain versions loop over columns in Python, so the scripts' 23040 would
@@ -210,6 +242,10 @@ LONG_READS = (1_000_000, 6, 40_000, 0.12, 0.15)
 # pass E also maps reads that run off the chromosome's end: how many, and
 # how many of their chars come from the chromosome (the rest is random)
 OVERHANG_READS = (2, 25_000)
+# pass F: processes joined in one process set on the one card, and how
+# long each may take
+PROCESS_SET = 2
+PROCESS_SET_TIMEOUT = 300
 # runs the port's CLI with jax unimportable, as on a machine without jax
 JAX_BLOCKED = (
     "import runpy, sys; sys.modules['jax'] = None; "
@@ -254,20 +290,12 @@ def cuda_ms(fn, repeats: int) -> float:
 
 
 def mutate(rng, seq, rate):
-    """Substitutions, insertions and deletions at `rate` per char."""
-    import numpy as np
+    """Substitutions, insertions and deletions at `rate` per char
+    (tools/k4_bench.py's, imported at the first call: the script alone,
+    without the port, still starts and fails cleanly)."""
+    from floxer_tpu_torch.tools.k4_bench import mutate as mutate_chars
 
-    out = []
-    for ch in seq:
-        r = rng.random()
-        if r < rate / 3:
-            out.append(1 + (int(ch) % 4))
-        elif r < 2 * rate / 3:
-            out.append(int(ch))
-            out.append(int(rng.integers(1, 5)))
-        elif r >= rate:
-            out.append(int(ch))
-    return np.asarray(out, dtype=np.uint8)
+    return mutate_chars(rng, seq, rate)
 
 
 def small_cases(rng, count, m_lo, m_hi):
@@ -980,97 +1008,205 @@ def run_long_shapes(device, peaks):
     return rows, fields
 
 
-def run_traceback_phase(device, rng, peaks):
-    """K4 at the 20 kb root shape: equal to its plain version on two tasks
-    and to the host traceback (native/traceback.cpp through dp_reference)
-    on every accepted root of a seeded batch. Returns the table row."""
+def traceback_bound(batch, peaks) -> tuple[float, str]:
+    """K4's bound on a packed batch: TRACEBACK_OPS per band cell of every
+    task's rows; bytes: its inputs (chars, table) read once, its outputs
+    (ops, num_ops, begin_cols) written once."""
+    from floxer_tpu_torch.ops import traceback_device as td
+
+    table = batch.table
+    widths = 2 * table[:, td.DISTANCE].clip(min=0) + 1
+    cells = int((table[:, td.M_LEN] * widths).sum())
+    nbytes = (batch.windows.nbytes + batch.patterns.nbytes + table.nbytes
+              + batch.ops_total + 8 * table.shape[0])
+    return bound(TRACEBACK_OPS * cells, nbytes, peaks)
+
+
+def k4_ptxas() -> dict:
+    """ptxas -v of K4's kernel in the aligner's build (one kernel, every
+    layout a branch of it); a spill or a stack frame fails the run."""
+    from floxer_tpu_torch.ops import _build
+
+    usage = _build.ALIGNER.ptxas_usage()
+    names = [name for name in usage if "traceback_kernel" in name]
+    check(len(names) == 1, f"K4's kernel is compiled as {names}")
+    found = usage[names[0]]
+    check(found.get("spill_stores", 1) == 0
+          and found.get("spill_loads", 1) == 0
+          and found.get("stack", 1) == 0,
+          f"traceback_kernel spills or keeps a stack frame: {found}")
+    return {"traceback_kernel": found}
+
+
+def k4_packed(device, tasks):
+    """A packed batch of tasks and the wrapper's arguments on the card."""
+    import torch
+
+    from floxer_tpu_torch.ops import traceback_device as td
+
+    batch = td.pack_batch(tasks)
+    return batch, tuple(torch.from_numpy(a).to(device)
+                        for a in (batch.windows, batch.patterns,
+                                  batch.table)) + (batch,)
+
+
+def k4_against_plain(args, batch):
+    """(max_abs_err, plain ms): K4's outputs against its plain version's
+    on the card, on the same operands."""
     import numpy as np
     import torch
 
-    from floxer_tpu_torch.native import native_myers_distance_batch
-    from floxer_tpu_torch.ops import dp_reference
     from floxer_tpu_torch.ops import traceback_device as td
 
-    _, m_root, k_root, _ = ROOT_SHAPE
-    genome = rng.integers(1, 5, size=400_000).astype(np.uint8)
-    windows, patterns = [], []
-    for _ in range(TRACEBACK_TASKS):
-        n = m_root + 2 * k_root + 1 + int(rng.integers(0, 1200))
-        start = int(rng.integers(0, len(genome) - n))
-        window = genome[start : start + n]
-        offset = int(rng.integers(0, n - m_root - k_root))
-        patterns.append(mutate(
-            rng, window[offset : offset + m_root], TRACEBACK_ERROR
-        )[:m_root])
-        windows.append(window)
-    dist, end = native_myers_distance_batch(
-        windows, patterns, num_threads=min(8, os.cpu_count() or 1)
-    )
-    tasks = [
-        (w, p, int(e), int(d))
-        for w, p, e, d in zip(windows, patterns, end, dist)
-        if d <= k_root
-    ]
-    check(len(tasks) >= TRACEBACK_TASKS // 2,
-          f"only {len(tasks)} root tasks within the budget")
-
-    # the batched entry on every accepted root against the host pool
+    kernel_out = [t.cpu().numpy() for t in td.banded_traceback(*args)]
+    torch.cuda.synchronize()
     started = time.monotonic()
-    got = td.banded_cigar_traceback_device_batch(tasks, device)
-    batch_s = time.monotonic() - started
+    plain_out = [t.cpu().numpy() for t in td.banded_traceback_plain(
+        *args[:3], batch.ops_total
+    )]
+    plain_ms = (time.monotonic() - started) * 1000
+    err = max(int(np.max(np.abs(k.astype(np.int64) - p)))
+              for k, p in zip(kernel_out, plain_out))
+    return err, plain_ms
+
+
+def k4_timed(args, batch, peaks, repeats=3) -> dict:
+    """K4's ms on a packed batch, with the walk and without it (the rows
+    alone), its bound and its tasks by layout."""
+    from floxer_tpu_torch.ops import traceback_device as td
+
+    ms = cuda_ms(lambda: td.banded_traceback(*args), repeats)
+    rows_ms = cuda_ms(lambda: td.banded_traceback(*args, walk=False), repeats)
+    bound_ms, bound_by = traceback_bound(batch, peaks)
+    return {"ms": ms, "rows_ms": rows_ms, "walk_share": (ms - rows_ms) / ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "tasks": int(batch.table.shape[0]), "layouts": batch.layouts(),
+            "threads": batch.threads,
+            "widths": [int(2 * max(d, 0) + 1)
+                       for d in batch.table[:, td.DISTANCE]]}
+
+
+def host_tracebacks(tasks):
+    """The 8-thread host pool's tracebacks of tasks and its seconds."""
+    from floxer_tpu_torch.ops import dp_reference
+
     started = time.monotonic()
     with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
         host = list(pool.map(
             lambda task: dp_reference.banded_cigar_traceback(*task), tasks
         ))
-    host_pool_s = time.monotonic() - started
+    return host, time.monotonic() - started
+
+
+def entry_batch(device, tasks):
+    """The batched entry on tasks: (results, its seconds, its launches)."""
+    import torch
+
+    from floxer_tpu_torch.ops import traceback_device as td
+
+    torch.cuda.synchronize()
+    td.LAUNCHES = 0
+    started = time.monotonic()
+    got = td.banded_cigar_traceback_device_batch(tasks, device)
+    return got, time.monotonic() - started, td.LAUNCHES
+
+
+def run_traceback_phase(device, peaks):
+    """K4 at the 20 kb root shape: the whole seeded batch of accepted roots
+    in exactly one launch, equal to the host traceback (native/traceback.cpp
+    through dp_reference) on every task, timed against the 8-thread host
+    pool; the kernel equal to its plain version on two tasks; its ms on
+    those two and on the batch, each with its bound and its rows' time
+    without the walk; the mixed batch (one 40 kb root at -p 0.15 among
+    the 20 kb ones) in one launch, each task in its own layout. Then K4's
+    wider layouts (K4_WIDE): each against its plain version on one task
+    of about its timed band width, then on the tool's shape of 40 kb or
+    80 kb roots at -p 0.15, equal to the host traceback there, timed with
+    its bound. Returns the table rows."""
+    import numpy as np
+
+    from floxer_tpu_torch.ops import traceback_device as td
+    from floxer_tpu_torch.tools import k4_bench
+
+    tasks = k4_bench.shape_tasks("root20k", SEED)
+    wanted = k4_bench.SHAPES["root20k"][0]
+    check(len(tasks) >= wanted // 2,
+          f"only {len(tasks)} root tasks within the budget")
+    got, batch_s, batch_launches = entry_batch(device, tasks)
+    check(batch_launches == 1,
+          f"K4 took {batch_launches} launches for one batch, not 1")
+    host, host_pool_s = host_tracebacks(tasks)
     mismatches = sum(g != h for g, h in zip(got, host))
     check(mismatches == 0, f"K4 differs from the host traceback on "
           f"{mismatches} of {len(tasks)} root tasks")
 
     # K4 against its plain version on two root-shape tasks (same inputs)
-    pair = tasks[:2]
-    m_pad = max(td._pad_quantum(len(p), 2048) for _, p, _, _ in pair)
-    n_pad = max(td._pad_quantum(len(w), 2048) for w, _, _, _ in pair)
-    w_pad = max(td._pad_quantum(2 * d + 1, 256) for _, _, _, d in pair)
-    windows2 = np.zeros((2, n_pad), dtype=np.int32)
-    patterns2 = np.zeros((2, m_pad), dtype=np.int32)
-    scalars = np.zeros((4, 2), dtype=np.int32)
-    for s, (w, p, e, d) in enumerate(pair):
-        windows2[s, : len(w)] = w
-        patterns2[s, : len(p)] = p
-        scalars[:, s] = (len(w), len(p), e, d)
-
-    def to_dev(array):
-        return torch.from_numpy(np.ascontiguousarray(array)).to(device)
-
-    args = (to_dev(windows2), to_dev(patterns2),
-            *(to_dev(row) for row in scalars))
-    shape = dict(m_pad=m_pad, w_pad=w_pad, n_pad=n_pad)
-    kernel_out = [t.cpu().numpy() for t in
-                  td.banded_directions_and_walk(*args, **shape)]
-    started = time.monotonic()
-    plain_out = [t.cpu().numpy() for t in
-                 td.banded_directions_and_walk_plain(*args, **shape)]
-    torch.cuda.synchronize()
-    plain_ms = (time.monotonic() - started) * 1000
-    err = max(int(np.max(np.abs(k.astype(np.int64) - p)))
-              for k, p in zip(kernel_out, plain_out))
+    pair, args = k4_packed(device, tasks[:2])
+    err, plain_ms = k4_against_plain(args, pair)
     check(err == 0, f"K4 differs from its plain version ({err})")
-    k4_ms = cuda_ms(lambda: td.banded_directions_and_walk(*args, **shape), 3)
-    # the band's cells: 2d + 1 per pattern row of each task
-    cells = sum(len(p) * (2 * d + 1) for _, p, _, d in pair)
-    return {
+    two = k4_timed(args, pair, peaks)
+    whole, whole_args = k4_packed(device, tasks)
+    batch = k4_timed(whole_args, whole, peaks)
+
+    # the mixed batch: one launch, every task in its own layout
+    mixed_tasks = k4_bench.shape_tasks(k4_bench.MIXED, SEED)
+    mixed_got, mixed_s, mixed_launches = entry_batch(device, mixed_tasks)
+    check(mixed_launches == 1,
+          f"K4 took {mixed_launches} launches for the mixed batch, not 1")
+    mixed_host, mixed_pool_s = host_tracebacks(mixed_tasks)
+    check(mixed_got == mixed_host,
+          "K4 differs from the host traceback on the mixed batch")
+    mixed_batch, mixed_args = k4_packed(device, mixed_tasks)
+    mixed = k4_timed(mixed_args, mixed_batch, peaks)
+    check(set(mixed["layouts"]) == {"reg8", "reg32"},
+          f"the mixed batch ran in {mixed['layouts']}")
+    rows = {"K4": {
         "name": "traceback_banded", "route": "cuda",
         "source": td.SOURCE, "replaces": td.REPLACES,
-        "max_abs_err": err, "ms": k4_ms, "plain_ms": plain_ms,
-        **bound_fields(bound(TRACEBACK_OPS * cells, tensor_bytes(*args),
-                             peaks)),
-        "shape": f"T=2 m={len(pair[0][1])} d={pair[0][3]},{pair[1][3]} "
-                 f"m_pad={m_pad} w_pad={w_pad}",
+        "max_abs_err": err, "ms": two["ms"], "plain_ms": plain_ms,
+        "bound_ms": two["bound_ms"], "bound_by": two["bound_by"],
+        "library_ms": None,
+        "shape": f"T=2 m={len(tasks[0][1])},{len(tasks[1][1])} "
+                 f"d={tasks[0][3]},{tasks[1][3]}",
+        "two": two, "batch": batch, "batch_launches": batch_launches,
         "host_equal_tasks": len(tasks),
         "batch_s": batch_s, "host_pool_s": host_pool_s,
-    }
+        "mixed": {**mixed, "batch_s": mixed_s, "host_pool_s": mixed_pool_s,
+                  "launches": mixed_launches},
+        "ptxas": k4_ptxas(),
+    }}
+
+    for key, name, layout, shape, (m, rate, budget) in K4_WIDE:
+        plain_task = k4_bench.root_tasks(np.random.default_rng(SEED), 1, m,
+                                         rate, budget)
+        check(len(plain_task) == 1, f"{name}: no task within {budget}")
+        one, one_args = k4_packed(device, plain_task)
+        check(one.layouts() == {layout: 1},
+              f"{name}'s plain task runs in {one.layouts()}")
+        err, plain_ms = k4_against_plain(one_args, one)
+        check(err == 0, f"{name} differs from its plain version ({err})")
+        alone = k4_timed(one_args, one, peaks)
+        shape_tasks = k4_bench.shape_tasks(shape, SEED)
+        shape_got, shape_s, shape_launches = entry_batch(device, shape_tasks)
+        check(shape_launches == 1,
+              f"{name}: {shape_launches} launches for {shape}, not 1")
+        check(shape_got == host_tracebacks(shape_tasks)[0],
+              f"{name} differs from the host traceback on {shape}")
+        timed_batch, timed_args = k4_packed(device, shape_tasks)
+        timed = k4_timed(timed_args, timed_batch, peaks)
+        check(timed["layouts"] == {layout: len(shape_tasks)},
+              f"{shape} ran in {timed['layouts']}")
+        rows[key] = {
+            "name": name, "route": "cuda", "source": td.SOURCE,
+            "replaces": td.REPLACES, "max_abs_err": err,
+            "ms": alone["ms"], "plain_ms": plain_ms,
+            "bound_ms": alone["bound_ms"], "bound_by": alone["bound_by"],
+            "library_ms": None,
+            "shape": f"T=1 m={len(plain_task[0][1])} "
+                     f"d={plain_task[0][3]}",
+            "alone": alone, shape: {**timed, "batch_s": shape_s},
+        }
+    return rows
 
 
 def script_arrays(num_text):
@@ -1365,6 +1501,7 @@ def reset_launches() -> None:
     for module in (cuda_myers, traceback_device, ablate_banded_kernel,
                    microbench_column_loop):
         module.LAUNCHES = 0
+    traceback_device.LAYOUT_LAUNCHES.clear()
     for module in (cuda_myers_banded, cuda_myers_large):
         module.REGISTER_LAUNCHES = 0
         module.WIDE_LAUNCHES = 0
@@ -1440,10 +1577,15 @@ class E2E:
         """One --engine device run in this process with the launch counts
         set to 0 just before it; (launches, fused dispatches). The launches
         also hold K1's and K3's split by kernel (K1_register, K1_wide,
-        K1_shared, and K3's likewise)."""
+        K1_shared, and K3's likewise) and K4's launches by the layouts
+        their blocks ran in (K4_reg8, K4_reg16, ...)."""
         from floxer_tpu_torch import pipeline, verify_batch
         from floxer_tpu_torch.__main__ import main
-        from floxer_tpu_torch.ops import cuda_myers_banded, cuda_myers_large
+        from floxer_tpu_torch.ops import (
+            cuda_myers_banded,
+            cuda_myers_large,
+            traceback_device,
+        )
 
         env = env or {}
         os.environ.update(env)
@@ -1457,6 +1599,8 @@ class E2E:
                 for split, count in zip(("register", "wide", "shared"),
                                         launch_split(module)):
                     launches[f"{kernel}_{split}"] = count
+            for layout, count in traceback_device.LAYOUT_LAUNCHES.items():
+                launches[f"K4_{layout}"] = count
         finally:
             for key in env:
                 del os.environ[key]
@@ -1519,10 +1663,83 @@ def run_traceback_pass(e2e: E2E):
     check(launches["K4"] > 0, "K4 was never launched in pass C")
     return {
         "align_s": e2e.seconds("pass_c"),
+        "pass_a_align_s": e2e.seconds("pass_a"),
         "pass_b_align_s": e2e.seconds("pass_b"),
+        "k4_launches": launches["K4"],
         "launches": launches, "fused_dispatches": fused,
         "sam_identical": True,
     }, launches
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_process_set_pass(e2e: E2E):
+    """Pass F: pass A's arguments in PROCESS_SET processes on the one card,
+    joined through the reference's variables (JAX_COORDINATOR_ADDRESS,
+    JAX_NUM_PROCESSES, JAX_PROCESS_ID) on torch.distributed's gloo: each
+    process aligns its strided share on the CUDA kernels (K1 launched in
+    each), stdout stays empty, and process 0's merged SAM equals pass B's
+    byte for byte."""
+    port = free_port()
+    procs, logs = [], []
+    started = time.monotonic()
+    for rank in range(PROCESS_SET):
+        env = dict(os.environ)
+        env.update({
+            "PYTHONPATH": str(ROOT),
+            "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+            "JAX_NUM_PROCESSES": str(PROCESS_SET),
+            "JAX_PROCESS_ID": str(rank),
+        })
+        argv = e2e.argv("pass_f", ["--engine", "device"])
+        log = e2e.workdir / f"pass_f_{rank}.log"
+        argv[argv.index("--logfile") + 1] = str(log)
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", JAX_BLOCKED, *argv],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=ROOT, env=env,
+        ))
+    try:
+        outs = [proc.communicate(timeout=PROCESS_SET_TIMEOUT)
+                for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall_s = time.monotonic() - started
+    for rank, (proc, (stdout, stderr)) in enumerate(zip(procs, outs)):
+        check(proc.returncode == 0, f"pass F process {rank} exited "
+              f"{proc.returncode}: {stderr[-2000:]}")
+        check(stdout == "", f"pass F process {rank} wrote to stdout")
+    check(e2e.sam("pass_f") == e2e.sam("pass_b"),
+          "pass F's merged SAM and pass B's differ")
+    processes = []
+    for rank, log in enumerate(logs):
+        seconds, split = align_seconds(log)
+        launches = run_logged_launches(log)
+        check(launches["K1"] > 0, f"pass F process {rank} launched no K1")
+        processes.append({"align_s": seconds, "launches": launches,
+                          "stage_split": split})
+    merged = [line.split("merged", 1)[1].strip()
+              for line in logs[0].read_text().splitlines()
+              if "merged" in line and "shards" in line]
+    check(len(merged) == 1, f"process 0 logged no merge: {merged}")
+    for rank in range(1, PROCESS_SET):
+        check("merged" not in logs[rank].read_text(),
+              f"process {rank} merged")
+    return {
+        "processes": processes, "merge": "merged " + merged[0],
+        "wall_s": wall_s, "pass_a_align_s": e2e.seconds("pass_a"),
+        "sam_identical": True,
+    }
 
 
 def run_legacy_pass(e2e: E2E):
@@ -1602,16 +1819,23 @@ def run_long_pass(e2e: E2E, rng):
 
 
 def run_long_profile_pass(e2e: E2E):
-    """Pass E again under --profile: its device time by kernel from the
-    trace (the multi-warp K1 and K3 named in it); SAM identical."""
+    """Pass E again under --profile and with the roots' CIGARs by K4
+    (FLOXER_TPU_DEVICE_TRACEBACK=1): its device time by kernel from the
+    trace (the multi-warp K1 and K3 and K4 named in it); the long roots'
+    bands (~8000-10000 cells) run K4's 16- or 32-cell register layout;
+    SAM identical."""
     trace_dir = e2e.workdir / "trace_e"
     launches, _ = e2e.run_device_pass(
-        "pass_ep", extra=["--profile", str(trace_dir)]
+        "pass_ep", extra=["--profile", str(trace_dir)],
+        env={"FLOXER_TPU_DEVICE_TRACEBACK": "1"},
     )
+    check(launches.get("K4_reg16", 0) + launches.get("K4_reg32", 0) > 0,
+          f"pass E's roots never ran K4's 16- or 32-cell layout: {launches}")
     traces = list(trace_dir.glob("*.json"))
     check(len(traces) == 1, f"expected one trace in {trace_dir}: {traces}")
     text = traces[0].read_text()
-    for kernel in ("myers_banded_wide_kernel", "myers_large_wide_kernel"):
+    for kernel in ("myers_banded_wide_kernel", "myers_large_wide_kernel",
+                   "traceback_kernel"):
         check(kernel in text, f"pass E's trace does not name {kernel}")
     return {"align_s": e2e.seconds("pass_ep"), "launches": launches,
             "sam_identical": True, **trace_breakdown(json.loads(text))}
@@ -1902,7 +2126,7 @@ def run_all(device, peaks, k1_sweep, k3_sweep, full_arrays,
     rows, k1_ends, sweep_fields = run_kernel_phase(
         device, rng, peaks, *k1_sweep, *k3_sweep
     )
-    rows["K4"] = run_traceback_phase(device, rng, peaks)
+    rows.update(run_traceback_phase(device, peaks))
     phase("kernels", k1_sweep=sweep_fields,
           **{name: {k: v for k, v in row.items()
                     if k not in ("name", "route", "source", "replaces")}
@@ -1927,6 +2151,7 @@ def run_all(device, peaks, k1_sweep, k3_sweep, full_arrays,
         phase("e2e", **result)
         result, launches_c = run_traceback_pass(e2e)
         phase("traceback", **result)
+        phase("process_set", **run_process_set_pass(e2e))
         phase("legacy", **run_legacy_pass(e2e))
         phase("server", **run_server_pass(e2e))
         phase("profile", **run_profile_pass(e2e))
@@ -1934,6 +2159,7 @@ def run_all(device, peaks, k1_sweep, k3_sweep, full_arrays,
                    *LONG_READS[2:])
         result, launches_e = run_long_pass(long, rng)
         result["profiled"] = run_long_profile_pass(long)
+        launches_ep = result["profiled"]["launches"]
         phase("long_reads", **result)
 
     for name in ("K1", "K2", "K3"):
@@ -1942,14 +2168,17 @@ def run_all(device, peaks, k1_sweep, k3_sweep, full_arrays,
         rows[f"{name}w"]["launches"] = launches_e[f"{name}_wide"]
         rows[f"{name}s"]["launches"] = launches_e[f"{name}_shared"]
     rows["K4"]["launches"] = launches_c["K4"]
+    for key, _, layout, _, _ in K4_WIDE:
+        rows[key]["launches"] = (launches_c.get(f"K4_{layout}", 0)
+                                 + launches_ep.get(f"K4_{layout}", 0))
     rows.update(script_rows)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [
         {k: rows[name][k] for k in keys}
-        for name in ("K1", "K1w", "K1s", "K2", "K3", "K3w", "K3s", "K4", "K5",
-                     "K6", "K7", "K8")
+        for name in ("K1", "K1w", "K1s", "K2", "K3", "K3w", "K3s", "K4",
+                     "K4r16", "K4r32", "K4s", "K5", "K6", "K7", "K8")
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -198,10 +198,10 @@ ALIGNER = KernelLibrary(_PACKAGE_DIR / "csrc", "libfloxer_kernels", {
     "floxer_myers_large": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "floxer_myers_large_reg": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "floxer_myers_large_wide": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    # windows, patterns, n_lens, m_lens, end_cols, distances, T, m_pad,
-    # w_pad, n_pad, dirs, ops, num_ops, begin_cols, stream
+    # windows, patterns, table, T, threads, stored, walk, dirs, ops,
+    # num_ops, begin_cols, stream
     "floxer_traceback_banded": [
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+        _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
     ],
 })
 

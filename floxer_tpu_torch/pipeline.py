@@ -7,7 +7,9 @@ pipeline's own host helpers are in pipeline_host.py). What this module
 carries is the device wiring of the batched engines: the device
 choice, the resident reference bank (cached across a server's jobs), the
 warmup that builds the CUDA kernels off the align loop, the verifier of
-this package, and --profile through torch.profiler.
+this package, --profile through torch.profiler, and the multi-process run
+(parallel/: the process set on torch.distributed's gloo, the strided
+query shards and process 0's merge of the shard outputs).
 
 Stdout stays empty; all logs go to stderr (and the optional log file).
 """
@@ -47,25 +49,12 @@ NOT_PORTED = "is not yet ported to floxer_tpu_torch, see ROADMAP.md"
 
 
 def unsupported_options(cli: CommandLineInput) -> list[str]:
-    """The options of the reference CLI this port rejects, and a
-    multi-process environment: the reference joins a process set when
-    JAX_COORDINATOR_ADDRESS is set (with JAX_NUM_PROCESSES processes) and
-    shards the queries by process, which the port would otherwise ignore
-    (every process aligning every query to the same output)."""
+    """The options of the reference CLI this port rejects."""
     found = []
     if getattr(cli, "device_search", False):
         found.append("--device-search")
     if getattr(cli, "index_shards", 1) > 1:
         found.append("--index-shards > 1")
-    if cli.num_hosts > 1 or cli.host_id != 0:
-        found.append("--num-hosts / --host-id (multi-host runs)")
-    processes = os.environ.get("JAX_NUM_PROCESSES", "").strip()
-    if os.environ.get("JAX_COORDINATOR_ADDRESS") or (
-        processes.isdigit() and int(processes) > 1
-    ):
-        found.append(
-            "JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES (multi-process runs)"
-        )
     return found
 
 
@@ -405,6 +394,34 @@ def run(
         for problem in problems:
             logger.error("%s %s", problem, NOT_PORTED)
         return -1
+    # multi-process execution: with JAX_COORDINATOR_ADDRESS set, join the
+    # process set before any device work and derive the query shard from
+    # it; explicit --num-hosts/--host-id still override (file-level
+    # sharded workflows)
+    from .parallel.collectives import (
+        ProcessSetError,
+        leave_process_set,
+        maybe_initialize_distributed,
+    )
+
+    try:
+        process_index, process_count = maybe_initialize_distributed()
+    except ProcessSetError as error:
+        logger.error("%s", error)
+        return -1
+    try:
+        return _run(cli, device, use_device, process_index, process_count)
+    finally:
+        leave_process_set()
+
+
+def _run(cli, device, use_device, process_index, process_count) -> int:
+    """run() once the process set is joined (a single process is rank 0
+    of 1)."""
+    distributed = process_count > 1
+    if distributed and cli.num_hosts == 1:
+        cli.num_hosts = process_count
+        cli.host_id = process_index
     warming = False
     if cli.engine in ("device", "batched"):
         if device is None and accelerator_available():
@@ -463,8 +480,18 @@ def run(
         return -1
     searcher = make_searcher(cli, index, len(references.records))
 
-    # checkpoint/resume: a progress cursor on the query stream
-    progress_path = f"{cli.output_path}.progress"
+    # distributed runs write per-process shard files (extension preserved
+    # so the SAM/BAM writer selection is unchanged); process 0 merges the
+    # canonical output after the post-align barrier below
+    if distributed:
+        from .parallel.multihost import shard_output_path
+
+        effective_output_path = shard_output_path(cli.output_path, cli.host_id)
+    else:
+        effective_output_path = cli.output_path
+
+    # checkpoint/resume: a progress cursor on the (sharded) query stream
+    progress_path = f"{effective_output_path}.progress"
     skip = 0
     if cli.resume and os.path.exists(progress_path):
         try:
@@ -476,20 +503,24 @@ def run(
             logger.info("resuming: skipping %d already-processed queries", skip)
 
     output = AlignmentOutput(
-        cli.output_path,
+        effective_output_path,
         references.records,
         append=cli.resume and skip > 0,
     )
     stats = SearchAndAlignmentStatistics(cli.stats_input_hint)
 
-    queries = iter(
-        Queries(
-            cli.queries_path,
-            cli.query_num_errors,
-            cli.query_error_probability,
-            cli.pex_seed_num_errors,
-        )
+    queries_stream = Queries(
+        cli.queries_path,
+        cli.query_num_errors,
+        cli.query_error_probability,
+        cli.pex_seed_num_errors,
     )
+    if cli.num_hosts > 1:
+        from .parallel.multihost import shard_queries
+
+        queries = shard_queries(queries_stream, cli.host_id, cli.num_hosts)
+    else:
+        queries = iter(queries_stream)
     num_processed = 0
     if skip:
         queries = itertools.islice(queries, skip, None)
@@ -755,6 +786,46 @@ def run(
                 for name, count in launches.items()
             ),
         )
+
+    if distributed:
+        # cross-process stats merge, then a barrier so every shard file is
+        # closed before process 0 interleaves the canonical output; fd 1
+        # goes to stderr around the first collective (gloo may print as
+        # its context forms, and stdout stays empty)
+        from .parallel.collectives import (
+            allreduce_stats,
+            barrier,
+            stdout_to_stderr,
+        )
+        from .parallel.multihost import (
+            merge_bam_shards,
+            merge_sam_shards,
+            shard_output_path,
+        )
+
+        with stdout_to_stderr():
+            stats.apply_merged_arrays(
+                *allreduce_stats(*stats.to_merge_arrays())
+            )
+            barrier()
+        if process_index == 0:
+            shard_paths = [
+                shard_output_path(cli.output_path, h)
+                for h in range(process_count)
+            ]
+            merge = (
+                merge_sam_shards
+                if cli.output_path.endswith(".sam")
+                else merge_bam_shards
+            )
+            merged = merge(shard_paths, cli.output_path)
+            logger.info(
+                "merged %d queries from %d shards into %s",
+                merged, process_count, cli.output_path,
+            )
+        else:
+            # one canonical stats report: only process 0 emits
+            return 0
 
     if cli.stats_target is not None:
         if cli.stats_target == "terminal":

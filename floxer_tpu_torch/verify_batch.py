@@ -825,7 +825,7 @@ class BatchVerifier:
         self._deferred: list = []  # (future-or-_DeviceTb, level)
         self._patches: list = []  # (QueryAlignment, level)
         # device-traceback accumulation: recorded-root tasks queued during
-        # the record pass, dispatched as batched K4 launches in
+        # the record pass, dispatched in one K4 launch in
         # resolve_deferred() (ops/traceback_device.py)
         self._device_tb_tasks: list = []
         self._device_tb_enabled: bool | None = None
@@ -2456,8 +2456,8 @@ class BatchVerifier:
         finalize thread)."""
         memo = getattr(self, "_root_memo", None)
         if self._device_tb_tasks:
-            # one batched K4 launch per shape bucket for every traceback
-            # queued since the last resolve; run-length formatting on host
+            # one K4 launch for every traceback queued since the last
+            # resolve (up to 4 GiB of codes); run-length formatting on host
             from .ops.traceback_device import (
                 banded_cigar_traceback_device_batch,
             )

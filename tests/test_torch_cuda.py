@@ -312,20 +312,118 @@ def traceback_tasks(rng, count, length, error_rate):
 
 @pytest.mark.parametrize("length,error_rate", [(600, 0.04), (5000, 0.12)])
 def test_traceback_kernel_matches_plain(cuda_device, length, error_rate):
-    """K4 at two band widths (w_pad 256 and 1536): the card's walk ops equal
-    the plain version's, and the batched CIGARs equal the host traceback."""
+    """K4 at two band widths (~100 and ~1300 cells): one launch for the
+    batch, the card's CIGARs equal the plain version's and the host
+    traceback's."""
     from floxer_tpu_torch.ops import dp_reference
     from floxer_tpu_torch.ops import traceback_device
 
     rng = np.random.default_rng(length)
     tasks = traceback_tasks(rng, 12, length, error_rate)
-    launches = traceback_device.LAUNCHES
+    traceback_device.LAUNCHES = 0
     got = traceback_device.banded_cigar_traceback_device_batch(tasks, cuda_device)
-    assert traceback_device.LAUNCHES > launches
+    assert traceback_device.LAUNCHES == 1
     want = traceback_device.banded_cigar_traceback_device_batch(tasks, CPU)
     assert got == want
     for t, task in enumerate(tasks):
         assert got[t] == dp_reference.banded_cigar_traceback(*task), t
+
+
+def k4_outputs(tasks, device, layout=None):
+    from floxer_tpu_torch.ops import traceback_device
+
+    batch = traceback_device.pack_batch(tasks, layout)
+    out = traceback_device.banded_traceback(
+        torch.from_numpy(batch.windows).to(device),
+        torch.from_numpy(batch.patterns).to(device),
+        torch.from_numpy(batch.table).to(device), batch,
+    )
+    return [t.cpu() for t in out]
+
+
+@pytest.mark.parametrize("layout", [(8, False), (16, False), (32, False),
+                                    (64, True), (96, True), (128, True)])
+def test_traceback_mixed_widths_one_launch(cuda_device, layout):
+    """A batch of mixed band widths (half = 0 to ~1000 cells, an empty
+    pattern) in one launch of each K4 layout: ops, counts and begins equal
+    the plain version's."""
+    from floxer_tpu_torch.ops import traceback_device
+
+    rng = np.random.default_rng(17)
+    tasks = (traceback_tasks(rng, 3, 300, 0.02)
+             + traceback_tasks(rng, 3, 2500, 0.1)
+             + traceback_tasks(rng, 2, 900, 0.2))
+    window = tasks[0][0]
+    tasks.append((window, window[10:60].copy(), 60, 0))
+    tasks.append((window, np.zeros(0, dtype=np.uint8), 33, 0))
+    layout = traceback_device.Layout(*layout)
+    traceback_device.LAUNCHES = 0
+    got = k4_outputs(tasks, cuda_device, layout)
+    assert traceback_device.LAUNCHES == 1
+    want = k4_outputs(tasks, CPU, layout)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def wide_task(half):
+    """A random pattern against a window: a band of about 2 half cells."""
+    from floxer_tpu_torch.native import native_myers_distance_batch
+
+    rng = np.random.default_rng(half)
+    window = rng.integers(1, 5, size=3 * half).astype(np.uint8)
+    pattern = rng.integers(1, 5, size=2 * half + 300).astype(np.uint8)
+    dist, end = native_myers_distance_batch([window], [pattern], num_threads=1)
+    return window, pattern, int(end[0]), int(dist[0])
+
+
+@pytest.mark.parametrize("half", [2100, 4500, 9000])
+def test_traceback_wide_bands_match_native(cuda_device, half):
+    """Bands past the 8-cell register layout (4096 cells), past the
+    16-cell one (8192) and past the 32-cell one (16384, 64 shared-row
+    cells a thread): K4 equals the native host traceback."""
+    from floxer_tpu_torch.ops import dp_reference
+    from floxer_tpu_torch.ops import traceback_device
+
+    task = wide_task(half)
+    layout = traceback_device.choose_layout(traceback_device.band_width(task[3]))
+    got = traceback_device.banded_cigar_traceback_device_batch([task], cuda_device)
+    assert got[0] == dp_reference.banded_cigar_traceback(*task)
+    assert layout.cells == (8 if task[3] <= 2047 else 16 if task[3] <= 4095
+                            else 32 if task[3] <= 8191 else 64)
+    assert layout.shared_row == (task[3] > 8191)
+
+
+def test_traceback_mixed_layouts_one_launch_match_native(cuda_device):
+    """Tasks of every width class in one batch: one launch, each block in
+    its task's own layout, every CIGAR equal to the native traceback."""
+    from floxer_tpu_torch.ops import dp_reference
+    from floxer_tpu_torch.ops import traceback_device
+
+    rng = np.random.default_rng(23)
+    tasks = (traceback_tasks(rng, 3, 2500, 0.1)
+             + [wide_task(2600), wide_task(4400), wide_task(8800)]
+             + traceback_tasks(rng, 2, 600, 0.04))
+    batch = traceback_device.pack_batch(tasks)
+    assert set(batch.layouts()) == {"reg8", "reg16", "reg32", "shared64"}
+    traceback_device.LAUNCHES = 0
+    got = traceback_device.banded_cigar_traceback_device_batch(tasks, cuda_device)
+    assert traceback_device.LAUNCHES == 1
+    for t, task in enumerate(tasks):
+        assert got[t] == dp_reference.banded_cigar_traceback(*task), t
+
+
+def test_traceback_wrapper_refuses_cpu_kernel_and_bad_operands(cuda_device):
+    """No fallback: mixed devices and wrong dtypes raise."""
+    from floxer_tpu_torch.ops import traceback_device
+
+    rng = np.random.default_rng(3)
+    batch = traceback_device.pack_batch(traceback_tasks(rng, 2, 300, 0.02))
+    with pytest.raises(ValueError, match="patterns"):
+        traceback_device.banded_traceback(
+            torch.from_numpy(batch.windows).to(cuda_device),
+            torch.from_numpy(batch.patterns),
+            torch.from_numpy(batch.table).to(cuda_device), batch,
+        )
 
 
 def test_fused_wave_on_card_matches_cpu(cuda_device):

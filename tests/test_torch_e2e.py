@@ -136,38 +136,20 @@ def serve_in_thread(sock: str):
         ["--device-search"],
         ["--index-shards", "2"],
         ["--profile", "trace_dir"],
-        ["--num-hosts", "2", "--host-id", "1"],
         ["--serve", "sock"],
         ["--server", "sock"],
         ["--shutdown-server", "sock"],
-        ["JAX_COORDINATOR_ADDRESS=localhost:12345"],
-        ["JAX_NUM_PROCESSES=2"],
     ],
 )
 def test_unported_options_fail(tmp_path, data_dir, reference_sam, extra):
-    """--device-search, --index-shards > 1 and multi-host runs are not
-    ported: the CLI exits non-zero and writes nothing, and so does a run
-    whose environment asks for the reference's process set
-    (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES > 1), set in the child's
-    environment. --profile and the server flags are ported: --profile
-    writes a torch.profiler trace and the reference's SAM; a job through
-    --serve / --server writes the reference's SAM and --shutdown-server
-    stops the daemon."""
+    """--device-search and --index-shards > 1 are not ported: the CLI
+    exits non-zero and writes nothing. --profile and the server flags are
+    ported: --profile writes a torch.profiler trace and the reference's
+    SAM; a job through --serve / --server writes the reference's SAM and
+    --shutdown-server stops the daemon. (Multi-host and multi-process runs
+    are ported too: tests/test_torch_multihost.py.)"""
     output = tmp_path / "out.sam"
     args = cli_args(data_dir, output)
-    if "=" in extra[0]:
-        name, value = extra[0].split("=", 1)
-        env = env_without_gpu()
-        env[name] = value
-        proc = subprocess.run(
-            [sys.executable, "-m", "floxer_tpu_torch", *args],
-            capture_output=True, text=True, env=env, cwd=ROOT,
-        )
-        assert proc.returncode != 0
-        assert "not yet ported" in proc.stderr and name in proc.stderr
-        assert proc.stdout == ""
-        assert not output.exists()
-        return
     if extra[0] == "--profile":
         trace_dir = tmp_path / extra[1]
         assert main(args + ["--profile", str(trace_dir)]) == 0

@@ -23,8 +23,19 @@ COPIED = [
     "pex.py", "schemes.py", "search_host.py", "stats.py", "verify.py",
     "io/sam.py", "io/sequence_io.py", "index/fmindex.py",
     "ops/dp_reference.py", "ops/myers_banded.py", "utils/mathutils.py",
-    "utils/introsort.py", "tools/simulated_dataset.py",
+    "utils/introsort.py", "tools/simulated_dataset.py", "tools/merge_sam.py",
 ]
+# the reference's functions and classes the port copies out of a module it
+# does not carry whole; _BamShardCursor's _next_blob is repaired (R2: a
+# 1-3-byte size prefix raises ValueError) and held by
+# tests/test_torch_multihost.py instead
+COPIED_DEFINITIONS = {
+    "parallel/multihost.py": [
+        "shard_queries", "shard_output_path", "_read_sam_query_groups",
+        "merge_sam_shards", "_BamShardCursor", "merge_bam_shards",
+    ],
+}
+REPAIRED = {("_BamShardCursor", "_next_blob")}
 
 
 def forbidden(module: str) -> bool:
@@ -160,3 +171,45 @@ def test_index_artifacts_load_across_packages(tmp_path):
         want = RefIndex.load(paths["ref"]).locate_batch(rows)
         for got, expected in zip(loaded.locate_batch(rows), want):
             np.testing.assert_array_equal(got, expected)
+
+
+def definitions_of(source: str, names) -> dict:
+    """{name: code of that top-level function or class}, docstrings
+    emptied and the methods in REPAIRED left out."""
+    found = {}
+    for node in ast.parse(source).body:
+        if getattr(node, "name", None) in names:
+            if isinstance(node, ast.ClassDef):
+                node.body = [
+                    item for item in node.body
+                    if (node.name, getattr(item, "name", None)) not in REPAIRED
+                ]
+            found[node.name] = code_of(ast.unparse(node))
+    return found
+
+
+@pytest.mark.parametrize("module", sorted(COPIED_DEFINITIONS))
+def test_copied_definitions_equal_their_originals(module):
+    """A partial copy names its original in line 1 and carries the listed
+    definitions with their code (the repaired method aside)."""
+    names = COPIED_DEFINITIONS[module]
+    port_source = (PORT / module).read_text()
+    assert port_source.startswith(f"# Copied from floxer_tpu/{module}")
+    got = definitions_of(port_source, names)
+    want = definitions_of((REFERENCE / module).read_text(), names)
+    assert sorted(got) == sorted(names)
+    assert got == want
+
+
+def test_scaling_bench_copy_spawns_the_port():
+    """tools/scaling_bench.py is its original with the spawned module
+    floxer_tpu_torch instead of floxer_tpu."""
+    module = "tools/scaling_bench.py"
+    header, body = (PORT / module).read_text().split("\n", 1)
+    assert header.startswith(f"# Copied from floxer_tpu/{module}")
+    original = (REFERENCE / module).read_text()
+    spawn = '"-m", "floxer_tpu",'
+    assert original.count(spawn) == 1
+    assert code_of(body) == code_of(
+        original.replace(spawn, '"-m", "floxer_tpu_torch",')
+    )
