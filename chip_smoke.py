@@ -14,11 +14,12 @@ Phases, one line each on stdout, any failure exits non-zero:
            myers_banded_reg_kernel<R> and multi-warp
            myers_banded_wide_kernel, K3's myers_large_reg_kernel<R> and
            multi-warp myers_large_wide_kernel, and K2's
-           myers_small_kernel<G>:
+           myers_small_kernel<G>, and of the device search's kernels
+           (K9, K9x, K9l, K10):
            registers, stack and spill bytes (a spill or a stack frame
            fails the run); and from the library's SASS (cuobjdump) the
-           instructions of each instance's column loops (K1 sliding and
-           frozen, K3 one per group count, K2 one)
+           instructions of each register instance's column loops (K1
+           sliding and frozen, K3 one per group count, K2 one)
   kernels  K1/K2/K3 against their plain PyTorch versions on the card on
            seeded cases (exact (dist, end) equality). K1 has three
            kernels: the register kernel at every instantiated width, the
@@ -89,6 +90,20 @@ Phases, one line each on stdout, any failure exits non-zero:
            files byte-identical, K1-K3 launched in pass A, and every K1
            and K3 launch of pass A on its register kernel. Pass B is the
            oracle of every pass below.
+  search_kernels  the device search's kernels on pass A's index: K9 (rank),
+           K9x (both extensions) and K9l (locate) against their plain
+           versions on the card at RANK_QUERIES queries, in the combined
+           rank-row layout and with the planes layout forced; K10 (the
+           work-queue search) on pass A's first chunk of seeds against
+           workqueue_search_plain on the card (sorted rows and node count
+           equal), one launch through the runner; each timed (CUDA
+           events) with its bound; K10's nodes, reports and largest tree
+  device_search  pass G: pass A's arguments with --device-search (the
+           seed search by K10 on the card; the search warmup joined
+           before the counts are set to 0); SAM = pass B, one K10 launch
+           a chunk (two for a chunk that overflows and is retried); its
+           search= seconds beside pass A's and pass B's, and the seeds the
+           host redid (long, overflowed)
   traceback  pass C: --engine device with FLOXER_TPU_DEVICE_TRACEBACK=1
            (root CIGARs by K4); SAM = pass B, K4 launched; its K4
            launches and align seconds beside pass A's
@@ -123,7 +138,9 @@ root band, K1w and K1s at pass E's 1024-word root shape, K3w and K3s at
 its 1280-word overhang shape; K1-K3 launches of pass A, the multi-warp
 and shared-memory K1's and K3's of pass E, K4 of pass C, its wider
 layouts' of passes C and E under --profile, K5-K8 of the entry points'
-run), each kernel with its bound;
+run, K9, K9x, K9l and K10 of pass G: K10 once a chunk, and K9, K9x and
+K9l none, because K9's rank runs inside K10 as a device function and no
+caller of K9x or K9l is ported yet), each kernel with its bound;
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -246,6 +263,22 @@ OVERHANG_READS = (2, 25_000)
 # long each may take
 PROCESS_SET = 2
 PROCESS_SET_TIMEOUT = 300
+# the device search: queries of K9, K9x and K9l in the kernel checks, and
+# the int32 ops the bounds count, as sm_90 runs them. A rank: per plane
+# word its mask (a clamp, a shift, a select: 3 x 4), per symbol and word
+# an AND, a popcount and an add (3 x 24), the block and offset (2). An
+# extension: two ranks, then per symbol the count, its prefix, C and the
+# two selects (5 x 6). A locate: per LF step a rank, the symbol and C
+# (3), and per step and at the end a binary search over the SA samples
+# (4 ops a probe), then one over the sequence starts. K10 per expanded
+# node: two ranks, the counts and children's primaries (12), the pattern
+# symbol and the 13 kinds' tests (30), the first child's interval and key
+# nibble (14), the frame of a branching node (20).
+RANK_QUERIES = 1 << 20
+RANK_OPS = 86
+EXTEND_OPS = 2 * RANK_OPS + 30
+PROBE_OPS = 4
+SEARCH_OPS_PER_NODE = 2 * RANK_OPS + 76
 # runs the port's CLI with jax unimportable, as on a machine without jax
 JAX_BLOCKED = (
     "import runpy, sys; sys.modules['jax'] = None; "
@@ -1487,9 +1520,11 @@ def align_seconds(logfile: Path) -> tuple[float, str]:
 
 def reset_launches() -> None:
     from floxer_tpu_torch.ops import (
+        cuda_fm_index,
         cuda_myers,
         cuda_myers_banded,
         cuda_myers_large,
+        cuda_search_queue,
         traceback_device,
     )
     from floxer_tpu_torch.scripts import (
@@ -1499,8 +1534,11 @@ def reset_launches() -> None:
     )
 
     for module in (cuda_myers, traceback_device, ablate_banded_kernel,
-                   microbench_column_loop):
+                   microbench_column_loop, cuda_search_queue):
         module.LAUNCHES = 0
+    cuda_fm_index.RANK_LAUNCHES = 0
+    cuda_fm_index.EXTEND_LAUNCHES = 0
+    cuda_fm_index.LOCATE_LAUNCHES = 0
     traceback_device.LAYOUT_LAUNCHES.clear()
     for module in (cuda_myers_banded, cuda_myers_large):
         module.REGISTER_LAUNCHES = 0
@@ -1653,6 +1691,305 @@ def run_e2e(device, e2e: E2E):
               f"kernel: {launches}")
     check(mapped > 0, "no read mapped")
     return result, launches
+
+
+def max_error(got, want) -> int:
+    """Largest absolute difference of two tensors or tuples of them (a
+    shape mismatch fails)."""
+    import torch
+
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    err = 0
+    for g, w in zip(got, want):
+        check(g.shape == w.shape, f"shapes {g.shape} and {w.shape} differ")
+        if g.numel():
+            err = max(err, int((g.long() - w.long()).abs().max()))
+    return err
+
+
+def plain_seconds(fn):
+    """(result, seconds) of one synchronized call of a plain version."""
+    import torch
+
+    torch.cuda.synchronize()
+    started = time.monotonic()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, time.monotonic() - started
+
+
+def events_ms(fn, repeats: int) -> float:
+    """Mean milliseconds of fn() between CUDA events, each call timed
+    alone (for a call that synchronizes itself, after one warm call)."""
+    import torch
+
+    fn()
+    total = 0.0
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(stop)
+    return total / repeats
+
+
+def first_chunk(e2e: E2E):
+    """Pass A's first chunk of seeds (its first --batch-size reads, both
+    strands), as the searcher hands it to the work queue: (patterns of the
+    seeds the card searches, their classes, SchemeTables, report
+    capacity, largest error count, the chunk's seeds)."""
+    import itertools
+
+    import numpy as np
+
+    from floxer_tpu_torch.cli import parse_and_validate
+    from floxer_tpu_torch.io.sequence_io import Queries
+    from floxer_tpu_torch.pipeline_host import prepare_query_tree
+    from floxer_tpu_torch.search_device import chunk_operands, report_capacity
+    from floxer_tpu_torch.search_host import assemble_chunk_seed_arrays
+
+    cli = parse_and_validate(e2e.argv("chunk"))
+    queries = Queries(cli.queries_path, cli.query_num_errors,
+                      cli.query_error_probability, cli.pex_seed_num_errors)
+    jobs = []
+    for query in itertools.islice(queries, cli.batch_size):
+        _, seeds = prepare_query_tree(query, cli)
+        jobs.append((seeds, query.rank_sequence))
+        jobs.append((seeds, query.reverse_complement_rank_sequence))
+    arrays = assemble_chunk_seed_arrays(jobs)
+    patterns, class_of, _, tables, max_errors = chunk_operands(arrays)
+    return (patterns, class_of.astype(np.int32), tables,
+            report_capacity(patterns.shape[0]), max_errors,
+            arrays.total_seeds)
+
+
+def run_search_kernels(device, e2e: E2E, peaks):
+    """K9, K9x and K9l against their plain versions on pass A's index at
+    RANK_QUERIES queries (combined and planes layouts), K10 against
+    workqueue_search_plain on pass A's first chunk; each timed with its
+    bound. Returns (table rows K9, K9x, K9l, K10, the phase's fields)."""
+    import numpy as np
+    import torch
+
+    from floxer_tpu_torch import search_queue
+    from floxer_tpu_torch.index.device_index import DeviceIndex
+    from floxer_tpu_torch.index.fmindex import FmIndex
+    from floxer_tpu_torch.ops import cuda_fm_index as k9
+    from floxer_tpu_torch.ops import cuda_search_queue as k10
+
+    host = FmIndex.load(e2e.workdir / "index.npz")
+    n = host.n
+    rng = np.random.default_rng(SEED + 9)
+    B = RANK_QUERIES
+
+    def to_dev(array):
+        return torch.from_numpy(array.astype(np.int32)).to(device)
+
+    positions = to_dev(rng.integers(0, n + 1, size=B))
+    lb = rng.integers(0, n, size=B)
+    lb_rev = rng.integers(0, n, size=B)
+    length = np.minimum(rng.integers(0, 1 << 12, size=B),
+                        n - np.maximum(lb, lb_rev))
+    cursors = [to_dev(a) for a in (lb, lb_rev, length)]
+    sa_rows = to_dev(rng.integers(0, n, size=B))
+    fields, rows = {"genome_n": n, "queries": B}, {}
+    for layout in ("combined", "planes"):
+        index = DeviceIndex.from_host(host, device,
+                                      force_planes=layout == "planes")
+        fwd = index.fwd
+        operands = (fwd.rank_rows, fwd.block_offset, fwd.occ, fwd.planes)
+        table_bytes = (tensor_bytes(fwd.occ, fwd.planes)
+                       if fwd.rank_rows is None
+                       else 128 * (fwd.planes.shape[0]))
+        errs = {}
+        for single in (index.fwd, index.rev):
+            args = (single.rank_rows, single.block_offset, single.occ,
+                    single.planes)
+            errs["K9"] = max(errs.get("K9", 0), max_error(
+                k9.fm_rank_cuda(positions, *args),
+                k9.fm_rank_plain(positions, *args)))
+        for left in (True, False):
+            errs["K9x"] = max(errs.get("K9x", 0), max_error(
+                k9.fm_extend_cuda(index, *cursors, left=left),
+                k9.fm_extend_plain(index, *cursors, left=left)))
+        located = k9.fm_locate_cuda(index, sa_rows, index.sampling_rate)
+        errs["K9l"] = max_error(
+            located, k9.fm_locate_plain(index, sa_rows, index.sampling_rate))
+        for name, err in errs.items():
+            check(err == 0, f"{name} differs from its plain version in the "
+                            f"{layout} layout ({err})")
+        fields[layout] = {"max_abs_err": errs}
+        if layout != "combined":
+            continue
+        # the table rows: forward rank and left extension, locate
+        seq_ids, offsets = (t.long() for t in located)
+        text_positions = index.seq_starts.long()[seq_ids] + offsets
+        steps = int((text_positions % index.sampling_rate).sum())
+        probes = PROBE_OPS * int(np.ceil(np.log2(
+            index.sampled_rows.shape[0] + 1)))
+        seq_probes = PROBE_OPS * int(np.ceil(np.log2(
+            index.seq_starts.shape[0] + 1)))
+        kernels = {
+            "K9": ("fm_rank", lambda: k9.fm_rank_cuda(positions, *operands),
+                   lambda: k9.fm_rank_plain(positions, *operands),
+                   RANK_OPS * B, 4 * B + 24 * B + table_bytes),
+            "K9x": ("fm_extend",
+                    lambda: k9.fm_extend_cuda(index, *cursors, left=True),
+                    lambda: k9.fm_extend_plain(index, *cursors, left=True),
+                    EXTEND_OPS * B, 12 * B + 72 * B + table_bytes),
+            "K9l": ("fm_locate",
+                    lambda: k9.fm_locate_cuda(index, sa_rows,
+                                              index.sampling_rate),
+                    lambda: k9.fm_locate_plain(index, sa_rows,
+                                               index.sampling_rate),
+                    steps * (RANK_OPS + 3 + probes)
+                    + B * (probes + seq_probes),
+                    4 * B + 8 * B + table_bytes
+                    + tensor_bytes(fwd.bwt, index.sampled_rows,
+                                   index.sampled_values, index.seq_starts)),
+        }
+        for key, (name, kernel, plain, ops, nbytes) in kernels.items():
+            ms = cuda_ms(kernel, 20)
+            _, plain_s = plain_seconds(plain)
+            rows[key] = {
+                "name": name, "route": "cuda", "source": k9.SOURCE,
+                "replaces": k9.REPLACES[key], "max_abs_err": errs[key],
+                "ms": ms, "plain_ms": plain_s * 1e3,
+                **bound_fields(bound(ops, nbytes, peaks)),
+                "shape": f"B={B} n={n} combined",
+            }
+        fields["K9l_lf_steps"] = steps
+
+    # K10 on pass A's first chunk, the combined layout (the main path's)
+    index = DeviceIndex.from_host(host, device)
+    padded, classes, tables, report_cap, max_errors, seeds = first_chunk(e2e)
+    eligible = padded.shape[0]
+    before = k10.LAUNCHES
+    sorted_rows, overflow = search_queue.workqueue_runner(
+        index, padded, classes, tables, report_cap, padded.shape[1],
+        max_errors,
+    )
+    check(k10.LAUNCHES == before + 1 and not overflow,
+          f"the runner made {k10.LAUNCHES - before} K10 launches, "
+          f"overflow {overflow}")
+    operands = [torch.from_numpy(a).to(device)
+                for a in (padded, classes, tables.fused())]
+    kw = search_queue.key_words_needed(padded.shape[1], max_errors)
+    frames = search_queue.frames_needed(padded.shape[1], max_errors)
+
+    def kernel():
+        return k10.workqueue_search_cuda(
+            index, *operands, tables.num_searches, tables.num_parts,
+            report_cap, kw, frames)
+
+    run = kernel()
+    ms = events_ms(kernel, 3)
+    init = padded.shape[0] * tables.num_searches
+    quantum = search_queue.QUANTUM
+    push = search_queue.PUSH_FACTOR * quantum
+    plain, plain_s = plain_seconds(lambda: search_queue.workqueue_search_plain(
+        index, *operands, tables.num_searches, tables.num_parts, quantum,
+        push, 2 * init + push + quantum, report_cap, kw,
+        search_queue.MAX_ITERATIONS,
+    ))
+    check(not run.overflow and not plain.overflow, "K10 or its plain "
+          "version overflowed on pass A's first chunk")
+    want = search_queue.sort_reports(
+        plain.reports[:plain.num_reports].cpu().numpy())
+    got = search_queue.sort_reports(run.reports[:run.num_reports].cpu().numpy())
+    check(got.shape == want.shape and sorted_rows.shape == want.shape,
+          f"K10 gave {got.shape[0]} rows ({sorted_rows.shape[0]} through "
+          f"the runner), its plain version {want.shape[0]}")
+    k10_err = max(max_error(torch.from_numpy(got), torch.from_numpy(want)),
+                  max_error(torch.from_numpy(sorted_rows),
+                            torch.from_numpy(want)))
+    check(k10_err == 0, f"K10's sorted rows differ from its plain "
+                        f"version's ({k10_err})")
+    check(run.nodes == plain.nodes,
+          f"K10 expanded {run.nodes} nodes, its plain version {plain.nodes}")
+    nbytes = (tensor_bytes(index.rank_rows, *operands)
+              + run.num_reports * (6 + kw) * 4)
+    rows["K10"] = {
+        "name": "workqueue_search", "route": "cuda", "source": k10.SOURCE,
+        "replaces": k10.REPLACES, "max_abs_err": k10_err, "ms": ms,
+        "plain_ms": plain_s * 1e3,
+        **bound_fields(bound(SEARCH_OPS_PER_NODE * run.nodes, nbytes,
+                             peaks)),
+        "shape": f"pass A's first chunk: {eligible} seeds, "
+                 f"{init} roots, pad {padded.shape[1]}",
+    }
+    fields["K10"] = {
+        "chunk_seeds": seeds, "device_seeds": eligible,
+        "long_seeds": seeds - eligible,
+        "roots": init, "pad_len": padded.shape[1], "key_words": kw,
+        "frames": frames, "nodes": run.nodes, "reports": run.num_reports,
+        "largest_tree": run.largest_tree, "ms": ms,
+        "bound_ms": rows["K10"]["bound_ms"],
+        "bound_by": rows["K10"]["bound_by"], "plain_ms": plain_s * 1e3,
+        "grid_blocks": k10.resident_blocks(device),
+    }
+    for key in ("K9", "K9x", "K9l"):
+        fields[key] = {k: rows[key][k] for k in
+                       ("ms", "plain_ms", "bound_ms", "bound_by")}
+    return rows, fields
+
+
+def stage_seconds(split: str, stage: str) -> float:
+    found = re.search(rf"\b{stage}=([0-9.]+)s", split)
+    check(found is not None, f"no {stage}= in the stage split {split!r}")
+    return float(found.group(1))
+
+
+def run_device_search_pass(device, e2e: E2E):
+    """Pass G: pass A's arguments with --device-search: the seed search by
+    K10, SAM = pass B, one K10 launch a chunk's dispatch (a second for a
+    dispatch retried after an overflow), counted after the search warmup
+    (one K9 and one K10 launch) has been joined; the seconds of the
+    searcher's stages (the work queue with its report sort, the dedup and
+    cap replay, the native select, the native redo)."""
+    from floxer_tpu_torch import pipeline, search_queue
+    from floxer_tpu_torch.search_device import DeviceSearcher
+
+    pipeline.start_device_warmup(device, device_search=True)
+    pipeline.join_device_warmup()
+    long_before = DeviceSearcher.redo_long
+    overflow_before = DeviceSearcher.redo_overflow
+    dispatches_before = DeviceSearcher._chunk_dispatches
+    retries_before = search_queue.RETRIES
+    seconds_before = dict(DeviceSearcher.stage_seconds)
+    launches, _ = e2e.run_device_pass("pass_g", extra=["--device-search"])
+    chunks = -(-e2e.num_reads // 100)
+    dispatches = DeviceSearcher._chunk_dispatches - dispatches_before
+    retries = search_queue.RETRIES - retries_before
+    check(dispatches == chunks,
+          f"pass G made {dispatches} work-queue dispatches for {chunks} "
+          "chunks")
+    check(launches["K10"] == dispatches + retries,
+          f"pass G launched K10 {launches['K10']} times for {dispatches} "
+          f"dispatches and {retries} retries")
+    splits = {name: align_seconds(e2e.workdir / f"{name}.log")
+              for name in ("pass_g", "pass_a", "pass_b")}
+    return {
+        "reads": e2e.num_reads, "chunks": chunks, "sam_identical": True,
+        "k10_retries": retries,
+        "launches": launches,
+        **{f"{name}_align_s": splits[name][0] for name in splits},
+        **{f"{name}_search_s": stage_seconds(splits[name][1], "search")
+           for name in splits},
+        "stage_split": splits["pass_g"][1],
+        "host_redo_long_seeds": DeviceSearcher.redo_long - long_before,
+        "host_redo_overflowed_seeds":
+            DeviceSearcher.redo_overflow - overflow_before,
+        "search_stage_s": {
+            stage: DeviceSearcher.stage_seconds[stage] - seconds_before[stage]
+            for stage in seconds_before
+        },
+    }, launches
 
 
 def run_traceback_pass(e2e: E2E):
@@ -1995,8 +2332,9 @@ def ptxas_phase() -> dict:
     count 1..R (a task runs the loop of its own), K2 one; and the
     multi-warp kernels (K1 myers_banded_wide_kernel, two loops; K3
     myers_large_wide_kernel, one per group count 1..4 and any other
-    innermost loop the compiler made). Fails on a missing instance, a
-    spill, a stack frame or another loop count."""
+    innermost loop the compiler made); and the device search's K9, K9x,
+    K9l and K10 (ptxas only). Fails on a missing instance, a spill, a
+    stack frame or another loop count."""
     from floxer_tpu_torch.ops import _build
     from floxer_tpu_torch.ops.cuda_myers import LANES_FOR_WORDS
     from floxer_tpu_torch.ops.cuda_myers_banded import (
@@ -2056,6 +2394,18 @@ def ptxas_phase() -> dict:
             entry["per_lane_word"] = [i / WIDE_WORDS_PER_LANE
                                       for i in kernel_loops]
         report[kernel] = entry
+    # the device search's kernels: K9, K9x, K9l (csrc/fm_index.cu) and
+    # K10 (csrc/workqueue_search.cu), one instance each
+    for kernel in ("fm_rank_kernel", "fm_extend_kernel", "fm_locate_kernel",
+                   "workqueue_kernel"):
+        names = [name for name in usage if kernel in name]
+        check(len(names) == 1, f"{kernel} is compiled as {names}")
+        found = usage[names[0]]
+        check(found.get("spill_stores", 1) == 0
+              and found.get("spill_loads", 1) == 0
+              and found.get("stack", 1) == 0,
+              f"{kernel} spills or keeps a stack frame: {found}")
+        report[kernel] = found
     return report
 
 
@@ -2149,6 +2499,11 @@ def run_all(device, peaks, k1_sweep, k3_sweep, full_arrays,
         e2e = E2E(workdir, E2E_READS)
         result, launches = run_e2e(device, e2e)
         phase("e2e", **result)
+        search_rows, fields = run_search_kernels(device, e2e, peaks)
+        rows.update(search_rows)
+        phase("search_kernels", **fields)
+        result, launches_g = run_device_search_pass(device, e2e)
+        phase("device_search", **result)
         result, launches_c = run_traceback_pass(e2e)
         phase("traceback", **result)
         phase("process_set", **run_process_set_pass(e2e))
@@ -2168,6 +2523,8 @@ def run_all(device, peaks, k1_sweep, k3_sweep, full_arrays,
         rows[f"{name}w"]["launches"] = launches_e[f"{name}_wide"]
         rows[f"{name}s"]["launches"] = launches_e[f"{name}_shared"]
     rows["K4"]["launches"] = launches_c["K4"]
+    for name in ("K9", "K9x", "K9l", "K10"):
+        rows[name]["launches"] = launches_g[name]
     for key, _, layout, _, _ in K4_WIDE:
         rows[key]["launches"] = (launches_c.get(f"K4_{layout}", 0)
                                  + launches_ep.get(f"K4_{layout}", 0))
@@ -2178,7 +2535,8 @@ def run_all(device, peaks, k1_sweep, k3_sweep, full_arrays,
     print(json.dumps({"kernels": [
         {k: rows[name][k] for k in keys}
         for name in ("K1", "K1w", "K1s", "K2", "K3", "K3w", "K3s", "K4",
-                     "K4r16", "K4r32", "K4s", "K5", "K6", "K7", "K8")
+                     "K4r16", "K4r32", "K4s", "K5", "K6", "K7", "K8",
+                     "K9", "K9x", "K9l", "K10")
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

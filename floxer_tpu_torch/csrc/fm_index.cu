@@ -1,0 +1,178 @@
+// K9, K9x, K9l: the device FM index's batched rank, extension and locate,
+// one thread per query.
+//
+// Replaces floxer_tpu/index/device_index.py's XLA programs: rank_all
+// (:318, through _rank_all_planes :228 or rank_rows_lookup :260),
+// extend_left_all / extend_right_all (:370, :387) and locate_batch (:455,
+// with lf_step :448 and _sample_lookup :433).
+//
+// What bounds them on an H100: bytes. A rank reads one 128-byte row (the
+// combined layout) or 24 + 96 bytes (the planes layout) at a random block
+// and does ~90 int32 ops; the queries are independent, so the row gathers'
+// latency is hidden by occupancy (one thread a query, 256 a block, every
+// SM full at the batch sizes the callers use), not by prefetch. The
+// table of a 4.6 Mb genome (9.2 MB for both directions) stays in the 50 MB
+// L2. Locate walks at most sampling_rate - 1 LF steps (a dependent rank
+// each) and two binary searches.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "fm_rank.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__global__ void fm_rank_kernel(FmRankTable table, const int* __restrict__ positions,
+                               int B, int* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B) return;
+  int counts[FM_SIGMA];
+  fm_rank(table, positions[i], counts);
+#pragma unroll
+  for (int s = 0; s < FM_SIGMA; ++s) out[(size_t)i * FM_SIGMA + s] = counts[s];
+}
+
+// one bidirectional extension step for every symbol: two ranks on the
+// direction that is extended, the counts, their exclusive prefix and C
+__global__ void fm_extend_kernel(FmRankTable table, const int* __restrict__ C,
+                                 const int* __restrict__ lb,
+                                 const int* __restrict__ lb_rev,
+                                 const int* __restrict__ length, int B,
+                                 int left, int* __restrict__ new_lb,
+                                 int* __restrict__ new_lb_rev,
+                                 int* __restrict__ counts) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B) return;
+  const int base = left ? lb[i] : lb_rev[i];
+  const int secondary = left ? lb_rev[i] : lb[i];
+  int lo[FM_SIGMA], hi[FM_SIGMA];
+  fm_rank(table, base, lo);
+  fm_rank(table, base + length[i], hi);
+  int prefix = 0;
+#pragma unroll
+  for (int s = 0; s < FM_SIGMA; ++s) {
+    const int count = hi[s] - lo[s];
+    const int primary = C[s] + lo[s];
+    const size_t at = (size_t)i * FM_SIGMA + s;
+    new_lb[at] = left ? primary : secondary + prefix;
+    new_lb_rev[at] = left ? secondary + prefix : primary;
+    counts[at] = count;
+    prefix += count;
+  }
+}
+
+// first index in sorted[0, count) whose value is not below key (count
+// when there is none)
+__device__ inline int lower_bound(const int* __restrict__ sorted, int count,
+                                  int key) {
+  int lo = 0, hi = count;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (sorted[mid] < key) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// first index whose value is above key
+__device__ inline int upper_bound(const int* __restrict__ sorted, int count,
+                                  int key) {
+  int lo = 0, hi = count;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (sorted[mid] <= key) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// SA row -> (reference id, position): the reference's fixed-trip walk
+// (a row that hits a sampled row stops there), then the sequence search.
+// An index of -1 reads the last element, as the reference's gather does.
+__global__ void fm_locate_kernel(FmRankTable fwd, const uint8_t* __restrict__ bwt,
+                                 const int* __restrict__ C,
+                                 const int* __restrict__ sampled_rows,
+                                 const int* __restrict__ sampled_values, int ns,
+                                 const int* __restrict__ seq_starts,
+                                 int num_seqs, int sampling_rate,
+                                 const int* __restrict__ rows, int B,
+                                 int* __restrict__ seq_ids,
+                                 int* __restrict__ positions) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B) return;
+  int row = rows[i];
+  int steps = 0;
+  for (int step = 0; step < sampling_rate; ++step) {
+    int at = lower_bound(sampled_rows, ns, row);
+    at = at < ns - 1 ? at : ns - 1;
+    if (sampled_rows[at] == row) {
+      steps += sampled_values[at];
+      break;
+    }
+    const int symbol = bwt[row];
+    row = C[symbol] + fm_rank_symbol(fwd, row, symbol);
+    steps += 1;
+  }
+  int seq = upper_bound(seq_starts, num_seqs, steps) - 1;
+  const int start = seq_starts[seq < 0 ? num_seqs - 1 : seq];
+  seq_ids[i] = seq;
+  positions[i] = steps - start;
+}
+
+FmRankTable make_table(const void* rows, const void* occ, const void* planes,
+                       int row_offset) {
+  FmRankTable table;
+  table.rows = static_cast<const uint32_t*>(rows);
+  table.occ = static_cast<const int32_t*>(occ);
+  table.planes = static_cast<const uint32_t*>(planes);
+  table.row_offset = row_offset;
+  return table;
+}
+
+int blocks_for(int B) { return (B + kThreads - 1) / kThreads; }
+
+}  // namespace
+
+extern "C" {
+
+// rows: the combined table or null (then occ and planes of one direction)
+int floxer_fm_rank(const void* rows, const void* occ, const void* planes,
+                   int row_offset, const void* positions, int B, void* out,
+                   void* stream) {
+  fm_rank_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+      make_table(rows, occ, planes, row_offset),
+      static_cast<const int*>(positions), B, static_cast<int*>(out));
+  return (int)cudaGetLastError();
+}
+
+int floxer_fm_extend(const void* rows, const void* occ, const void* planes,
+                     int row_offset, const void* C, const void* lb,
+                     const void* lb_rev, const void* length, int B, int left,
+                     void* new_lb, void* new_lb_rev, void* counts,
+                     void* stream) {
+  fm_extend_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+      make_table(rows, occ, planes, row_offset), static_cast<const int*>(C),
+      static_cast<const int*>(lb), static_cast<const int*>(lb_rev),
+      static_cast<const int*>(length), B, left, static_cast<int*>(new_lb),
+      static_cast<int*>(new_lb_rev), static_cast<int*>(counts));
+  return (int)cudaGetLastError();
+}
+
+int floxer_fm_locate(const void* rows, const void* occ, const void* planes,
+                     const void* bwt, const void* C, const void* sampled_rows,
+                     const void* sampled_values, int ns,
+                     const void* seq_starts, int num_seqs, int sampling_rate,
+                     const void* query_rows, int B, void* seq_ids,
+                     void* positions, void* stream) {
+  fm_locate_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+      make_table(rows, occ, planes, 0), static_cast<const uint8_t*>(bwt),
+      static_cast<const int*>(C), static_cast<const int*>(sampled_rows),
+      static_cast<const int*>(sampled_values), ns,
+      static_cast<const int*>(seq_starts), num_seqs, sampling_rate,
+      static_cast<const int*>(query_rows), B, static_cast<int*>(seq_ids),
+      static_cast<int*>(positions));
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -203,6 +203,27 @@ ALIGNER = KernelLibrary(_PACKAGE_DIR / "csrc", "libfloxer_kernels", {
     "floxer_traceback_banded": [
         _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
     ],
+    # rows, occ, planes, row_offset, positions, B, out, stream (K9)
+    "floxer_fm_rank": [_P, _P, _P, _I, _P, _I, _P, _P],
+    # rows, occ, planes, row_offset, C, lb, lb_rev, length, B, left,
+    # new_lb, new_lb_rev, counts, stream (K9x)
+    "floxer_fm_extend": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P,
+                         _P],
+    # rows, occ, planes, bwt, C, sampled_rows, sampled_values, ns,
+    # seq_starts, num_seqs, sampling_rate, rows, B, seq_ids, positions,
+    # stream (K9l)
+    "floxer_fm_locate": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _I,
+                         _P, _P, _P],
+    # the blocks one SM holds of K10 (written to an int on the host)
+    "floxer_workqueue_occupancy": [_P],
+    # rows, fwd occ, fwd planes, rev occ, rev planes, rev_block_offset, C,
+    # n, patterns, num_seeds, pad_len, seed_class, scheme, num_searches,
+    # num_parts, key_words, report_capacity, reports, counters, scratch,
+    # frame_capacity, blocks, stream (K10)
+    "floxer_workqueue_search": [
+        _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I,
+        _P, _P, _P, _I, _I, _P,
+    ],
 })
 
 SCRIPTS = KernelLibrary(_PACKAGE_DIR / "scripts" / "csrc", "libfloxer_scripts", {

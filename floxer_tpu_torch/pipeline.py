@@ -49,22 +49,27 @@ NOT_PORTED = "is not yet ported to floxer_tpu_torch, see ROADMAP.md"
 
 
 def unsupported_options(cli: CommandLineInput) -> list[str]:
-    """The options of the reference CLI this port rejects."""
+    """The options of the reference CLI this port rejects. --device-search
+    is ported for the batched engines (the work-queue search); with
+    --engine reference it takes the per-query frontier search, which is
+    not."""
     found = []
-    if getattr(cli, "device_search", False):
-        found.append("--device-search")
+    if getattr(cli, "device_search", False) and cli.engine == "reference":
+        found.append("--device-search --engine reference")
     if getattr(cli, "index_shards", 1) > 1:
         found.append("--index-shards > 1")
     return found
 
 
 def kernel_launches() -> dict[str, int]:
-    """Launches of the CUDA kernels K1-K4 in this process so far (the
-    wrappers count only launches on the card)."""
+    """Launches of the CUDA kernels K1-K4, K9, K9x, K9l and K10 in this
+    process so far (the wrappers count only launches on the card)."""
     from .ops import (
+        cuda_fm_index,
         cuda_myers,
         cuda_myers_banded,
         cuda_myers_large,
+        cuda_search_queue,
         traceback_device,
     )
 
@@ -73,6 +78,10 @@ def kernel_launches() -> dict[str, int]:
         "K2": cuda_myers.LAUNCHES,
         "K3": cuda_myers_large.launches(),
         "K4": traceback_device.LAUNCHES,
+        "K9": cuda_fm_index.RANK_LAUNCHES,
+        "K9x": cuda_fm_index.EXTEND_LAUNCHES,
+        "K9l": cuda_fm_index.LOCATE_LAUNCHES,
+        "K10": cuda_search_queue.LAUNCHES,
     }
 
 
@@ -94,14 +103,44 @@ def warm_kernels(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def warm_search_kernels(device: torch.device) -> None:
+    """Launch the device search's kernels once, K9 (a rank) and K10 (one
+    seed), on the index of a tiny text."""
+    from .index.device_index import DeviceIndex, rank_all
+    from .index.fmindex import FmIndex
+    from .schemes import expand_scheme
+    from .search_device import SchemeTables
+    from .search_queue import workqueue_runner
+
+    text = np.tile(np.arange(1, 5, dtype=np.uint8), 64)
+    index = DeviceIndex.from_host(FmIndex([text]), device)
+    rank_all(index.fwd, torch.arange(8, dtype=torch.int32, device=device))
+    tables = SchemeTables.from_length_classes([expand_scheme(1, 16)])
+    workqueue_runner(
+        index, text[None, :16].astype(np.int32), np.zeros(1, np.int32),
+        tables, 1 << 12, 16, 1,
+    )
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _warm_verification(device: torch.device) -> None:
+    from .verify_batch import _device_call_overhead
+
+    warm_kernels(device)
+    # prime the router's round-trip probe off the align loop
+    _device_call_overhead(device)
+
+
 class _DeviceWarmup:
-    """Builds and warms the kernels on a daemon thread, so the one-time
+    """Builds and warms kernels on a daemon thread, so the one-time
     costs overlap the reference read, the index build and the first
     search instead of stalling the first verification wave. Started once
     per process; ready() is the non-blocking readiness probe the batched
     engine routes on, and re-raises a failed build."""
 
-    def __init__(self):
+    def __init__(self, warm=_warm_verification):
+        self._warm_device = warm
         self._thread: threading.Thread | None = None
         self._lock = threading.Lock()
         self._error: BaseException | None = None
@@ -118,13 +157,9 @@ class _DeviceWarmup:
             self._thread.start()
 
     def _warm(self, device: torch.device) -> None:
-        from .verify_batch import _device_call_overhead
-
         try:
             started = time.monotonic()
-            warm_kernels(device)
-            # prime the router's round-trip probe off the align loop
-            _device_call_overhead(device)
+            self._warm_device(device)
             logger.debug(
                 "device warmup complete in %.2fs", time.monotonic() - started
             )
@@ -155,14 +190,21 @@ class _DeviceWarmup:
 
 
 _WARMUP = _DeviceWarmup()
+# the device search's kernels, warmed once per process by the first
+# --device-search run
+_SEARCH_WARMUP = _DeviceWarmup(warm_search_kernels)
 
 
-def start_device_warmup(device: torch.device) -> None:
+def start_device_warmup(device: torch.device,
+                        device_search: bool = False) -> None:
     _WARMUP.start(device)
+    if device_search:
+        _SEARCH_WARMUP.start(device)
 
 
 def join_device_warmup(timeout: float | None = None) -> None:
     _WARMUP.join(timeout)
+    _SEARCH_WARMUP.join(timeout)
 
 
 def _accelerator_ready() -> bool:
@@ -448,14 +490,22 @@ def _run(cli, device, use_device, process_index, process_count) -> int:
                 use_device = _accelerator_ready
             else:
                 use_device = False
+        if device is None and cli.device_search:
+            logger.error(
+                "--device-search runs the seed search on a CUDA device of "
+                "compute capability >= 9.0 (Hopper); none is available"
+            )
+            return -1
         if use_device is not False and device is None:
             logger.error("device verification needs a device")
             return -1
-        warming = use_device is not False and device.type == "cuda"
+        warming = device is not None and device.type == "cuda" and (
+            use_device is not False or cli.device_search
+        )
         if warming:
             # build and warm the kernels NOW, while the reference read,
             # index build and first search keep the host busy
-            start_device_warmup(device)
+            start_device_warmup(device, cli.device_search)
     logger.info("successfully parsed CLI input ... starting")
     logger.debug("command line call: %s", cli.command_line_call())
 
@@ -479,6 +529,12 @@ def _run(cli, device, use_device, process_index, process_count) -> int:
         )
         return -1
     searcher = make_searcher(cli, index, len(references.records))
+    if cli.device_search:
+        # the work-queue seed search on the device (K10 on the card)
+        from .index.device_index import DeviceIndex
+        from .search_device import DeviceSearcher
+
+        searcher = DeviceSearcher(searcher, DeviceIndex.from_host(index, device))
 
     # distributed runs write per-process shard files (extension preserved
     # so the SAM/BAM writer selection is unchanged); process 0 merges the

@@ -149,8 +149,9 @@ def make_searcher(cli: CommandLineInput, index: FmIndex, num_references: int):
         ),
         num_threads=cli.num_threads,
     )
-    # the reference's --index-shards and --device-search searchers run on
-    # jax; the port rejects both options before it gets here
+    # the reference's --index-shards searcher runs on jax, and the port
+    # rejects the option before it gets here; for --device-search the
+    # port's pipeline.py wraps this searcher in a DeviceSearcher
     return searcher
 
 

@@ -1,0 +1,499 @@
+"""Counterpart of floxer_tpu/search_device.py: the device seed search of
+--device-search, its chunk path (the work queue) only.
+
+DeviceSearcher.search_seeds_many runs a read chunk's seeds in four
+stages, as the reference does:
+1. discovery: every eligible seed of the chunk (pattern length at most
+   _MAX_DEVICE_PATTERN) in ONE work-queue search on the index's device
+   (search_queue.workqueue_runner: K10 on the card), its scheme classes
+   one per (errors, length) pair;
+2. the keep-first dedup by (seed, lb, length, errors) and the running-total
+   cap replay over the reports in host-DFS order, which reproduce the host
+   DFS's (groups, total, aborted) per seed;
+3. anchor selection over the found groups by the native library;
+4. the native DFS redo of the seeds the device did not search: the long
+   ones and, after an overflow, the whole chunk.
+So the output equals the host search's, including where the anchor caps
+bind.
+
+Not ported (ROADMAP queue 1 items 4-5): the per-query frontier
+(search_seeds), the legacy block loop, device select and the sharded
+searcher. The branches that reach them raise NotImplementedError naming
+what is missing; none of them runs the work queue instead.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from dataclasses import dataclass
+
+import numpy as np
+
+from .schemes import ExpandedSearch, expand_scheme
+from .search_queue import workqueue_runner
+
+# longest pattern sent to the device search: longer seeds join the native
+# DFS redo. The reference set it against a TPU execution watchdog; it
+# moves seeds between the device and the host and never changes output
+# (ROADMAP: a limit to revisit on the card).
+_MAX_DEVICE_PATTERN = 112
+
+UNPORTED = "is not yet ported to floxer_tpu_torch (ROADMAP queue 1 item 4)"
+
+
+def _gather_padded_patterns(arrays, sel, pad_len):
+    """[len(sel), pad_len] int32 pattern block from the chunk's flat seed
+    buffer: offsets broadcast + in-range mask + clamped gather."""
+    gather = arrays.offsets_g[sel][:, None] + np.arange(
+        pad_len, dtype=np.int64
+    )
+    in_range = (
+        np.arange(pad_len, dtype=np.int64)[None, :]
+        < arrays.length_g[sel][:, None]
+    )
+    return np.where(
+        in_range,
+        arrays.buffer[np.minimum(gather, arrays.buffer.shape[0] - 1)],
+        0,
+    ).astype(np.int32)
+
+
+def refuse_unported_branches() -> None:
+    """Raise when the environment selects a search branch the port does
+    not carry (the reference would take it)."""
+    from .native import get_library
+
+    for variable, what in (
+        ("FLOXER_TPU_SEARCH_NO_CHUNK_FUSE",
+         "the per-block device search (legacy block loop)"),
+        ("FLOXER_TPU_DEVICE_SELECT", "device anchor selection"),
+        ("FLOXER_TPU_NO_NATIVE_SELECT",
+         "the device search without the native select (per-query frontier)"),
+    ):
+        if os.environ.get(variable):
+            raise NotImplementedError(f"{variable}: {what} {UNPORTED}")
+    engine = os.environ.get("FLOXER_TPU_SEARCH_ENGINE", "workqueue")
+    if engine != "workqueue":
+        raise NotImplementedError(
+            f"FLOXER_TPU_SEARCH_ENGINE={engine}: only the work-queue device "
+            "search is ported to floxer_tpu_torch (the chunk frontier is "
+            "an ablation that is not ported)"
+        )
+    if get_library() is None:
+        raise NotImplementedError(
+            "the device search without the native library (per-query "
+            f"frontier) {UNPORTED}"
+        )
+
+
+def chunk_operands(arrays):
+    """The work-queue operands of a chunk's eligible seeds: (patterns
+    [k, pad_len] int32, the scheme class of each, their global seed ids,
+    SchemeTables with one class per (errors, length) pair, the largest
+    error count), or None when no seed is eligible."""
+    eligible = np.flatnonzero(arrays.length_g <= _MAX_DEVICE_PATTERN)
+    if eligible.size == 0:
+        return None
+    err_len = np.stack(
+        [arrays.errors_g[eligible], arrays.length_g[eligible]], axis=1
+    )
+    uniq_pairs, class_of = np.unique(err_len, axis=0, return_inverse=True)
+    # numpy 2.0.0 returns a 2-D inverse for axis-unique
+    class_of = np.asarray(class_of).reshape(-1)
+    tables = SchemeTables.from_length_classes(
+        [expand_scheme(int(e), int(length)) for e, length in uniq_pairs]
+    )
+    pad_len = -(-int(arrays.length_g[eligible].max()) // 8) * 8
+    patterns = _gather_padded_patterns(arrays, eligible, pad_len)
+    return patterns, class_of, eligible, tables, int(uniq_pairs[:, 0].max())
+
+
+def report_capacity(num_seeds: int) -> int:
+    """Report rows of a dispatch of num_seeds seeds (the reference's
+    sizing; the runner's one retry takes 4x)."""
+    return max(32 * num_seeds, 1 << 13)
+
+
+class DeviceSearcher:
+    """A Searcher whose chunk search discovers anchor groups on the device
+    and reuses the native post-processing; seeds the device cannot finish
+    go to the native DFS."""
+
+    # counters for tests and chip_smoke.py: work-queue dispatches, the
+    # seeds redone on the host because they were long or because their
+    # dispatch overflowed, and the seconds spent in each stage of
+    # search_seeds_many (work_queue: the dispatch with its uploads,
+    # launch, download and report sort)
+    _chunk_dispatches = 0
+    redo_long = 0
+    redo_overflow = 0
+    stage_seconds = {"work_queue": 0.0, "dedup_cap": 0.0, "select": 0.0,
+                     "redo": 0.0}
+
+    def __init__(self, host_searcher, device_index):
+        self._host = host_searcher
+        self._device_index = device_index
+        self.index = host_searcher.index
+        self.num_reference_sequences = host_searcher.num_reference_sequences
+        self.config = host_searcher.config
+
+    def search_seeds(self, seeds, query):
+        """The per-query device search (the reference's frontier)."""
+        raise NotImplementedError(
+            f"the per-query device search (search_seeds) {UNPORTED}"
+        )
+
+    def _run_chunk_fused(self, arrays):
+        """ONE work-queue dispatch for a whole chunk's eligible seeds:
+        (report rows [k, 5] = gid, lb, lb_rev, len, err; overflow gids)."""
+        operands = chunk_operands(arrays)
+        if operands is None:
+            return (
+                np.zeros((0, 5), dtype=np.int64),
+                np.zeros(0, dtype=np.int64),
+            )
+        return self._dispatch_workqueue(*operands)
+
+    def _dispatch_workqueue(self, patterns, class_of, gids, tables,
+                            max_errors):
+        """One work-queue dispatch: (rows [k, 5] = gid, lb, lb_rev, len,
+        err in per-seed host-DFS order; overflow gids). A persisting
+        overflow routes every seed to the host redo."""
+        rows6, overflow = workqueue_runner(
+            self._device_index, patterns, class_of, tables,
+            report_capacity(patterns.shape[0]), patterns.shape[1], max_errors,
+        )
+        type(self)._chunk_dispatches += 1
+        rows = np.empty((rows6.shape[0], 5), dtype=np.int64)
+        rows[:, 0] = gids[rows6[:, 4]]
+        rows[:, 1:] = rows6[:, :4]  # lb, lb_rev, length, errors
+        if overflow:
+            return rows, gids.astype(np.int64)
+        return rows, np.zeros(0, dtype=np.int64)
+
+    def search_seeds_many(self, jobs):
+        """Chunk-level device search: every job's seeds (all queries of a
+        read chunk, fwd and rc) in one work-queue dispatch, then the
+        native select over the groups found and the native redo of the
+        seeds the device did not finish. Results are SearchResultSoA, the
+        same as the host chunk path's."""
+        from .native import (
+            native_search_select_batch_offsets,
+            native_select_from_groups_batch,
+        )
+        from .search_host import (
+            AnchorChoiceStrategy,
+            AnchorGroupOrder,
+            assemble_chunk_seed_arrays,
+            build_soa_results,
+        )
+
+        if not jobs:
+            return []
+        refuse_unported_branches()
+
+        config = self.config
+        order_code = {
+            AnchorGroupOrder.COUNT_FIRST: 0,
+            AnchorGroupOrder.ERRORS_FIRST: 1,
+            AnchorGroupOrder.NONE: 2,
+        }[config.anchor_group_order]
+        choice_code = {
+            AnchorChoiceStrategy.ROUND_ROBIN: 0,
+            AnchorChoiceStrategy.FULL_GROUPS: 1,
+            AnchorChoiceStrategy.FIRST_REPORTED: 2,
+        }[config.anchor_choice_strategy]
+
+        arrays = assemble_chunk_seed_arrays(jobs)
+        total_seeds = arrays.total_seeds
+        buffer = arrays.buffer
+
+        seconds = type(self).stage_seconds
+        started = time.monotonic()
+        # ---- stage 1: device group discovery, one dispatch a chunk ----
+        long_gids = np.flatnonzero(arrays.length_g > _MAX_DEVICE_PATTERN)
+        rep, ovf_gids = self._run_chunk_fused(arrays)
+        redo = np.unique(np.concatenate([long_gids, ovf_gids]))
+        type(self).redo_long += int(long_gids.size)
+        type(self).redo_overflow += int(ovf_gids.size)
+        redo_set_mask = np.zeros(total_seeds, dtype=bool)
+        redo_set_mask[redo] = True
+
+        seconds["work_queue"] += time.monotonic() - started
+        started = time.monotonic()
+        # ---- stage 2: order-preserving dedup + cap replay ----
+        if rep.shape[0]:
+            rep = rep[~redo_set_mask[rep[:, 0]]]
+        statuses = np.zeros(total_seeds, dtype=np.int64)
+        if rep.shape[0]:
+            # stable per-gid grouping preserves per-seed DFS order
+            rep = rep[np.argsort(rep[:, 0], kind="stable")]
+            # keep-first dedup by (gid, lb, len, err): lexsort is stable, so
+            # the first row of each equal-key run is the first DFS report
+            perm = np.lexsort((rep[:, 4], rep[:, 3], rep[:, 1], rep[:, 0]))
+            key = rep[perm][:, [0, 1, 3, 4]]
+            first = np.ones(rep.shape[0], dtype=bool)
+            first[1:] = np.any(key[1:] != key[:-1], axis=1)
+            rep = rep[np.sort(perm[first])]
+        gid_of_group = rep[:, 0]
+
+        if rep.shape[0]:
+            # cap replay: a group is kept iff the running total BEFORE it
+            # is under the cap; the crossing group is included and the seed
+            # is marked aborted (status bit 0)
+            cap = self._host.search_cap()
+            csum = np.cumsum(rep[:, 3])
+            seg_first = np.ones(rep.shape[0], dtype=bool)
+            seg_first[1:] = gid_of_group[1:] != gid_of_group[:-1]
+            base = np.zeros(rep.shape[0], dtype=np.int64)
+            starts_pos = np.flatnonzero(seg_first)
+            base[starts_pos] = csum[starts_pos] - rep[starts_pos, 3]
+            base = np.maximum.accumulate(base)
+            running = csum - base
+            keep = (running - rep[:, 3]) < cap
+            seed_aborted = np.zeros(total_seeds, dtype=bool)
+            np.logical_or.at(
+                seed_aborted, gid_of_group[keep], running[keep] >= cap
+            )
+            statuses[seed_aborted] = 1
+            rep = rep[keep]
+            running = running[keep]
+            gid_of_group = rep[:, 0]
+        groups_flat = rep[:, [1, 2, 3, 4]]
+
+        group_counts = np.bincount(gid_of_group, minlength=total_seeds)
+        group_starts = np.zeros(total_seeds + 1, dtype=np.int64)
+        np.cumsum(group_counts, out=group_starts[1:])
+        totals = np.zeros(total_seeds, dtype=np.int64)
+        if rep.shape[0]:
+            # truncated running total at each seed's stop point
+            last_pos = group_starts[1:][group_counts > 0] - 1
+            totals[np.unique(gid_of_group)] = running[last_pos]
+
+        seconds["dedup_cap"] += time.monotonic() - started
+        started = time.monotonic()
+        # ---- stage 3: native anchor selection over the found groups ----
+        out = native_select_from_groups_batch(
+            self.index,
+            groups_flat,
+            group_starts,
+            totals,
+            statuses,
+            config.max_num_anchors_hard,
+            config.max_num_anchors_soft,
+            order_code,
+            choice_code,
+            config.erase_useless_anchors,
+            self._host.num_threads,
+        )
+        if out is None:
+            raise RuntimeError("the native library is gone mid-run")
+        anchors_arr, counts = out
+
+        nw_g = np.zeros(total_seeds, dtype=np.int64)
+        kept_raw_g = np.zeros(total_seeds, dtype=np.int64)
+        kept_useful_g = np.zeros(total_seeds, dtype=np.int64)
+        excluded_soft_g = np.zeros(total_seeds, dtype=np.int64)
+        rows_parts: list[np.ndarray] = []
+        gid_parts: list[np.ndarray] = []
+
+        status = counts[:, 0]
+        nw = counts[:, 1]
+        ok = ((status & 6) == 0) & ~redo_set_mask
+        nw = np.where(ok, nw, 0)
+        sub = np.flatnonzero(ok)
+        nw_g[sub] = nw[sub]
+        kept_raw_g[sub] = counts[sub, 2]
+        kept_useful_g[sub] = counts[sub, 3]
+        excluded_soft_g[sub] = counts[sub, 4] - counts[sub, 2]
+        valid = (
+            np.arange(anchors_arr.shape[1], dtype=np.int64)[None, :]
+            < nw[:, None]
+        )
+        rows_parts.append(anchors_arr[valid])
+        gid_parts.append(np.repeat(np.arange(total_seeds), nw))
+
+        seconds["select"] += time.monotonic() - started
+        started = time.monotonic()
+        # ---- stage 4: native DFS redo of the seeds the device left ----
+        if redo.shape[0]:
+            redo_key = arrays.length_g[redo] * 4096 + arrays.errors_g[redo]
+            for key_value in np.unique(redo_key).tolist():
+                cls_sel = redo[redo_key == key_value]
+                length, errors = key_value // 4096, key_value % 4096
+                out = native_search_select_batch_offsets(
+                    self.index,
+                    buffer,
+                    arrays.offsets_g[cls_sel],
+                    expand_scheme(int(errors), int(length)),
+                    self._host.search_cap(),
+                    config.max_num_anchors_hard,
+                    config.max_num_anchors_soft,
+                    order_code,
+                    choice_code,
+                    config.erase_useless_anchors,
+                    self._host.num_threads,
+                )
+                if out is None:
+                    raise RuntimeError("the native library is gone mid-run")
+                r_anchors, r_counts = out
+                r_status = r_counts[:, 0]
+                r_nw = np.where((r_status & 6) == 0, r_counts[:, 1], 0)
+                r_ok = np.flatnonzero((r_status & 6) == 0)
+                nw_g[cls_sel[r_ok]] = r_nw[r_ok]
+                kept_raw_g[cls_sel[r_ok]] = r_counts[r_ok, 2]
+                kept_useful_g[cls_sel[r_ok]] = r_counts[r_ok, 3]
+                excluded_soft_g[cls_sel[r_ok]] = (
+                    r_counts[r_ok, 4] - r_counts[r_ok, 2]
+                )
+                r_valid = (
+                    np.arange(r_anchors.shape[1], dtype=np.int64)[None, :]
+                    < r_nw[:, None]
+                )
+                rows_parts.append(r_anchors[r_valid])
+                gid_parts.append(np.repeat(cls_sel, r_nw))
+                # a native group-buffer overflow (status & 2): re-search the
+                # seed on its own on the host
+                for gid in cls_sel[np.flatnonzero(r_status & 2)].tolist():
+                    self._redo_seed_host(
+                        int(gid), arrays, jobs, nw_g, kept_raw_g,
+                        kept_useful_g, excluded_soft_g, rows_parts,
+                        gid_parts,
+                    )
+
+        seconds["redo"] += time.monotonic() - started
+        return build_soa_results(
+            arrays,
+            nw_g,
+            kept_raw_g,
+            kept_useful_g,
+            excluded_soft_g,
+            rows_parts,
+            gid_parts,
+        )
+
+    def _redo_seed_host(
+        self, gid, arrays, jobs, nw_g, kept_raw_g, kept_useful_g,
+        excluded_soft_g, rows_parts, gid_parts,
+    ):
+        """Last-resort per-seed host redo (native group buffer overflow)."""
+        from .search_host import search_seed_groups
+
+        job_idx = int(arrays.job_g[gid])
+        seed_idx = gid - int(arrays.job_seed_base[job_idx])
+        seeds, query = jobs[job_idx]
+        qpos = int(arrays.qpos_g[gid])
+        length = int(arrays.length_g[gid])
+        groups, total, _ = search_seed_groups(
+            self.index,
+            query[qpos : qpos + length],
+            int(arrays.errors_g[gid]),
+            self._host.search_cap(),
+        )
+        aos = self._host.process_seed_groups(seeds[seed_idx], groups, total)
+        rows = np.array(
+            [
+                (a.reference_id, a.reference_position, a.num_errors)
+                for anchors in aos.anchors_by_reference
+                for a in anchors
+            ],
+            dtype=np.int64,
+        ).reshape(-1, 3)
+        nw_g[gid] = rows.shape[0]
+        kept_raw_g[gid] = aos.num_kept_raw_anchors
+        kept_useful_g[gid] = aos.num_kept_useful_anchors
+        excluded_soft_g[gid] = aos.num_excluded_raw_anchors_by_soft_cap
+        rows_parts.append(rows)
+        gid_parts.append(np.full(rows.shape[0], gid, dtype=np.int64))
+
+
+@dataclass(frozen=True)
+class SchemeTables:
+    """Expanded-search tables, numpy int32 [num_classes, num_searches,
+    num_parts], one CLASS per (errors, length) pair of a chunk's seeds;
+    fused() is the form the device search takes.
+
+    Class `num_real`, the last, is the DEAD class, the reference's class
+    for padding seeds (the parity tests pad with it): its parts are the
+    empty span [0, 0) with direction +1 and lower bound 1, so a state of
+    it hits the part boundary immediately, fails the lower bound, and dies
+    without ever expanding or reporting. The dispatches here hand the
+    search only real seeds."""
+
+    start: np.ndarray
+    end: np.ndarray
+    direction: np.ndarray
+    lower: np.ndarray
+    upper: np.ndarray
+    num_classes: int
+    num_real: int
+    num_searches: int
+    num_parts: int
+
+    @property
+    def dead_class(self) -> int:
+        return self.num_real
+
+    def fused(self) -> np.ndarray:
+        """int32 [classes * searches * parts, 8]: per (class, search, part)
+        its direction, start, end, lower and upper bound, then the next
+        part's direction, start and end (the last part repeats itself)."""
+
+        def roll_next(table):
+            return np.concatenate([table[:, :, 1:], table[:, :, -1:]], axis=2)
+
+        return np.ascontiguousarray(np.stack(
+            [
+                self.direction, self.start, self.end, self.lower, self.upper,
+                roll_next(self.direction), roll_next(self.start),
+                roll_next(self.end),
+            ],
+            axis=3,
+        ).reshape(-1, 8), dtype=np.int32)
+
+    @classmethod
+    def from_length_classes(
+        cls, class_searches: list[tuple[ExpandedSearch, ...]]
+    ):
+        """Classes may be heterogeneous (different error counts => different
+        search and part counts): shapes pad to the maxima. A class's missing
+        SEARCHES get dead rows (empty span, lower 1). A search's missing
+        trailing PARTS become continuation pads (empty span, direction +1,
+        lower/upper copied from the search's last real part): a state
+        finishing the real scheme steps through each pad by a boundary
+        advance and reports at the global last part — same reports, same
+        DFS order."""
+        num_real = len(class_searches)
+        num_searches = max(len(s) for s in class_searches)
+        num_parts = max(
+            len(search.pi)
+            for searches in class_searches
+            for search in searches
+        )
+        num_classes = num_real + 1
+        start = np.zeros((num_classes, num_searches, num_parts), dtype=np.int32)
+        end = np.zeros_like(start)
+        # dead-class defaults for the dead class and the padding searches
+        direction = np.ones_like(start)
+        lower = np.ones_like(start)
+        upper = np.zeros_like(start)
+        for c, searches in enumerate(class_searches):
+            for s, search in enumerate(searches):
+                real_parts = len(search.pi)
+                for j in range(real_parts):
+                    start[c, s, j], end[c, s, j] = search.part_spans[j]
+                    direction[c, s, j] = search.directions[j]
+                    lower[c, s, j] = search.lower[j]
+                    upper[c, s, j] = search.upper[j]
+                for j in range(real_parts, num_parts):
+                    start[c, s, j] = end[c, s, j] = 0
+                    direction[c, s, j] = 1
+                    lower[c, s, j] = search.lower[real_parts - 1]
+                    upper[c, s, j] = search.upper[real_parts - 1]
+        return cls(start, end, direction, lower, upper, num_classes,
+                   num_real, num_searches, num_parts)
+
+    @classmethod
+    def from_searches(cls, searches: tuple[ExpandedSearch, ...]):
+        return cls.from_length_classes([list(searches)])

@@ -1,6 +1,7 @@
-"""floxer_tpu_torch on the card: each CUDA kernel (K1-K8) against its
+"""floxer_tpu_torch on the card: each CUDA kernel (K1-K10) against its
 plain PyTorch version, a fused wave on the card against the same wave on the
-CPU, and the CLI's --engine device against the host engine.
+CPU, and the CLI's --engine device (and --device-search) against the host
+engine.
 
 Every test here needs a CUDA device and skips without one. The module
 imports no jax (the GPU machine has none); run it there with
@@ -603,3 +604,248 @@ def test_bcast_kernel_matches_plain(cuda_device, n_bcast):
     assert microbench_carry_scaling.BCAST_LAUNCHES == launches + 1
     want = microbench_carry_scaling.bcast_plain(texts, jstar, n_bcast)
     assert torch.equal(got.cpu(), want.cpu())
+
+
+# ---- the device search: K9, K9x, K9l (csrc/fm_index.cu) and K10
+# (csrc/workqueue_search.cu) against their plain versions on the card
+
+
+@pytest.fixture(scope="module")
+def search_index():
+    """A two-sequence index (one with N's) and its sequences."""
+    from floxer_tpu_torch.index.fmindex import FmIndex
+
+    rng = np.random.default_rng(17)
+    sequences = [
+        rng.integers(1, 5, size=30_000).astype(np.uint8),
+        rng.integers(1, 6, size=9_000).astype(np.uint8),
+    ]
+    return FmIndex(sequences), sequences
+
+
+def device_index_of(host, device, layout):
+    from floxer_tpu_torch.index.device_index import DeviceIndex
+
+    index = DeviceIndex.from_host(host, device,
+                                  force_planes=layout == "planes")
+    assert (index.rank_rows is None) == (layout == "planes")
+    return index
+
+
+@pytest.mark.parametrize("layout", ["combined", "planes"])
+def test_fm_index_kernels_match_plain(cuda_device, search_index, layout):
+    """K9 (both directions), K9x (left and right) and K9l equal their plain
+    versions on the same card tensors, every block boundary included."""
+    from floxer_tpu_torch.ops import cuda_fm_index as k9
+
+    host, _ = search_index
+    index = device_index_of(host, cuda_device, layout)
+    rng = np.random.default_rng(9)
+    n = host.n
+    positions = torch.from_numpy(np.concatenate([
+        rng.integers(0, n + 1, size=50_000), np.arange(0, n + 1, 128),
+        [0, 1, 31, 32, 33, 127, 129, n],
+    ]).astype(np.int32)).to(cuda_device)
+    for single in (index.fwd, index.rev):
+        operands = (single.rank_rows, single.block_offset, single.occ,
+                    single.planes)
+        got = k9.fm_rank_cuda(positions, *operands)
+        assert torch.equal(got, k9.fm_rank_plain(positions, *operands))
+    lb = rng.integers(0, n, size=20_000)
+    lb_rev = rng.integers(0, n, size=20_000)
+    length = np.minimum(rng.integers(0, 3000, size=20_000),
+                        n - np.maximum(lb, lb_rev))
+    cursors = [torch.from_numpy(a.astype(np.int32)).to(cuda_device)
+               for a in (lb, lb_rev, length)]
+    for left in (True, False):
+        got = k9.fm_extend_cuda(index, *cursors, left=left)
+        want = k9.fm_extend_plain(index, *cursors, left=left)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    rows = torch.from_numpy(
+        rng.integers(0, n, size=50_000).astype(np.int32)
+    ).to(cuda_device)
+    got = k9.fm_locate_cuda(index, rows, index.sampling_rate)
+    want = k9.fm_locate_plain(index, rows, index.sampling_rate)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    seq_ids, offsets = (t.cpu().numpy() for t in got)
+    for i in range(0, 50_000, 997):
+        assert host.locate(int(rows[i])) == (seq_ids[i], offsets[i])
+
+
+def search_chunk(sequences, seed=23, count=300):
+    """Mutated slices of the indexed text as seeds of mixed error and
+    length classes, plus a homopolymer: (padded, seed_class, tables,
+    max_errors)."""
+    from floxer_tpu_torch.schemes import expand_scheme
+    from floxer_tpu_torch.search_device import SchemeTables
+
+    rng = np.random.default_rng(seed)
+    seeds = []
+    for i in range(count):
+        k = i % 4
+        length = int(rng.integers(12, 41))
+        source = sequences[i % 2]
+        start = int(rng.integers(0, len(source) - length))
+        pattern = source[start:start + length].copy()
+        for _ in range(int(rng.integers(0, k + 1))):
+            pos = int(rng.integers(0, length))
+            pattern[pos] = 1 + (pattern[pos] % 4)
+        seeds.append((k, pattern))
+    seeds.append((2, np.full(14, 2, dtype=np.uint8)))
+    pairs = sorted({(k, len(p)) for k, p in seeds})
+    pad_len = -(-max(len(p) for _, p in seeds) // 8) * 8
+    padded = np.zeros((len(seeds) + 20, pad_len), dtype=np.int32)
+    tables = SchemeTables.from_length_classes(
+        [expand_scheme(k, length) for k, length in pairs]
+    )
+    seed_class = np.full(padded.shape[0], tables.dead_class, dtype=np.int32)
+    for i, (k, p) in enumerate(seeds):
+        padded[i, :len(p)] = p
+        seed_class[i] = pairs.index((k, len(p)))
+    return padded, seed_class, tables, 3
+
+
+@pytest.mark.parametrize("layout", ["combined", "planes"])
+def test_workqueue_kernel_matches_plain(cuda_device, search_index, layout):
+    """K10 through workqueue_runner: exactly one launch, no overflow, rows
+    equal to the plain version's (run on the same card tensors) once
+    sorted, and the same node count."""
+    from floxer_tpu_torch import search_queue
+    from floxer_tpu_torch.ops import cuda_search_queue as k10
+
+    host, sequences = search_index
+    index = device_index_of(host, cuda_device, layout)
+    padded, seed_class, tables, max_errors = search_chunk(sequences)
+    before = k10.LAUNCHES
+    rows, overflow = search_queue.workqueue_runner(
+        index, padded, seed_class, tables, 1 << 16, padded.shape[1],
+        max_errors,
+    )
+    assert k10.LAUNCHES == before + 1 and not overflow
+    kw = search_queue.key_words_needed(padded.shape[1], max_errors)
+    operands = [torch.from_numpy(a).to(cuda_device)
+                for a in (padded, seed_class, tables.fused())]
+    run = k10.workqueue_search_cuda(
+        index, *operands, tables.num_searches, tables.num_parts, 1 << 16, kw,
+        search_queue.frames_needed(padded.shape[1], max_errors),
+    )
+    init = padded.shape[0] * tables.num_searches
+    quantum = 1 << 12
+    plain = search_queue.workqueue_search_plain(
+        index, *operands, tables.num_searches, tables.num_parts, quantum,
+        3 * quantum, 2 * init + 4 * quantum,
+        1 << 16, kw, 1 << 16,
+    )
+    assert not plain.overflow and not run.overflow
+    want = search_queue.sort_reports(
+        plain.reports[:plain.num_reports].cpu().numpy()
+    )
+    assert want.shape[0] > 1000
+    assert np.array_equal(rows, want)
+    assert np.array_equal(search_queue.sort_reports(
+        run.reports[:run.num_reports].cpu().numpy()), want)
+    assert run.nodes == plain.nodes and 0 < run.largest_tree <= run.nodes
+
+
+def test_workqueue_kernel_flags_overflow(cuda_device, search_index):
+    """A report capacity below the reports, and a key too short for the
+    paths, each set K10's overflow."""
+    from floxer_tpu_torch import search_queue
+    from floxer_tpu_torch.ops import cuda_search_queue as k10
+
+    host, sequences = search_index
+    index = device_index_of(host, cuda_device, "combined")
+    padded, seed_class, tables, max_errors = search_chunk(sequences, 5, 40)
+    operands = [torch.from_numpy(a).to(cuda_device)
+                for a in (padded, seed_class, tables.fused())]
+    frames = search_queue.frames_needed(padded.shape[1], max_errors)
+    kw = search_queue.key_words_needed(padded.shape[1], max_errors)
+    full = k10.workqueue_search_cuda(index, *operands, tables.num_searches,
+                                     tables.num_parts, 1 << 16, kw, frames)
+    assert not full.overflow and full.num_reports > 10
+    small = k10.workqueue_search_cuda(index, *operands, tables.num_searches,
+                                      tables.num_parts, 10, kw, frames)
+    assert small.overflow and small.num_reports == 10
+    short_key = k10.workqueue_search_cuda(
+        index, *operands, tables.num_searches, tables.num_parts, 1 << 16, 1,
+        frames,
+    )
+    assert short_key.overflow
+
+
+def test_search_wrappers_refuse_cpu_operands(cuda_device, search_index):
+    """No fallback: each CUDA entry raises on CPU tensors."""
+    from floxer_tpu_torch.ops import cuda_fm_index as k9
+    from floxer_tpu_torch.ops import cuda_search_queue as k10
+
+    host, sequences = search_index
+    index = device_index_of(host, CPU, "combined")
+    vector = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        k9.fm_rank_cuda(vector, index.rank_rows)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        k9.fm_extend_cuda(index, vector, vector, vector, left=True)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        k9.fm_locate_cuda(index, vector, 4)
+    padded, seed_class, tables, _ = search_chunk(sequences, 3, 4)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        k10.workqueue_search_cuda(
+            index, torch.from_numpy(padded), torch.from_numpy(seed_class),
+            torch.from_numpy(tables.fused()), tables.num_searches,
+            tables.num_parts, 1 << 12, 6, 50,
+        )
+
+
+def test_search_kernels_ptxas_no_spill_no_stack(cuda_device):
+    """ptxas -v of the aligner's build: K9, K9x, K9l and K10 keep no
+    stack frame and spill nothing."""
+    from floxer_tpu_torch.ops import _build
+
+    _build.ALIGNER.load()
+    usage = _build.ALIGNER.ptxas_usage()
+    for kernel in ("fm_rank_kernel", "fm_extend_kernel", "fm_locate_kernel",
+                   "workqueue_kernel"):
+        names = [name for name in usage if kernel in name]
+        assert len(names) == 1, (kernel, names)
+        found = usage[names[0]]
+        assert found.get("stack", 1) == 0, (kernel, found)
+        assert found.get("spill_stores", 1) == 0, (kernel, found)
+        assert found.get("spill_loads", 1) == 0, (kernel, found)
+
+
+@pytest.mark.parametrize("engine", ["batched", "device"])
+def test_device_search_cli_matches_host_search(cuda_device, simulated,
+                                               tmp_path, engine):
+    """--device-search on the card writes the host search's SAM, with one
+    K10 launch a chunk's dispatch (a second after an overflow), counted
+    after the search warmup's own launches."""
+    from floxer_tpu_torch import search_queue
+    from floxer_tpu_torch.search_device import DeviceSearcher
+
+    def args(name, extra=()):
+        return [
+            "--reference", str(simulated / "genome.fasta"),
+            "--queries", str(simulated / "reads.fastq"),
+            "--output", str(tmp_path / name),
+            "-p", "0.08", "--interval-optimization", *extra,
+        ]
+
+    assert pipeline.run(parse_and_validate(args("host.sam")),
+                        use_device=False) == 0
+    pipeline.start_device_warmup(cuda_device, device_search=True)
+    pipeline.join_device_warmup()
+    before = pipeline.kernel_launches()["K10"]
+    dispatches = DeviceSearcher._chunk_dispatches
+    retries = search_queue.RETRIES
+    cli = parse_and_validate(
+        args("device.sam", ["--engine", engine, "--device-search"])
+    )
+    assert pipeline.run(cli) == 0
+    dispatches = DeviceSearcher._chunk_dispatches - dispatches
+    assert dispatches > 0
+    assert pipeline.kernel_launches()["K10"] - before == (
+        dispatches + search_queue.RETRIES - retries
+    )
+    assert (tmp_path / "device.sam").read_bytes() == (
+        tmp_path / "host.sam"
+    ).read_bytes()

@@ -133,7 +133,7 @@ def serve_in_thread(sock: str):
 @pytest.mark.parametrize(
     "extra",
     [
-        ["--device-search"],
+        ["--device-search", "--engine", "reference"],
         ["--index-shards", "2"],
         ["--profile", "trace_dir"],
         ["--serve", "sock"],
@@ -142,8 +142,10 @@ def serve_in_thread(sock: str):
     ],
 )
 def test_unported_options_fail(tmp_path, data_dir, reference_sam, extra):
-    """--device-search and --index-shards > 1 are not ported: the CLI
-    exits non-zero and writes nothing. --profile and the server flags are
+    """--device-search with --engine reference (the per-query frontier
+    search) and --index-shards > 1 are not ported: the CLI exits non-zero
+    and writes nothing (--device-search under the batched engines is:
+    test_device_search_writes_reference_sam). --profile and the server flags are
     ported: --profile writes a torch.profiler trace and the reference's
     SAM; a job through --serve / --server writes the reference's SAM and
     --shutdown-server stops the daemon. (Multi-host and multi-process runs
@@ -236,3 +238,48 @@ def test_no_accelerator_on_this_host_means_host_waves(tmp_path, data_dir):
     cli = parse_and_validate(cli_args(data_dir, tmp_path / "out.sam"))
     assert pipeline.run(cli) == 0
     assert _BATCH_TIMERS["fused"] == before
+
+
+@pytest.fixture(scope="module")
+def reference_device_search_sam(tmp_path_factory, data_dir):
+    """SAM of python -m floxer_tpu --device-search (the work-queue search
+    on JAX's CPU backend)."""
+    output = tmp_path_factory.mktemp("reference_ds") / "out.sam"
+    env = env_without_gpu()
+    env["FLOXER_TPU_PLATFORM"] = "cpu"
+    proc = subprocess.run(
+        [sys.executable, "-m", "floxer_tpu",
+         *cli_args(data_dir, output, ["--device-search"])],
+        capture_output=True, text=True, env=env, cwd=ROOT,
+    )
+    assert proc.returncode == 0, proc.stderr
+    return output.read_bytes()
+
+
+@pytest.mark.parametrize("engine", ["batched", "device"])
+def test_device_search_writes_reference_sam(
+    tmp_path, data_dir, reference_sam, reference_device_search_sam, engine
+):
+    """run(..., device=cpu) with --device-search (the work queue's plain
+    version, one dispatch a chunk) writes the reference's SAM, which is
+    also the reference's --device-search SAM."""
+    from floxer_tpu_torch.search_device import DeviceSearcher
+
+    output = tmp_path / "out.sam"
+    cli = parse_and_validate(
+        cli_args(data_dir, output, ["--engine", engine, "--device-search"])
+    )
+    before = DeviceSearcher._chunk_dispatches
+    assert pipeline.run(cli, device=CPU) == 0
+    assert DeviceSearcher._chunk_dispatches > before
+    assert output.read_bytes() == reference_sam
+    assert reference_device_search_sam == reference_sam
+
+
+def test_device_search_without_gpu_fails(tmp_path, data_dir, monkeypatch):
+    """--device-search with no CUDA device and no device given exits
+    non-zero and writes nothing; it does not fall back to the host."""
+    monkeypatch.setattr(pipeline, "accelerator_available", lambda: False)
+    output = tmp_path / "out.sam"
+    assert main(cli_args(data_dir, output, ["--device-search"])) != 0
+    assert not output.exists()

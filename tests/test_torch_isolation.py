@@ -84,25 +84,28 @@ from floxer_tpu_torch import pipeline
 from floxer_tpu_torch.cli import parse_and_validate
 data = Path(sys.argv[1])
 with tempfile.TemporaryDirectory() as tmp:
-    for engine in ("device", "batched"):
+    for engine, extra in (("device", []), ("batched", []),
+                          ("batched", ["--device-search"])):
+        name = engine + "".join(extra)
         cli = parse_and_validate([
             "--reference", str(data / "reference.fasta"),
             "--queries", str(data / "queries.fastq"),
-            "--output", f"{tmp}/{engine}.sam",
+            "--output", f"{tmp}/{name}.sam",
             "--query-errors", "2", "--seed-errors", "1",
             "--extra-verification-ratio", "2", "--interval-optimization",
-            "--engine", engine,
+            "--engine", engine, *extra,
         ])
         assert pipeline.run(cli, device=torch.device("cpu")) == 0
-        assert Path(f"{tmp}/{engine}.sam").read_text().count("query2") == 2
+        assert Path(f"{tmp}/{name}.sam").read_text().count("query2") == 2
 print("\\n".join(sorted(sys.modules)))
 """
 
 
 def test_port_runs_without_loading_the_reference(data_dir):
     """Import every module of the port, run the toy e2e on the CPU (fused
-    device waves through the plain versions, and the batched engine), then
-    list sys.modules: no floxer_tpu module and no jax."""
+    device waves through the plain versions, the batched engine, and the
+    batched engine with --device-search), then list sys.modules: no
+    floxer_tpu module and no jax."""
     proc = subprocess.run(
         [sys.executable, "-c", E2E, str(data_dir)],
         capture_output=True, text=True, cwd=ROOT, timeout=600,
