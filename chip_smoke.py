@@ -15,7 +15,7 @@ Phases, one line each on stdout, any failure exits non-zero:
            myers_banded_wide_kernel, K3's myers_large_reg_kernel<R> and
            multi-warp myers_large_wide_kernel, and K2's
            myers_small_kernel<G>, and of the device search's kernels
-           (K9, K9x, K9l, K10):
+           (K9, K9x, K9l, K10, K11, K12):
            registers, stack and spill bytes (a spill or a stack frame
            fails the run); and from the library's SASS (cuobjdump) the
            instructions of each register instance's column loops (K1
@@ -32,8 +32,9 @@ Phases, one line each on stdout, any failure exits non-zero:
            with the counts at 0 (it must take the multi-warp kernel, at
            2176 words the shared-memory one). K1 at the 20 kb root shape, on the 256
            band words its tasks need and on the 384 the fused wave runs its
-           root level at: the register kernel against the plain version,
-           the native host engine, the numpy band mirror and the
+           root level at: the register kernel against the plain version
+           (run on the CPU in a worker), the native host engine, the
+           numpy band mirror and the
            shared-memory kernel, and both kernels timed in turns (shared,
            register, register, shared). K2 at every W = 1..8 (its
            instances of G = 1, 2, 4, 8 lanes per task), tasks of 1..W
@@ -48,7 +49,8 @@ Phases, one line each on stdout, any failure exits non-zero:
            and the register and shared-memory kernels timed in turns at
            256 tasks of 1376 chars on 128 words; K4 (banded
            traceback, one kernel whose blocks each run their task's
-           layout): every accepted root of a seeded batch of 20 kb roots
+           layout; its plain versions run on the CPU in workers): every
+           accepted root of a seeded batch of 20 kb roots
            (tools/k4_bench.py's root20k) in exactly one launch, equal to
            the host traceback (dp_reference, native) and timed against
            the 8-thread host pool (batch_s, host_pool_s); the kernel
@@ -70,8 +72,8 @@ Phases, one line each on stdout, any failure exits non-zero:
            (the multi-warp kernel's widest); K3 at 64 overhanging roots on
            1280 pattern words; each width driven once through the routing
            entry with the counts at 0; each with its bound; and the plain
-           versions once on the card, on K1's 1024 words and on K3's
-           shape (one to two minutes each), every kernel equal to them
+           versions once on the CPU in workers, on K1's 1024 words and
+           on K3's shape, every kernel equal to them
   scripts  the research scripts' kernels K5-K8 (floxer_tpu_torch.scripts):
            every variant against its plain version on the card at
            COMPARE_TEXT columns (exact); K5 full at K1's end columns on
@@ -97,7 +99,27 @@ Phases, one line each on stdout, any failure exits non-zero:
            work-queue search) on pass A's first chunk of seeds against
            workqueue_search_plain on the card (sorted rows and node count
            equal), one launch through the runner; each timed (CUDA
-           events) with its bound; K10's nodes, reports and largest tree
+           events) with its bound; K10's nodes, reports and largest tree;
+           K11 (the frontier search) on the first read's largest
+           per-query bucket and on the legacy loop's first 256-seed block
+           of the first chunk (2^15 states), K12 (device select) on the
+           first chunk's groups after the dedup and cap replay under the
+           CLI's defaults and with full_groups: each one launch, timed
+           with its bound, equal to its plain version (run on the CPU in
+           a worker), K11's reports in order, overflow, iterations and
+           expanded states included
+  device_select  pass G2: pass G with FLOXER_TPU_DEVICE_SELECT=1: SAM =
+           pass B, one K12 launch a chunk, no K9l or K11 launch; its
+           search stage seconds (the device select and its host group
+           order)
+  device_search_blocks  pass G3: pass G with
+           FLOXER_TPU_SEARCH_NO_CHUNK_FUSE=1 (the legacy block loop on
+           K11): SAM = pass B, K11 launched, no K10 launch; the seeds
+           redone after an overflow
+  frontier_search  pass H: the first PASS_H_READS reads with pass A's
+           arguments and --engine reference --device-search (the
+           per-query frontier on K11): SAM = their own host pass, K11
+           launched, no K10 launch; align seconds beside the host pass
   device_search  pass G: pass A's arguments with --device-search (the
            seed search by K10 on the card; the search warmup joined
            before the counts are set to 0); SAM = pass B, one K10 launch
@@ -139,9 +161,12 @@ its 1280-word overhang shape; K1-K3 launches of pass A, the multi-warp
 and shared-memory K1's and K3's of pass E, K4 of pass C, its wider
 layouts' of passes C and E under --profile, K5-K8 of the entry points'
 run, K9, K9x, K9l and K10 of pass G: K10 once a chunk, and K9, K9x and
-K9l none, because K9's rank runs inside K10 as a device function and no
-caller of K9x or K9l is ported yet), each kernel with its bound;
-the last line is {"ok": true, "device": {...}}.
+K9l none, because their rank, extension and locate run inside K10, K11
+and K12 as device functions; K11 of pass H, K12 of pass G2), each kernel
+with its bound;
+before it, the cpu_plain line: the CPU seconds of every plain version
+run in the workers (each compared exactly with its kernel's output as it
+arrives); the last line is {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -279,6 +304,33 @@ RANK_OPS = 86
 EXTEND_OPS = 2 * RANK_OPS + 30
 PROBE_OPS = 4
 SEARCH_OPS_PER_NODE = 2 * RANK_OPS + 76
+# K11 per expanded state: as K10's node, the two ranks, the 13 kinds'
+# tests and the children's intervals, with the frame's 20 taken by the
+# children's 10-field writes; K12 per emitted anchor beside its locate:
+# its round or group and row (8), its key rank and sweep step (30), its
+# output (6), and per seed the status and the caps (16)
+FRONTIER_OPS_PER_STATE = 2 * RANK_OPS + 76
+SELECT_OPS_PER_ANCHOR = 44
+SELECT_OPS_PER_SEED = 16
+# the plain versions that take minutes (K1 at the root
+# shape on both bands, K1w at pass E's 1024 words, K3w at its overhang
+# shape, K4's four layouts) and the search kernels' (K11, K12) run on
+# the CPU in these spawned worker processes (no CUDA), started before the
+# build, each with this many torch threads; the script waits this long
+# at its end for the last of them
+CPU_PLAIN_WORKERS = 4
+CPU_PLAIN_THREADS = 2
+CPU_PLAIN_TIMEOUT = 900
+# the search kernels' plain versions (K11, K12: seconds each) run in a
+# pool of their own, so they need not wait behind those; every worker
+# runs at a lower priority than the process that drives the card
+SEARCH_PLAIN_WORKERS = 2
+CPU_PLAIN_NICE = 10
+# pass H (--engine reference --device-search, the per-query frontier):
+# the first reads of the 20 kb workload, held to their own host pass (the
+# reference engine verifies one query at a time on the host, several
+# seconds a 20 kb read, so all 200 would not fit the script's time)
+PASS_H_READS = 8
 # runs the port's CLI with jax unimportable, as on a machine without jax
 JAX_BLOCKED = (
     "import runpy, sys; sys.modules['jax'] = None; "
@@ -288,6 +340,8 @@ JAX_BLOCKED = (
 
 
 STARTED = time.monotonic()
+# the CPU plain versions' pool and its pending checks (set by main)
+CPU_PLAIN = None
 
 
 def phase(name: str, **fields) -> None:
@@ -439,6 +493,284 @@ def _k1_plain(case):
     return [t.numpy() for t in out], time.monotonic() - started
 
 
+def k1_phase_inputs(rng):
+    """The kernels phase's K1 tasks, drawn from `rng` in the phase's order:
+    64 small seeded cases (patterns, texts, budgets), then ROOT_SHAPE's
+    tasks on a 400 kb genome (patterns, texts)."""
+    import numpy as np
+
+    patterns, texts, budgets = [], [], []
+    for _ in range(64):
+        m = int(rng.integers(60, 500))
+        budget = int(rng.integers(1, max(2, m // 5)))
+        n = m + 2 * budget + 1 + int(rng.integers(0, budget + 2))
+        text = rng.integers(1, 5, size=n).astype(np.uint8)
+        start = int(rng.integers(0, n - m))
+        pattern = mutate(rng, text[start : start + m], 0.05)
+        if not 0 < budget < len(pattern):
+            continue
+        patterns.append(pattern)
+        texts.append(text)
+        budgets.append(budget)
+    T, m_root, k_root, _ = ROOT_SHAPE
+    genome = rng.integers(1, 5, size=400_000).astype(np.uint8)
+    root_patterns, root_texts = [], []
+    for _ in range(T):
+        n = m_root + 2 * k_root + 1 + int(rng.integers(0, 1200))
+        start = int(rng.integers(0, len(genome) - n))
+        window = genome[start : start + n]
+        offset = int(rng.integers(0, n - m_root - k_root))
+        root_patterns.append(
+            mutate(rng, window[offset : offset + m_root], 0.05)[:m_root]
+        )
+        root_texts.append(window)
+    return (patterns, texts, budgets), (root_patterns, root_texts)
+
+
+def long_shape_inputs():
+    """run_long_shapes' tasks from their seed (SEED + 2): K1's long roots
+    (patterns, texts) and K3's overhanging roots (patterns, texts)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 2)
+    genome = rng.integers(1, 5, size=2_000_000).astype(np.uint8)
+    T, m, k, extra, widths = LONG_ROOT_SHAPE
+    patterns, texts = [], []
+    for _ in range(T):
+        n = m + extra + int(rng.integers(0, 400))
+        start = int(rng.integers(0, len(genome) - n))
+        window = genome[start : start + n]
+        offset = int(rng.integers(0, extra // 2))
+        patterns.append(mutate(rng, window[offset : offset + m], 0.12)[:m])
+        texts.append(window)
+    B, m3, inside, n3, words = OVERHANG_SHAPE
+    patterns3, texts3 = [], []
+    for _ in range(B):
+        start = int(rng.integers(0, len(genome) - n3))
+        window = genome[start : start + n3]
+        read = mutate(rng, window[n3 - inside :], 0.12)
+        tail = rng.integers(1, 5, size=max(0, m3 - len(read)))
+        patterns3.append(np.concatenate([read, tail]).astype(np.uint8)[:m3])
+        texts3.append(window)
+    return (patterns, texts), (patterns3, texts3)
+
+
+def k3_overhang_operands(patterns3, texts3, words):
+    """K3's operands of the overhanging roots as numpy arrays: (peq uint32
+    [chars, SIGMA, words] zero padded, plen, texts int32, tlen)."""
+    import numpy as np
+
+    from floxer_tpu_torch.ops.myers import build_peq_vectorized
+
+    pat, plen = pad(patterns3)
+    txt, tlen = pad(texts3)
+    peq = build_peq_vectorized(pat, plen)
+    check(peq.shape[2] <= words, "an overhang root exceeds its width")
+    padded = np.zeros(peq.shape[:2] + (words,), dtype=np.uint32)
+    padded[:, :, : peq.shape[2]] = peq
+    return padded, plen, txt.astype(np.int32), tlen
+
+
+def _cpu_plain_init():
+    import torch
+
+    os.nice(CPU_PLAIN_NICE)
+    torch.set_num_threads(CPU_PLAIN_THREADS)
+
+
+def _timed_outputs(fn):
+    """(the outputs of fn() as numpy arrays, its seconds)."""
+    started = time.monotonic()
+    out = fn()
+    seconds = time.monotonic() - started
+    if not isinstance(out, (list, tuple)):
+        out = (out,)
+    return [t.numpy() if hasattr(t, "numpy") else t for t in out], seconds
+
+
+def _k1_root_plain(band_words):
+    """K1's plain version at the root shape on `band_words` words, its
+    tasks drawn from SEED as the kernels phase draws them (CPU worker)."""
+    import numpy as np
+    import torch
+
+    from floxer_tpu_torch.ops.cuda_myers_banded import (
+        banded_operands,
+        myers_banded_plain,
+    )
+
+    _, (patterns, texts) = k1_phase_inputs(np.random.default_rng(SEED))
+    texts_u8, lens = pad(texts)
+    operands, num_text = banded_operands(
+        patterns, texts_u8, lens, np.full(len(patterns), ROOT_SHAPE[2]),
+        band_words, torch.device("cpu"),
+    )
+    return _timed_outputs(
+        lambda: myers_banded_plain(*operands, band_words, num_text))
+
+
+def _long_k1_plain():
+    """K1's plain version at pass E's long roots on the first band width
+    (CPU worker)."""
+    import numpy as np
+    import torch
+
+    from floxer_tpu_torch.ops.cuda_myers_banded import (
+        banded_operands,
+        myers_banded_plain,
+    )
+
+    (patterns, texts), _ = long_shape_inputs()
+    T, _, k, _, widths = LONG_ROOT_SHAPE
+    texts_u8, lens = pad(texts)
+    operands, num_text = banded_operands(
+        patterns, texts_u8, lens, np.full(T, k), widths[0],
+        torch.device("cpu"),
+    )
+    return _timed_outputs(
+        lambda: myers_banded_plain(*operands, widths[0], num_text))
+
+
+def _long_k3_plain():
+    """K3's plain version at pass E's overhang shape (CPU worker)."""
+    import torch
+
+    from floxer_tpu_torch.ops.cuda_myers_large import myers_large_plain
+    from floxer_tpu_torch.ops.myers import u32_tensor
+
+    _, (patterns3, texts3) = long_shape_inputs()
+    peq, plen, txt, tlen = k3_overhang_operands(patterns3, texts3,
+                                                OVERHANG_SHAPE[4])
+    cpu = torch.device("cpu")
+    args = (u32_tensor(peq, cpu), torch.from_numpy(plen),
+            torch.from_numpy(txt), torch.from_numpy(tlen))
+    return _timed_outputs(lambda: myers_large_plain(*args))
+
+
+def k4_plain_tasks(key):
+    """K4's tasks of one plain-version check: the first 2 of the root20k
+    batch ("K4"), or the one task of a wider layout (a K4_WIDE key)."""
+    import numpy as np
+
+    from floxer_tpu_torch.tools import k4_bench
+
+    if key == "K4":
+        return k4_bench.shape_tasks("root20k", SEED)[:2]
+    for wide_key, _, _, _, (m, rate, budget) in K4_WIDE:
+        if wide_key == key:
+            return k4_bench.root_tasks(np.random.default_rng(SEED), 1, m,
+                                       rate, budget)
+    raise KeyError(key)
+
+
+def _k4_plain(key):
+    """K4's plain version on one check's tasks (CPU worker)."""
+    import torch
+
+    from floxer_tpu_torch.ops import traceback_device as td
+
+    batch = td.pack_batch(k4_plain_tasks(key))
+    args = [torch.from_numpy(a)
+            for a in (batch.windows, batch.patterns, batch.table)]
+    return _timed_outputs(
+        lambda: td.banded_traceback_plain(*args, batch.ops_total))
+
+
+def _cpu_index(index_path):
+    import torch
+
+    from floxer_tpu_torch.index.device_index import DeviceIndex
+    from floxer_tpu_torch.index.fmindex import FmIndex
+
+    return DeviceIndex.from_host(FmIndex.load(index_path),
+                                 torch.device("cpu"))
+
+
+def _frontier_plain(index_path, padded, seed_class, fused, num_searches,
+                    num_parts, capacity, reports, max_iterations):
+    """K11's plain version on one frontier (CPU worker): (reports, count,
+    overflow, iterations, expanded)."""
+    import torch
+
+    from floxer_tpu_torch.ops.frontier import frontier_search_plain
+
+    index = _cpu_index(index_path)
+    stats = {}
+
+    def run():
+        out = frontier_search_plain(
+            index, torch.from_numpy(padded), torch.from_numpy(seed_class),
+            torch.from_numpy(fused), num_searches, num_parts, capacity,
+            reports, max_iterations, stats,
+        )
+        return out[0], torch.tensor([out[1]]), out[2]
+
+    outputs, seconds = _timed_outputs(run)
+    return outputs + [stats["iterations"], stats["expanded"]], seconds
+
+
+def _select_plain(index_path, arrays, caps):
+    """K12's plain version on one chunk's groups (CPU worker): arrays are
+    select_plain's int32 operands (lb, cnt, err, gid, perm, group_starts,
+    totals, statuses), caps its scalars."""
+    import torch
+
+    from floxer_tpu_torch.search_select_device import select_plain
+
+    index = _cpu_index(index_path)
+    tensors = [torch.from_numpy(a) for a in arrays]
+    return _timed_outputs(lambda: select_plain(index, *tensors, *caps))
+
+
+class CpuPlain:
+    """The plain versions that run on the CPU in worker processes beside
+    the card: submit() starts one, expect() holds a kernel's outputs for
+    it, and settle() compares each pair exactly (a difference fails the
+    run) as its result arrives, then records the plain version's CPU
+    seconds with `record(seconds)`."""
+
+    def __init__(self, pool, search_pool):
+        self.pool = pool
+        self.search_pool = search_pool
+        self.pending = []
+        self.seconds = {}
+        # the runs started at launch, by key (K1's root shape by its band
+        # words, "long_k1", "long_k3", and K4's checks by row key)
+        self.results = {}
+
+    def submit(self, fn, *args):
+        pool = (self.search_pool if fn in (_frontier_plain, _select_plain)
+                else self.pool)
+        return pool.apply_async(fn, args)
+
+    def expect(self, label, result, kernel_outputs, record=None):
+        self.pending.append((label, result, kernel_outputs, record))
+
+    def settle(self) -> dict:
+        """{label: CPU seconds} of every check, once all have passed."""
+        import numpy as np
+
+        deadline = time.monotonic() + CPU_PLAIN_TIMEOUT
+        for label, result, kernel_outputs, record in self.pending:
+            want, seconds = result.get(
+                timeout=max(1.0, deadline - time.monotonic())
+            )
+            for got in kernel_outputs:
+                err = max((int(np.max(np.abs(np.asarray(g, np.int64)
+                                             - np.asarray(w, np.int64))))
+                           if np.size(g) else 0)
+                          for g, w in zip(got, want))
+                check(all(np.shape(g) == np.shape(w)
+                          for g, w in zip(got, want)) and err == 0,
+                      f"{label} differs from its plain version on the CPU "
+                      f"({err})")
+            self.seconds[label] = seconds
+            if record is not None:
+                record(seconds)
+        self.pending = []
+        return self.seconds
+
+
 def card_peaks(device) -> dict:
     """The rates the bounds divide by: int32 ops/s =
     INT32_OPS_PER_CLOCK_PER_SM x the SMs x the max SM clock nvidia-smi
@@ -560,20 +892,12 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain, large_sweep,
     rows = {}
     # K1's operands and end columns, which K5 `full` must reproduce
     k1_ends = []
-    # K1 seeded small cases (test_pallas_myers_banded.py's generator)
-    patterns, texts, budgets = [], [], []
-    for _ in range(64):
-        m = int(rng.integers(60, 500))
-        budget = int(rng.integers(1, max(2, m // 5)))
-        n = m + 2 * budget + 1 + int(rng.integers(0, budget + 2))
-        text = rng.integers(1, 5, size=n).astype(np.uint8)
-        start = int(rng.integers(0, n - m))
-        pattern = mutate(rng, text[start : start + m], 0.05)
-        if not 0 < budget < len(pattern):
-            continue
-        patterns.append(pattern)
-        texts.append(text)
-        budgets.append(budget)
+    # K1 seeded small cases (test_pallas_myers_banded.py's generator), then
+    # the 20 kb root shape: T=256, m ~ 20.6k, k = 1442, on the 256-word
+    # band the tasks need and on the fused wave's root band
+    (patterns, texts, budgets), (root_patterns, root_texts) = (
+        k1_phase_inputs(rng)
+    )
     args = banded_args(patterns, texts, budgets, 128)
     got, _, err_small = compare(
         cuda_myers_banded.myers_banded, cuda_myers_banded.myers_banded_plain, args
@@ -581,20 +905,8 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain, large_sweep,
     check(err_small == 0, f"K1 differs from its plain version ({err_small})")
     k1_ends.append((args[:5], got[1]))
 
-    # K1 at the 20 kb root shape: T=256, m ~ 20.6k, k = 1442, on the
-    # 256-word band the tasks need and on the fused wave's root band
     T, m_root, k_root, bw_root = ROOT_SHAPE
-    genome = rng.integers(1, 5, size=400_000).astype(np.uint8)
-    patterns, texts = [], []
-    for _ in range(T):
-        n = m_root + 2 * k_root + 1 + int(rng.integers(0, 1200))
-        start = int(rng.integers(0, len(genome) - n))
-        window = genome[start : start + n]
-        offset = int(rng.integers(0, n - m_root - k_root))
-        patterns.append(
-            mutate(rng, window[offset : offset + m_root], 0.05)[:m_root]
-        )
-        texts.append(window)
+    patterns, texts = root_patterns, root_texts
     budgets = [k_root] * T
     native_dist, native_end = native_myers_distance_batch(
         texts, patterns, num_threads=min(8, os.cpu_count() or 1),
@@ -615,14 +927,17 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain, large_sweep,
                cuda_myers_banded.myers_banded_register(*args)]
         shared = [t.cpu().numpy() for t in
                   cuda_myers_banded.myers_banded_shared(*args)]
-        t0 = time.monotonic()
-        want = [t.cpu().numpy() for t in
-                cuda_myers_banded.myers_banded_plain(*args)]
-        plain_ms = (time.monotonic() - t0) * 1000
-        err = max(int(np.max(np.abs(g.astype(np.int64) - w)))
-                  for g, w in zip(got, want))
         at = f"at the root shape on {band_words} band words"
-        check(err == 0, f"K1 differs from its plain version {at} ({err})")
+        # the plain version runs on the CPU in a worker since the start
+        err = 0
+        case = {}
+
+        def record(seconds, case=case):
+            case["plain_ms"] = seconds * 1000
+            case["plain_on"] = "cpu"
+
+        CPU_PLAIN.expect(f"K1 {at}", CPU_PLAIN.results[band_words], [got],
+                         record)
         check(all(np.array_equal(g, h) for g, h in zip(got, shared)),
               f"K1's register and shared-memory kernels differ {at}")
         check(np.array_equal(got[0], native_dist)
@@ -640,11 +955,11 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain, large_sweep,
             kernel = getattr(cuda_myers_banded, f"myers_banded_{name}")
             turns[name].append(cuda_ms(lambda: kernel(*args), 5))
         bound_ms, bound_by = k1_bound(args, peaks)
-        case = {"max_abs_err": err, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "shape": f"T={T} m={m_root} k={k_root} BW={band_words} "
-                         f"n~{m_root + 2 * k_root + 600}",
-                "columns": k1_columns}
+        case.update({"max_abs_err": err,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "shape": f"T={T} m={m_root} k={k_root} BW={band_words} "
+                              f"n~{m_root + 2 * k_root + 600}",
+                     "columns": k1_columns})
         for name, turn in turns.items():
             ms = sum(turn) / len(turn)
             case[name] = {"ms": ms, "turns_ms": turn,
@@ -660,19 +975,26 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain, large_sweep,
         "replaces": cuda_myers_banded.REPLACES,
         "max_abs_err": max(err_small, *(c["max_abs_err"]
                                         for c in k1_root.values())),
-        "ms": wave["register"]["ms"], "plain_ms": wave["plain_ms"],
+        "ms": wave["register"]["ms"], "plain_ms": None, "plain_on": "cpu",
         "bound_ms": wave["bound_ms"], "bound_by": wave["bound_by"],
         "library_ms": None, "shape": wave["shape"],
         "us_per_col": wave["register"]["us_per_col"],
         "root": {f"BW={bw}": case for bw, case in k1_root.items()},
     }
+    # the row's plain ms: the CPU worker's at the wave's root band
+    CPU_PLAIN.expect(
+        "K1 row", CPU_PLAIN.results[ROOT_WAVE_BAND_WORDS], [],
+        lambda seconds: rows["K1"].update(plain_ms=seconds * 1000),
+    )
 
     # ---- K1's sweep: the register kernel at every width, the multi-warp
     # kernel at SWEEP_WIDE_BANDS and the shared-memory kernel at those and
     # at WIDE_BAND_WORDS, each against the plain version on CPU copies of
     # the same operands
     sweep_errors = {}
+    waited = time.monotonic()
     plain_results = sweep_plain.get(timeout=600)
+    sweep_wait_s = time.monotonic() - waited
     for (band_words, arrays, num_text), (want, plain_s) in zip(
         sweep, plain_results
     ):
@@ -707,6 +1029,7 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain, large_sweep,
         "tasks_per_width": SWEEP_CASES, "max_abs_err": sweep_errors,
         "routed_past_register": "multi-warp at SWEEP_WIDE_BANDS, shared "
                                 f"at {WIDE_BAND_WORDS}",
+        "plain_wait_s": sweep_wait_s,
     }
 
     # ---- K2 (test_pallas_myers.py's generator, then every instance of
@@ -786,8 +1109,10 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain, large_sweep,
     k3_instances = {}
     # the widths past the register kernel's: their cases and plain
     # versions come from the sweep's worker processes
+    waited = time.monotonic()
     large_results = dict(zip((words for words, _ in large_sweep),
                              large_plain.get(timeout=600)))
+    large_wait_s = time.monotonic() - waited
     wide_arrays = dict(large_sweep)
     for words in (*cuda_myers_large.REGISTER_WORDS,
                   *(words for words, _ in large_sweep)):
@@ -856,6 +1181,7 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain, large_sweep,
         "columns": k3_columns, "us_per_col": ms * 1000 / k3_columns,
         "shared_turns_ms": turns["shared"],
         "instances_max_abs_err": k3_instances,
+        "sweep_plain_wait_s": large_wait_s,
     }
     return rows, k1_ends, sweep_fields
 
@@ -875,11 +1201,10 @@ def run_long_shapes(device, peaks):
     from floxer_tpu_torch.native import native_myers_distance_batch
     from floxer_tpu_torch.ops import cuda_myers_banded as k1
     from floxer_tpu_torch.ops import cuda_myers_large as k3
-    from floxer_tpu_torch.ops.myers import build_peq_vectorized, u32_tensor
+    from floxer_tpu_torch.ops.myers import u32_tensor
 
-    rng = np.random.default_rng(SEED + 2)
     threads = min(8, os.cpu_count() or 1)
-    genome = rng.integers(1, 5, size=2_000_000).astype(np.uint8)
+    (patterns, texts), (patterns3, texts3) = long_shape_inputs()
 
     def turns_of(kernels, repeats):
         """{name: [ms per turn]}: the first kernel, the second twice, the
@@ -897,25 +1222,22 @@ def run_long_shapes(device, peaks):
         return max(int(np.max(np.abs(g.astype(np.int64) - w)))
                    for g, w in zip(got, want))
 
-    def plain_on_card(plain, args):
-        """(outputs as numpy, ms) of one call of a plain version."""
-        torch.cuda.synchronize()
-        started = time.monotonic()
-        out = [t.cpu().numpy() for t in plain(*args)]
-        return out, (time.monotonic() - started) * 1000
-
     errors = {"K1w": 0, "K1s": 0, "K3w": 0, "K3s": 0}
+    rows = {}
+
+    def record_plain(keys, field_row):
+        """The CPU plain version's ms into the rows `keys` and the phase's
+        fields."""
+        def record(seconds):
+            for key in keys:
+                rows[key]["plain_ms"] = seconds * 1000
+                rows[key]["plain_on"] = "cpu"
+            field_row["plain_ms"] = seconds * 1000
+            field_row["plain_on"] = "cpu"
+        return record
 
     # ---- K1: the long reads' roots, on each band width
     T, m, k, extra, widths = LONG_ROOT_SHAPE
-    patterns, texts = [], []
-    for _ in range(T):
-        n = m + extra + int(rng.integers(0, 400))
-        start = int(rng.integers(0, len(genome) - n))
-        window = genome[start : start + n]
-        offset = int(rng.integers(0, extra // 2))
-        patterns.append(mutate(rng, window[offset : offset + m], 0.12)[:m])
-        texts.append(window)
     check(all(len(t) - len(p) + 2 * k + 1 <= 32 * min(widths)
               for p, t in zip(patterns, texts)),
           "a long root's band does not fit its width")
@@ -935,19 +1257,20 @@ def run_long_shapes(device, peaks):
         check(launch_split(k1) == (0, 1, 0), f"a {band_words}-word long "
               f"root took the K1 kernels {launch_split(k1)}")
         references = [native, routed]
-        if band_words == widths[0]:
-            plain, k1_plain_ms = plain_on_card(k1.myers_banded_plain, args)
-            references.append(plain)
         kernels = {"shared": functools.partial(k1.myers_banded_shared, *args),
                    "wide": functools.partial(k1.myers_banded_wide, *args)}
+        outputs = []
         for name, kernel in kernels.items():
             got = [t.cpu().numpy() for t in kernel()]
+            outputs.append(got)
             err = max(max_err(got, want) for want in references)
-            check(err == 0, f"K1 {name} differs from the native engine or "
-                  f"the plain version at the long root shape on "
-                  f"{band_words} words ({err})")
+            check(err == 0, f"K1 {name} differs from the native engine at "
+                  f"the long root shape on {band_words} words ({err})")
             key = "K1s" if name == "shared" else "K1w"
             errors[key] = max(errors[key], err)
+        if band_words == widths[0]:
+            # the plain version runs on the CPU in a worker since the start
+            long_k1_outputs = outputs
         turns = turns_of(kernels, {"shared": LONG_SHARED_REPEATS, "wide": 5})
         bound_ms, bound_by = k1_bound(args, peaks)
         columns = max(len(t) for t in texts) - 1
@@ -961,41 +1284,29 @@ def run_long_shapes(device, peaks):
     shape = (f"T={T} m={m} k={k} n~{m + extra + 200} "
              f"BW={widths[0]} (pass E's long roots)")
     first = k1_fields[f"BW={widths[0]}"]
-    first["plain_ms"] = k1_plain_ms
-    rows = {}
     for key, name, label in (("K1w", "myers_banded_wide", "wide"),
                              ("K1s", "myers_banded_shared", "shared")):
         rows[key] = {
             "name": name, "route": "cuda",
             "source": k1.WIDE_SOURCE if key == "K1w" else k1.SOURCE,
             "replaces": k1.REPLACES, "max_abs_err": errors[key],
-            "ms": first[label]["ms"], "plain_ms": k1_plain_ms,
+            "ms": first[label]["ms"], "plain_ms": None,
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": None, "shape": shape,
             "us_per_col": first[label]["us_per_col"],
         }
+    CPU_PLAIN.expect("K1w and K1s at the long root shape",
+                     CPU_PLAIN.results["long_k1"], long_k1_outputs,
+                     record_plain(("K1w", "K1s"), first))
 
     # ---- K3: the overhanging reads' roots: the window's last `inside`
     # chars, mutated, then random chars up to m
     B, m3, inside, n3, words = OVERHANG_SHAPE
-    patterns3, texts3 = [], []
-    for _ in range(B):
-        start = int(rng.integers(0, len(genome) - n3))
-        window = genome[start : start + n3]
-        read = mutate(rng, window[n3 - inside :], 0.12)
-        tail = rng.integers(1, 5, size=max(0, m3 - len(read)))
-        patterns3.append(np.concatenate([read, tail]).astype(np.uint8)[:m3])
-        texts3.append(window)
-    pat, plen = pad(patterns3)
-    txt, tlen = pad(texts3)
-    peq = build_peq_vectorized(pat, plen)
-    check(peq.shape[2] <= words, "an overhang root exceeds its width")
-    padded = np.zeros(peq.shape[:2] + (words,), dtype=np.uint32)
-    padded[:, :, : peq.shape[2]] = peq
+    padded, plen, txt, tlen = k3_overhang_operands(patterns3, texts3, words)
     args3 = (
         u32_tensor(padded, device),
         torch.from_numpy(plen).to(device),
-        torch.from_numpy(txt.astype(np.int32)).to(device),
+        torch.from_numpy(txt).to(device),
         torch.from_numpy(tlen).to(device),
     )
     native3 = native_myers_distance_batch(texts3, patterns3,
@@ -1004,21 +1315,21 @@ def run_long_shapes(device, peaks):
     routed3 = [t.cpu().numpy() for t in k3.myers_large(*args3)]
     check(launch_split(k3) == (0, 1, 0), f"the {words}-word overhang roots "
           f"took the K3 kernels {launch_split(k3)}")
-    plain3, k3_plain_ms = plain_on_card(k3.myers_large_plain, args3)
     kernels3 = {"shared": functools.partial(k3.myers_large_shared, *args3),
                 "wide": functools.partial(k3.myers_large_wide, *args3)}
+    outputs3 = []
     for name, kernel in kernels3.items():
         got = [t.cpu().numpy() for t in kernel()]
-        err = max(max_err(got, want) for want in (native3, routed3, plain3))
-        check(err == 0, f"K3 {name} differs from the native engine or the "
-              f"plain version at the overhang shape ({err})")
+        outputs3.append(got)
+        err = max(max_err(got, want) for want in (native3, routed3))
+        check(err == 0, f"K3 {name} differs from the native engine at the "
+              f"overhang shape ({err})")
         errors["K3s" if name == "shared" else "K3w"] = err
     turns3 = turns_of(kernels3, {"shared": LONG_SHARED_REPEATS, "wide": 5})
     bound3 = full_bound(args3, peaks)
     columns3 = int(tlen.max()) - 1
     k3_fields = {
         "bound_ms": bound3[0], "bound_by": bound3[1], "columns": columns3,
-        "plain_ms": k3_plain_ms,
         **{name: {"ms": mean(turn), "turns_ms": turn,
                   "us_per_col": mean(turn) * 1000 / columns3,
                   "bound_share": bound3[0] / mean(turn)}
@@ -1032,10 +1343,13 @@ def run_long_shapes(device, peaks):
             "name": name, "route": "cuda",
             "source": k3.WIDE_SOURCE if key == "K3w" else k3.SOURCE,
             "replaces": k3.REPLACES, "max_abs_err": errors[key],
-            "ms": k3_fields[label]["ms"], "plain_ms": k3_plain_ms,
+            "ms": k3_fields[label]["ms"], "plain_ms": None,
             **bound_fields(bound3), "shape": shape3,
             "us_per_col": k3_fields[label]["us_per_col"],
         }
+    CPU_PLAIN.expect("K3w and K3s at the overhang shape",
+                     CPU_PLAIN.results["long_k3"], outputs3,
+                     record_plain(("K3w", "K3s"), k3_fields))
     fields = {"k1": {"shape": shape, **k1_fields},
               "k3": {"shape": shape3, **k3_fields}}
     return rows, fields
@@ -1083,24 +1397,20 @@ def k4_packed(device, tasks):
                                   batch.table)) + (batch,)
 
 
-def k4_against_plain(args, batch):
-    """(max_abs_err, plain ms): K4's outputs against its plain version's
-    on the card, on the same operands."""
-    import numpy as np
-    import torch
-
+def k4_against_plain(args, key, row):
+    """K4's outputs on the card, held for its plain version, which runs on
+    the CPU in a worker since the start on the same tasks (k4_plain_tasks
+    of `key`); settle() compares them and puts the CPU ms in `row`."""
     from floxer_tpu_torch.ops import traceback_device as td
 
     kernel_out = [t.cpu().numpy() for t in td.banded_traceback(*args)]
-    torch.cuda.synchronize()
-    started = time.monotonic()
-    plain_out = [t.cpu().numpy() for t in td.banded_traceback_plain(
-        *args[:3], batch.ops_total
-    )]
-    plain_ms = (time.monotonic() - started) * 1000
-    err = max(int(np.max(np.abs(k.astype(np.int64) - p)))
-              for k, p in zip(kernel_out, plain_out))
-    return err, plain_ms
+
+    def record(seconds):
+        row["plain_ms"] = seconds * 1000
+        row["plain_on"] = "cpu"
+
+    CPU_PLAIN.expect(f"{key} (K4)", CPU_PLAIN.results[key], [kernel_out],
+                     record)
 
 
 def k4_timed(args, batch, peaks, repeats=3) -> dict:
@@ -1156,8 +1466,6 @@ def run_traceback_phase(device, peaks):
     of about its timed band width, then on the tool's shape of 40 kb or
     80 kb roots at -p 0.15, equal to the host traceback there, timed with
     its bound. Returns the table rows."""
-    import numpy as np
-
     from floxer_tpu_torch.ops import traceback_device as td
     from floxer_tpu_torch.tools import k4_bench
 
@@ -1175,8 +1483,7 @@ def run_traceback_phase(device, peaks):
 
     # K4 against its plain version on two root-shape tasks (same inputs)
     pair, args = k4_packed(device, tasks[:2])
-    err, plain_ms = k4_against_plain(args, pair)
-    check(err == 0, f"K4 differs from its plain version ({err})")
+    err = 0
     two = k4_timed(args, pair, peaks)
     whole, whole_args = k4_packed(device, tasks)
     batch = k4_timed(whole_args, whole, peaks)
@@ -1196,7 +1503,7 @@ def run_traceback_phase(device, peaks):
     rows = {"K4": {
         "name": "traceback_banded", "route": "cuda",
         "source": td.SOURCE, "replaces": td.REPLACES,
-        "max_abs_err": err, "ms": two["ms"], "plain_ms": plain_ms,
+        "max_abs_err": err, "ms": two["ms"], "plain_ms": None,
         "bound_ms": two["bound_ms"], "bound_by": two["bound_by"],
         "library_ms": None,
         "shape": f"T=2 m={len(tasks[0][1])},{len(tasks[1][1])} "
@@ -1208,16 +1515,14 @@ def run_traceback_phase(device, peaks):
                   "launches": mixed_launches},
         "ptxas": k4_ptxas(),
     }}
+    k4_against_plain(args, "K4", rows["K4"])
 
     for key, name, layout, shape, (m, rate, budget) in K4_WIDE:
-        plain_task = k4_bench.root_tasks(np.random.default_rng(SEED), 1, m,
-                                         rate, budget)
+        plain_task = k4_plain_tasks(key)
         check(len(plain_task) == 1, f"{name}: no task within {budget}")
         one, one_args = k4_packed(device, plain_task)
         check(one.layouts() == {layout: 1},
               f"{name}'s plain task runs in {one.layouts()}")
-        err, plain_ms = k4_against_plain(one_args, one)
-        check(err == 0, f"{name} differs from its plain version ({err})")
         alone = k4_timed(one_args, one, peaks)
         shape_tasks = k4_bench.shape_tasks(shape, SEED)
         shape_got, shape_s, shape_launches = entry_batch(device, shape_tasks)
@@ -1231,14 +1536,15 @@ def run_traceback_phase(device, peaks):
               f"{shape} ran in {timed['layouts']}")
         rows[key] = {
             "name": name, "route": "cuda", "source": td.SOURCE,
-            "replaces": td.REPLACES, "max_abs_err": err,
-            "ms": alone["ms"], "plain_ms": plain_ms,
+            "replaces": td.REPLACES, "max_abs_err": 0,
+            "ms": alone["ms"], "plain_ms": None,
             "bound_ms": alone["bound_ms"], "bound_by": alone["bound_by"],
             "library_ms": None,
             "shape": f"T=1 m={len(plain_task[0][1])} "
                      f"d={plain_task[0][3]}",
             "alone": alone, shape: {**timed, "batch_s": shape_s},
         }
+        k4_against_plain(one_args, key, rows[key])
     return rows
 
 
@@ -1521,10 +1827,12 @@ def align_seconds(logfile: Path) -> tuple[float, str]:
 def reset_launches() -> None:
     from floxer_tpu_torch.ops import (
         cuda_fm_index,
+        cuda_frontier,
         cuda_myers,
         cuda_myers_banded,
         cuda_myers_large,
         cuda_search_queue,
+        cuda_select,
         traceback_device,
     )
     from floxer_tpu_torch.scripts import (
@@ -1534,7 +1842,8 @@ def reset_launches() -> None:
     )
 
     for module in (cuda_myers, traceback_device, ablate_banded_kernel,
-                   microbench_column_loop, cuda_search_queue):
+                   microbench_column_loop, cuda_search_queue, cuda_frontier,
+                   cuda_select):
         module.LAUNCHES = 0
     cuda_fm_index.RANK_LAUNCHES = 0
     cuda_fm_index.EXTEND_LAUNCHES = 0
@@ -1611,9 +1920,11 @@ class E2E:
     def seconds(self, name) -> float:
         return align_seconds(self.workdir / f"{name}.log")[0]
 
-    def run_device_pass(self, name, extra=(), env=None):
-        """One --engine device run in this process with the launch counts
-        set to 0 just before it; (launches, fused dispatches). The launches
+    def run_device_pass(self, name, extra=(), env=None, engine="device",
+                        oracle="pass_b"):
+        """One --engine `engine` (device by default) run in this process
+        with the launch counts set to 0 just before it, its SAM held to
+        `oracle`'s; (launches, fused dispatches). The launches
         also hold K1's and K3's split by kernel (K1_register, K1_wide,
         K1_shared, and K3's likewise) and K4's launches by the layouts
         their blocks ran in (K4_reg8, K4_reg16, ...)."""
@@ -1630,7 +1941,7 @@ class E2E:
         try:
             fused_before = verify_batch._BATCH_TIMERS["fused"]
             reset_launches()
-            code = main(self.argv(name, ["--engine", "device", *extra]))
+            code = main(self.argv(name, ["--engine", engine, *extra]))
             launches = pipeline.kernel_launches()
             for kernel, module in (("K1", cuda_myers_banded),
                                    ("K3", cuda_myers_large)):
@@ -1643,8 +1954,8 @@ class E2E:
             for key in env:
                 del os.environ[key]
         check(code == 0, f"{name} failed")
-        check(self.sam(name) == self.sam("pass_b"),
-              f"{name} and pass B SAM files differ")
+        check(self.sam(name) == self.sam(oracle),
+              f"{name} and {oracle} SAM files differ")
         return launches, verify_batch._BATCH_TIMERS["fused"] - fused_before
 
 
@@ -1742,7 +2053,8 @@ def first_chunk(e2e: E2E):
     """Pass A's first chunk of seeds (its first --batch-size reads, both
     strands), as the searcher hands it to the work queue: (patterns of the
     seeds the card searches, their classes, SchemeTables, report
-    capacity, largest error count, the chunk's seeds)."""
+    capacity, largest error count, the chunk's seeds, their global ids,
+    the chunk's ChunkSeedArrays, its jobs (seeds, strand) in order)."""
     import itertools
 
     import numpy as np
@@ -1762,10 +2074,44 @@ def first_chunk(e2e: E2E):
         jobs.append((seeds, query.rank_sequence))
         jobs.append((seeds, query.reverse_complement_rank_sequence))
     arrays = assemble_chunk_seed_arrays(jobs)
-    patterns, class_of, _, tables, max_errors = chunk_operands(arrays)
+    patterns, class_of, gids, tables, max_errors = chunk_operands(arrays)
     return (patterns, class_of.astype(np.int32), tables,
             report_capacity(patterns.shape[0]), max_errors,
-            arrays.total_seeds)
+            arrays.total_seeds, gids, arrays, jobs)
+
+
+def frontier_inputs(arrays, jobs):
+    """K11's two inputs from pass A's first chunk, as the port's paths
+    build them: the largest per-query bucket of the first read's forward
+    seeds (search_seeds: one (length, errors) class, the seed count padded
+    to a power of two; frontier 2^14 states, 2^12 reports) and the first
+    256-seed block of the legacy loop (2^15 states, 2^13 reports):
+    {name: (padded [1, S, L], seed classes [1, S], tables, capacity,
+    reports, max_iterations)}."""
+    from floxer_tpu_torch.schemes import expand_scheme
+    from floxer_tpu_torch import search_device as sd
+
+    seeds, query = jobs[0]
+    buckets = {}
+    for seed in seeds:
+        if seed.length <= sd._MAX_DEVICE_PATTERN:
+            buckets.setdefault((seed.length, seed.num_errors), []).append(
+                query[seed.query_position:seed.query_position + seed.length]
+            )
+    (length, errors), patterns = max(buckets.items(),
+                                     key=lambda item: len(item[1]))
+    padded, seed_class, tables, max_iterations = sd.frontier_operands(
+        patterns, expand_scheme(errors, length), errors
+    )
+    blocks, block_classes, block_tables, block_iterations, _ = next(
+        sd.legacy_blocks(arrays)
+    )
+    return {
+        "per_query": (padded[None], seed_class[None], tables, 1 << 14,
+                      1 << 12, max_iterations),
+        "block": (blocks[:1], block_classes[:1], block_tables,
+                  sd._BLOCK_FRONTIER, sd._BLOCK_REPORTS, block_iterations),
+    }
 
 
 def run_search_kernels(device, e2e: E2E, peaks):
@@ -1781,6 +2127,7 @@ def run_search_kernels(device, e2e: E2E, peaks):
     from floxer_tpu_torch.index.fmindex import FmIndex
     from floxer_tpu_torch.ops import cuda_fm_index as k9
     from floxer_tpu_torch.ops import cuda_search_queue as k10
+    from floxer_tpu_torch.search_device import _MAX_DEVICE_PATTERN
 
     host = FmIndex.load(e2e.workdir / "index.npz")
     n = host.n
@@ -1867,7 +2214,8 @@ def run_search_kernels(device, e2e: E2E, peaks):
 
     # K10 on pass A's first chunk, the combined layout (the main path's)
     index = DeviceIndex.from_host(host, device)
-    padded, classes, tables, report_cap, max_errors, seeds = first_chunk(e2e)
+    (padded, classes, tables, report_cap, max_errors, seeds, gids, arrays,
+     jobs) = first_chunk(e2e)
     eligible = padded.shape[0]
     before = k10.LAUNCHES
     sorted_rows, overflow = search_queue.workqueue_runner(
@@ -1936,7 +2284,192 @@ def run_search_kernels(device, e2e: E2E, peaks):
     for key in ("K9", "K9x", "K9l"):
         fields[key] = {k: rows[key][k] for k in
                        ("ms", "plain_ms", "bound_ms", "bound_by")}
+
+    index_path = str(e2e.workdir / "index.npz")
+    rows["K11"], fields["K11"] = frontier_kernel_checks(
+        index, index_path, frontier_inputs(arrays, jobs), peaks
+    )
+    # K12 on the groups the dedup and cap replay leave of the work queue's
+    # reports (the long seeds are the native redo's)
+    rep = np.empty((sorted_rows.shape[0], 5), dtype=np.int64)
+    rep[:, 0] = gids[sorted_rows[:, 4]]
+    rep[:, 1:] = sorted_rows[:, :4]
+    redo = arrays.length_g > _MAX_DEVICE_PATTERN
+    rows["K12"], fields["K12"] = select_kernel_checks(
+        index, index_path, rep, redo, peaks
+    )
     return rows, fields
+
+
+def frontier_kernel_checks(index, index_path, inputs, peaks):
+    """K11 on each of frontier_inputs' inputs, one frontier a launch,
+    timed (CUDA events, launches back to back) with its bound from the
+    states it expanded, held exactly (reports, count, overflow,
+    iterations, expanded states) to its plain version run on the CPU in a
+    worker. Returns (the table row: the per-query bucket, pass H's shape;
+    the phase's fields)."""
+    import torch
+
+    from floxer_tpu_torch.ops import cuda_frontier as k11
+
+    fields, row, plain_jobs = {}, None, []
+    for name, (padded, seed_class, tables, capacity, reports,
+               max_iterations) in inputs.items():
+        fused = tables.fused()
+        operands = [torch.from_numpy(a).to(index.device)
+                    for a in (padded, seed_class, fused)]
+
+        def kernel():
+            return k11.frontier_search_cuda(
+                index, *operands, tables.num_searches, tables.num_parts,
+                capacity, reports, max_iterations,
+            )
+
+        before = k11.LAUNCHES
+        out = kernel()
+        check(k11.LAUNCHES == before + 1, "K11 took more than one launch")
+        expanded = int(out.expanded[0])
+        got = [out.reports[0].cpu().numpy(),
+               out.num_reports[:1].cpu().numpy(),
+               out.overflow[0].cpu().numpy(), int(out.iterations[0]),
+               expanded]
+        ms = cuda_ms(kernel, 20 if name == "per_query" else 5)
+        nbytes = (tensor_bytes(index.rank_rows, *operands)
+                  + int(got[1][0]) * 5 * 4)
+        bound_ms, bound_by = bound(FRONTIER_OPS_PER_STATE * expanded,
+                                   nbytes, peaks)
+        case = {
+            "shape": f"{padded.shape[1]} seeds x {padded.shape[2]} chars, "
+                     f"{tables.num_searches} searches, C={capacity}, "
+                     f"R={reports}",
+            "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "expanded_states": expanded, "iterations": got[3],
+            "reports": int(got[1][0]), "overflow": bool(got[2].any()),
+            "max_abs_err": 0, "plain_on": "cpu",
+        }
+        check(not case["overflow"], f"K11 overflowed on the {name} input")
+
+        fields[name] = case
+        plain_jobs.append((name, case, got, (
+            _frontier_plain, index_path, padded[0], seed_class[0], fused,
+            tables.num_searches, tables.num_parts, capacity, reports,
+            max_iterations,
+        )))
+        if name == "per_query":
+            row = {
+                "name": "frontier_search", "route": "cuda",
+                "source": k11.SOURCE, "replaces": k11.REPLACES,
+                "max_abs_err": 0, "ms": ms, "plain_ms": None,
+                "plain_on": "cpu", **bound_fields((bound_ms, bound_by)),
+                "shape": "pass A's first read's largest per-query bucket: "
+                         + case["shape"],
+            }
+    # the plain versions start once every K11 time is taken, so their
+    # workers' start does not load the host under a timed launch
+    for name, case, got, job in plain_jobs:
+        def record(seconds, case=case, name=name):
+            case["plain_ms"] = seconds * 1000
+            if name == "per_query":
+                row["plain_ms"] = seconds * 1000
+
+        CPU_PLAIN.expect(f"K11 on the {name} input", CPU_PLAIN.submit(*job),
+                         [got], record)
+    return row, fields
+
+
+def select_kernel_checks(index, index_path, rep, redo, peaks):
+    """K12 on the groups of pass A's first chunk after the dedup and cap
+    replay, under the CLI's defaults (count_first, round_robin, erase) and
+    with full_groups: one launch each, timed (CUDA events) with its bound
+    (the anchors emitted and their LF steps, counted from the same
+    selection without erase, which keeps every emission), held exactly to
+    its plain version run on the CPU in a worker. Returns (the table row:
+    the defaults; the phase's fields)."""
+    import numpy as np
+    import torch
+
+    from floxer_tpu_torch.ops import cuda_select as k12
+    from floxer_tpu_torch.search_device import replay_groups
+    from floxer_tpu_torch.search_select_device import group_order
+
+    hard_cap, soft_cap = 500, 50  # the CLI's defaults
+    groups, starts, totals, statuses = replay_groups(rep, redo, hard_cap + 1)
+    S = totals.shape[0]
+    started = time.monotonic()
+    perm = group_order(groups, starts, 0)
+    order_s = time.monotonic() - started
+    gid = np.repeat(np.arange(S), np.diff(starts))
+    host_arrays = [np.ascontiguousarray(a, dtype=np.int32) for a in (
+        groups[:, 0], groups[:, 2], groups[:, 3], gid, perm, starts,
+        np.minimum(totals, 2**31 - 1), statuses,
+    )]
+    operands = [torch.from_numpy(a).to(index.device) for a in host_arrays]
+    fields = {"seeds": S, "groups": int(groups.shape[0]),
+              "select_order_s": order_s}
+    row, plain_jobs = None, []
+    fwd = index.fwd
+    table_bytes = (128 * fwd.planes.shape[0]
+                   + tensor_bytes(fwd.bwt, index.sampled_rows,
+                                  index.sampled_values, index.seq_starts))
+    probes = PROBE_OPS * int(np.ceil(np.log2(
+        index.sampled_rows.shape[0] + 1)))
+    seq_probes = PROBE_OPS * int(np.ceil(np.log2(
+        index.seq_starts.shape[0] + 1)))
+    for name, choice_code in (("defaults", 0), ("full_groups", 1)):
+        caps = (hard_cap, soft_cap, 0, choice_code, True)
+
+        def kernel(caps=caps):
+            return k12.select_anchors_cuda(index, *operands, *caps)
+
+        before = k12.LAUNCHES
+        anchors, counts = kernel()
+        check(k12.LAUNCHES == before + 1, "K12 took more than one launch")
+        got = [anchors.cpu().numpy(), counts.cpu().numpy()]
+        ms = cuda_ms(kernel, 5)
+        # every emission's locate, from the selection without erase
+        kept, kept_counts = k12.select_anchors_cuda(
+            index, *operands, hard_cap, soft_cap, 0, choice_code, False)
+        kept, kept_counts = kept.cpu().numpy(), kept_counts.cpu().numpy()
+        emitted = int(kept_counts[:, 2].sum())
+        valid = (np.arange(soft_cap)[None, :] < kept_counts[:, 2:3])
+        seq_starts = index.seq_starts.cpu().numpy().astype(np.int64)
+        text_positions = (seq_starts[kept[:, :, 0][valid]]
+                          + kept[:, :, 1][valid])
+        steps = int((text_positions % index.sampling_rate).sum())
+        ops = (SELECT_OPS_PER_ANCHOR * emitted + SELECT_OPS_PER_SEED * S
+               + steps * (RANK_OPS + 3 + probes)
+               + emitted * (probes + seq_probes))
+        nbytes = (tensor_bytes(*operands, anchors, counts) + table_bytes)
+        bound_ms, bound_by = bound(ops, nbytes, peaks)
+        case = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "emitted": emitted, "lf_steps": steps,
+                "written": int(got[1][:, 1].sum()), "max_abs_err": 0,
+                "plain_on": "cpu"}
+
+        fields[name] = case
+        plain_jobs.append((name, case, got, caps))
+        if name == "defaults":
+            row = {
+                "name": "select_anchors", "route": "cuda",
+                "source": k12.SOURCE, "replaces": k12.REPLACES,
+                "max_abs_err": 0, "ms": ms, "plain_ms": None,
+                "plain_on": "cpu", **bound_fields((bound_ms, bound_by)),
+                "shape": f"pass A's first chunk: {S} seeds, "
+                         f"{groups.shape[0]} groups, soft cap {soft_cap}",
+            }
+    # started once every K12 time is taken, as K11's
+    for name, case, got, caps in plain_jobs:
+        def record(seconds, case=case, name=name):
+            case["plain_ms"] = seconds * 1000
+            if name == "defaults":
+                row["plain_ms"] = seconds * 1000
+
+        CPU_PLAIN.expect(
+            f"K12 with {name}",
+            CPU_PLAIN.submit(_select_plain, index_path, host_arrays, caps),
+            [got], record,
+        )
+    return row, fields
 
 
 def stage_seconds(split: str, stage: str) -> float:
@@ -1989,6 +2522,107 @@ def run_device_search_pass(device, e2e: E2E):
             stage: DeviceSearcher.stage_seconds[stage] - seconds_before[stage]
             for stage in seconds_before
         },
+    }, launches
+
+
+def search_stage_delta(before) -> dict:
+    """DeviceSearcher.stage_seconds since `before`."""
+    from floxer_tpu_torch.search_device import DeviceSearcher
+
+    return {stage: DeviceSearcher.stage_seconds[stage] - before[stage]
+            for stage in before}
+
+
+def run_select_pass(e2e: E2E):
+    """Pass G2: pass G with FLOXER_TPU_DEVICE_SELECT=1: the groups of each
+    chunk's work-queue search selected by K12, one launch a chunk (its
+    locate inside it, so no K9l launch); SAM = pass B; the searcher's
+    stage seconds (device_select with its host group order,
+    select_order)."""
+    from floxer_tpu_torch.search_device import DeviceSearcher
+
+    before = dict(DeviceSearcher.stage_seconds)
+    launches, _ = e2e.run_device_pass(
+        "pass_g2", extra=["--device-search"],
+        env={"FLOXER_TPU_DEVICE_SELECT": "1"},
+    )
+    chunks = -(-e2e.num_reads // 100)
+    check(launches["K12"] == chunks,
+          f"pass G2 launched K12 {launches['K12']} times for {chunks} chunks")
+    check(launches["K9l"] == 0 and launches["K11"] == 0,
+          f"pass G2 launched K9l or K11: {launches}")
+    seconds, split = align_seconds(e2e.workdir / "pass_g2.log")
+    return {
+        "reads": e2e.num_reads, "chunks": chunks, "sam_identical": True,
+        "launches": launches, "align_s": seconds,
+        "search_s": stage_seconds(split, "search"), "stage_split": split,
+        "search_stage_s": search_stage_delta(before),
+    }, launches
+
+
+def run_block_pass(e2e: E2E):
+    """Pass G3: pass G with FLOXER_TPU_SEARCH_NO_CHUNK_FUSE=1: the legacy
+    block loop, each error class's 256-seed blocks as frontier searches on
+    K11 (up to 256 blocks a launch), no work-queue dispatch; SAM = pass
+    B; K11's launches and the seeds redone on the host after an
+    overflow."""
+    from floxer_tpu_torch.search_device import DeviceSearcher
+
+    before = dict(DeviceSearcher.stage_seconds)
+    overflow_before = DeviceSearcher.redo_overflow
+    launches, _ = e2e.run_device_pass(
+        "pass_g3", extra=["--device-search"],
+        env={"FLOXER_TPU_SEARCH_NO_CHUNK_FUSE": "1"},
+    )
+    check(launches["K11"] > 0 and launches["K10"] == 0,
+          f"pass G3 launched K11 {launches['K11']} and K10 "
+          f"{launches['K10']} times")
+    seconds, split = align_seconds(e2e.workdir / "pass_g3.log")
+    return {
+        "reads": e2e.num_reads, "sam_identical": True,
+        "launches": launches, "align_s": seconds,
+        "search_s": stage_seconds(split, "search"), "stage_split": split,
+        "host_redo_overflowed_seeds":
+            DeviceSearcher.redo_overflow - overflow_before,
+        "search_stage_s": search_stage_delta(before),
+    }, launches
+
+
+def run_frontier_pass(e2e: E2E):
+    """Pass H: the first PASS_H_READS reads of the workload with pass A's
+    arguments and --engine reference --device-search: every query's seed
+    search on the card as one K11 launch a (length, errors) bucket of its
+    seeds and strand (the per-query frontier), the rest of the reference
+    engine on the host; SAM = the same reads' own host pass (the native
+    host engine). Counted after the search warmup is joined."""
+    import copy
+
+    from floxer_tpu_torch import pipeline
+    from floxer_tpu_torch.cli import parse_and_validate
+    from floxer_tpu_torch.search_device import DeviceSearcher
+
+    subset = copy.copy(e2e)
+    subset.reads = e2e.workdir / f"reads_first_{PASS_H_READS}.fastq"
+    subset.num_reads = PASS_H_READS
+    lines = e2e.reads.read_text().splitlines(keepends=True)
+    subset.reads.write_text("".join(lines[:4 * PASS_H_READS]))
+    check(pipeline.run(parse_and_validate(subset.argv("pass_h_host")),
+                       use_device=False) == 0, "pass H's host pass failed")
+    before = dict(DeviceSearcher.stage_seconds)
+    started = time.monotonic()
+    launches, _ = subset.run_device_pass(
+        "pass_h", extra=["--device-search"], engine="reference",
+        oracle="pass_h_host",
+    )
+    wall = time.monotonic() - started
+    check(launches["K11"] > 0 and launches["K10"] == 0,
+          f"pass H launched K11 {launches['K11']} and K10 "
+          f"{launches['K10']} times")
+    return {
+        "reads": PASS_H_READS, "sam_identical": True, "launches": launches,
+        "align_s": subset.seconds("pass_h"),
+        "host_pass_align_s": subset.seconds("pass_h_host"), "wall_s": wall,
+        "search_stage_s": search_stage_delta(before),
     }, launches
 
 
@@ -2333,7 +2967,8 @@ def ptxas_phase() -> dict:
     multi-warp kernels (K1 myers_banded_wide_kernel, two loops; K3
     myers_large_wide_kernel, one per group count 1..4 and any other
     innermost loop the compiler made); and the device search's K9, K9x,
-    K9l and K10 (ptxas only). Fails on a missing instance, a spill, a
+    K9l, K10, K11 and K12 (ptxas only). Fails on a missing instance, a
+    spill, a
     stack frame or another loop count."""
     from floxer_tpu_torch.ops import _build
     from floxer_tpu_torch.ops.cuda_myers import LANES_FOR_WORDS
@@ -2394,10 +3029,11 @@ def ptxas_phase() -> dict:
             entry["per_lane_word"] = [i / WIDE_WORDS_PER_LANE
                                       for i in kernel_loops]
         report[kernel] = entry
-    # the device search's kernels: K9, K9x, K9l (csrc/fm_index.cu) and
-    # K10 (csrc/workqueue_search.cu), one instance each
+    # the device search's kernels: K9, K9x, K9l (csrc/fm_index.cu), K10
+    # (csrc/workqueue_search.cu), K11 (csrc/frontier_search.cu) and K12
+    # (csrc/select_anchors.cu), one instance each
     for kernel in ("fm_rank_kernel", "fm_extend_kernel", "fm_locate_kernel",
-                   "workqueue_kernel"):
+                   "workqueue_kernel", "frontier_kernel", "select_kernel"):
         names = [name for name in usage if kernel in name]
         check(len(names) == 1, f"{kernel} is compiled as {names}")
         found = usage[names[0]]
@@ -2410,6 +3046,7 @@ def ptxas_phase() -> dict:
 
 
 def main() -> int:
+    global CPU_PLAIN
     import torch
 
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -2437,9 +3074,23 @@ def main() -> int:
     sweep = k1_sweep_cases(SEED + 1)
     large_sweep = k3_sweep_cases(SEED + 3)
     full_arrays = script_arrays(NUM_TEXT)
-    sweep_pool = multiprocessing.get_context("spawn").Pool(SWEEP_WORKERS)
-    pools = [sweep_pool]
+    spawn = multiprocessing.get_context("spawn")
+    cpu_pool = spawn.Pool(CPU_PLAIN_WORKERS, _cpu_plain_init)
+    search_pool = spawn.Pool(SEARCH_PLAIN_WORKERS, _cpu_plain_init)
+    sweep_pool = spawn.Pool(SWEEP_WORKERS)
+    pools = [cpu_pool, search_pool, sweep_pool]
     try:
+        # the plain versions that take minutes, the longest first: each
+        # makes its own tasks from the seed
+        CPU_PLAIN = CpuPlain(cpu_pool, search_pool)
+        results = CPU_PLAIN.results
+        results["long_k1"] = CPU_PLAIN.submit(_long_k1_plain)
+        results["long_k3"] = CPU_PLAIN.submit(_long_k3_plain)
+        for band_words in (ROOT_WAVE_BAND_WORDS, ROOT_SHAPE[3]):
+            results[band_words] = CPU_PLAIN.submit(_k1_root_plain,
+                                                   band_words)
+        for key in ("K4s", "K4", "K4r32", "K4r16"):
+            results[key] = CPU_PLAIN.submit(_k4_plain, key)
         large_plain = sweep_pool.map_async(_k3_plain, large_sweep,
                                            chunksize=1)
         sweep_plain = sweep_pool.map_async(_k1_plain, sweep, chunksize=1)
@@ -2473,11 +3124,14 @@ def run_all(device, peaks, k1_sweep, k3_sweep, full_arrays,
     phase("ptxas", **ptxas_phase())
 
     rng = np.random.default_rng(SEED)
+    started = time.monotonic()
     rows, k1_ends, sweep_fields = run_kernel_phase(
         device, rng, peaks, *k1_sweep, *k3_sweep
     )
+    kernels_s = time.monotonic() - started
     rows.update(run_traceback_phase(device, peaks))
-    phase("kernels", k1_sweep=sweep_fields,
+    phase("kernels", k1_sweep=sweep_fields, k1_k2_k3_s=kernels_s,
+          k4_s=time.monotonic() - started - kernels_s,
           **{name: {k: v for k, v in row.items()
                     if k not in ("name", "route", "source", "replaces")}
              for name, row in rows.items()})
@@ -2504,6 +3158,12 @@ def run_all(device, peaks, k1_sweep, k3_sweep, full_arrays,
         phase("search_kernels", **fields)
         result, launches_g = run_device_search_pass(device, e2e)
         phase("device_search", **result)
+        result, launches_g2 = run_select_pass(e2e)
+        phase("device_select", **result)
+        result, launches_g3 = run_block_pass(e2e)
+        phase("device_search_blocks", **result)
+        result, launches_h = run_frontier_pass(e2e)
+        phase("frontier_search", **result)
         result, launches_c = run_traceback_pass(e2e)
         phase("traceback", **result)
         phase("process_set", **run_process_set_pass(e2e))
@@ -2516,6 +3176,9 @@ def run_all(device, peaks, k1_sweep, k3_sweep, full_arrays,
         result["profiled"] = run_long_profile_pass(long)
         launches_ep = result["profiled"]["launches"]
         phase("long_reads", **result)
+        # every plain version run on the CPU beside the card, compared
+        # (the search kernels' read the workload's index)
+        phase("cpu_plain", seconds=CPU_PLAIN.settle())
 
     for name in ("K1", "K2", "K3"):
         rows[name]["launches"] = launches[name]
@@ -2525,6 +3188,8 @@ def run_all(device, peaks, k1_sweep, k3_sweep, full_arrays,
     rows["K4"]["launches"] = launches_c["K4"]
     for name in ("K9", "K9x", "K9l", "K10"):
         rows[name]["launches"] = launches_g[name]
+    rows["K11"]["launches"] = launches_h["K11"]
+    rows["K12"]["launches"] = launches_g2["K12"]
     for key, _, layout, _, _ in K4_WIDE:
         rows[key]["launches"] = (launches_c.get(f"K4_{layout}", 0)
                                  + launches_ep.get(f"K4_{layout}", 0))
@@ -2536,7 +3201,7 @@ def run_all(device, peaks, k1_sweep, k3_sweep, full_arrays,
         {k: rows[name][k] for k in keys}
         for name in ("K1", "K1w", "K1s", "K2", "K3", "K3w", "K3s", "K4",
                      "K4r16", "K4r32", "K4s", "K5", "K6", "K7", "K8",
-                     "K9", "K9x", "K9l", "K10")
+                     "K9", "K9x", "K9l", "K10", "K11", "K12")
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -35,8 +35,7 @@ __global__ void fm_rank_kernel(FmRankTable table, const int* __restrict__ positi
   for (int s = 0; s < FM_SIGMA; ++s) out[(size_t)i * FM_SIGMA + s] = counts[s];
 }
 
-// one bidirectional extension step for every symbol: two ranks on the
-// direction that is extended, the counts, their exclusive prefix and C
+// one bidirectional extension step for every symbol (fm_extend_all)
 __global__ void fm_extend_kernel(FmRankTable table, const int* __restrict__ C,
                                  const int* __restrict__ lb,
                                  const int* __restrict__ lb_rev,
@@ -46,78 +45,26 @@ __global__ void fm_extend_kernel(FmRankTable table, const int* __restrict__ C,
                                  int* __restrict__ counts) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
-  const int base = left ? lb[i] : lb_rev[i];
-  const int secondary = left ? lb_rev[i] : lb[i];
-  int lo[FM_SIGMA], hi[FM_SIGMA];
-  fm_rank(table, base, lo);
-  fm_rank(table, base + length[i], hi);
-  int prefix = 0;
+  int child_lb[FM_SIGMA], child_lb_rev[FM_SIGMA], count[FM_SIGMA];
+  fm_extend_all(table, C, lb[i], lb_rev[i], length[i], left != 0, child_lb,
+                child_lb_rev, count);
 #pragma unroll
   for (int s = 0; s < FM_SIGMA; ++s) {
-    const int count = hi[s] - lo[s];
-    const int primary = C[s] + lo[s];
     const size_t at = (size_t)i * FM_SIGMA + s;
-    new_lb[at] = left ? primary : secondary + prefix;
-    new_lb_rev[at] = left ? secondary + prefix : primary;
-    counts[at] = count;
-    prefix += count;
+    new_lb[at] = child_lb[s];
+    new_lb_rev[at] = child_lb_rev[s];
+    counts[at] = count[s];
   }
 }
 
-// first index in sorted[0, count) whose value is not below key (count
-// when there is none)
-__device__ inline int lower_bound(const int* __restrict__ sorted, int count,
-                                  int key) {
-  int lo = 0, hi = count;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (sorted[mid] < key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-// first index whose value is above key
-__device__ inline int upper_bound(const int* __restrict__ sorted, int count,
-                                  int key) {
-  int lo = 0, hi = count;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (sorted[mid] <= key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-// SA row -> (reference id, position): the reference's fixed-trip walk
-// (a row that hits a sampled row stops there), then the sequence search.
-// An index of -1 reads the last element, as the reference's gather does.
-__global__ void fm_locate_kernel(FmRankTable fwd, const uint8_t* __restrict__ bwt,
-                                 const int* __restrict__ C,
-                                 const int* __restrict__ sampled_rows,
-                                 const int* __restrict__ sampled_values, int ns,
-                                 const int* __restrict__ seq_starts,
-                                 int num_seqs, int sampling_rate,
+// SA row -> (reference id, position) (fm_locate_row)
+__global__ void fm_locate_kernel(FmLocateTables tables,
                                  const int* __restrict__ rows, int B,
                                  int* __restrict__ seq_ids,
                                  int* __restrict__ positions) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
-  int row = rows[i];
-  int steps = 0;
-  for (int step = 0; step < sampling_rate; ++step) {
-    int at = lower_bound(sampled_rows, ns, row);
-    at = at < ns - 1 ? at : ns - 1;
-    if (sampled_rows[at] == row) {
-      steps += sampled_values[at];
-      break;
-    }
-    const int symbol = bwt[row];
-    row = C[symbol] + fm_rank_symbol(fwd, row, symbol);
-    steps += 1;
-  }
-  int seq = upper_bound(seq_starts, num_seqs, steps) - 1;
-  const int start = seq_starts[seq < 0 ? num_seqs - 1 : seq];
-  seq_ids[i] = seq;
-  positions[i] = steps - start;
+  fm_locate_row(tables, rows[i], seq_ids + i, positions + i);
 }
 
 FmRankTable make_table(const void* rows, const void* occ, const void* planes,
@@ -165,13 +112,19 @@ int floxer_fm_locate(const void* rows, const void* occ, const void* planes,
                      const void* seq_starts, int num_seqs, int sampling_rate,
                      const void* query_rows, int B, void* seq_ids,
                      void* positions, void* stream) {
+  FmLocateTables tables;
+  tables.fwd = make_table(rows, occ, planes, 0);
+  tables.bwt = static_cast<const uint8_t*>(bwt);
+  tables.C = static_cast<const int*>(C);
+  tables.sampled_rows = static_cast<const int*>(sampled_rows);
+  tables.sampled_values = static_cast<const int*>(sampled_values);
+  tables.ns = ns;
+  tables.seq_starts = static_cast<const int*>(seq_starts);
+  tables.num_seqs = num_seqs;
+  tables.sampling_rate = sampling_rate;
   fm_locate_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
-      make_table(rows, occ, planes, 0), static_cast<const uint8_t*>(bwt),
-      static_cast<const int*>(C), static_cast<const int*>(sampled_rows),
-      static_cast<const int*>(sampled_values), ns,
-      static_cast<const int*>(seq_starts), num_seqs, sampling_rate,
-      static_cast<const int*>(query_rows), B, static_cast<int*>(seq_ids),
-      static_cast<int*>(positions));
+      tables, static_cast<const int*>(query_rows), B,
+      static_cast<int*>(seq_ids), static_cast<int*>(positions));
   return (int)cudaGetLastError();
 }
 

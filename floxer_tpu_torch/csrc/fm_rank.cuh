@@ -1,7 +1,11 @@
-// K9's body: the FM index's rank of all six symbols at one position,
-// shared by csrc/fm_index.cu (K9, K9x, K9l) and csrc/workqueue_search.cu
-// (K10). Replaces floxer_tpu/index/device_index.py's rank_rows_lookup
-// (:260) and _rank_all_planes (:228).
+// The device FM index's per-query functions, shared by the kernels that
+// walk it: K9's rank of all six symbols at one position (csrc/fm_index.cu
+// K9, K9x, K9l; csrc/workqueue_search.cu K10; csrc/frontier_search.cu
+// K11), K9x's all-symbol bidirectional extension (fm_extend_all: K9x and
+// K11) and K9l's bounded LF walk to a sampled row (fm_locate_row: K9l and
+// csrc/select_anchors.cu K12). Replaces floxer_tpu/index/device_index.py's
+// rank_rows_lookup (:260), _rank_all_planes (:228), extend_left_all /
+// extend_right_all (:370, :387) and locate_batch (:455).
 //
 // Two layouts, as the reference has them:
 //   combined: rows uint32 [R, 32], one 128-byte row a block of 128 BWT
@@ -106,4 +110,93 @@ __host__ __device__ inline int fm_rank_symbol(const FmRankTable& t,
 #pragma unroll
   for (int s = 1; s < FM_SIGMA; ++s) out = symbol == s ? counts[s] : out;
   return out;
+}
+
+// one bidirectional extension step of the interval (lb, lb_rev, length)
+// by every symbol: two ranks on the direction that is extended (`t`: the
+// forward table for a left extension at lb, the reverse one for a right
+// extension at lb_rev), the counts, their exclusive prefix and C
+__host__ __device__ inline void fm_extend_all(const FmRankTable& t,
+                                              const int* C, int lb,
+                                              int lb_rev, int length,
+                                              bool left,
+                                              int new_lb[FM_SIGMA],
+                                              int new_lb_rev[FM_SIGMA],
+                                              int counts[FM_SIGMA]) {
+  const int base = left ? lb : lb_rev;
+  const int secondary = left ? lb_rev : lb;
+  int lo[FM_SIGMA], hi[FM_SIGMA];
+  fm_rank(t, base, lo);
+  fm_rank(t, base + length, hi);
+  int prefix = 0;
+#pragma unroll
+  for (int s = 0; s < FM_SIGMA; ++s) {
+    const int count = hi[s] - lo[s];
+    const int primary = C[s] + lo[s];
+    new_lb[s] = left ? primary : secondary + prefix;
+    new_lb_rev[s] = left ? secondary + prefix : primary;
+    counts[s] = count;
+    prefix += count;
+  }
+}
+
+// first index in sorted[0, count) whose value is not below key (count
+// when there is none)
+__host__ __device__ inline int fm_lower_bound(const int* sorted, int count,
+                                              int key) {
+  int lo = 0, hi = count;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (sorted[mid] < key) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// first index whose value is above key
+__host__ __device__ inline int fm_upper_bound(const int* sorted, int count,
+                                              int key) {
+  int lo = 0, hi = count;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (sorted[mid] <= key) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// the operands of a locate: the forward rank table, the BWT, C, the SA
+// samples and the sequence starts
+struct FmLocateTables {
+  FmRankTable fwd;
+  const uint8_t* bwt;
+  const int* C;
+  const int* sampled_rows;
+  const int* sampled_values;
+  int ns;
+  const int* seq_starts;
+  int num_seqs;
+  int sampling_rate;
+};
+
+// SA row -> (reference id, position): the reference's fixed-trip walk
+// (a row that hits a sampled row stops there), then the sequence search.
+// An index of -1 reads the last element, as the reference's gather does.
+__host__ __device__ inline void fm_locate_row(const FmLocateTables& t,
+                                              int row, int* seq_id,
+                                              int* position) {
+  int steps = 0;
+  for (int step = 0; step < t.sampling_rate; ++step) {
+    int at = fm_lower_bound(t.sampled_rows, t.ns, row);
+    at = at < t.ns - 1 ? at : t.ns - 1;
+    if (t.sampled_rows[at] == row) {
+      steps += t.sampled_values[at];
+      break;
+    }
+    const int symbol = t.bwt[row];
+    row = t.C[symbol] + fm_rank_symbol(t.fwd, row, symbol);
+    steps += 1;
+  }
+  const int seq = fm_upper_bound(t.seq_starts, t.num_seqs, steps) - 1;
+  const int start = t.seq_starts[seq < 0 ? t.num_seqs - 1 : seq];
+  *seq_id = seq;
+  *position = steps - start;
 }

@@ -1,0 +1,350 @@
+// K11: the per-query masked-frontier scheme search, one thread block a
+// frontier.
+//
+// Replaces floxer_tpu/search_device.py's _frontier_search (:1333) with
+// _frontier_block (:921) and _compact_done_rows (:1391): the XLA program
+// that advances a block of seeds' search states together. Each
+// iteration replaces every state of the frontier by its children in the
+// host DFS's edge order (itself when done, finishing or advancing a
+// part; the match; substitutions by symbol, the pattern's own skipped;
+// insertions by symbol; the deletion), written in (parent slot, edge)
+// order, so the frontier stays a DFS-prefix ordering and the done rows
+// of the last frontier, in slot order, are the reports in host-DFS order.
+// Children past the capacity are dropped and set the overflow flag, which
+// ends the loop; the truncated frontier still yields its done rows. The
+// output equals the reference's bit for bit, the report order and the
+// overflow flag included.
+//
+// Design: the frontier, [10 fields, C] int32 field-major, is double
+// buffered in global scratch (it stays in L2). The block walks the
+// current frontier in rounds of kThreads consecutive slots, one slot a
+// thread: the thread finds its state's kinds of child (two ranks of all
+// six symbols when the state extends, fm_extend_all), a block-wide
+// exclusive scan of the child counts gives each parent its offset after
+// the earlier rounds' children, and the thread writes its children there.
+// So every state is ranked once an iteration and the writes follow the
+// slot order. A last pass of rounds compacts the done rows into the
+// reports the same way. A launch takes F independent frontiers of one
+// shape, one block each, every one with its own capacity and flag.
+//
+// What bounds it on an H100: operations, ~250 int32 ops an expanded state
+// (two ranks of 6 symbols x 4 masked popcounts, the 13 kinds' tests, the
+// children's intervals; chip_smoke.py's FRONTIER_OPS_PER_STATE) plus the
+// copy of every kept row, against a bound counted from the states this
+// run expanded. One block a frontier uses one SM, and every iteration
+// waits for the block's scans, so a launch of one small frontier (the
+// per-query path) is latency-bound: it pays ~2 barriers a round and
+// dependent rank-row gathers every iteration.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "fm_rank.cuh"
+
+namespace {
+
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kFields = 10;
+constexpr int kKinds = 13;
+
+enum { kOpM = 0, kOpI = 1, kOpD = 2 };
+// frontier fields
+enum { fLb, fLbRev, fLen, fPos, fErr, fOp, fPart, fSearch, fSeed, fDone };
+// fused scheme row: direction, start, end, lower, upper, then the next
+// part's direction, start, end
+enum { kDir, kStart, kEnd, kLower, kUpper, kNextDir, kNextStart, kNextEnd };
+// a frontier's stats row
+enum { sReports, sOverflow, sIterations, sExpanded, kStats };
+
+struct Params {
+  FmRankTable fwd, rev;
+  const int* C;
+  int n;
+  const int* patterns;    // [F * S, L]
+  const int* seed_class;  // [F * S]
+  int num_seeds, pad_len;
+  const int* scheme;  // [classes * searches * parts, 8]
+  int num_searches, num_parts;
+  int capacity, report_capacity, max_iterations;
+  int* frontier;  // [F, 2, kFields, capacity]
+  int* reports;   // [F, report_capacity, 5], zeroed by the caller
+  int* stats;     // [F, kStats]
+};
+
+__device__ inline int pick(const int (&a)[FM_SIGMA], int s) {
+  int v = a[0];
+#pragma unroll
+  for (int i = 1; i < FM_SIGMA; ++i) v = i == s ? a[i] : v;
+  return v;
+}
+
+// exclusive prefix of `value` over the block's threads in thread order;
+// *total gets the block's sum (every thread must call it)
+__device__ inline int block_exclusive_scan(int value, int* warp_sums,
+                                           int* total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int inclusive = value;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(0xFFFFFFFFu, inclusive, d);
+    if (lane >= d) inclusive += v;
+  }
+  if (lane == 31) warp_sums[warp] = inclusive;
+  __syncthreads();
+  if (warp == 0) {
+    const int mine = lane < kWarps ? warp_sums[lane] : 0;
+    int running = mine;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(0xFFFFFFFFu, running, d);
+      if (lane >= d) running += v;
+    }
+    if (lane < kWarps) warp_sums[lane] = running - mine;
+    if (lane == kWarps - 1) warp_sums[kWarps] = running;
+  }
+  __syncthreads();
+  const int prefix = warp_sums[warp] + inclusive - value;
+  *total = warp_sums[kWarps];
+  __syncthreads();  // warp_sums is free for the next scan
+  return prefix;
+}
+
+__device__ inline void put(int* buffer, int C, int slot, int lb, int lb_rev,
+                           int len, int pos, int err, int op, int part,
+                           int search, int seed, int done) {
+  buffer[fLb * C + slot] = lb;
+  buffer[fLbRev * C + slot] = lb_rev;
+  buffer[fLen * C + slot] = len;
+  buffer[fPos * C + slot] = pos;
+  buffer[fErr * C + slot] = err;
+  buffer[fOp * C + slot] = op;
+  buffer[fPart * C + slot] = part;
+  buffer[fSearch * C + slot] = search;
+  buffer[fSeed * C + slot] = seed;
+  buffer[fDone * C + slot] = done;
+}
+
+__global__ void __launch_bounds__(kThreads) frontier_kernel(Params p) {
+  __shared__ int warp_sums[kWarps + 1];
+  __shared__ int any_alive;
+  const int C = p.capacity;
+  const int parts = p.num_parts;
+  const size_t frontier_id = blockIdx.x;
+  const int* patterns =
+      p.patterns + frontier_id * (size_t)p.num_seeds * p.pad_len;
+  const int* seed_class = p.seed_class + frontier_id * (size_t)p.num_seeds;
+  int* cur = p.frontier + frontier_id * 2 * kFields * (size_t)C;
+  int* next = cur + kFields * (size_t)C;
+
+  // the initial frontier: one state per (seed, search), search-minor; a
+  // capacity below it is an immediate overflow
+  const long long init_count = (long long)p.num_seeds * p.num_searches;
+  bool overflow = init_count > C;
+  int count = overflow ? C : (int)init_count;
+  for (int j = threadIdx.x; j < count; j += kThreads) {
+    const int seed = j / p.num_searches;
+    const int search = j - seed * p.num_searches;
+    const int* row0 =
+        p.scheme + (size_t)(seed_class[seed] * p.num_searches + search) * parts * 8;
+    const int dir0 = row0[kDir];
+    put(cur, C, j, 0, 0, p.n,
+        row0[kStart] * (dir0 > 0) + (row0[kEnd] - 1) * (dir0 < 0), 0, kOpM,
+        0, search, seed, 0);
+  }
+  bool alive = count > 0;
+  int iterations = 0;
+  int expanded = 0;  // this thread's expanded states
+  __syncthreads();
+
+  while (iterations < p.max_iterations && !overflow && alive) {
+    if (threadIdx.x == 0) any_alive = 0;
+    int written = 0;  // children of the earlier rounds (block-uniform)
+    for (int round = 0; round < count; round += kThreads) {
+      const int j = round + threadIdx.x;
+      unsigned mask = 0;
+      int lb = 0, lb_rev = 0, len = 0, pos = 0, err = 0, op = kOpM, part = 0;
+      int search = 0, seed = 0, done = 0, dir = 1, ms = 0;
+      int pos_self = 0, part_self = 0, done_self = 0;
+      int child_lb[FM_SIGMA], child_lb_rev[FM_SIGMA], counts[FM_SIGMA];
+#pragma unroll
+      for (int s = 0; s < FM_SIGMA; ++s) {
+        child_lb[s] = 0;
+        child_lb_rev[s] = 0;
+        counts[s] = 0;
+      }
+      if (j < count) {
+        lb = cur[fLb * C + j];
+        lb_rev = cur[fLbRev * C + j];
+        len = cur[fLen * C + j];
+        pos = cur[fPos * C + j];
+        err = cur[fErr * C + j];
+        op = cur[fOp * C + j];
+        part = cur[fPart * C + j];
+        search = cur[fSearch * C + j];
+        seed = cur[fSeed * C + j];
+        done = cur[fDone * C + j];
+        // the row of the clipped part; the raw part decides the finish
+        const int part_c = part < 0 ? 0 : (part > parts - 1 ? parts - 1 : part);
+        const int* row =
+            p.scheme +
+            ((size_t)(seed_class[seed] * p.num_searches + search) * parts + part_c) * 8;
+        dir = row[kDir];
+        const bool alive_state = done == 0;
+        const bool at_boundary =
+            alive_state && (dir > 0 ? pos >= row[kEnd] : pos < row[kStart]);
+        const bool meets_lower = err >= row[kLower];
+        const bool finished = at_boundary && meets_lower && part == parts - 1;
+        const bool advancing = at_boundary && meets_lower && !finished;
+        const int next_first =
+            row[kNextDir] > 0 ? row[kNextStart] : row[kNextEnd] - 1;
+        pos_self = advancing ? next_first : pos;
+        part_self = advancing ? part + 1 : part;
+        done_self = (done != 0 || finished) ? 1 : 0;
+        if (done != 0 || finished || advancing) mask |= 1u;
+        if (alive_state && !at_boundary) {
+          ++expanded;
+          const bool left = dir < 0;
+          fm_extend_all(left ? p.fwd : p.rev, p.C, lb, lb_rev, len, left,
+                        child_lb, child_lb_rev, counts);
+          int pc = pos < 0 ? 0 : (pos > p.pad_len - 1 ? p.pad_len - 1 : pos);
+          const int symbol = patterns[(size_t)seed * p.pad_len + pc];
+          ms = symbol >= 1 && symbol < FM_SIGMA ? symbol : 0;
+          if (pick(counts, ms) > 0) mask |= 1u << 1;
+          if (err < row[kUpper]) {
+#pragma unroll
+            for (int s = 1; s < FM_SIGMA; ++s) {
+              if (symbol != s && counts[s] > 0) mask |= 1u << (1 + s);
+              if (counts[s] > 0 && op != kOpD) mask |= 1u << (6 + s);
+            }
+            if (op != kOpI) mask |= 1u << 12;
+          }
+        }
+      }
+      int round_total;
+      int at = written + block_exclusive_scan(__popc(mask), warp_sums,
+                                              &round_total);
+      bool wrote_alive = false;
+#pragma unroll
+      for (int k = 0; k < kKinds; ++k) {
+        if (mask & (1u << k)) {
+          if (at < C) {
+            if (k == 0) {
+              put(next, C, at, lb, lb_rev, len, pos_self, err, op, part_self,
+                  search, seed, done_self);
+              wrote_alive |= done_self == 0;
+            } else if (k == 1) {
+              put(next, C, at, pick(child_lb, ms), pick(child_lb_rev, ms),
+                  pick(counts, ms), pos + dir, err, kOpM, part, search, seed,
+                  0);
+              wrote_alive = true;
+            } else if (k <= 6) {
+              const int s = k - 1;
+              put(next, C, at, child_lb[s], child_lb_rev[s], counts[s],
+                  pos + dir, err + 1, kOpM, part, search, seed, 0);
+              wrote_alive = true;
+            } else if (k <= 11) {
+              const int s = k - 6;
+              put(next, C, at, child_lb[s], child_lb_rev[s], counts[s], pos,
+                  err + 1, kOpI, part, search, seed, 0);
+              wrote_alive = true;
+            } else {
+              put(next, C, at, lb, lb_rev, len, pos + dir, err + 1, kOpD,
+                  part, search, seed, 0);
+              wrote_alive = true;
+            }
+          }
+          ++at;
+        }
+      }
+      if (wrote_alive) any_alive = 1;
+      written += round_total;
+    }
+    overflow = written > C;
+    count = overflow ? C : written;
+    int* swap = cur;
+    cur = next;
+    next = swap;
+    ++iterations;
+    __syncthreads();
+    alive = any_alive != 0;
+    __syncthreads();  // before thread 0 clears any_alive again
+  }
+
+  // the done rows of the final frontier, in slot order
+  int num_done = 0;
+  int* reports = p.reports + frontier_id * (size_t)p.report_capacity * 5;
+  for (int round = 0; round < count; round += kThreads) {
+    const int j = round + threadIdx.x;
+    const int is_done = j < count && cur[fDone * C + j] != 0 ? 1 : 0;
+    int round_total;
+    const int at = num_done + block_exclusive_scan(is_done, warp_sums,
+                                                   &round_total);
+    if (is_done && at < p.report_capacity) {
+      int* row = reports + (size_t)at * 5;
+      row[0] = cur[fLb * C + j];
+      row[1] = cur[fLbRev * C + j];
+      row[2] = cur[fLen * C + j];
+      row[3] = cur[fErr * C + j];
+      row[4] = cur[fSeed * C + j];
+    }
+    num_done += round_total;
+  }
+  int expanded_total;
+  block_exclusive_scan(expanded, warp_sums, &expanded_total);
+  if (threadIdx.x == 0) {
+    int* stats = p.stats + frontier_id * kStats;
+    stats[sReports] =
+        num_done < p.report_capacity ? num_done : p.report_capacity;
+    stats[sOverflow] = overflow || num_done > p.report_capacity ? 1 : 0;
+    stats[sIterations] = iterations;
+    stats[sExpanded] = expanded_total;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// rows: the combined rank table, or null for the per-direction planes
+// layout (fwd_occ, fwd_planes, rev_occ, rev_planes); F frontiers of
+// num_seeds seeds each, one block each
+int floxer_frontier_search(
+    const void* rows, const void* fwd_occ, const void* fwd_planes,
+    const void* rev_occ, const void* rev_planes, int rev_block_offset,
+    const void* C, int n, const void* patterns, const void* seed_class,
+    int num_frontiers, int num_seeds, int pad_len, const void* scheme,
+    int num_searches, int num_parts, int capacity, int report_capacity,
+    int max_iterations, void* frontier, void* reports, void* stats,
+    void* stream) {
+  Params p;
+  p.fwd.rows = static_cast<const uint32_t*>(rows);
+  p.fwd.occ = static_cast<const int32_t*>(fwd_occ);
+  p.fwd.planes = static_cast<const uint32_t*>(fwd_planes);
+  p.fwd.row_offset = 0;
+  p.rev.rows = static_cast<const uint32_t*>(rows);
+  p.rev.occ = static_cast<const int32_t*>(rev_occ);
+  p.rev.planes = static_cast<const uint32_t*>(rev_planes);
+  p.rev.row_offset = rev_block_offset;
+  p.C = static_cast<const int*>(C);
+  p.n = n;
+  p.patterns = static_cast<const int*>(patterns);
+  p.seed_class = static_cast<const int*>(seed_class);
+  p.num_seeds = num_seeds;
+  p.pad_len = pad_len;
+  p.scheme = static_cast<const int*>(scheme);
+  p.num_searches = num_searches;
+  p.num_parts = num_parts;
+  p.capacity = capacity;
+  p.report_capacity = report_capacity;
+  p.max_iterations = max_iterations;
+  p.frontier = static_cast<int*>(frontier);
+  p.reports = static_cast<int*>(reports);
+  p.stats = static_cast<int*>(stats);
+  frontier_kernel<<<num_frontiers, kThreads, 0, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -224,6 +224,23 @@ ALIGNER = KernelLibrary(_PACKAGE_DIR / "csrc", "libfloxer_kernels", {
         _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I,
         _P, _P, _P, _I, _I, _P,
     ],
+    # rows, fwd occ, fwd planes, rev occ, rev planes, rev_block_offset, C,
+    # n, patterns, seed_class, num_frontiers, num_seeds, pad_len, scheme,
+    # num_searches, num_parts, capacity, report_capacity, max_iterations,
+    # frontier, reports, stats, stream (K11)
+    "floxer_frontier_search": [
+        _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _I, _I, _I,
+        _I, _I, _P, _P, _P, _P,
+    ],
+    # rows, occ, planes, bwt, C, sampled_rows, sampled_values, ns,
+    # seq_starts, num_seqs, sampling_rate, lb, cnt, err, perm,
+    # group_starts, totals, statuses, num_seeds, hard_cap, soft_cap,
+    # choice_code, erase_useless, anchors, counts, scratch, shared_bytes,
+    # stream (K12)
+    "floxer_select_anchors": [
+        _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P,
+        _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P,
+    ],
 })
 
 SCRIPTS = KernelLibrary(_PACKAGE_DIR / "scripts" / "csrc", "libfloxer_scripts", {

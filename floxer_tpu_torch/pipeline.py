@@ -49,27 +49,27 @@ NOT_PORTED = "is not yet ported to floxer_tpu_torch, see ROADMAP.md"
 
 
 def unsupported_options(cli: CommandLineInput) -> list[str]:
-    """The options of the reference CLI this port rejects. --device-search
-    is ported for the batched engines (the work-queue search); with
-    --engine reference it takes the per-query frontier search, which is
-    not."""
+    """The options of the reference CLI this port rejects: the sharded
+    index (--device-search is ported under every engine: the work-queue
+    search under the batched ones, the per-query frontier search under
+    --engine reference)."""
     found = []
-    if getattr(cli, "device_search", False) and cli.engine == "reference":
-        found.append("--device-search --engine reference")
     if getattr(cli, "index_shards", 1) > 1:
         found.append("--index-shards > 1")
     return found
 
 
 def kernel_launches() -> dict[str, int]:
-    """Launches of the CUDA kernels K1-K4, K9, K9x, K9l and K10 in this
-    process so far (the wrappers count only launches on the card)."""
+    """Launches of the CUDA kernels K1-K4 and K9-K12 in this process so
+    far (the wrappers count only launches on the card)."""
     from .ops import (
         cuda_fm_index,
+        cuda_frontier,
         cuda_myers,
         cuda_myers_banded,
         cuda_myers_large,
         cuda_search_queue,
+        cuda_select,
         traceback_device,
     )
 
@@ -82,6 +82,8 @@ def kernel_launches() -> dict[str, int]:
         "K9x": cuda_fm_index.EXTEND_LAUNCHES,
         "K9l": cuda_fm_index.LOCATE_LAUNCHES,
         "K10": cuda_search_queue.LAUNCHES,
+        "K11": cuda_frontier.LAUNCHES,
+        "K12": cuda_select.LAUNCHES,
     }
 
 
@@ -104,13 +106,15 @@ def warm_kernels(device: torch.device) -> None:
 
 
 def warm_search_kernels(device: torch.device) -> None:
-    """Launch the device search's kernels once, K9 (a rank) and K10 (one
-    seed), on the index of a tiny text."""
+    """Launch the device search's kernels once on the index of a tiny
+    text: K9 (a rank), K10 (one seed), K11 (one seed's frontier) and K12
+    (its groups' selection)."""
     from .index.device_index import DeviceIndex, rank_all
     from .index.fmindex import FmIndex
     from .schemes import expand_scheme
-    from .search_device import SchemeTables
+    from .search_device import SchemeTables, search_seeds_device
     from .search_queue import workqueue_runner
+    from .search_select_device import device_select_from_groups_batch
 
     text = np.tile(np.arange(1, 5, dtype=np.uint8), 64)
     index = DeviceIndex.from_host(FmIndex([text]), device)
@@ -119,6 +123,14 @@ def warm_search_kernels(device: torch.device) -> None:
     workqueue_runner(
         index, text[None, :16].astype(np.int32), np.zeros(1, np.int32),
         tables, 1 << 12, 16, 1,
+    )
+    groups, totals, _, _ = search_seeds_device(
+        index, [text[:16]], 1, expand_scheme(1, 16)
+    )
+    flat = np.asarray(groups[0], dtype=np.int64).reshape(-1, 4)
+    device_select_from_groups_batch(
+        index, flat, np.array([0, flat.shape[0]]), totals,
+        np.zeros(1, np.int64), 500, 50, 0, 0, True,
     )
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -465,6 +477,18 @@ def _run(cli, device, use_device, process_index, process_count) -> int:
         cli.num_hosts = process_count
         cli.host_id = process_index
     warming = False
+    if cli.engine == "reference" and cli.device_search:
+        # the per-query frontier search on the device (K11 on the card)
+        if device is None and accelerator_available():
+            device = torch.device("cuda", 0)
+        if device is None:
+            logger.error(
+                "--device-search runs the seed search on a CUDA device of "
+                "compute capability >= 9.0 (Hopper); none is available"
+            )
+            return -1
+        if device.type == "cuda":
+            _SEARCH_WARMUP.start(device)
     if cli.engine in ("device", "batched"):
         if device is None and accelerator_available():
             device = torch.device("cuda", 0)
@@ -530,7 +554,9 @@ def _run(cli, device, use_device, process_index, process_count) -> int:
         return -1
     searcher = make_searcher(cli, index, len(references.records))
     if cli.device_search:
-        # the work-queue seed search on the device (K10 on the card)
+        # the seed search on the device: the work queue (K10) under the
+        # batched engines, the per-query frontier (K11) under --engine
+        # reference
         from .index.device_index import DeviceIndex
         from .search_device import DeviceSearcher
 

@@ -1,25 +1,33 @@
 """Counterpart of floxer_tpu/search_device.py: the device seed search of
---device-search, its chunk path (the work queue) only.
+--device-search.
 
 DeviceSearcher.search_seeds_many runs a read chunk's seeds in four
 stages, as the reference does:
 1. discovery: every eligible seed of the chunk (pattern length at most
    _MAX_DEVICE_PATTERN) in ONE work-queue search on the index's device
    (search_queue.workqueue_runner: K10 on the card), its scheme classes
-   one per (errors, length) pair;
+   one per (errors, length) pair; or, with FLOXER_TPU_SEARCH_NO_CHUNK_FUSE
+   set, the legacy block loop: per error class, blocks of _BLOCK_SEEDS
+   seeds, each a frontier search of its own (ops/frontier: K11 on the
+   card, a class's blocks in one launch), drained through a bounded
+   window of launches in flight;
 2. the keep-first dedup by (seed, lb, length, errors) and the running-total
    cap replay over the reports in host-DFS order, which reproduce the host
    DFS's (groups, total, aborted) per seed;
-3. anchor selection over the found groups by the native library;
+3. anchor selection over the found groups by the native library, or on
+   the device with FLOXER_TPU_DEVICE_SELECT set
+   (search_select_device: K12 on the card);
 4. the native DFS redo of the seeds the device did not search: the long
-   ones and, after an overflow, the whole chunk.
-So the output equals the host search's, including where the anchor caps
-bind.
+   ones and the overflowed ones.
+Without the native select (FLOXER_TPU_NO_NATIVE_SELECT, or no native
+library) every query takes the per-query device search instead
+(search_seeds: one frontier search a (length, errors) bucket of its seeds,
+search_seeds_device). So the output equals the host search's, including
+where the anchor caps bind.
 
-Not ported (ROADMAP queue 1 items 4-5): the per-query frontier
-(search_seeds), the legacy block loop, device select and the sharded
-searcher. The branches that reach them raise NotImplementedError naming
-what is missing; none of them runs the work queue instead.
+Not ported: the chunk frontier (FLOXER_TPU_SEARCH_ENGINE=frontier, an
+ablation; it raises NotImplementedError) and the sharded searcher
+(ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -30,6 +38,9 @@ from dataclasses import dataclass
 
 import numpy as np
 
+import torch
+
+from .ops.frontier import frontier_search_batch
 from .schemes import ExpandedSearch, expand_scheme
 from .search_queue import workqueue_runner
 
@@ -38,8 +49,17 @@ from .search_queue import workqueue_runner
 # moves seeds between the device and the host and never changes output
 # (ROADMAP: a limit to revisit on the card).
 _MAX_DEVICE_PATTERN = 112
-
-UNPORTED = "is not yet ported to floxer_tpu_torch (ROADMAP queue 1 item 4)"
+# the legacy block loop's geometry (the reference's defaults): seeds a
+# block, a block's frontier and report capacities, blocks in flight before
+# the oldest is drained to the host, and the pattern pad quantum
+_BLOCK_SEEDS = 256
+_BLOCK_FRONTIER = 1 << 15
+_BLOCK_REPORTS = 1 << 13
+_INFLIGHT_BLOCKS = 4
+_LEN_QUANTUM = 32
+# blocks of one _run_block call (one K11 launch): a block's frontier
+# scratch is 2.6 MB at _BLOCK_FRONTIER
+_LAUNCH_BLOCKS = 256
 
 
 def _gather_padded_patterns(arrays, sel, pad_len):
@@ -60,30 +80,14 @@ def _gather_padded_patterns(arrays, sel, pad_len):
 
 
 def refuse_unported_branches() -> None:
-    """Raise when the environment selects a search branch the port does
-    not carry (the reference would take it)."""
-    from .native import get_library
-
-    for variable, what in (
-        ("FLOXER_TPU_SEARCH_NO_CHUNK_FUSE",
-         "the per-block device search (legacy block loop)"),
-        ("FLOXER_TPU_DEVICE_SELECT", "device anchor selection"),
-        ("FLOXER_TPU_NO_NATIVE_SELECT",
-         "the device search without the native select (per-query frontier)"),
-    ):
-        if os.environ.get(variable):
-            raise NotImplementedError(f"{variable}: {what} {UNPORTED}")
+    """Raise when the environment selects the one search branch the port
+    does not carry (the reference would take it): the chunk frontier."""
     engine = os.environ.get("FLOXER_TPU_SEARCH_ENGINE", "workqueue")
     if engine != "workqueue":
         raise NotImplementedError(
             f"FLOXER_TPU_SEARCH_ENGINE={engine}: only the work-queue device "
             "search is ported to floxer_tpu_torch (the chunk frontier is "
             "an ablation that is not ported)"
-        )
-    if get_library() is None:
-        raise NotImplementedError(
-            "the device search without the native library (per-query "
-            f"frontier) {UNPORTED}"
         )
 
 
@@ -109,6 +113,97 @@ def chunk_operands(arrays):
     return patterns, class_of, eligible, tables, int(uniq_pairs[:, 0].max())
 
 
+def legacy_blocks(arrays):
+    """The legacy block loop's frontier operands of a chunk, one error
+    class at a time: (patterns int32 [F, _BLOCK_SEEDS, pad_len], seed
+    classes int32 [F, _BLOCK_SEEDS] (the last block padded with the dead
+    class), SchemeTables with one class per length, max_iterations, the
+    class's global seed ids) for each error count with eligible seeds."""
+    for errors in np.unique(arrays.errors_g).tolist():
+        sel = np.flatnonzero(
+            (arrays.errors_g == errors)
+            & (arrays.length_g <= _MAX_DEVICE_PATTERN)
+        )
+        if sel.shape[0] == 0:
+            continue
+        lengths = arrays.length_g[sel]
+        uniq_lens, len_class = np.unique(lengths, return_inverse=True)
+        len_class = np.asarray(len_class).reshape(-1)
+        tables = SchemeTables.from_length_classes(
+            [expand_scheme(errors, int(length)) for length in uniq_lens]
+        )
+        pad_len = -(-int(uniq_lens.max()) // _LEN_QUANTUM) * _LEN_QUANTUM
+        max_iterations = pad_len + int(errors) + 2 * tables.num_parts + 2
+        num_blocks = -(-sel.shape[0] // _BLOCK_SEEDS)
+        padded = np.zeros((num_blocks * _BLOCK_SEEDS, pad_len),
+                          dtype=np.int32)
+        padded[:sel.shape[0]] = _gather_padded_patterns(arrays, sel, pad_len)
+        seed_class = np.full(num_blocks * _BLOCK_SEEDS, tables.dead_class,
+                             dtype=np.int32)
+        seed_class[:sel.shape[0]] = len_class
+        yield (padded.reshape(num_blocks, _BLOCK_SEEDS, pad_len),
+               seed_class.reshape(num_blocks, _BLOCK_SEEDS), tables,
+               max_iterations, sel)
+
+
+def replay_groups(rep, redo_set_mask, cap):
+    """The keep-first dedup by (seed, lb, length, errors) and the
+    running-total cap replay of a chunk's report rows (int64 [k, 5] = gid,
+    lb, lb_rev, length, errors, each seed's rows in host-DFS order), the
+    seeds in redo_set_mask dropped: (groups [G, 4] = lb, lb_rev, length,
+    errors; group_starts [S + 1]; totals [S], the running total at each
+    seed's stop point; statuses [S], bit 0 for an aborted seed), which
+    reproduce the host DFS's (groups, total, aborted) per seed."""
+    total_seeds = redo_set_mask.shape[0]
+    if rep.shape[0]:
+        rep = rep[~redo_set_mask[rep[:, 0]]]
+    statuses = np.zeros(total_seeds, dtype=np.int64)
+    if rep.shape[0]:
+        # stable per-gid grouping preserves per-seed DFS order
+        rep = rep[np.argsort(rep[:, 0], kind="stable")]
+        # keep-first dedup by (gid, lb, len, err): lexsort is stable, so
+        # the first row of each equal-key run is the first DFS report
+        perm = np.lexsort((rep[:, 4], rep[:, 3], rep[:, 1], rep[:, 0]))
+        key = rep[perm][:, [0, 1, 3, 4]]
+        first = np.ones(rep.shape[0], dtype=bool)
+        first[1:] = np.any(key[1:] != key[:-1], axis=1)
+        rep = rep[np.sort(perm[first])]
+    gid_of_group = rep[:, 0]
+
+    if rep.shape[0]:
+        # cap replay: a group is kept iff the running total BEFORE it is
+        # under the cap; the crossing group is included and the seed is
+        # marked aborted (status bit 0)
+        csum = np.cumsum(rep[:, 3])
+        seg_first = np.ones(rep.shape[0], dtype=bool)
+        seg_first[1:] = gid_of_group[1:] != gid_of_group[:-1]
+        base = np.zeros(rep.shape[0], dtype=np.int64)
+        starts_pos = np.flatnonzero(seg_first)
+        base[starts_pos] = csum[starts_pos] - rep[starts_pos, 3]
+        base = np.maximum.accumulate(base)
+        running = csum - base
+        keep = (running - rep[:, 3]) < cap
+        seed_aborted = np.zeros(total_seeds, dtype=bool)
+        np.logical_or.at(
+            seed_aborted, gid_of_group[keep], running[keep] >= cap
+        )
+        statuses[seed_aborted] = 1
+        rep = rep[keep]
+        running = running[keep]
+        gid_of_group = rep[:, 0]
+    groups_flat = rep[:, [1, 2, 3, 4]]
+
+    group_counts = np.bincount(gid_of_group, minlength=total_seeds)
+    group_starts = np.zeros(total_seeds + 1, dtype=np.int64)
+    np.cumsum(group_counts, out=group_starts[1:])
+    totals = np.zeros(total_seeds, dtype=np.int64)
+    if rep.shape[0]:
+        # truncated running total at each seed's stop point
+        last_pos = group_starts[1:][group_counts > 0] - 1
+        totals[np.unique(gid_of_group)] = running[last_pos]
+    return groups_flat, group_starts, totals, statuses
+
+
 def report_capacity(num_seeds: int) -> int:
     """Report rows of a dispatch of num_seeds seeds (the reference's
     sizing; the runner's one retry takes 4x)."""
@@ -116,20 +211,33 @@ def report_capacity(num_seeds: int) -> int:
 
 
 class DeviceSearcher:
-    """A Searcher whose chunk search discovers anchor groups on the device
-    and reuses the native post-processing; seeds the device cannot finish
+    """A Searcher whose seed search discovers anchor groups on the device
+    and reuses the host post-processing; seeds the device cannot finish
     go to the native DFS."""
 
+    # the chunk path's discovery: one work-queue dispatch a chunk, unless
+    # FLOXER_TPU_SEARCH_NO_CHUNK_FUSE is set (read at each chunk) or a
+    # subclass clears this; else the legacy loop of one frontier search a
+    # block
+    _one_dispatch_chunk = True
     # counters for tests and chip_smoke.py: work-queue dispatches, the
     # seeds redone on the host because they were long or because their
-    # dispatch overflowed, and the seconds spent in each stage of
-    # search_seeds_many (work_queue: the dispatch with its uploads,
-    # launch, download and report sort)
+    # search overflowed, and the seconds spent in each stage
+    # (work_queue: the dispatch with its uploads, launch, download and
+    # report sort; blocks: the legacy block loop's launches and drains;
+    # dedup_cap; select: the native select; device_select: the device
+    # select, its host group order (select_order, the introsort loop)
+    # included; redo; frontier: the per-query path's frontier searches
+    # with their uploads and downloads; frontier_replay: their reports'
+    # keep-first dedup and cap replay in Python)
     _chunk_dispatches = 0
     redo_long = 0
     redo_overflow = 0
-    stage_seconds = {"work_queue": 0.0, "dedup_cap": 0.0, "select": 0.0,
-                     "redo": 0.0}
+    stage_seconds = {
+        "work_queue": 0.0, "blocks": 0.0, "dedup_cap": 0.0, "select": 0.0,
+        "device_select": 0.0, "select_order": 0.0, "redo": 0.0,
+        "frontier": 0.0, "frontier_replay": 0.0,
+    }
 
     def __init__(self, host_searcher, device_index):
         self._host = host_searcher
@@ -138,10 +246,35 @@ class DeviceSearcher:
         self.num_reference_sequences = host_searcher.num_reference_sequences
         self.config = host_searcher.config
 
-    def search_seeds(self, seeds, query):
-        """The per-query device search (the reference's frontier)."""
-        raise NotImplementedError(
-            f"the per-query device search (search_seeds) {UNPORTED}"
+    def _run_search(self, patterns, errors, expanded):
+        return search_seeds_device(
+            self._device_index,
+            patterns,
+            errors,
+            expanded,
+            max_total_count=self._host.search_cap(),
+            seconds=type(self).stage_seconds,
+        )
+
+    def _run_block(
+        self, padded, seed_class, tables, frontier_cap, report_cap, max_iter
+    ):
+        """Frontier searches of F blocks of one shape (padded int32 [F,
+        _BLOCK_SEEDS, pad_len], seed_class int32 [F, _BLOCK_SEEDS]), each
+        with its own capacities and flag, in one launch on the card;
+        returns the device results (ops.frontier.FrontierBatch) so the
+        caller can overlap several launches before synchronizing."""
+        device = self._device_index.device
+        return frontier_search_batch(
+            self._device_index,
+            torch.from_numpy(padded).to(device),
+            torch.from_numpy(seed_class).to(device),
+            torch.from_numpy(tables.fused()).to(device),
+            tables.num_searches,
+            tables.num_parts,
+            frontier_cap,
+            report_cap,
+            max_iter,
         )
 
     def _run_chunk_fused(self, arrays):
@@ -172,13 +305,46 @@ class DeviceSearcher:
             return rows, gids.astype(np.int64)
         return rows, np.zeros(0, dtype=np.int64)
 
+    def _legacy_block_loop(self, arrays, inflight, drain_one):
+        """One frontier search per [_BLOCK_SEEDS]-seed block per error
+        class (the reference's pre-chunk execution shape, which its
+        sharded searcher runs); a class's blocks go to the device
+        _LAUNCH_BLOCKS at a time in one _run_block call, and at most
+        _INFLIGHT_BLOCKS calls stay in flight before the oldest is
+        drained."""
+        for padded, seed_class, tables, max_iterations, sel in (
+            legacy_blocks(arrays)
+        ):
+            num_blocks = padded.shape[0]
+            for first in range(0, num_blocks, _LAUNCH_BLOCKS):
+                last = min(first + _LAUNCH_BLOCKS, num_blocks)
+                out = self._run_block(
+                    padded[first:last],
+                    seed_class[first:last],
+                    tables,
+                    _BLOCK_FRONTIER,
+                    _BLOCK_REPORTS,
+                    max_iterations,
+                )
+                blocks = [
+                    (sel[b * _BLOCK_SEEDS:(b + 1) * _BLOCK_SEEDS],
+                     min(_BLOCK_SEEDS, sel.shape[0] - b * _BLOCK_SEEDS))
+                    for b in range(first, last)
+                ]
+                inflight.append((out, blocks))
+                while len(inflight) >= _INFLIGHT_BLOCKS:
+                    drain_one()
+
     def search_seeds_many(self, jobs):
         """Chunk-level device search: every job's seeds (all queries of a
-        read chunk, fwd and rc) in one work-queue dispatch, then the
-        native select over the groups found and the native redo of the
+        read chunk, fwd and rc) in one work-queue dispatch (or the legacy
+        block loop), then the anchor selection over the groups found (the
+        native select, or the device select) and the native redo of the
         seeds the device did not finish. Results are SearchResultSoA, the
-        same as the host chunk path's."""
+        same as the host chunk path's. Without the native select every
+        query takes the per-query device search (slower, same output)."""
         from .native import (
+            get_library,
             native_search_select_batch_offsets,
             native_select_from_groups_batch,
         )
@@ -192,6 +358,11 @@ class DeviceSearcher:
         if not jobs:
             return []
         refuse_unported_branches()
+        if os.environ.get("FLOXER_TPU_NO_NATIVE_SELECT") or (
+            get_library() is None
+        ):
+            # no native select: per-query device path (slower, same output)
+            return [self.search_seeds(s, q) for s, q in jobs]
 
         config = self.config
         order_code = {
@@ -211,84 +382,107 @@ class DeviceSearcher:
 
         seconds = type(self).stage_seconds
         started = time.monotonic()
-        # ---- stage 1: device group discovery, one dispatch a chunk ----
+        # ---- stage 1: device group discovery ----
         long_gids = np.flatnonzero(arrays.length_g > _MAX_DEVICE_PATTERN)
-        rep, ovf_gids = self._run_chunk_fused(arrays)
+        report_rows = []  # each [k, 5]: gid, lb, lb_rev, len, err
+        overflow_gids = []
+        if self._one_dispatch_chunk and not os.environ.get(
+            "FLOXER_TPU_SEARCH_NO_CHUNK_FUSE"
+        ):
+            rows, ovf_gids = self._run_chunk_fused(arrays)
+            report_rows.append(rows)
+            overflow_gids.append(ovf_gids)
+            stage = "work_queue"
+        else:
+            # a bounded window of launches in flight; each drained launch
+            # leaves one (reports, count, overflow, gids, n_real) a block
+            inflight = []  # (FrontierBatch on the device, [(gids, n_real)])
+            pending = []
+
+            def drain_one():
+                out, blocks = inflight.pop(0)
+                d_reports = out.reports.cpu().numpy()
+                d_num = out.num_reports.cpu().numpy()
+                d_overflow = out.overflow.cpu().numpy()
+                for b, (gids, n_real) in enumerate(blocks):
+                    pending.append((d_reports[b], int(d_num[b]),
+                                    d_overflow[b], gids, n_real))
+
+            self._legacy_block_loop(arrays, inflight, drain_one)
+            while inflight:
+                drain_one()
+            for reports, num_reports, overflow, gids, n_real in pending:
+                reports = reports[:num_reports]
+                local = reports[:, 4]
+                keep = local < n_real
+                rows = np.empty((int(keep.sum()), 5), dtype=np.int64)
+                rows[:, 0] = gids[local[keep]]
+                rows[:, 1:] = reports[keep, :4]
+                report_rows.append(rows)
+                overflow_gids.append(gids[np.flatnonzero(overflow[:n_real])])
+            stage = "blocks"
+        ovf_gids = (np.concatenate(overflow_gids) if overflow_gids
+                    else np.zeros(0, dtype=np.int64))
         redo = np.unique(np.concatenate([long_gids, ovf_gids]))
         type(self).redo_long += int(long_gids.size)
-        type(self).redo_overflow += int(ovf_gids.size)
+        type(self).redo_overflow += int(np.unique(ovf_gids).size)
         redo_set_mask = np.zeros(total_seeds, dtype=bool)
         redo_set_mask[redo] = True
+        rep = (
+            np.concatenate(report_rows)
+            if report_rows
+            else np.zeros((0, 5), dtype=np.int64)
+        )
 
-        seconds["work_queue"] += time.monotonic() - started
+        seconds[stage] += time.monotonic() - started
         started = time.monotonic()
         # ---- stage 2: order-preserving dedup + cap replay ----
-        if rep.shape[0]:
-            rep = rep[~redo_set_mask[rep[:, 0]]]
-        statuses = np.zeros(total_seeds, dtype=np.int64)
-        if rep.shape[0]:
-            # stable per-gid grouping preserves per-seed DFS order
-            rep = rep[np.argsort(rep[:, 0], kind="stable")]
-            # keep-first dedup by (gid, lb, len, err): lexsort is stable, so
-            # the first row of each equal-key run is the first DFS report
-            perm = np.lexsort((rep[:, 4], rep[:, 3], rep[:, 1], rep[:, 0]))
-            key = rep[perm][:, [0, 1, 3, 4]]
-            first = np.ones(rep.shape[0], dtype=bool)
-            first[1:] = np.any(key[1:] != key[:-1], axis=1)
-            rep = rep[np.sort(perm[first])]
-        gid_of_group = rep[:, 0]
-
-        if rep.shape[0]:
-            # cap replay: a group is kept iff the running total BEFORE it
-            # is under the cap; the crossing group is included and the seed
-            # is marked aborted (status bit 0)
-            cap = self._host.search_cap()
-            csum = np.cumsum(rep[:, 3])
-            seg_first = np.ones(rep.shape[0], dtype=bool)
-            seg_first[1:] = gid_of_group[1:] != gid_of_group[:-1]
-            base = np.zeros(rep.shape[0], dtype=np.int64)
-            starts_pos = np.flatnonzero(seg_first)
-            base[starts_pos] = csum[starts_pos] - rep[starts_pos, 3]
-            base = np.maximum.accumulate(base)
-            running = csum - base
-            keep = (running - rep[:, 3]) < cap
-            seed_aborted = np.zeros(total_seeds, dtype=bool)
-            np.logical_or.at(
-                seed_aborted, gid_of_group[keep], running[keep] >= cap
-            )
-            statuses[seed_aborted] = 1
-            rep = rep[keep]
-            running = running[keep]
-            gid_of_group = rep[:, 0]
-        groups_flat = rep[:, [1, 2, 3, 4]]
-
-        group_counts = np.bincount(gid_of_group, minlength=total_seeds)
-        group_starts = np.zeros(total_seeds + 1, dtype=np.int64)
-        np.cumsum(group_counts, out=group_starts[1:])
-        totals = np.zeros(total_seeds, dtype=np.int64)
-        if rep.shape[0]:
-            # truncated running total at each seed's stop point
-            last_pos = group_starts[1:][group_counts > 0] - 1
-            totals[np.unique(gid_of_group)] = running[last_pos]
+        groups_flat, group_starts, totals, statuses = replay_groups(
+            rep, redo_set_mask, self._host.search_cap()
+        )
 
         seconds["dedup_cap"] += time.monotonic() - started
         started = time.monotonic()
-        # ---- stage 3: native anchor selection over the found groups ----
-        out = native_select_from_groups_batch(
-            self.index,
-            groups_flat,
-            group_starts,
-            totals,
-            statuses,
-            config.max_num_anchors_hard,
-            config.max_num_anchors_soft,
-            order_code,
-            choice_code,
-            config.erase_useless_anchors,
-            self._host.num_threads,
-        )
-        if out is None:
-            raise RuntimeError("the native library is gone mid-run")
+        # ---- stage 3: anchor selection over the found groups: on the
+        # device (caps, order, choice, locate, dominance: K12 on the card)
+        # with FLOXER_TPU_DEVICE_SELECT set, else the native select ----
+        out = None
+        if os.environ.get("FLOXER_TPU_DEVICE_SELECT") and getattr(
+            self, "_device_index", None
+        ) is not None:
+            from .search_select_device import device_select_from_groups_batch
+
+            out = device_select_from_groups_batch(
+                self._device_index,
+                groups_flat,
+                group_starts,
+                totals,
+                statuses,
+                config.max_num_anchors_hard,
+                config.max_num_anchors_soft,
+                order_code,
+                choice_code,
+                config.erase_useless_anchors,
+                seconds=seconds,
+            )
+            seconds["device_select"] += time.monotonic() - started
+        else:
+            out = native_select_from_groups_batch(
+                self.index,
+                groups_flat,
+                group_starts,
+                totals,
+                statuses,
+                config.max_num_anchors_hard,
+                config.max_num_anchors_soft,
+                order_code,
+                choice_code,
+                config.erase_useless_anchors,
+                self._host.num_threads,
+            )
+            seconds["select"] += time.monotonic() - started
+        if out is None:  # the library vanished mid-run: per-query path
+            return [self.search_seeds(s, q) for s, q in jobs]
         anchors_arr, counts = out
 
         nw_g = np.zeros(total_seeds, dtype=np.int64)
@@ -314,7 +508,6 @@ class DeviceSearcher:
         rows_parts.append(anchors_arr[valid])
         gid_parts.append(np.repeat(np.arange(total_seeds), nw))
 
-        seconds["select"] += time.monotonic() - started
         started = time.monotonic()
         # ---- stage 4: native DFS redo of the seeds the device left ----
         if redo.shape[0]:
@@ -335,8 +528,9 @@ class DeviceSearcher:
                     config.erase_useless_anchors,
                     self._host.num_threads,
                 )
-                if out is None:
-                    raise RuntimeError("the native library is gone mid-run")
+                if out is None:  # the library vanished: per-query path
+                    seconds["redo"] += time.monotonic() - started
+                    return [self.search_seeds(s, q) for s, q in jobs]
                 r_anchors, r_counts = out
                 r_status = r_counts[:, 0]
                 r_nw = np.where((r_status & 6) == 0, r_counts[:, 1], 0)
@@ -406,6 +600,70 @@ class DeviceSearcher:
         excluded_soft_g[gid] = aos.num_excluded_raw_anchors_by_soft_cap
         rows_parts.append(rows)
         gid_parts.append(np.full(rows.shape[0], gid, dtype=np.int64))
+
+    def search_seeds(self, seeds, query):
+        """The per-query device search: one frontier search per (length,
+        errors) bucket of the query's seeds; seeds longer than
+        _MAX_DEVICE_PATTERN and seeds whose search overflowed take the
+        host DFS."""
+        from .index.fmindex import Cursor
+        from .search_host import (
+            AnchorGroup,
+            SearchResult,
+            search_seed_groups,
+        )
+
+        result = SearchResult()
+        result.anchors_by_seed = [None] * len(seeds)
+
+        buckets: dict[tuple[int, int], list[int]] = {}
+        for i, seed in enumerate(seeds):
+            buckets.setdefault((seed.length, seed.num_errors), []).append(i)
+
+        for (length, errors), indices in buckets.items():
+            patterns = [
+                query[
+                    seeds[i].query_position : seeds[i].query_position + length
+                ]
+                for i in indices
+            ]
+            if length > _MAX_DEVICE_PATTERN:
+                # long seeds run the host DFS directly
+                for slot, i in enumerate(indices):
+                    groups, total_raw, _ = search_seed_groups(
+                        self.index,
+                        patterns[slot],
+                        errors,
+                        self._host.search_cap(),
+                    )
+                    result.anchors_by_seed[i] = (
+                        self._host.process_seed_groups(
+                            seeds[i], groups, total_raw
+                        )
+                    )
+                continue
+            expanded = expand_scheme(errors, length)
+            groups_per_seed, totals, _aborted, overflow = self._run_search(
+                patterns, errors, expanded
+            )
+            for slot, i in enumerate(indices):
+                if overflow[slot]:
+                    groups, total_raw, _ = search_seed_groups(
+                        self.index,
+                        patterns[slot],
+                        errors,
+                        self._host.search_cap(),
+                    )
+                else:
+                    groups = [
+                        AnchorGroup(Cursor(lb, lb_rev, ln), er)
+                        for lb, lb_rev, ln, er in groups_per_seed[slot]
+                    ]
+                    total_raw = int(totals[slot])
+                result.anchors_by_seed[i] = self._host.process_seed_groups(
+                    seeds[i], groups, total_raw
+                )
+        return result
 
 
 @dataclass(frozen=True)
@@ -497,3 +755,109 @@ class SchemeTables:
     @classmethod
     def from_searches(cls, searches: tuple[ExpandedSearch, ...]):
         return cls.from_length_classes([list(searches)])
+
+
+def frontier_operands(patterns, expanded_searches, max_errors):
+    """A per-query bucket's frontier operands, as the reference builds
+    them: (padded int32 [num_padded, max_len], seed classes, SchemeTables
+    of the one scheme, max_iterations). The seed count is padded to a
+    power of two (at least 8) with seeds of the DEAD class: the initial
+    frontier, and so the overflow flag, depend on it."""
+    tables = SchemeTables.from_searches(expanded_searches)
+    max_len = max(len(p) for p in patterns)
+    num_padded = 8
+    while num_padded < len(patterns):
+        num_padded *= 2
+    padded = np.zeros((num_padded, max_len), dtype=np.int32)
+    seed_class = np.full(num_padded, tables.dead_class, dtype=np.int32)
+    for i, pattern in enumerate(patterns):
+        padded[i, : len(pattern)] = pattern
+        seed_class[i] = 0
+    max_iterations = max_len + max_errors + 2 * tables.num_parts + 2
+    return padded, seed_class, tables, max_iterations
+
+
+def search_seeds_device(
+    index,
+    patterns: list[np.ndarray],
+    max_errors: int,
+    expanded_searches,
+    frontier_capacity: int = 1 << 14,
+    report_capacity: int = 1 << 12,
+    runner=None,
+    max_total_count: int | None = None,
+    seconds: dict | None = None,
+):
+    """Run the frontier search for a batch of same-(length, errors) seeds
+    on the index's device (K11 on the card, its plain version on the CPU).
+
+    Returns (groups_per_seed: list[list[(lb, lb_rev, len, errors)]],
+    totals, aborted, overflow). Groups come back in host-DFS order,
+    deduplicated by (lb, len, errors) keeping the first report, truncated
+    by the running-total cap replay when max_total_count is given: a group
+    is kept iff the total BEFORE it is under the cap, totals[i] is the
+    running total at the stop point, and aborted[i] mirrors the host DFS's
+    abort. `seconds`, when given, gains the search's seconds under
+    "frontier" and the replay's under "frontier_replay"."""
+    started = time.monotonic()
+    padded, seed_class, tables, max_iterations = frontier_operands(
+        patterns, expanded_searches, max_errors
+    )
+
+    if runner is not None:
+        reports, num_reports, overflow = runner(
+            padded,
+            seed_class,
+            tables,
+            frontier_capacity,
+            report_capacity,
+            max_iterations,
+        )
+        reports = np.asarray(reports)[: int(num_reports)]
+        overflow = np.asarray(overflow)
+    else:
+        device = index.device
+        out = frontier_search_batch(
+            index,
+            torch.from_numpy(padded[None]).to(device),
+            torch.from_numpy(seed_class[None]).to(device),
+            torch.from_numpy(tables.fused()).to(device),
+            tables.num_searches,
+            tables.num_parts,
+            frontier_capacity,
+            report_capacity,
+            max_iterations,
+        )
+        num_reports = int(out.num_reports[0])
+        reports = out.reports[0, :num_reports].cpu().numpy()
+        overflow = out.overflow[0].cpu().numpy()
+    replay_started = time.monotonic()
+    cap = (1 << 62) if max_total_count is None else int(max_total_count)
+
+    groups: list[list[tuple[int, int, int, int]]] = [
+        [] for _ in range(len(patterns))
+    ]
+    totals = np.zeros(len(patterns), dtype=np.int64)
+    aborted = np.zeros(len(patterns), dtype=bool)
+    seen: set = set()
+    # reports are in frontier slot order: interleaved across seeds, but in
+    # exact DFS order within each seed, so the keep-first dedup and cap
+    # replay below reproduce search_host.search_seed_groups
+    for lb, lb_rev, length, errors, seed in reports.tolist():
+        s = int(seed)
+        if s >= len(patterns):  # padding seed
+            continue
+        if aborted[s]:
+            continue
+        key = (s, int(lb), int(length), int(errors))
+        if key in seen:
+            continue
+        seen.add(key)
+        groups[s].append((int(lb), int(lb_rev), int(length), int(errors)))
+        totals[s] += int(length)
+        if totals[s] >= cap:
+            aborted[s] = True
+    if seconds is not None:
+        seconds["frontier"] += replay_started - started
+        seconds["frontier_replay"] += time.monotonic() - replay_started
+    return groups, totals, aborted, overflow

@@ -1,4 +1,4 @@
-"""floxer_tpu_torch on the card: each CUDA kernel (K1-K10) against its
+"""floxer_tpu_torch on the card: each CUDA kernel (K1-K12) against its
 plain PyTorch version, a fused wave on the card against the same wave on the
 CPU, and the CLI's --engine device (and --device-search) against the host
 engine.
@@ -794,17 +794,31 @@ def test_search_wrappers_refuse_cpu_operands(cuda_device, search_index):
             torch.from_numpy(tables.fused()), tables.num_searches,
             tables.num_parts, 1 << 12, 6, 50,
         )
+    from floxer_tpu_torch.ops import cuda_frontier as k11
+    from floxer_tpu_torch.ops import cuda_select as k12
+
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        k11.frontier_search_cuda(
+            index, torch.from_numpy(padded[None]),
+            torch.from_numpy(seed_class[None]),
+            torch.from_numpy(tables.fused()), tables.num_searches,
+            tables.num_parts, 1 << 12, 1 << 10, 50,
+        )
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        k12.select_anchors_cuda(index, vector, vector, vector, vector, vector,
+                                vector[:2], vector[:1], vector[:1], 500, 9, 0,
+                                0, True)
 
 
 def test_search_kernels_ptxas_no_spill_no_stack(cuda_device):
-    """ptxas -v of the aligner's build: K9, K9x, K9l and K10 keep no
-    stack frame and spill nothing."""
+    """ptxas -v of the aligner's build: K9, K9x, K9l, K10, K11 and K12
+    keep no stack frame and spill nothing."""
     from floxer_tpu_torch.ops import _build
 
     _build.ALIGNER.load()
     usage = _build.ALIGNER.ptxas_usage()
     for kernel in ("fm_rank_kernel", "fm_extend_kernel", "fm_locate_kernel",
-                   "workqueue_kernel"):
+                   "workqueue_kernel", "frontier_kernel", "select_kernel"):
         names = [name for name in usage if kernel in name]
         assert len(names) == 1, (kernel, names)
         found = usage[names[0]]
@@ -846,6 +860,216 @@ def test_device_search_cli_matches_host_search(cuda_device, simulated,
     assert pipeline.kernel_launches()["K10"] - before == (
         dispatches + search_queue.RETRIES - retries
     )
+    assert (tmp_path / "device.sam").read_bytes() == (
+        tmp_path / "host.sam"
+    ).read_bytes()
+
+
+# ---- the per-query frontier search (K11, csrc/frontier_search.cu) and
+# device select (K12, csrc/select_anchors.cu) against their plain versions
+
+
+def frontier_blocks(sequences, blocks=3, seed=31):
+    """search_chunk's seeds cut into blocks of 256 (the legacy loop's
+    block), the last padded with dead-class seeds: (patterns int32 [F,
+    256, L], classes int32 [F, 256], tables, max_iterations)."""
+    padded, seed_class, tables, max_errors = search_chunk(
+        sequences, seed, 256 * blocks - 40
+    )
+    F = -(-padded.shape[0] // 256)
+    patterns = np.zeros((F * 256, padded.shape[1]), dtype=np.int32)
+    patterns[:padded.shape[0]] = padded
+    classes = np.full(F * 256, tables.dead_class, dtype=np.int32)
+    classes[:padded.shape[0]] = seed_class
+    max_iterations = (padded.shape[1] + max_errors + 2 * tables.num_parts
+                      + 2)
+    return (patterns.reshape(F, 256, -1), classes.reshape(F, 256), tables,
+            max_iterations)
+
+
+def frontier_against_plain(index, patterns, classes, tables, capacity,
+                           reports, max_iterations):
+    """K11 on F frontiers (one launch) against frontier_search_plain on the
+    same card tensors, frontier by frontier: reports, count, overflow,
+    iterations and expanded states equal. Returns the kernel's batch."""
+    from floxer_tpu_torch.ops import cuda_frontier as k11
+    from floxer_tpu_torch.ops.frontier import frontier_search_plain
+
+    device = index.device
+    operands = [torch.from_numpy(a).to(device)
+                for a in (patterns, classes, tables.fused())]
+    before = k11.LAUNCHES
+    got = k11.frontier_search_cuda(index, *operands, tables.num_searches,
+                                   tables.num_parts, capacity, reports,
+                                   max_iterations)
+    torch.cuda.synchronize()
+    assert k11.LAUNCHES == before + 1
+    for f in range(patterns.shape[0]):
+        stats = {}
+        want = frontier_search_plain(
+            index, operands[0][f], operands[1][f], operands[2],
+            tables.num_searches, tables.num_parts, capacity, reports,
+            max_iterations, stats,
+        )
+        assert int(got.num_reports[f]) == want[1]
+        assert torch.equal(got.reports[f], want[0])
+        assert torch.equal(got.overflow[f], want[2])
+        assert int(got.iterations[f]) == stats["iterations"]
+        assert int(got.expanded[f]) == stats["expanded"]
+    return got
+
+
+@pytest.mark.parametrize("layout", ["combined", "planes"])
+def test_frontier_kernel_matches_plain(cuda_device, search_index, layout):
+    """K11 on three 256-seed blocks at the legacy loop's capacities
+    (32768 states, 8192 reports), and on one per-query bucket (16384 and
+    4096), equals the plain version, report order included."""
+    host, sequences = search_index
+    index = device_index_of(host, cuda_device, layout)
+    patterns, classes, tables, max_iterations = frontier_blocks(sequences)
+    got = frontier_against_plain(index, patterns, classes, tables, 1 << 15,
+                                 1 << 13, max_iterations)
+    assert not got.overflow.any() and int(got.num_reports.min()) > 100
+    got = frontier_against_plain(index, patterns[:1, :16], classes[:1, :16],
+                                 tables, 1 << 14, 1 << 12, max_iterations)
+    assert not got.overflow.any()
+
+
+def test_frontier_kernel_flags_overflow(cuda_device, search_index):
+    """A frontier capacity below the states, and a report capacity below
+    the reports, each set K11's overflow on every seed of its block as
+    the plain version does, and the truncated frontier still reports."""
+    host, sequences = search_index
+    index = device_index_of(host, cuda_device, "combined")
+    patterns, classes, tables, max_iterations = frontier_blocks(
+        sequences, 2, 7
+    )
+    states = frontier_against_plain(index, patterns, classes, tables, 2048,
+                                    1 << 13, max_iterations)
+    assert states.overflow.all()
+    reports = frontier_against_plain(index, patterns, classes, tables,
+                                     1 << 15, 64, max_iterations)
+    assert reports.overflow.all() and int(reports.num_reports.min()) == 64
+    start = frontier_against_plain(index, patterns, classes, tables, 256,
+                                   1 << 13, max_iterations)
+    assert start.overflow.all() and int(start.iterations.max()) == 0
+
+
+def select_groups(host, sequences, seed=41, count=120):
+    """Real anchor groups of mutated seeds (and two repetitive ones) by
+    the host DFS: (groups [G, 4], group_starts, totals, statuses)."""
+    from floxer_tpu_torch.search_host import search_seed_groups
+
+    rng = np.random.default_rng(seed)
+    rows, totals = [], []
+    patterns = []
+    for i in range(count):
+        source = sequences[i % 2]
+        length = int(rng.integers(10, 16))
+        start = int(rng.integers(0, len(source) - length))
+        pattern = source[start:start + length].copy()
+        pattern[int(rng.integers(0, length))] = 1 + int(rng.integers(0, 4))
+        patterns.append((pattern, 1 + i % 2))
+    patterns.append((np.full(10, 1, dtype=np.uint8), 2))
+    patterns.append((np.array([1, 2, 3, 4] * 3, dtype=np.uint8), 1))
+    for gid, (pattern, k) in enumerate(patterns):
+        groups, total, _ = search_seed_groups(host, pattern, k, 1 << 30)
+        totals.append(total)
+        rows.extend((gid, g.num_errors, g.cursor.lb, g.cursor.length,
+                     g.cursor.lb_rev) for g in groups)
+    rows.sort()
+    groups = np.array([(lb, lbr, ln, er) for _, er, lb, ln, lbr in rows],
+                      dtype=np.int64).reshape(-1, 4)
+    S = len(patterns)
+    starts = np.zeros(S + 1, dtype=np.int64)
+    np.cumsum(np.bincount([r[0] for r in rows], minlength=S),
+              out=starts[1:])
+    statuses = np.zeros(S, dtype=np.int64)
+    statuses[::17] = 2
+    statuses[5::17] = 1
+    return groups, starts, np.asarray(totals, dtype=np.int64), statuses
+
+
+@pytest.mark.parametrize("erase", [True, False])
+@pytest.mark.parametrize("choice_code", [0, 1, 2])
+def test_select_kernel_matches_plain(cuda_device, search_index, choice_code,
+                                     erase):
+    """K12 against select_plain on the same card tensors, under each
+    choice code, at the default caps (rows in shared memory) and at a
+    soft cap of 200 (rows in global scratch), equal in every anchor row
+    and count; one launch each."""
+    from floxer_tpu_torch import search_select_device as ssd
+    from floxer_tpu_torch.ops import cuda_select as k12
+
+    host, sequences = search_index
+    index = device_index_of(host, cuda_device, "combined")
+    groups, starts, totals, statuses = select_groups(host, sequences)
+    S, G = len(totals), groups.shape[0]
+    gid = np.repeat(np.arange(S), np.diff(starts))
+
+    def t(array):
+        return torch.from_numpy(
+            np.ascontiguousarray(array, dtype=np.int32)).to(cuda_device)
+
+    for order_code, hard_cap, soft_cap in ((0, 500, 50), (1, 60, 7),
+                                           (0, 500, 200)):
+        perm = ssd.group_order(groups, starts, order_code)
+        args = (index, t(groups[:, 0]), t(groups[:, 2]), t(groups[:, 3]),
+                t(gid), t(perm), t(starts), t(totals), t(statuses), hard_cap,
+                soft_cap, order_code, choice_code, erase)
+        before = k12.LAUNCHES
+        got = k12.select_anchors_cuda(*args)
+        torch.cuda.synchronize()
+        assert k12.LAUNCHES == before + 1
+        assert (k12.shared_bytes(soft_cap) == 0) == (soft_cap == 200)
+        want = ssd.select_plain(*args)
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[0], want[0])
+        assert int(got[1][:, 1].sum()) > S
+        if hard_cap == 60 and choice_code != 2:
+            assert bool((got[1][:, 0] & 4).any())
+
+
+@pytest.mark.parametrize("branch", [
+    "reference", "FLOXER_TPU_DEVICE_SELECT",
+    "FLOXER_TPU_SEARCH_NO_CHUNK_FUSE", "FLOXER_TPU_NO_NATIVE_SELECT",
+])
+def test_device_search_branches_match_host_search(cuda_device, simulated,
+                                                  tmp_path, monkeypatch,
+                                                  branch):
+    """--device-search on the card through each branch of the reference
+    writes the host search's SAM: --engine reference (the per-query
+    frontier, K11), device select (K12, one launch a chunk), the legacy
+    block loop (K11) and the per-query frontier without the native select
+    (K11)."""
+    from floxer_tpu_torch.ops import cuda_frontier as k11
+    from floxer_tpu_torch.ops import cuda_select as k12
+
+    def args(name, extra=()):
+        return [
+            "--reference", str(simulated / "genome.fasta"),
+            "--queries", str(simulated / "reads.fastq"),
+            "--output", str(tmp_path / name),
+            "-p", "0.08", "--interval-optimization", *extra,
+        ]
+
+    assert pipeline.run(parse_and_validate(args("host.sam")),
+                        use_device=False) == 0
+    pipeline.start_device_warmup(cuda_device, device_search=True)
+    pipeline.join_device_warmup()
+    engine = "reference" if branch == "reference" else "batched"
+    if branch != "reference":
+        monkeypatch.setenv(branch, "1")
+    before = (k11.LAUNCHES, k12.LAUNCHES)
+    cli = parse_and_validate(
+        args("device.sam", ["--engine", engine, "--device-search"])
+    )
+    assert pipeline.run(cli) == 0
+    launched = (k11.LAUNCHES - before[0], k12.LAUNCHES - before[1])
+    if branch == "FLOXER_TPU_DEVICE_SELECT":
+        assert launched[0] == 0 and launched[1] > 0
+    else:
+        assert launched[0] > 0 and launched[1] == 0
     assert (tmp_path / "device.sam").read_bytes() == (
         tmp_path / "host.sam"
     ).read_bytes()

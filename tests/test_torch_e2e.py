@@ -141,17 +141,36 @@ def serve_in_thread(sock: str):
         ["--shutdown-server", "sock"],
     ],
 )
-def test_unported_options_fail(tmp_path, data_dir, reference_sam, extra):
-    """--device-search with --engine reference (the per-query frontier
-    search) and --index-shards > 1 are not ported: the CLI exits non-zero
-    and writes nothing (--device-search under the batched engines is:
-    test_device_search_writes_reference_sam). --profile and the server flags are
-    ported: --profile writes a torch.profiler trace and the reference's
-    SAM; a job through --serve / --server writes the reference's SAM and
-    --shutdown-server stops the daemon. (Multi-host and multi-process runs
-    are ported too: tests/test_torch_multihost.py.)"""
+def test_unported_options_fail(tmp_path, data_dir, reference_sam, extra,
+                               monkeypatch):
+    """--index-shards > 1 is not ported: the CLI exits non-zero and writes
+    nothing. --device-search with --engine reference (the per-query
+    frontier search, its plain version with device=cpu) is ported and
+    writes the reference's SAM, as --device-search under the batched
+    engines does (test_device_search_writes_reference_sam). --profile and
+    the server flags are ported: --profile writes a torch.profiler trace
+    and the reference's SAM; a job through --serve / --server writes the
+    reference's SAM and --shutdown-server stops the daemon. (Multi-host
+    and multi-process runs are ported too: tests/test_torch_multihost.py.)"""
     output = tmp_path / "out.sam"
     args = cli_args(data_dir, output)
+    if extra[0] == "--device-search":
+        from floxer_tpu_torch.ops import frontier
+
+        calls = []
+        original = frontier.frontier_search_plain
+
+        def counted(*call_args, **kwargs):
+            calls.append(1)
+            return original(*call_args, **kwargs)
+
+        monkeypatch.setattr(frontier, "frontier_search_plain", counted)
+        cli = parse_and_validate(args + extra)
+        assert pipeline.run(cli, device=CPU) == 0
+        assert calls, "the per-query frontier search never ran"
+        assert output.read_bytes() == reference_sam
+        check_output_records(parse_sam(output))
+        return
     if extra[0] == "--profile":
         trace_dir = tmp_path / extra[1]
         assert main(args + ["--profile", str(trace_dir)]) == 0
@@ -282,4 +301,16 @@ def test_device_search_without_gpu_fails(tmp_path, data_dir, monkeypatch):
     monkeypatch.setattr(pipeline, "accelerator_available", lambda: False)
     output = tmp_path / "out.sam"
     assert main(cli_args(data_dir, output, ["--device-search"])) != 0
+    assert not output.exists()
+
+
+def test_reference_engine_device_search_without_gpu_fails(tmp_path, data_dir,
+                                                          monkeypatch):
+    """--engine reference --device-search (the per-query frontier) with no
+    CUDA device and no device given exits non-zero and writes nothing."""
+    monkeypatch.setattr(pipeline, "accelerator_available", lambda: False)
+    output = tmp_path / "out.sam"
+    args = cli_args(data_dir, output, ["--engine", "reference",
+                                       "--device-search"])
+    assert main(args) != 0
     assert not output.exists()

@@ -85,7 +85,8 @@ from floxer_tpu_torch.cli import parse_and_validate
 data = Path(sys.argv[1])
 with tempfile.TemporaryDirectory() as tmp:
     for engine, extra in (("device", []), ("batched", []),
-                          ("batched", ["--device-search"])):
+                          ("batched", ["--device-search"]),
+                          ("reference", ["--device-search"])):
         name = engine + "".join(extra)
         cli = parse_and_validate([
             "--reference", str(data / "reference.fasta"),
@@ -104,8 +105,8 @@ print("\\n".join(sorted(sys.modules)))
 def test_port_runs_without_loading_the_reference(data_dir):
     """Import every module of the port, run the toy e2e on the CPU (fused
     device waves through the plain versions, the batched engine, and the
-    batched engine with --device-search), then list sys.modules: no
-    floxer_tpu module and no jax."""
+    batched and reference engines with --device-search), then list
+    sys.modules: no floxer_tpu module and no jax."""
     proc = subprocess.run(
         [sys.executable, "-c", E2E, str(data_dir)],
         capture_output=True, text=True, cwd=ROOT, timeout=600,

@@ -325,9 +325,10 @@ def test_each_source_set_builds_its_own_library(tmp_path, monkeypatch):
     from floxer_tpu_torch.ops import _build
 
     assert [s.name for s in _build.ALIGNER.sources()] == [
-        "fm_index.cu", "myers_banded.cu", "myers_banded_wide.cu",
-        "myers_large.cu", "myers_large_wide.cu", "myers_small.cu",
-        "traceback_banded.cu", "workqueue_search.cu",
+        "fm_index.cu", "frontier_search.cu", "myers_banded.cu",
+        "myers_banded_wide.cu", "myers_large.cu", "myers_large_wide.cu",
+        "myers_small.cu", "select_anchors.cu", "traceback_banded.cu",
+        "workqueue_search.cu",
     ]
     assert [s.name for s in _build.SCRIPTS.sources()] == [
         "ablate_banded_kernel.cu", "microbench_carry_scaling.cu",
@@ -362,8 +363,8 @@ def test_each_source_set_builds_its_own_library(tmp_path, monkeypatch):
 def test_an_edited_header_changes_the_library(tmp_path):
     """A library's name hashes the headers beside its sources too (the
     aligner's K2 and K3 include csrc/myers_full_column.cuh, K1's two
-    register kernels csrc/myers_banded_column.cuh, K9-K9l and K10
-    csrc/fm_rank.cuh), so an edited header is never served from a stale
+    register kernels csrc/myers_banded_column.cuh, K9-K9l, K10, K11 and
+    K12 csrc/fm_rank.cuh), so an edited header is never served from a stale
     build; nvcc compiles the .cu files only."""
     from floxer_tpu_torch.ops import _build
 

@@ -4,7 +4,9 @@ CPU) against the reference's DeviceSearcher (XLA on the CPU) and the host
 Searcher, on the cases of tests/test_search_device.py: caps binding or
 not, empty and tiny chunks, long seeds to the host redo, one dispatch a
 chunk. Every comparison is integer equality of each seed's counters and
-anchor rows. The branches the port does not carry raise."""
+anchor rows. The reference's other branches (the legacy block loop, device
+select, the per-query frontier) equal the host search; the chunk frontier,
+which the port does not carry, raises."""
 
 import numpy as np
 import pytest
@@ -231,31 +233,49 @@ def test_chunk_search_is_one_dispatch(indexes):
     "no_native_library", "search_seeds",
 ])
 def test_unported_branches_raise(indexes, monkeypatch, branch):
-    """Each branch the reference takes to a part the port does not carry
-    (the legacy block loop, device select, the per-query frontier, the
-    chunk frontier) raises naming it, instead of running the work
-    queue."""
+    """The reference's other search branches, now ported, each equal the
+    host search: the legacy block loop (FLOXER_TPU_SEARCH_NO_CHUNK_FUSE:
+    frontier searches of 256-seed blocks, no work-queue dispatch), device
+    select (FLOXER_TPU_DEVICE_SELECT), the per-query frontier without the
+    native select (FLOXER_TPU_NO_NATIVE_SELECT, or no native library) and
+    search_seeds itself. The chunk frontier
+    (FLOXER_TPU_SEARCH_ENGINE=frontier), an ablation, still raises naming
+    it, instead of running the work queue."""
     from floxer_tpu_torch import native
 
     sequences = indexes[-1]
     jobs = of_package(
         chunk_jobs(sequences, np.random.default_rng(1), 2, (10, 14), 1), pex
     )
-    _, device_searcher, _ = searchers(indexes)
+    host_searcher, device_searcher, _ = searchers(indexes)
     before = search_device.DeviceSearcher._chunk_dispatches
     if branch == "search_seeds":
-        with pytest.raises(NotImplementedError, match="search_seeds"):
-            device_searcher.search_seeds(*jobs[0])
+        got = device_searcher.search_seeds(*jobs[0])
+        want = host_searcher.search_seeds(*jobs[0])
+        assert result_view(got) == result_view(want)
         return
+    if branch == "FLOXER_TPU_SEARCH_ENGINE":
+        monkeypatch.setenv(branch, "frontier")
+        with pytest.raises(NotImplementedError, match="frontier"):
+            device_searcher.search_seeds_many(jobs)
+        assert search_device.DeviceSearcher._chunk_dispatches == before
+        return
+    want = host_searcher.search_seeds_many(jobs)
     if branch == "no_native_library":
         monkeypatch.setattr(native, "get_library", lambda: None)
-        match = "native library"
-    elif branch == "FLOXER_TPU_SEARCH_ENGINE":
-        monkeypatch.setenv(branch, "frontier")
-        match = "frontier"
     else:
         monkeypatch.setenv(branch, "1")
-        match = branch
-    with pytest.raises(NotImplementedError, match=match):
-        device_searcher.search_seeds_many(jobs)
-    assert search_device.DeviceSearcher._chunk_dispatches == before
+    seconds = dict(search_device.DeviceSearcher.stage_seconds)
+    got = device_searcher.search_seeds_many(jobs)
+    assert len(got) == len(want) == len(jobs)
+    for j, (g, w) in enumerate(zip(got, want)):
+        assert result_view(g) == result_view(w), f"job {j} vs host"
+    # device select finds the groups with one work-queue dispatch, the
+    # others with none; each runs its own stage
+    dispatches = int(branch == "FLOXER_TPU_DEVICE_SELECT")
+    assert search_device.DeviceSearcher._chunk_dispatches == before + dispatches
+    stage = {
+        "FLOXER_TPU_SEARCH_NO_CHUNK_FUSE": "blocks",
+        "FLOXER_TPU_DEVICE_SELECT": "device_select",
+    }.get(branch, "frontier")
+    assert search_device.DeviceSearcher.stage_seconds[stage] > seconds[stage]
