@@ -33,7 +33,7 @@ Phases, one line each on stdout, any failure exits non-zero:
            2176 words the shared-memory one). K1 at the 20 kb root shape, on the 256
            band words its tasks need and on the 384 the fused wave runs its
            root level at: the register kernel against the plain version
-           (run on the CPU in a worker), the native host engine, the
+           (run on the CPU in workers), the native host engine, the
            numpy band mirror and the
            shared-memory kernel, and both kernels timed in turns (shared,
            register, register, shared). K2 at every W = 1..8 (its
@@ -108,6 +108,14 @@ Phases, one line each on stdout, any failure exits non-zero:
            with its bound, equal to its plain version (run on the CPU in
            a worker), K11's reports in order, overflow, iterations and
            expanded states included
+  sharded_kernels  the row-sharded index on pass A's index cut into 2
+           and 4 shards (SHARD_COUNTS): K13 (rank, both directions) at
+           RANK_QUERIES positions, K13l (locate) at RANK_QUERIES SA rows
+           and K11 over the shard tables on the legacy loop's first
+           256-seed block: each exact against its plain version on the
+           card and against the unsharded K9, K9l and K11 (reports in
+           order, overflow, iterations, expanded states), timed with its
+           bound (a rank's ops times the shards)
   device_select  pass G2: pass G with FLOXER_TPU_DEVICE_SELECT=1: SAM =
            pass B, one K12 launch a chunk, no K9l or K11 launch; its
            search stage seconds (the device select and its host group
@@ -126,6 +134,20 @@ Phases, one line each on stdout, any failure exits non-zero:
            a chunk (two for a chunk that overflows and is retried); its
            search= seconds beside pass A's and pass B's, and the seeds the
            host redid (long, overflowed)
+  sharded_search  pass I: pass A's arguments with --device-search
+           --index-shards 2 (the sharded searcher: the legacy block loop
+           on K11 over the shard tables): SAM = pass B, K11 launched over
+           the shards only, no K10; its search= seconds and stage split
+  sharded_frontier  pass H2: the first PASS_H2_READS reads with --engine
+           reference --device-search --index-shards 2 (the per-query
+           frontier over the shards): SAM = their own host pass
+  dryrun   floxer_tpu_torch.graft_entry on cuda:0: entry()'s step, then
+           dryrun_multichip(2) and (8) on cuda:0 repeated (the 2-D
+           step's sharded ranks equal to K9's, the sharded search and
+           locate, the sharded CLI's SAM equal to the unsharded run's);
+           K2, K9l, K11 over the shards, K13 and K13l launched
+  platform_cpu  pass F2: --engine batched with FLOXER_TPU_PLATFORM=cpu:
+           no kernel launch, no fused dispatch, SAM = pass B
   traceback  pass C: --engine device with FLOXER_TPU_DEVICE_TRACEBACK=1
            (root CIGARs by K4); SAM = pass B, K4 launched; its K4
            launches and align seconds beside pass A's
@@ -162,8 +184,10 @@ and shared-memory K1's and K3's of pass E, K4 of pass C, its wider
 layouts' of passes C and E under --profile, K5-K8 of the entry points'
 run, K9, K9x, K9l and K10 of pass G: K10 once a chunk, and K9, K9x and
 K9l none, because their rank, extension and locate run inside K10, K11
-and K12 as device functions; K11 of pass H, K12 of pass G2), each kernel
-with its bound;
+and K12 as device functions; K11 of pass H, K12 of pass G2; K11s, K11
+over the shard tables, of pass I; K13 and K13l of the dryrun phase: in
+pass I K13's rank runs inside K11s and the locate stays on the host),
+each kernel with its bound; before it the script's total seconds;
 before it, the cpu_plain line: the CPU seconds of every plain version
 run in the workers (each compared exactly with its kernel's output as it
 arrives); the last line is {"ok": true, "device": {...}}.
@@ -249,6 +273,10 @@ OVERHANG_SHAPE = (64, 40_000, 25_000, 30_000, 1280)
 # timed launches a turn of the shared-memory kernels at those shapes
 # (~0.2 s each)
 LONG_SHARED_REPEATS = 1
+# K1's plain versions, the longest of the CPU plain versions, run in
+# this many workers each (at the root shape on each band, and at pass E's
+# long root shape), each worker on its share of the tasks
+K1_PLAIN_PARTS = 2
 # the card's memory rate for the bounds (NVIDIA's H100 SXM data sheet) and
 # its int32 issue rate per SM and clock: four sub-partitions, each
 # dispatching one 32-lane warp instruction per clock, to the integer pipe
@@ -312,9 +340,10 @@ SEARCH_OPS_PER_NODE = 2 * RANK_OPS + 76
 FRONTIER_OPS_PER_STATE = 2 * RANK_OPS + 76
 SELECT_OPS_PER_ANCHOR = 44
 SELECT_OPS_PER_SEED = 16
-# the plain versions that take minutes (K1 at the root
-# shape on both bands, K1w at pass E's 1024 words, K3w at its overhang
-# shape, K4's four layouts) and the search kernels' (K11, K12) run on
+# the plain versions that take minutes (K1 at the root shape on both
+# bands and K1w at pass E's 1024 words, each in K1_PLAIN_PARTS workers,
+# K3w at its overhang shape, K4's four layouts) and the search kernels'
+# (K11, K12) run on
 # the CPU in these spawned worker processes (no CUDA), started before the
 # build, each with this many torch threads; the script waits this long
 # at its end for the last of them
@@ -331,6 +360,12 @@ CPU_PLAIN_NICE = 10
 # reference engine verifies one query at a time on the host, several
 # seconds a 20 kb read, so all 200 would not fit the script's time)
 PASS_H_READS = 8
+# the row-sharded index: the shard counts of the kernel checks (the first
+# is the table row's and pass I's), and pass H2's reads (the first of the
+# workload, --engine reference --device-search --index-shards 2, held to
+# their own host pass)
+SHARD_COUNTS = (2, 4)
+PASS_H2_READS = 2
 # runs the port's CLI with jax unimportable, as on a machine without jax
 JAX_BLOCKED = (
     "import runpy, sys; sys.modules['jax'] = None; "
@@ -588,9 +623,10 @@ def _timed_outputs(fn):
     return [t.numpy() if hasattr(t, "numpy") else t for t in out], seconds
 
 
-def _k1_root_plain(band_words):
+def _k1_root_plain(band_words, part):
     """K1's plain version at the root shape on `band_words` words, its
-    tasks drawn from SEED as the kernels phase draws them (CPU worker)."""
+    tasks drawn from SEED as the kernels phase draws them, on part `part`
+    of K1_PLAIN_PARTS equal parts of the tasks (CPU worker)."""
     import numpy as np
     import torch
 
@@ -600,18 +636,22 @@ def _k1_root_plain(band_words):
     )
 
     _, (patterns, texts) = k1_phase_inputs(np.random.default_rng(SEED))
-    texts_u8, lens = pad(texts)
+    size = ROOT_SHAPE[0] // K1_PLAIN_PARTS
+    tasks = slice(part * size, (part + 1) * size)
+    texts_u8, lens = pad(texts[tasks])
     operands, num_text = banded_operands(
-        patterns, texts_u8, lens, np.full(len(patterns), ROOT_SHAPE[2]),
+        patterns[tasks], texts_u8, lens, np.full(size, ROOT_SHAPE[2]),
         band_words, torch.device("cpu"),
     )
     return _timed_outputs(
         lambda: myers_banded_plain(*operands, band_words, num_text))
 
 
-def _long_k1_plain():
-    """K1's plain version at pass E's long roots on the first band width
-    (CPU worker)."""
+def _long_k1_plain(part):
+    """K1's plain version at pass E's long roots on the first band width,
+    on part `part` of K1_PLAIN_PARTS equal parts of the tasks (CPU
+    worker; each task's output is its own, so the parts' outputs joined
+    are the whole batch's)."""
     import numpy as np
     import torch
 
@@ -622,13 +662,34 @@ def _long_k1_plain():
 
     (patterns, texts), _ = long_shape_inputs()
     T, _, k, _, widths = LONG_ROOT_SHAPE
-    texts_u8, lens = pad(texts)
+    size = T // K1_PLAIN_PARTS
+    tasks = slice(part * size, (part + 1) * size)
+    texts_u8, lens = pad(texts[tasks])
     operands, num_text = banded_operands(
-        patterns, texts_u8, lens, np.full(T, k), widths[0],
+        patterns[tasks], texts_u8, lens, np.full(size, k), widths[0],
         torch.device("cpu"),
     )
     return _timed_outputs(
         lambda: myers_banded_plain(*operands, widths[0], num_text))
+
+
+class JoinedResult:
+    """The parts of one plain version run in several workers, read as one
+    result: get() joins the parts' outputs along their first axis, in
+    order, and sums their CPU seconds."""
+
+    def __init__(self, parts):
+        self.parts = parts
+
+    def get(self, timeout):
+        import numpy as np
+
+        deadline = time.monotonic() + timeout
+        results = [part.get(timeout=max(1.0, deadline - time.monotonic()))
+                   for part in self.parts]
+        outputs = [np.concatenate(arrays)
+                   for arrays in zip(*(out for out, _ in results))]
+        return outputs, sum(seconds for _, seconds in results)
 
 
 def _long_k3_plain():
@@ -928,7 +989,6 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain, large_sweep,
         shared = [t.cpu().numpy() for t in
                   cuda_myers_banded.myers_banded_shared(*args)]
         at = f"at the root shape on {band_words} band words"
-        # the plain version runs on the CPU in a worker since the start
         err = 0
         case = {}
 
@@ -936,6 +996,7 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain, large_sweep,
             case["plain_ms"] = seconds * 1000
             case["plain_on"] = "cpu"
 
+        # the plain version runs on the CPU in workers since the start
         CPU_PLAIN.expect(f"K1 {at}", CPU_PLAIN.results[band_words], [got],
                          record)
         check(all(np.array_equal(g, h) for g, h in zip(got, shared)),
@@ -1833,6 +1894,7 @@ def reset_launches() -> None:
         cuda_myers_large,
         cuda_search_queue,
         cuda_select,
+        cuda_sharded,
         traceback_device,
     )
     from floxer_tpu_torch.scripts import (
@@ -1845,9 +1907,11 @@ def reset_launches() -> None:
                    microbench_column_loop, cuda_search_queue, cuda_frontier,
                    cuda_select):
         module.LAUNCHES = 0
-    cuda_fm_index.RANK_LAUNCHES = 0
+    cuda_frontier.SHARDED_LAUNCHES = 0
+    for module in (cuda_fm_index, cuda_sharded):
+        module.RANK_LAUNCHES = 0
+        module.LOCATE_LAUNCHES = 0
     cuda_fm_index.EXTEND_LAUNCHES = 0
-    cuda_fm_index.LOCATE_LAUNCHES = 0
     traceback_device.LAYOUT_LAUNCHES.clear()
     for module in (cuda_myers_banded, cuda_myers_large):
         module.REGISTER_LAUNCHES = 0
@@ -2117,8 +2181,9 @@ def frontier_inputs(arrays, jobs):
 def run_search_kernels(device, e2e: E2E, peaks):
     """K9, K9x and K9l against their plain versions on pass A's index at
     RANK_QUERIES queries (combined and planes layouts), K10 against
-    workqueue_search_plain on pass A's first chunk; each timed with its
-    bound. Returns (table rows K9, K9x, K9l, K10, the phase's fields)."""
+    workqueue_search_plain on pass A's first chunk, K11 and K12 on it;
+    each timed with its bound. Returns (table rows K9-K12, the phase's
+    fields, K11's legacy-block input for run_sharded_kernels)."""
     import numpy as np
     import torch
 
@@ -2286,8 +2351,9 @@ def run_search_kernels(device, e2e: E2E, peaks):
                        ("ms", "plain_ms", "bound_ms", "bound_by")}
 
     index_path = str(e2e.workdir / "index.npz")
+    inputs = frontier_inputs(arrays, jobs)
     rows["K11"], fields["K11"] = frontier_kernel_checks(
-        index, index_path, frontier_inputs(arrays, jobs), peaks
+        index, index_path, inputs, peaks
     )
     # K12 on the groups the dedup and cap replay leave of the work queue's
     # reports (the long seeds are the native redo's)
@@ -2298,6 +2364,157 @@ def run_search_kernels(device, e2e: E2E, peaks):
     rows["K12"], fields["K12"] = select_kernel_checks(
         index, index_path, rep, redo, peaks
     )
+    return rows, fields, inputs["block"]
+
+
+def run_sharded_kernels(device, e2e: E2E, peaks, block):
+    """K13 (both directions) at RANK_QUERIES positions, K13l at
+    RANK_QUERIES SA rows and K11 over the shard tables on the legacy
+    loop's first 256-seed block of pass A's first chunk, on pass A's index
+    cut into each of SHARD_COUNTS shards: each one launch held exactly to
+    its plain version on the same card tensors and to the unsharded
+    kernel's output (K9, K9l, K11: K11's reports in order, count,
+    overflow, iterations and expanded states), then timed (CUDA events)
+    with its bound. Returns (table rows K13, K13l, K11s at
+    SHARD_COUNTS[0] shards, the phase's fields)."""
+    import numpy as np
+    import torch
+
+    from floxer_tpu_torch.index.device_index import (
+        DeviceIndex,
+        ShardedDeviceIndex,
+    )
+    from floxer_tpu_torch.index.fmindex import FmIndex
+    from floxer_tpu_torch.ops import cuda_fm_index as k9
+    from floxer_tpu_torch.ops import cuda_frontier as k11
+    from floxer_tpu_torch.ops import cuda_sharded as k13
+    from floxer_tpu_torch.ops.frontier import frontier_search_plain
+
+    host = FmIndex.load(e2e.workdir / "index.npz")
+    n = host.n
+    rng = np.random.default_rng(SEED + 13)
+    B = RANK_QUERIES
+
+    def to_dev(array):
+        return torch.from_numpy(array.astype(np.int32)).to(device)
+
+    positions = to_dev(rng.integers(0, n + 1, size=B))
+    sa_rows = to_dev(rng.integers(0, n, size=B))
+    flat = DeviceIndex.from_host(host, device)
+    want_rank = [k9.fm_rank_cuda(positions, s.rank_rows, s.block_offset,
+                                 s.occ, s.planes)
+                 for s in (flat.fwd, flat.rev)]
+    want_located = k9.fm_locate_cuda(flat, sa_rows, flat.sampling_rate)
+    padded, seed_class, tables, capacity, reports, max_iterations = block
+    operands = [torch.from_numpy(a).to(device)
+                for a in (padded, seed_class, tables.fused())]
+    search_args = (tables.num_searches, tables.num_parts, capacity, reports,
+                   max_iterations)
+    want_k11 = k11.frontier_search_cuda(flat, *operands, *search_args)
+    seq_ids, offsets = (t.long() for t in want_located)
+    text_positions = flat.seq_starts.long()[seq_ids] + offsets
+    steps = int((text_positions % flat.sampling_rate).sum())
+    seq_probes = PROBE_OPS * int(np.ceil(np.log2(
+        flat.seq_starts.shape[0] + 1)))
+    fields, rows = {"genome_n": n, "queries": B, "lf_steps": steps}, {}
+    for S in SHARD_COUNTS:
+        index = ShardedDeviceIndex.from_host(host, S, device)
+        fwd = index.fwd
+        rank_args = (fwd.rank_rows, fwd.block_offset, fwd.shard_starts,
+                     fwd.shard_lengths)
+        errs = {"K13": 0}
+        for single, want in zip((index.fwd, index.rev), want_rank):
+            args = (single.rank_rows, single.block_offset,
+                    single.shard_starts, single.shard_lengths)
+            got = k13.fm_sharded_rank_cuda(positions, *args)
+            errs["K13"] = max(
+                errs["K13"], max_error(got, want),
+                max_error(got, k13.fm_sharded_rank_plain(positions, *args)))
+        located = k13.fm_sharded_locate_cuda(index, sa_rows,
+                                             index.sampling_rate)
+        errs["K13l"] = max(
+            max_error(located, want_located),
+            max_error(located, k13.fm_sharded_locate_plain(
+                index, sa_rows, index.sampling_rate)))
+
+        def k11_kernel(index=index):
+            return k11.frontier_search_cuda(index, *operands, *search_args)
+
+        before = k11.SHARDED_LAUNCHES
+        out = k11_kernel()
+        check(k11.SHARDED_LAUNCHES == before + 1,
+              "K11 over the shards took more than one launch")
+        stats = {}
+        plain, k11_plain_s = plain_seconds(lambda: frontier_search_plain(
+            index, operands[0][0], operands[1][0], operands[2],
+            *search_args, stats))
+        errs["K11s"] = max(
+            *(max_error(getattr(out, f), getattr(want_k11, f))
+              for f in ("reports", "num_reports", "overflow", "iterations",
+                        "expanded")),
+            max_error(out.reports[0], plain[0]),
+            abs(int(out.num_reports[0]) - plain[1]),
+            max_error(out.overflow[0], plain[2]),
+            abs(int(out.iterations[0]) - stats["iterations"]),
+            abs(int(out.expanded[0]) - stats["expanded"]),
+        )
+        for name, err in errs.items():
+            check(err == 0, f"{name} at {S} shards differs from its plain "
+                            f"version or the unsharded kernel ({err})")
+        check(not bool(out.overflow.any()),
+              f"K11 over {S} shards overflowed on the block")
+
+        # one direction's shard tables, each shard's rows once
+        table_bytes = S * (index.rev_block_offset - 1) * 128
+        ns = index.sampled_rows.shape[1]
+        probes = S * PROBE_OPS * int(np.ceil(np.log2(ns + 1)))
+        expanded = int(out.expanded[0])
+        kernels = {
+            "K13": ("fm_sharded_rank",
+                    lambda: k13.fm_sharded_rank_cuda(positions, *rank_args),
+                    lambda: k13.fm_sharded_rank_plain(positions, *rank_args),
+                    20, S * RANK_OPS * B, 4 * B + 24 * B + table_bytes),
+            "K13l": ("fm_sharded_locate",
+                     lambda: k13.fm_sharded_locate_cuda(
+                         index, sa_rows, index.sampling_rate),
+                     lambda: k13.fm_sharded_locate_plain(
+                         index, sa_rows, index.sampling_rate),
+                     20, steps * (S * RANK_OPS + 3 + S + probes)
+                     + B * (probes + seq_probes),
+                     4 * B + 8 * B + table_bytes
+                     + tensor_bytes(fwd.bwt, index.sampled_rows,
+                                    index.sampled_values, index.seq_starts)),
+            "K11s": ("frontier_search_sharded", k11_kernel, None, 5,
+                     (2 * S * RANK_OPS + 76) * expanded,
+                     tensor_bytes(index.rank_rows, *operands)
+                     + int(out.num_reports[0]) * 5 * 4),
+        }
+        case = {"max_abs_err": errs, "rank_rows": list(index.rank_rows.shape),
+                "shard_lengths": fwd.shard_lengths.tolist()}
+        for key, (name, kernel, plain_fn, repeats, ops,
+                  nbytes) in kernels.items():
+            ms = cuda_ms(kernel, repeats)
+            plain_s = (k11_plain_s if plain_fn is None
+                       else plain_seconds(plain_fn)[1])
+            row = {
+                "name": name, "route": "cuda",
+                "source": k11.SOURCE if key == "K11s" else k13.SOURCE,
+                "replaces": (k11.SHARDED_REPLACES if key == "K11s"
+                             else k13.REPLACES[key]),
+                "max_abs_err": errs[key], "ms": ms,
+                "plain_ms": plain_s * 1e3,
+                **bound_fields(bound(ops, nbytes, peaks)),
+            }
+            case[key] = {k: row[k] for k in
+                         ("ms", "plain_ms", "bound_ms", "bound_by")}
+            if S == SHARD_COUNTS[0]:
+                row["shape"] = (
+                    f"S={S} on pass A's index: B={B}" if key != "K11s" else
+                    f"S={S}, pass A's first 256-seed block, C={capacity}, "
+                    f"{expanded} expanded states")
+                rows[key] = row
+        case["K11s"]["expanded_states"] = expanded
+        fields[f"shards_{S}"] = case
     return rows, fields
 
 
@@ -2588,6 +2805,24 @@ def run_block_pass(e2e: E2E):
     }, launches
 
 
+def first_reads(e2e: E2E, count: int, host_name: str) -> E2E:
+    """The workload cut to its first `count` reads, with their own host
+    pass (the native host engine) as `host_name`."""
+    import copy
+
+    from floxer_tpu_torch import pipeline
+    from floxer_tpu_torch.cli import parse_and_validate
+
+    subset = copy.copy(e2e)
+    subset.reads = e2e.workdir / f"reads_first_{count}.fastq"
+    subset.num_reads = count
+    lines = e2e.reads.read_text().splitlines(keepends=True)
+    subset.reads.write_text("".join(lines[:4 * count]))
+    check(pipeline.run(parse_and_validate(subset.argv(host_name)),
+                       use_device=False) == 0, f"{host_name} failed")
+    return subset
+
+
 def run_frontier_pass(e2e: E2E):
     """Pass H: the first PASS_H_READS reads of the workload with pass A's
     arguments and --engine reference --device-search: every query's seed
@@ -2595,19 +2830,9 @@ def run_frontier_pass(e2e: E2E):
     seeds and strand (the per-query frontier), the rest of the reference
     engine on the host; SAM = the same reads' own host pass (the native
     host engine). Counted after the search warmup is joined."""
-    import copy
-
-    from floxer_tpu_torch import pipeline
-    from floxer_tpu_torch.cli import parse_and_validate
     from floxer_tpu_torch.search_device import DeviceSearcher
 
-    subset = copy.copy(e2e)
-    subset.reads = e2e.workdir / f"reads_first_{PASS_H_READS}.fastq"
-    subset.num_reads = PASS_H_READS
-    lines = e2e.reads.read_text().splitlines(keepends=True)
-    subset.reads.write_text("".join(lines[:4 * PASS_H_READS]))
-    check(pipeline.run(parse_and_validate(subset.argv("pass_h_host")),
-                       use_device=False) == 0, "pass H's host pass failed")
+    subset = first_reads(e2e, PASS_H_READS, "pass_h_host")
     before = dict(DeviceSearcher.stage_seconds)
     started = time.monotonic()
     launches, _ = subset.run_device_pass(
@@ -2624,6 +2849,100 @@ def run_frontier_pass(e2e: E2E):
         "host_pass_align_s": subset.seconds("pass_h_host"), "wall_s": wall,
         "search_stage_s": search_stage_delta(before),
     }, launches
+
+
+def run_sharded_pass(e2e: E2E):
+    """Pass I: pass A's arguments with --device-search --index-shards 2:
+    the sharded searcher, its chunks through the legacy block loop on K11
+    over the shard tables (no K10), the native select and the host
+    locate; SAM = pass B; its search seconds and the searcher's stage
+    seconds."""
+    from floxer_tpu_torch.search_device import DeviceSearcher
+
+    before = dict(DeviceSearcher.stage_seconds)
+    overflow_before = DeviceSearcher.redo_overflow
+    launches, _ = e2e.run_device_pass(
+        "pass_i", extra=["--device-search", "--index-shards", "2"],
+    )
+    check(launches["K11s"] > 0 and launches["K11"] == 0
+          and launches["K10"] == 0,
+          f"pass I launched K11 {launches['K11s']} times over the shards, "
+          f"{launches['K11']} over the index and K10 {launches['K10']} "
+          f"times")
+    seconds, split = align_seconds(e2e.workdir / "pass_i.log")
+    return {
+        "reads": e2e.num_reads, "sam_identical": True, "launches": launches,
+        "align_s": seconds, "search_s": stage_seconds(split, "search"),
+        "pass_g3_search_s": stage_seconds(
+            align_seconds(e2e.workdir / "pass_g3.log")[1], "search"),
+        "stage_split": split,
+        "host_redo_overflowed_seeds":
+            DeviceSearcher.redo_overflow - overflow_before,
+        "search_stage_s": search_stage_delta(before),
+    }, launches
+
+
+def run_sharded_frontier_pass(e2e: E2E):
+    """Pass H2: the first PASS_H2_READS reads with --engine reference
+    --device-search --index-shards 2: each query's per-query frontier on
+    K11 over the shard tables; SAM = their own host pass."""
+    subset = first_reads(e2e, PASS_H2_READS, "pass_h2_host")
+    started = time.monotonic()
+    launches, _ = subset.run_device_pass(
+        "pass_h2", extra=["--device-search", "--index-shards", "2"],
+        engine="reference", oracle="pass_h2_host",
+    )
+    check(launches["K11s"] > 0 and launches["K10"] == 0,
+          f"pass H2 launched K11 {launches['K11s']} times over the shards "
+          f"and K10 {launches['K10']} times")
+    return {
+        "reads": PASS_H2_READS, "sam_identical": True, "launches": launches,
+        "align_s": subset.seconds("pass_h2"),
+        "host_pass_align_s": subset.seconds("pass_h2_host"),
+        "wall_s": time.monotonic() - started,
+    }
+
+
+def run_dryrun_phase(device):
+    """The port's entry points on the card (graft_entry): entry()'s
+    step (K9l, K2), then dryrun_multichip(2) and (8) on cuda:0 repeated:
+    the reads-split step, the 2-D step whose sharded ranks (K13) must
+    equal K9's, the sharded search and locate (K11 over the shards, K13l)
+    and the sharded CLI's SAM equal to the unsharded one's. Counted from
+    0; returns (fields, launches)."""
+    from floxer_tpu_torch import graft_entry, pipeline
+
+    reset_launches()
+    printed = io.StringIO()
+    started = time.monotonic()
+    with contextlib.redirect_stdout(printed):
+        fn, args = graft_entry.entry(device)
+        out = fn(*args)
+        check(bool(out["accepted"].all()), "entry()'s step rejected a "
+                                           "planted match")
+        for n in (2, 8):
+            graft_entry.dryrun_multichip(n, device)
+    launches = pipeline.kernel_launches()
+    for name in ("K2", "K9l", "K11s", "K13", "K13l"):
+        check(launches[name] > 0, f"the dry run never launched {name}")
+    lines = printed.getvalue().splitlines()
+    check(sum("— OK" in line for line in lines) == 8,
+          f"the dry run did not accept every step: {lines}")
+    return {"seconds": time.monotonic() - started, "lines": lines,
+            "launches": launches}, launches
+
+
+def run_platform_cpu_pass(e2e: E2E):
+    """Pass F2: pass B's engine (--engine batched) with
+    FLOXER_TPU_PLATFORM=cpu on the machine with the card: run() takes the
+    CPU, so no kernel launches and no fused dispatch; SAM = pass B."""
+    launches, fused = e2e.run_device_pass(
+        "pass_f2", engine="batched", env={"FLOXER_TPU_PLATFORM": "cpu"},
+    )
+    check(not any(launches.values()) and fused == 0,
+          f"pass F2 launched kernels: {launches}, fused {fused}")
+    return {"sam_identical": True, "launches": launches, "fused": fused,
+            "align_s": e2e.seconds("pass_f2")}
 
 
 def run_traceback_pass(e2e: E2E):
@@ -3032,16 +3351,26 @@ def ptxas_phase() -> dict:
     # the device search's kernels: K9, K9x, K9l (csrc/fm_index.cu), K10
     # (csrc/workqueue_search.cu), K11 (csrc/frontier_search.cu) and K12
     # (csrc/select_anchors.cu), one instance each
-    for kernel in ("fm_rank_kernel", "fm_extend_kernel", "fm_locate_kernel",
-                   "workqueue_kernel", "frontier_kernel", "select_kernel"):
-        names = [name for name in usage if kernel in name]
-        check(len(names) == 1, f"{kernel} is compiled as {names}")
-        found = usage[names[0]]
-        check(found.get("spill_stores", 1) == 0
-              and found.get("spill_loads", 1) == 0
-              and found.get("stack", 1) == 0,
-              f"{kernel} spills or keeps a stack frame: {found}")
-        report[kernel] = found
+    # (K11 twice: over the index and over the shard tables), and the
+    # sharded index's K13 and K13l (csrc/fm_sharded.cu)
+    for kernel, instances in (
+        ("fm_rank_kernel", 1), ("fm_extend_kernel", 1),
+        ("fm_locate_kernel", 1), ("workqueue_kernel", 1),
+        ("frontier_kernel", 2), ("select_kernel", 1),
+        ("fm_sharded_rank_kernel", 1), ("fm_sharded_locate_kernel", 1),
+    ):
+        names = sorted(name for name in usage if kernel in name)
+        check(len(names) == instances, f"{kernel} is compiled as {names}")
+        for name in names:
+            found = usage[name]
+            check(found.get("spill_stores", 1) == 0
+                  and found.get("spill_loads", 1) == 0
+                  and found.get("stack", 1) == 0,
+                  f"{name} spills or keeps a stack frame: {found}")
+            key = kernel
+            if kernel == "frontier_kernel":
+                key += "<sharded>" if "Sharded" in name else "<index>"
+            report[key] = found
     return report
 
 
@@ -3084,11 +3413,16 @@ def main() -> int:
         # makes its own tasks from the seed
         CPU_PLAIN = CpuPlain(cpu_pool, search_pool)
         results = CPU_PLAIN.results
-        results["long_k1"] = CPU_PLAIN.submit(_long_k1_plain)
+        results["long_k1"] = JoinedResult([
+            CPU_PLAIN.submit(_long_k1_plain, part)
+            for part in range(K1_PLAIN_PARTS)
+        ])
         results["long_k3"] = CPU_PLAIN.submit(_long_k3_plain)
         for band_words in (ROOT_WAVE_BAND_WORDS, ROOT_SHAPE[3]):
-            results[band_words] = CPU_PLAIN.submit(_k1_root_plain,
-                                                   band_words)
+            results[band_words] = JoinedResult([
+                CPU_PLAIN.submit(_k1_root_plain, band_words, part)
+                for part in range(K1_PLAIN_PARTS)
+            ])
         for key in ("K4s", "K4", "K4r32", "K4r16"):
             results[key] = CPU_PLAIN.submit(_k4_plain, key)
         large_plain = sweep_pool.map_async(_k3_plain, large_sweep,
@@ -3153,9 +3487,12 @@ def run_all(device, peaks, k1_sweep, k3_sweep, full_arrays,
         e2e = E2E(workdir, E2E_READS)
         result, launches = run_e2e(device, e2e)
         phase("e2e", **result)
-        search_rows, fields = run_search_kernels(device, e2e, peaks)
+        search_rows, fields, block = run_search_kernels(device, e2e, peaks)
         rows.update(search_rows)
         phase("search_kernels", **fields)
+        sharded_rows, fields = run_sharded_kernels(device, e2e, peaks, block)
+        rows.update(sharded_rows)
+        phase("sharded_kernels", **fields)
         result, launches_g = run_device_search_pass(device, e2e)
         phase("device_search", **result)
         result, launches_g2 = run_select_pass(e2e)
@@ -3164,6 +3501,12 @@ def run_all(device, peaks, k1_sweep, k3_sweep, full_arrays,
         phase("device_search_blocks", **result)
         result, launches_h = run_frontier_pass(e2e)
         phase("frontier_search", **result)
+        result, launches_i = run_sharded_pass(e2e)
+        phase("sharded_search", **result)
+        phase("sharded_frontier", **run_sharded_frontier_pass(e2e))
+        result, launches_dryrun = run_dryrun_phase(device)
+        phase("dryrun", **result)
+        phase("platform_cpu", **run_platform_cpu_pass(e2e))
         result, launches_c = run_traceback_pass(e2e)
         phase("traceback", **result)
         phase("process_set", **run_process_set_pass(e2e))
@@ -3190,10 +3533,14 @@ def run_all(device, peaks, k1_sweep, k3_sweep, full_arrays,
         rows[name]["launches"] = launches_g[name]
     rows["K11"]["launches"] = launches_h["K11"]
     rows["K12"]["launches"] = launches_g2["K12"]
+    rows["K11s"]["launches"] = launches_i["K11s"]
+    for name in ("K13", "K13l"):
+        rows[name]["launches"] = launches_dryrun[name]
     for key, _, layout, _, _ in K4_WIDE:
         rows[key]["launches"] = (launches_c.get(f"K4_{layout}", 0)
                                  + launches_ep.get(f"K4_{layout}", 0))
     rows.update(script_rows)
+    phase("total", seconds=time.monotonic() - STARTED)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3201,7 +3548,8 @@ def run_all(device, peaks, k1_sweep, k3_sweep, full_arrays,
         {k: rows[name][k] for k in keys}
         for name in ("K1", "K1w", "K1s", "K2", "K3", "K3w", "K3s", "K4",
                      "K4r16", "K4r32", "K4s", "K5", "K6", "K7", "K8",
-                     "K9", "K9x", "K9l", "K10", "K11", "K12")
+                     "K9", "K9x", "K9l", "K10", "K11", "K12", "K11s",
+                     "K13", "K13l")
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

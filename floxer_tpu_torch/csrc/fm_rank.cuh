@@ -7,6 +7,15 @@
 // rank_rows_lookup (:260), _rank_all_planes (:228), extend_left_all /
 // extend_right_all (:370, :387) and locate_batch (:455).
 //
+// The row-sharded index (FmShardedRankTable, FmShardedLocateTables) has
+// the same functions over S shard tables (csrc/fm_sharded.cu K13, K13l;
+// K11 over shards): each shard clamps the global position into its own
+// rows and ranks there, and the shards' counts are summed in the thread,
+// where the reference sums them with a psum over its index mesh axis
+// (device_index.py:318-358, :433-446; parallel/sharded_index.py:78).
+// The functions that take a table are overloaded or templated on its
+// type, so the unsharded kernels compile as they did.
+//
 // Two layouts, as the reference has them:
 //   combined: rows uint32 [R, 32], one 128-byte row a block of 128 BWT
 //     positions; column 5 s is symbol s's checkpoint, 5 s + 1 .. 5 s + 4
@@ -17,6 +26,7 @@
 // bits below the position.
 #pragma once
 
+#include <cstddef>
 #include <cstdint>
 
 #define FM_SIGMA 6
@@ -101,9 +111,71 @@ __host__ __device__ inline void fm_rank(const FmRankTable& t, int position,
   }
 }
 
+// S shard tables of one direction, each in the combined layout: shard s's
+// rows start at rows + s * shard_rows * 32 and hold its own blocks (local
+// checkpoints and planes of its real rows only); a direction's positions
+// start at row row_offset of every shard. Shard s owns the global rows
+// [starts[s], starts[s] + lengths[s]).
+struct FmShardedRankTable {
+  const uint32_t* rows;  // [S, shard_rows, 32]
+  int shard_rows;
+  int row_offset;
+  const int* starts;   // [S]
+  const int* lengths;  // [S]
+  int num_shards;
+};
+
+// counts[s] = occurrences of symbol s before a global position: the sum
+// over the shards of each shard's count at clamp(position - start, 0,
+// length) (an empty shard counts 0)
+__host__ __device__ inline void fm_rank(const FmShardedRankTable& t,
+                                        int position, int counts[FM_SIGMA]) {
+#pragma unroll
+  for (int s = 0; s < FM_SIGMA; ++s) counts[s] = 0;
+  for (int shard = 0; shard < t.num_shards; ++shard) {
+    int local = position - t.starts[shard];
+    const int length = t.lengths[shard];
+    local = local < 0 ? 0 : (local > length ? length : local);
+    FmRankTable one;
+    one.rows = t.rows + (size_t)shard * t.shard_rows * FM_ROW_WORDS;
+    one.occ = nullptr;
+    one.planes = nullptr;
+    one.row_offset = t.row_offset;
+    int part[FM_SIGMA];
+    fm_rank(one, local, part);
+#pragma unroll
+    for (int s = 0; s < FM_SIGMA; ++s) counts[s] += part[s];
+  }
+}
+
+// field-wise select of a direction's table (registers, not a copy)
+__host__ __device__ inline FmRankTable fm_pick(const FmRankTable& a,
+                                               const FmRankTable& b,
+                                               bool first) {
+  FmRankTable t;
+  t.rows = first ? a.rows : b.rows;
+  t.occ = first ? a.occ : b.occ;
+  t.planes = first ? a.planes : b.planes;
+  t.row_offset = first ? a.row_offset : b.row_offset;
+  return t;
+}
+
+__host__ __device__ inline FmShardedRankTable fm_pick(
+    const FmShardedRankTable& a, const FmShardedRankTable& b, bool first) {
+  FmShardedRankTable t;
+  t.rows = first ? a.rows : b.rows;
+  t.shard_rows = first ? a.shard_rows : b.shard_rows;
+  t.row_offset = first ? a.row_offset : b.row_offset;
+  t.starts = first ? a.starts : b.starts;
+  t.lengths = first ? a.lengths : b.lengths;
+  t.num_shards = first ? a.num_shards : b.num_shards;
+  return t;
+}
+
 // the rank of one symbol (K9l's LF step)
-__host__ __device__ inline int fm_rank_symbol(const FmRankTable& t,
-                                              int position, int symbol) {
+template <class Table>
+__host__ __device__ inline int fm_rank_symbol(const Table& t, int position,
+                                              int symbol) {
   int counts[FM_SIGMA];
   fm_rank(t, position, counts);
   int out = counts[0];
@@ -116,7 +188,8 @@ __host__ __device__ inline int fm_rank_symbol(const FmRankTable& t,
 // by every symbol: two ranks on the direction that is extended (`t`: the
 // forward table for a left extension at lb, the reverse one for a right
 // extension at lb_rev), the counts, their exclusive prefix and C
-__host__ __device__ inline void fm_extend_all(const FmRankTable& t,
+template <class Table>
+__host__ __device__ inline void fm_extend_all(const Table& t,
                                               const int* C, int lb,
                                               int lb_rev, int length,
                                               bool left,
@@ -177,21 +250,90 @@ struct FmLocateTables {
   int sampling_rate;
 };
 
+// the same over the row-sharded index: the forward shard tables, the
+// shards' BWT rows (bwt + s * bwt_stride, the owner's), and each shard's
+// chunk of the SA samples (sampled_rows + s * ns, sorted, padded with
+// 1 << 30, which no row reaches)
+struct FmShardedLocateTables {
+  FmShardedRankTable fwd;
+  const uint8_t* bwt;  // [S, bwt_stride]
+  int bwt_stride;
+  const int* C;
+  const int* sampled_rows;    // [S, ns]
+  const int* sampled_values;  // [S, ns]
+  int ns;
+  const int* seq_starts;
+  int num_seqs;
+  int sampling_rate;
+};
+
+// the BWT symbol at a row
+__host__ __device__ inline int fm_bwt_at(const FmLocateTables& t, int row) {
+  return t.bwt[row];
+}
+
+// the symbol from the shard that owns the row (the others add 0)
+__host__ __device__ inline int fm_bwt_at(const FmShardedLocateTables& t,
+                                         int row) {
+  int symbol = 0;
+  for (int shard = 0; shard < t.fwd.num_shards; ++shard) {
+    const int local = row - t.fwd.starts[shard];
+    if (local >= 0 && local < t.fwd.lengths[shard]) {
+      symbol += t.bwt[(size_t)shard * t.bwt_stride + local];
+    }
+  }
+  return symbol;
+}
+
+// is the row sampled, and its sampled text position (*value, 0 if not):
+// the reference's clamped searchsorted
+__host__ __device__ inline bool fm_sample_lookup(const int* sampled_rows,
+                                                 const int* sampled_values,
+                                                 int ns, int row, int* value) {
+  int at = fm_lower_bound(sampled_rows, ns, row);
+  at = at < ns - 1 ? at : ns - 1;
+  const bool hit = sampled_rows[at] == row;
+  *value = hit ? sampled_values[at] : 0;
+  return hit;
+}
+
+__host__ __device__ inline bool fm_sample_lookup(const FmLocateTables& t,
+                                                 int row, int* value) {
+  return fm_sample_lookup(t.sampled_rows, t.sampled_values, t.ns, row, value);
+}
+
+// every shard searches its own chunk; the hits and values are summed (one
+// shard at most holds the row)
+__host__ __device__ inline bool fm_sample_lookup(
+    const FmShardedLocateTables& t, int row, int* value) {
+  int hits = 0, sum = 0;
+  for (int shard = 0; shard < t.fwd.num_shards; ++shard) {
+    int part;
+    hits += fm_sample_lookup(t.sampled_rows + (size_t)shard * t.ns,
+                             t.sampled_values + (size_t)shard * t.ns, t.ns,
+                             row, &part)
+                ? 1
+                : 0;
+    sum += part;
+  }
+  *value = sum;
+  return hits > 0;
+}
+
 // SA row -> (reference id, position): the reference's fixed-trip walk
 // (a row that hits a sampled row stops there), then the sequence search.
 // An index of -1 reads the last element, as the reference's gather does.
-__host__ __device__ inline void fm_locate_row(const FmLocateTables& t,
-                                              int row, int* seq_id,
-                                              int* position) {
+template <class Tables>
+__host__ __device__ inline void fm_locate_row(const Tables& t, int row,
+                                              int* seq_id, int* position) {
   int steps = 0;
   for (int step = 0; step < t.sampling_rate; ++step) {
-    int at = fm_lower_bound(t.sampled_rows, t.ns, row);
-    at = at < t.ns - 1 ? at : t.ns - 1;
-    if (t.sampled_rows[at] == row) {
-      steps += t.sampled_values[at];
+    int value;
+    if (fm_sample_lookup(t, row, &value)) {
+      steps += value;
       break;
     }
-    const int symbol = t.bwt[row];
+    const int symbol = fm_bwt_at(t, row);
     row = t.C[symbol] + fm_rank_symbol(t.fwd, row, symbol);
     steps += 1;
   }

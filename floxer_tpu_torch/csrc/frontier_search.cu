@@ -35,6 +35,12 @@
 // waits for the block's scans, so a launch of one small frontier (the
 // per-query path) is latency-bound: it pays ~2 barriers a round and
 // dependent rank-row gathers every iteration.
+//
+// Over the row-sharded index (frontier_kernel<FmShardedRankTable>, the
+// counterpart of floxer_tpu/parallel/sharded_index.py's
+// sharded_frontier_search :371) each rank reads one row of each shard
+// and sums the shards' counts (fm_rank.cuh); the frontier, its order and
+// its flag are those of the unsharded kernel, since the counts are.
 
 #include <cuda_runtime.h>
 
@@ -58,8 +64,9 @@ enum { kDir, kStart, kEnd, kLower, kUpper, kNextDir, kNextStart, kNextEnd };
 // a frontier's stats row
 enum { sReports, sOverflow, sIterations, sExpanded, kStats };
 
+template <class Table>
 struct Params {
-  FmRankTable fwd, rev;
+  Table fwd, rev;
   const int* C;
   int n;
   const int* patterns;    // [F * S, L]
@@ -127,7 +134,8 @@ __device__ inline void put(int* buffer, int C, int slot, int lb, int lb_rev,
   buffer[fDone * C + slot] = done;
 }
 
-__global__ void __launch_bounds__(kThreads) frontier_kernel(Params p) {
+template <class Table>
+__global__ void __launch_bounds__(kThreads) frontier_kernel(Params<Table> p) {
   __shared__ int warp_sums[kWarps + 1];
   __shared__ int any_alive;
   const int C = p.capacity;
@@ -207,8 +215,8 @@ __global__ void __launch_bounds__(kThreads) frontier_kernel(Params p) {
         if (alive_state && !at_boundary) {
           ++expanded;
           const bool left = dir < 0;
-          fm_extend_all(left ? p.fwd : p.rev, p.C, lb, lb_rev, len, left,
-                        child_lb, child_lb_rev, counts);
+          fm_extend_all(fm_pick(p.fwd, p.rev, left), p.C, lb, lb_rev, len,
+                        left, child_lb, child_lb_rev, counts);
           int pc = pos < 0 ? 0 : (pos > p.pad_len - 1 ? p.pad_len - 1 : pos);
           const int symbol = patterns[(size_t)seed * p.pad_len + pc];
           ms = symbol >= 1 && symbol < FM_SIGMA ? symbol : 0;
@@ -304,30 +312,13 @@ __global__ void __launch_bounds__(kThreads) frontier_kernel(Params p) {
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// rows: the combined rank table, or null for the per-direction planes
-// layout (fwd_occ, fwd_planes, rev_occ, rev_planes); F frontiers of
-// num_seeds seeds each, one block each
-int floxer_frontier_search(
-    const void* rows, const void* fwd_occ, const void* fwd_planes,
-    const void* rev_occ, const void* rev_planes, int rev_block_offset,
-    const void* C, int n, const void* patterns, const void* seed_class,
-    int num_frontiers, int num_seeds, int pad_len, const void* scheme,
-    int num_searches, int num_parts, int capacity, int report_capacity,
-    int max_iterations, void* frontier, void* reports, void* stats,
-    void* stream) {
-  Params p;
-  p.fwd.rows = static_cast<const uint32_t*>(rows);
-  p.fwd.occ = static_cast<const int32_t*>(fwd_occ);
-  p.fwd.planes = static_cast<const uint32_t*>(fwd_planes);
-  p.fwd.row_offset = 0;
-  p.rev.rows = static_cast<const uint32_t*>(rows);
-  p.rev.occ = static_cast<const int32_t*>(rev_occ);
-  p.rev.planes = static_cast<const uint32_t*>(rev_planes);
-  p.rev.row_offset = rev_block_offset;
+// the operands both tables' launches share
+template <class Table>
+void fill_common(Params<Table>& p, const void* C, int n, const void* patterns,
+                 const void* seed_class, int num_seeds, int pad_len,
+                 const void* scheme, int num_searches, int num_parts,
+                 int capacity, int report_capacity, int max_iterations,
+                 void* frontier, void* reports, void* stats) {
   p.C = static_cast<const int*>(C);
   p.n = n;
   p.patterns = static_cast<const int*>(patterns);
@@ -343,7 +334,67 @@ int floxer_frontier_search(
   p.frontier = static_cast<int*>(frontier);
   p.reports = static_cast<int*>(reports);
   p.stats = static_cast<int*>(stats);
-  frontier_kernel<<<num_frontiers, kThreads, 0, (cudaStream_t)stream>>>(p);
+}
+
+}  // namespace
+
+extern "C" {
+
+// rows: the combined rank table, or null for the per-direction planes
+// layout (fwd_occ, fwd_planes, rev_occ, rev_planes); F frontiers of
+// num_seeds seeds each, one block each
+int floxer_frontier_search(
+    const void* rows, const void* fwd_occ, const void* fwd_planes,
+    const void* rev_occ, const void* rev_planes, int rev_block_offset,
+    const void* C, int n, const void* patterns, const void* seed_class,
+    int num_frontiers, int num_seeds, int pad_len, const void* scheme,
+    int num_searches, int num_parts, int capacity, int report_capacity,
+    int max_iterations, void* frontier, void* reports, void* stats,
+    void* stream) {
+  Params<FmRankTable> p;
+  p.fwd.rows = static_cast<const uint32_t*>(rows);
+  p.fwd.occ = static_cast<const int32_t*>(fwd_occ);
+  p.fwd.planes = static_cast<const uint32_t*>(fwd_planes);
+  p.fwd.row_offset = 0;
+  p.rev.rows = static_cast<const uint32_t*>(rows);
+  p.rev.occ = static_cast<const int32_t*>(rev_occ);
+  p.rev.planes = static_cast<const uint32_t*>(rev_planes);
+  p.rev.row_offset = rev_block_offset;
+  fill_common(p, C, n, patterns, seed_class, num_seeds, pad_len, scheme,
+              num_searches, num_parts, capacity, report_capacity,
+              max_iterations, frontier, reports, stats);
+  frontier_kernel<FmRankTable>
+      <<<num_frontiers, kThreads, 0, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// over the row-sharded index: rows [S, shard_rows, 32], each shard's
+// combined table (the reverse direction from row rev_block_offset), the
+// shards' starts and lengths (both directions'); n the global length
+int floxer_frontier_search_sharded(
+    const void* rows, int shard_rows, int rev_block_offset,
+    const void* fwd_starts, const void* fwd_lengths, const void* rev_starts,
+    const void* rev_lengths, int num_shards, const void* C, int n,
+    const void* patterns, const void* seed_class, int num_frontiers,
+    int num_seeds, int pad_len, const void* scheme, int num_searches,
+    int num_parts, int capacity, int report_capacity, int max_iterations,
+    void* frontier, void* reports, void* stats, void* stream) {
+  Params<FmShardedRankTable> p;
+  p.fwd.rows = static_cast<const uint32_t*>(rows);
+  p.fwd.shard_rows = shard_rows;
+  p.fwd.row_offset = 0;
+  p.fwd.starts = static_cast<const int*>(fwd_starts);
+  p.fwd.lengths = static_cast<const int*>(fwd_lengths);
+  p.fwd.num_shards = num_shards;
+  p.rev = p.fwd;
+  p.rev.row_offset = rev_block_offset;
+  p.rev.starts = static_cast<const int*>(rev_starts);
+  p.rev.lengths = static_cast<const int*>(rev_lengths);
+  fill_common(p, C, n, patterns, seed_class, num_seeds, pad_len, scheme,
+              num_searches, num_parts, capacity, report_capacity,
+              max_iterations, frontier, reports, stats);
+  frontier_kernel<FmShardedRankTable>
+      <<<num_frontiers, kThreads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

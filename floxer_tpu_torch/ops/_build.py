@@ -232,6 +232,25 @@ ALIGNER = KernelLibrary(_PACKAGE_DIR / "csrc", "libfloxer_kernels", {
         _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _I, _I, _I,
         _I, _I, _P, _P, _P, _P,
     ],
+    # rows, shard_rows, rev_block_offset, fwd starts, fwd lengths, rev
+    # starts, rev lengths, num_shards, C, n, patterns, seed_class,
+    # num_frontiers, num_seeds, pad_len, scheme, num_searches, num_parts,
+    # capacity, report_capacity, max_iterations, frontier, reports, stats,
+    # stream (K11 over the sharded index)
+    "floxer_frontier_search_sharded": [
+        _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _I,
+        _I, _I, _I, _I, _P, _P, _P, _P,
+    ],
+    # rows, shard_rows, row_offset, starts, lengths, num_shards, positions,
+    # B, out, stream (K13)
+    "floxer_fm_sharded_rank": [_P, _I, _I, _P, _P, _I, _P, _I, _P, _P],
+    # rows, shard_rows, starts, lengths, num_shards, bwt, bwt_stride, C,
+    # sampled_rows, sampled_values, ns, seq_starts, num_seqs,
+    # sampling_rate, rows, B, seq_ids, positions, stream (K13l)
+    "floxer_fm_sharded_locate": [
+        _P, _I, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P, _I, _P,
+        _P, _P,
+    ],
     # rows, occ, planes, bwt, C, sampled_rows, sampled_values, ns,
     # seq_starts, num_seqs, sampling_rate, lb, cnt, err, perm,
     # group_starts, totals, statuses, num_seeds, hard_cap, soft_cap,

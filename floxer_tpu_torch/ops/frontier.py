@@ -17,7 +17,11 @@ loop; the truncated frontier still yields its done rows.
 frontier_search_plain is the reference's program in torch ops;
 frontier_search_batch runs F independent frontiers of one shape: K11
 (ops/cuda_frontier.py, csrc/frontier_search.cu, one thread block a
-frontier) for CUDA operands, the plain version for CPU operands.
+frontier) for CUDA operands, the plain version for CPU operands. Both
+take the device index or the row-sharded one
+(index/device_index.ShardedDeviceIndex, the reference's
+sharded_frontier_search), whose ranks sum the shards' counts (K13's rank
+inside K11).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 from ..alphabet import SIGMA
 from ..search_queue import initial_positions
 from .cuda_fm_index import OCC_BLOCK, fm_rank_plain
+from .cuda_sharded import fm_sharded_rank_plain
 
 _EDIT_SYMBOLS = (1, 2, 3, 4, 5)
 # last_op codes
@@ -56,11 +61,28 @@ class FrontierBatch:
     expanded: torch.Tensor
 
 
+def is_sharded(index) -> bool:
+    """A row-sharded index (duck-typed: it counts its shards)."""
+    return hasattr(index, "num_shards")
+
+
 def _ranks(index, base_fwd, base_rev, left, length_m):
     """(lo, hi) int64 [C, SIGMA]: the occurrences before each state's
     interval bounds on the direction it extends (the forward index going
     left at lb, the reverse one going right at lb_rev)."""
-    if index.rank_rows is not None:
+    if is_sharded(index):
+        def rank(single, positions):
+            return fm_sharded_rank_plain(
+                positions, single.rank_rows, single.block_offset,
+                single.shard_starts, single.shard_lengths,
+            )
+
+        fwd, rev = index.fwd, index.rev
+        lo = torch.where(left[:, None], rank(fwd, base_fwd),
+                         rank(rev, base_rev))
+        hi = torch.where(left[:, None], rank(fwd, base_fwd + length_m),
+                         rank(rev, base_rev + length_m))
+    elif index.rank_rows is not None:
         # the combined table, reverse positions after rev_block_offset rows
         pos_lo = torch.where(left, base_fwd,
                              base_rev + index.rev_block_offset * OCC_BLOCK)

@@ -25,7 +25,7 @@ import time
 import numpy as np
 import torch
 
-from .backend import accelerator_available
+from .backend import accelerator_available, cpu_requested
 from .cli import CommandLineInput
 from .io.sam import AlignmentOutput
 from .io.sequence_io import Queries, read_references
@@ -45,23 +45,10 @@ from .verify import VerificationKind
 
 logger = logging.getLogger("floxer-tpu")
 
-NOT_PORTED = "is not yet ported to floxer_tpu_torch, see ROADMAP.md"
-
-
-def unsupported_options(cli: CommandLineInput) -> list[str]:
-    """The options of the reference CLI this port rejects: the sharded
-    index (--device-search is ported under every engine: the work-queue
-    search under the batched ones, the per-query frontier search under
-    --engine reference)."""
-    found = []
-    if getattr(cli, "index_shards", 1) > 1:
-        found.append("--index-shards > 1")
-    return found
-
-
 def kernel_launches() -> dict[str, int]:
-    """Launches of the CUDA kernels K1-K4 and K9-K12 in this process so
-    far (the wrappers count only launches on the card)."""
+    """Launches of the CUDA kernels K1-K4 and K9-K13 in this process so
+    far (the wrappers count only launches on the card); K11 counts its
+    instance over the index, K11s the one over the sharded index."""
     from .ops import (
         cuda_fm_index,
         cuda_frontier,
@@ -70,6 +57,7 @@ def kernel_launches() -> dict[str, int]:
         cuda_myers_large,
         cuda_search_queue,
         cuda_select,
+        cuda_sharded,
         traceback_device,
     )
 
@@ -83,7 +71,10 @@ def kernel_launches() -> dict[str, int]:
         "K9l": cuda_fm_index.LOCATE_LAUNCHES,
         "K10": cuda_search_queue.LAUNCHES,
         "K11": cuda_frontier.LAUNCHES,
+        "K11s": cuda_frontier.SHARDED_LAUNCHES,
         "K12": cuda_select.LAUNCHES,
+        "K13": cuda_sharded.RANK_LAUNCHES,
+        "K13l": cuda_sharded.LOCATE_LAUNCHES,
     }
 
 
@@ -418,9 +409,10 @@ def run(
     """Main driver; mirrors floxer_tpu.pipeline.run (src/main/floxer.cpp).
 
     device: where device work runs (fused waves, bucketed batcher calls,
-    device tracebacks). None picks CUDA device 0 when it is a Hopper GPU;
-    a CPU device runs that work through the kernels' plain versions
-    (tests). use_device: None takes the CLI's choice (--engine device:
+    device tracebacks, the device and sharded seed searches). None picks
+    CUDA device 0 when it is a Hopper GPU, and the CPU when
+    FLOXER_TPU_PLATFORM=cpu; a CPU device runs that work through the
+    kernels' plain versions (tests). use_device: None takes the CLI's choice (--engine device:
     True; --engine batched: the warmup's readiness probe, so waves route by
     the cost model once the kernels are built); False keeps every wave on
     the host engines. extra_log_handler: a logging.Handler attached for
@@ -443,11 +435,6 @@ def run(
     initialize_logger(cli.logfile_path, cli.console_debug_logs)
     if extra_log_handler is not None:
         logger.addHandler(extra_log_handler)
-    problems = unsupported_options(cli)
-    if problems:
-        for problem in problems:
-            logger.error("%s %s", problem, NOT_PORTED)
-        return -1
     # multi-process execution: with JAX_COORDINATOR_ADDRESS set, join the
     # process set before any device work and derive the query shard from
     # it; explicit --num-hosts/--host-id still override (file-level
@@ -477,14 +464,24 @@ def _run(cli, device, use_device, process_index, process_count) -> int:
         cli.num_hosts = process_count
         cli.host_id = process_index
     warming = False
-    if cli.engine == "reference" and cli.device_search:
+    if device is None and cpu_requested():
+        # FLOXER_TPU_PLATFORM=cpu: the CPU where cuda:0 would be taken
+        device = torch.device("cpu")
+    # the seed search on the device: --device-search, or the sharded index
+    # (whose frontier search runs on the device under every engine, as
+    # the reference's does)
+    sharded = cli.index_shards > 1
+    search_on_device = cli.device_search or sharded
+    search_option = "--index-shards" if sharded else "--device-search"
+    if cli.engine == "reference" and search_on_device:
         # the per-query frontier search on the device (K11 on the card)
         if device is None and accelerator_available():
             device = torch.device("cuda", 0)
         if device is None:
             logger.error(
-                "--device-search runs the seed search on a CUDA device of "
-                "compute capability >= 9.0 (Hopper); none is available"
+                "%s runs the seed search on a CUDA device of compute "
+                "capability >= 9.0 (Hopper); none is available",
+                search_option,
             )
             return -1
         if device.type == "cuda":
@@ -514,22 +511,23 @@ def _run(cli, device, use_device, process_index, process_count) -> int:
                 use_device = _accelerator_ready
             else:
                 use_device = False
-        if device is None and cli.device_search:
+        if device is None and search_on_device:
             logger.error(
-                "--device-search runs the seed search on a CUDA device of "
-                "compute capability >= 9.0 (Hopper); none is available"
+                "%s runs the seed search on a CUDA device of compute "
+                "capability >= 9.0 (Hopper); none is available",
+                search_option,
             )
             return -1
         if use_device is not False and device is None:
             logger.error("device verification needs a device")
             return -1
         warming = device is not None and device.type == "cuda" and (
-            use_device is not False or cli.device_search
+            use_device is not False or search_on_device
         )
         if warming:
             # build and warm the kernels NOW, while the reference read,
             # index build and first search keep the host busy
-            start_device_warmup(device, cli.device_search)
+            start_device_warmup(device, search_on_device)
     logger.info("successfully parsed CLI input ... starting")
     logger.debug("command line call: %s", cli.command_line_call())
 
@@ -553,7 +551,15 @@ def _run(cli, device, use_device, process_index, process_count) -> int:
         )
         return -1
     searcher = make_searcher(cli, index, len(references.records))
-    if cli.device_search:
+    if sharded:
+        # the row-sharded index, as the reference routes it (before
+        # --device-search): frontier searches over the shard tables (K11
+        # over K13's rank) under every engine
+        from .search_device import make_sharded_searcher
+
+        searcher = make_sharded_searcher(searcher, index, cli.index_shards,
+                                         device)
+    elif cli.device_search:
         # the seed search on the device: the work queue (K10) under the
         # batched engines, the per-query frontier (K11) under --engine
         # reference

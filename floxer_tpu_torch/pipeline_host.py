@@ -149,9 +149,9 @@ def make_searcher(cli: CommandLineInput, index: FmIndex, num_references: int):
         ),
         num_threads=cli.num_threads,
     )
-    # the reference's --index-shards searcher runs on jax, and the port
-    # rejects the option before it gets here; for --device-search the
-    # port's pipeline.py wraps this searcher in a DeviceSearcher
+    # the device searchers wrap this one in the port's pipeline.py, in
+    # the reference's order: --index-shards > 1 first (the sharded
+    # searcher), then --device-search (a DeviceSearcher)
     return searcher
 
 

@@ -25,9 +25,13 @@ library) every query takes the per-query device search instead
 search_seeds_device). So the output equals the host search's, including
 where the anchor caps bind.
 
+ShardedDeviceSearcher (--index-shards N) runs the same stages over the
+row-sharded index (parallel/sharded_index.py): the legacy block loop on
+K11 over the shard tables, the per-query frontier likewise, the native
+select and the host locate.
+
 Not ported: the chunk frontier (FLOXER_TPU_SEARCH_ENGINE=frontier, an
-ablation; it raises NotImplementedError) and the sharded searcher
-(ROADMAP queue 1 item 5).
+ablation; it raises NotImplementedError).
 """
 
 from __future__ import annotations
@@ -264,18 +268,8 @@ class DeviceSearcher:
         with its own capacities and flag, in one launch on the card;
         returns the device results (ops.frontier.FrontierBatch) so the
         caller can overlap several launches before synchronizing."""
-        device = self._device_index.device
-        return frontier_search_batch(
-            self._device_index,
-            torch.from_numpy(padded).to(device),
-            torch.from_numpy(seed_class).to(device),
-            torch.from_numpy(tables.fused()).to(device),
-            tables.num_searches,
-            tables.num_parts,
-            frontier_cap,
-            report_cap,
-            max_iter,
-        )
+        return block_search(self._device_index, padded, seed_class, tables,
+                            frontier_cap, report_cap, max_iter)
 
     def _run_chunk_fused(self, arrays):
         """ONE work-queue dispatch for a whole chunk's eligible seeds:
@@ -666,6 +660,78 @@ class DeviceSearcher:
         return result
 
 
+class ShardedDeviceSearcher(DeviceSearcher):
+    """A DeviceSearcher whose frontier searches run against the
+    row-sharded index (the hg38-scale configuration, where the occurrence
+    table does not fit one device): K11 over the shard tables, all on one
+    device. Anchor post-processing and locate stay on the host path, as in
+    DeviceSearcher; it has no unsharded device index, so
+    FLOXER_TPU_DEVICE_SELECT takes the native select."""
+
+    # the reference builds its sharded program per block: chunks take the
+    # legacy block loop (K11), never the work queue (K10)
+    _one_dispatch_chunk = False
+
+    def __init__(self, host_searcher, sharded_index):
+        self._host = host_searcher
+        self._sh = sharded_index
+        self.index = host_searcher.index
+        self.num_reference_sequences = host_searcher.num_reference_sequences
+        self.config = host_searcher.config
+
+    def _run_block(
+        self, padded, seed_class, tables, frontier_cap, report_cap, max_iter
+    ):
+        return block_search(self._sh, padded, seed_class, tables,
+                            frontier_cap, report_cap, max_iter)
+
+    def _run_search(self, patterns, errors, expanded):
+        return search_seeds_device(
+            self._sh,
+            patterns,
+            errors,
+            expanded,
+            max_total_count=self._host.search_cap(),
+            seconds=type(self).stage_seconds,
+        )
+
+
+def make_sharded_searcher(host_searcher, host_index, num_shards: int,
+                          device: torch.device):
+    """A ShardedDeviceSearcher over num_shards shards of the index, all on
+    `device` (the reference puts each on one of its first num_shards
+    devices)."""
+    from .index.device_index import ShardedDeviceIndex
+    from .parallel.sharded_index import shard_full_index
+
+    sh = ShardedDeviceIndex.from_shards(
+        shard_full_index(host_index, num_shards), device
+    )
+    return ShardedDeviceSearcher(host_searcher, sh)
+
+
+def block_search(index, padded, seed_class, tables, frontier_cap, report_cap,
+                 max_iter):
+    """F frontier searches of one shape (numpy padded int32 [F, S, L],
+    seed_class int32 [F, S]) on the device of `index` (a DeviceIndex or a
+    ShardedDeviceIndex) in one launch of K11; the device results
+    (ops.frontier.FrontierBatch), not synchronized."""
+    device = index.device
+    return frontier_search_batch(
+        index,
+        torch.from_numpy(np.ascontiguousarray(padded, dtype=np.int32))
+        .to(device),
+        torch.from_numpy(np.ascontiguousarray(seed_class, dtype=np.int32))
+        .to(device),
+        torch.from_numpy(tables.fused()).to(device),
+        tables.num_searches,
+        tables.num_parts,
+        frontier_cap,
+        report_cap,
+        max_iter,
+    )
+
+
 @dataclass(frozen=True)
 class SchemeTables:
     """Expanded-search tables, numpy int32 [num_classes, num_searches,
@@ -816,18 +882,9 @@ def search_seeds_device(
         reports = np.asarray(reports)[: int(num_reports)]
         overflow = np.asarray(overflow)
     else:
-        device = index.device
-        out = frontier_search_batch(
-            index,
-            torch.from_numpy(padded[None]).to(device),
-            torch.from_numpy(seed_class[None]).to(device),
-            torch.from_numpy(tables.fused()).to(device),
-            tables.num_searches,
-            tables.num_parts,
-            frontier_capacity,
-            report_capacity,
-            max_iterations,
-        )
+        out = block_search(index, padded[None], seed_class[None], tables,
+                           frontier_capacity, report_capacity,
+                           max_iterations)
         num_reports = int(out.num_reports[0])
         reports = out.reports[0, :num_reports].cpu().numpy()
         overflow = out.overflow[0].cpu().numpy()

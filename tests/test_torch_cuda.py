@@ -811,20 +811,26 @@ def test_search_wrappers_refuse_cpu_operands(cuda_device, search_index):
 
 
 def test_search_kernels_ptxas_no_spill_no_stack(cuda_device):
-    """ptxas -v of the aligner's build: K9, K9x, K9l, K10, K11 and K12
+    """ptxas -v of the aligner's build: K9, K9x, K9l, K10, K11 (its
+    instances over the index and over the shards), K12, K13 and K13l
     keep no stack frame and spill nothing."""
     from floxer_tpu_torch.ops import _build
 
     _build.ALIGNER.load()
     usage = _build.ALIGNER.ptxas_usage()
-    for kernel in ("fm_rank_kernel", "fm_extend_kernel", "fm_locate_kernel",
-                   "workqueue_kernel", "frontier_kernel", "select_kernel"):
+    for kernel, instances in (
+        ("fm_rank_kernel", 1), ("fm_extend_kernel", 1),
+        ("fm_locate_kernel", 1), ("workqueue_kernel", 1),
+        ("frontier_kernel", 2), ("select_kernel", 1),
+        ("fm_sharded_rank_kernel", 1), ("fm_sharded_locate_kernel", 1),
+    ):
         names = [name for name in usage if kernel in name]
-        assert len(names) == 1, (kernel, names)
-        found = usage[names[0]]
-        assert found.get("stack", 1) == 0, (kernel, found)
-        assert found.get("spill_stores", 1) == 0, (kernel, found)
-        assert found.get("spill_loads", 1) == 0, (kernel, found)
+        assert len(names) == instances, (kernel, names)
+        for name in names:
+            found = usage[name]
+            assert found.get("stack", 1) == 0, (name, found)
+            assert found.get("spill_stores", 1) == 0, (name, found)
+            assert found.get("spill_loads", 1) == 0, (name, found)
 
 
 @pytest.mark.parametrize("engine", ["batched", "device"])
@@ -1071,5 +1077,150 @@ def test_device_search_branches_match_host_search(cuda_device, simulated,
     else:
         assert launched[0] > 0 and launched[1] == 0
     assert (tmp_path / "device.sam").read_bytes() == (
+        tmp_path / "host.sam"
+    ).read_bytes()
+
+
+# ---- the row-sharded index: K13 (rank), K13l (locate) (csrc/fm_sharded.cu)
+# and K11 over the shard tables, against their plain versions and the
+# unsharded kernels
+
+
+@pytest.mark.parametrize("num_shards", [2, 4, 8])
+def test_sharded_kernels_match_plain_and_unsharded(cuda_device, search_index,
+                                                   num_shards):
+    """K13 (both directions, every position) and K13l (every row) equal
+    their plain versions on the same card tensors and K9's and K9l's
+    results; at 8 shards of the 39 kb index none is empty, and a second
+    index of 300 rows leaves its last shards empty."""
+    from floxer_tpu_torch.index import device_index as di
+    from floxer_tpu_torch.index.fmindex import FmIndex
+    from floxer_tpu_torch.ops import cuda_sharded as k13
+
+    host, _ = search_index
+    small = FmIndex([np.random.default_rng(3).integers(1, 5, 300)
+                     .astype(np.uint8)])
+    for index_host in (host, small):
+        index = di.ShardedDeviceIndex.from_host(index_host, num_shards,
+                                                cuda_device)
+        flat = di.DeviceIndex.from_host(index_host, cuda_device)
+        positions = torch.arange(index_host.n + 1, dtype=torch.int32,
+                                 device=cuda_device)
+        for single, flat_single in ((index.fwd, flat.fwd),
+                                    (index.rev, flat.rev)):
+            args = (single.rank_rows, single.block_offset,
+                    single.shard_starts, single.shard_lengths)
+            before = k13.RANK_LAUNCHES
+            got = k13.fm_sharded_rank_cuda(positions, *args)
+            assert k13.RANK_LAUNCHES == before + 1
+            assert torch.equal(got, k13.fm_sharded_rank_plain(positions,
+                                                              *args))
+            assert torch.equal(got, di.rank_all(flat_single, positions))
+        rows = positions[:-1]
+        before = k13.LOCATE_LAUNCHES
+        got = k13.fm_sharded_locate_cuda(index, rows, index.sampling_rate)
+        assert k13.LOCATE_LAUNCHES == before + 1
+        want = k13.fm_sharded_locate_plain(index, rows, index.sampling_rate)
+        flat_want = di.locate_batch(flat, rows)
+        for g, w, f in zip(got, want, flat_want):
+            assert torch.equal(g, w) and torch.equal(g, f)
+
+
+@pytest.mark.parametrize("num_shards", [2, 4])
+def test_sharded_frontier_kernel_matches_plain_and_unsharded(
+    cuda_device, search_index, num_shards
+):
+    """K11 over the shard tables on three 256-seed blocks equals its plain
+    version (frontier_against_plain) and the unsharded K11: reports in
+    order, counts, overflow, iterations and expanded states."""
+    from floxer_tpu_torch.index import device_index as di
+    from floxer_tpu_torch.ops import cuda_frontier as k11
+
+    host, sequences = search_index
+    index = di.ShardedDeviceIndex.from_host(host, num_shards, cuda_device)
+    patterns, classes, tables, max_iterations = frontier_blocks(sequences)
+    operands = [torch.from_numpy(a).to(cuda_device)
+                for a in (patterns, classes, tables.fused())]
+    before = k11.SHARDED_LAUNCHES
+    got = k11.frontier_search_cuda(index, *operands, tables.num_searches,
+                                   tables.num_parts, 1 << 15, 1 << 13,
+                                   max_iterations)
+    torch.cuda.synchronize()
+    assert k11.SHARDED_LAUNCHES == before + 1
+    flat = frontier_against_plain(device_index_of(host, cuda_device,
+                                                  "combined"),
+                                  patterns, classes, tables, 1 << 15,
+                                  1 << 13, max_iterations)
+    for field in ("reports", "num_reports", "overflow", "iterations",
+                  "expanded"):
+        assert torch.equal(getattr(got, field), getattr(flat, field)), field
+    from floxer_tpu_torch.ops.frontier import frontier_search_plain
+
+    for f in range(patterns.shape[0]):
+        stats = {}
+        want = frontier_search_plain(
+            index, operands[0][f], operands[1][f], operands[2],
+            tables.num_searches, tables.num_parts, 1 << 15, 1 << 13,
+            max_iterations, stats,
+        )
+        assert int(got.num_reports[f]) == want[1]
+        assert torch.equal(got.reports[f], want[0])
+        assert torch.equal(got.overflow[f], want[2])
+        assert int(got.expanded[f]) == stats["expanded"]
+
+
+@pytest.mark.parametrize("engine", ["batched", "reference"])
+def test_sharded_cli_matches_host_search(cuda_device, simulated, tmp_path,
+                                         engine):
+    """--index-shards 2 on the card writes the host search's SAM: under
+    the batched engine the legacy block loop on K11 over the shards (no
+    K10), under --engine reference the per-query frontier on it."""
+    def args(name, extra=()):
+        return [
+            "--reference", str(simulated / "genome.fasta"),
+            "--queries", str(simulated / "reads.fastq"),
+            "--output", str(tmp_path / name),
+            "-p", "0.08", "--interval-optimization", *extra,
+        ]
+
+    assert pipeline.run(parse_and_validate(args("host.sam")),
+                        use_device=False) == 0
+    pipeline.start_device_warmup(cuda_device, device_search=True)
+    pipeline.join_device_warmup()
+    before = pipeline.kernel_launches()
+    cli = parse_and_validate(
+        args("sharded.sam", ["--engine", engine, "--index-shards", "2"])
+    )
+    assert pipeline.run(cli) == 0
+    after = pipeline.kernel_launches()
+    assert after["K11s"] > before["K11s"]
+    assert after["K11"] == before["K11"]
+    assert after["K10"] == before["K10"]
+    assert (tmp_path / "sharded.sam").read_bytes() == (
+        tmp_path / "host.sam"
+    ).read_bytes()
+
+
+def test_platform_cpu_launches_no_kernel(cuda_device, simulated, tmp_path,
+                                         monkeypatch):
+    """FLOXER_TPU_PLATFORM=cpu on a machine with the card (fault F2,
+    repaired): --engine batched keeps every wave on the host, launches no
+    kernel and writes the host engine's SAM."""
+    def args(name, extra=()):
+        return [
+            "--reference", str(simulated / "genome.fasta"),
+            "--queries", str(simulated / "reads.fastq"),
+            "--output", str(tmp_path / name),
+            "-p", "0.08", "--interval-optimization", *extra,
+        ]
+
+    assert pipeline.run(parse_and_validate(args("host.sam")),
+                        use_device=False) == 0
+    monkeypatch.setenv("FLOXER_TPU_PLATFORM", "cpu")
+    before = pipeline.kernel_launches()
+    cli = parse_and_validate(args("cpu.sam", ["--engine", "batched"]))
+    assert pipeline.run(cli) == 0
+    assert pipeline.kernel_launches() == before
+    assert (tmp_path / "cpu.sam").read_bytes() == (
         tmp_path / "host.sam"
     ).read_bytes()

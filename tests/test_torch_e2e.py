@@ -143,31 +143,35 @@ def serve_in_thread(sock: str):
 )
 def test_unported_options_fail(tmp_path, data_dir, reference_sam, extra,
                                monkeypatch):
-    """--index-shards > 1 is not ported: the CLI exits non-zero and writes
-    nothing. --device-search with --engine reference (the per-query
-    frontier search, its plain version with device=cpu) is ported and
-    writes the reference's SAM, as --device-search under the batched
-    engines does (test_device_search_writes_reference_sam). --profile and
-    the server flags are ported: --profile writes a torch.profiler trace
-    and the reference's SAM; a job through --serve / --server writes the
-    reference's SAM and --shutdown-server stops the daemon. (Multi-host
-    and multi-process runs are ported too: tests/test_torch_multihost.py.)"""
+    """Every option of the reference CLI is ported now. --device-search
+    with --engine reference (the per-query frontier search, its plain
+    version with device=cpu) writes the reference's SAM, as
+    --device-search under the batched engines does
+    (test_device_search_writes_reference_sam); so does --index-shards 2
+    (frontier searches over the row-sharded index, K11 over the shard
+    tables on the card; tests/test_torch_sharded_index.py holds it at 8
+    shards and under every engine). --profile and the server flags are
+    ported: --profile writes a torch.profiler trace and the reference's
+    SAM; a job through --serve / --server writes the reference's SAM and
+    --shutdown-server stops the daemon. (Multi-host and multi-process runs
+    are ported too: tests/test_torch_multihost.py.)"""
     output = tmp_path / "out.sam"
     args = cli_args(data_dir, output)
-    if extra[0] == "--device-search":
+    if extra[0] in ("--device-search", "--index-shards"):
         from floxer_tpu_torch.ops import frontier
 
         calls = []
         original = frontier.frontier_search_plain
 
-        def counted(*call_args, **kwargs):
-            calls.append(1)
-            return original(*call_args, **kwargs)
+        def counted(index, *call_args, **kwargs):
+            calls.append(hasattr(index, "num_shards"))
+            return original(index, *call_args, **kwargs)
 
         monkeypatch.setattr(frontier, "frontier_search_plain", counted)
         cli = parse_and_validate(args + extra)
         assert pipeline.run(cli, device=CPU) == 0
-        assert calls, "the per-query frontier search never ran"
+        assert calls, "no frontier search ran"
+        assert all(calls) == (extra[0] == "--index-shards")
         assert output.read_bytes() == reference_sam
         check_output_records(parse_sam(output))
         return
@@ -191,8 +195,7 @@ def test_unported_options_fail(tmp_path, data_dir, reference_sam, extra,
         assert not thread.is_alive() and result["code"] == 0
         assert not os.path.exists(sock)
         return
-    assert main(args + extra) != 0
-    assert not output.exists()
+    raise AssertionError(f"no case for {extra}")
 
 
 @pytest.mark.parametrize(
@@ -314,3 +317,58 @@ def test_reference_engine_device_search_without_gpu_fails(tmp_path, data_dir,
                                        "--device-search"])
     assert main(args) != 0
     assert not output.exists()
+
+
+def test_platform_cpu_keeps_run_on_the_cpu(tmp_path, data_dir, reference_sam,
+                                           monkeypatch):
+    """FLOXER_TPU_PLATFORM=cpu (fault F2, repaired): with a Hopper GPU
+    reported present, run() still takes the CPU where it would take
+    cuda:0, so the batched engine keeps every wave on the host and starts
+    no kernel warmup, and --engine device runs on the plain versions;
+    both write the reference's SAM. accelerator_available() itself is
+    False under the variable."""
+    from floxer_tpu_torch import backend
+    from floxer_tpu_torch.verify_batch import _BATCH_TIMERS
+
+    monkeypatch.setattr(pipeline, "accelerator_available", lambda: True)
+    monkeypatch.setenv("FLOXER_TPU_PLATFORM", "cpu")
+    assert not backend.accelerator_available()
+    warmups = []
+    monkeypatch.setattr(pipeline, "start_device_warmup",
+                        lambda *args: warmups.append(args))
+    devices = []
+    original = pipeline.verify_and_write_chunk
+
+    def spy(*args, **kwargs):
+        devices.append(kwargs.get("device"))
+        return original(*args, **kwargs)
+
+    monkeypatch.setattr(pipeline, "verify_and_write_chunk", spy)
+    for engine in ("batched", "device"):
+        output = tmp_path / f"{engine}.sam"
+        fused = _BATCH_TIMERS["fused"]
+        cli = parse_and_validate(cli_args(data_dir, output,
+                                          ["--engine", engine]))
+        assert pipeline.run(cli) == 0
+        assert output.read_bytes() == reference_sam
+        assert devices and set(devices) == {CPU}
+        assert (_BATCH_TIMERS["fused"] > fused) == (engine == "device")
+        devices.clear()
+    assert warmups == []
+
+
+@pytest.mark.parametrize("value", ["tpu", "cuda", ""])
+def test_platform_other_values_leave_the_choice(monkeypatch, value):
+    """Any FLOXER_TPU_PLATFORM value other than cpu leaves the port's
+    device choice as it is (the reference hands the value to
+    jax_platforms; an intended divergence)."""
+    from floxer_tpu_torch import backend
+
+    monkeypatch.setenv("FLOXER_TPU_PLATFORM", value)
+    assert not backend.cpu_requested()
+    assert backend.accelerator_available() == (
+        torch.cuda.is_available()
+        and torch.cuda.get_device_capability(0) >= backend.MIN_CAPABILITY
+    )
+    monkeypatch.setenv("FLOXER_TPU_PLATFORM", " CPU ")
+    assert backend.cpu_requested() and not backend.accelerator_available()

@@ -134,15 +134,17 @@ def reference(indexes):
 
 def emulate_k11(index, patterns, seed_class, scheme, num_searches,
                 num_parts, capacity, report_capacity, max_iters,
-                threads=cuda_frontier.THREADS):
+                threads=cuda_frontier.THREADS, extend=fm_extend_plain):
     """K11's block (csrc/frontier_search.cu) in numpy: the frontier
     field-major in two buffers, walked in rounds of `threads` slots; a
     round's child counts scanned in thread order give each parent its
     offset after the earlier rounds' children; children go out in (slot,
     edge) order while the offset is under the capacity; the alive flag
-    from the children written; the done rows compacted in rounds.
-    Returns (reports int32 [R, 5], num_reports, overflow, iterations,
-    expanded)."""
+    from the children written; the done rows compacted in rounds. A
+    state's extension is `extend(index, lb, lb_rev, length, left=)`, K9x's
+    plain version unless given (the sharded index's tests hand it the
+    kernels' own fm_extend_all, built with g++). Returns (reports int32
+    [R, 5], num_reports, overflow, iterations, expanded)."""
     S, L = patterns.shape
     C, R = capacity, report_capacity
     sym = np.arange(1, 6)
@@ -188,7 +190,7 @@ def emulate_k11(index, patterns, seed_class, scheme, num_searches,
             for side in (True, False):
                 rows_of = np.flatnonzero(expanding & (left == side))
                 if rows_of.size:
-                    out = fm_extend_plain(
+                    out = extend(
                         index, *(torch.from_numpy(a[rows_of].astype(np.int32))
                                  for a in (lb, lb_rev, ln)), left=side,
                     )

@@ -34,6 +34,10 @@ COPIED_DEFINITIONS = {
         "shard_queries", "shard_output_path", "_read_sam_query_groups",
         "merge_sam_shards", "_BamShardCursor", "merge_bam_shards",
     ],
+    "parallel/sharded_index.py": [
+        "HostShardedSingle", "shard_single_index", "ShardedHostIndex",
+        "shard_full_index",
+    ],
 }
 REPAIRED = {("_BamShardCursor", "_next_blob")}
 
@@ -86,7 +90,8 @@ data = Path(sys.argv[1])
 with tempfile.TemporaryDirectory() as tmp:
     for engine, extra in (("device", []), ("batched", []),
                           ("batched", ["--device-search"]),
-                          ("reference", ["--device-search"])):
+                          ("reference", ["--device-search"]),
+                          ("batched", ["--index-shards", "2"])):
         name = engine + "".join(extra)
         cli = parse_and_validate([
             "--reference", str(data / "reference.fasta"),
@@ -104,9 +109,9 @@ print("\\n".join(sorted(sys.modules)))
 
 def test_port_runs_without_loading_the_reference(data_dir):
     """Import every module of the port, run the toy e2e on the CPU (fused
-    device waves through the plain versions, the batched engine, and the
-    batched and reference engines with --device-search), then list
-    sys.modules: no floxer_tpu module and no jax."""
+    device waves through the plain versions, the batched engine, the
+    batched and reference engines with --device-search, and the sharded
+    index), then list sys.modules: no floxer_tpu module and no jax."""
     proc = subprocess.run(
         [sys.executable, "-c", E2E, str(data_dir)],
         capture_output=True, text=True, cwd=ROOT, timeout=600,

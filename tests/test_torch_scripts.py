@@ -325,7 +325,8 @@ def test_each_source_set_builds_its_own_library(tmp_path, monkeypatch):
     from floxer_tpu_torch.ops import _build
 
     assert [s.name for s in _build.ALIGNER.sources()] == [
-        "fm_index.cu", "frontier_search.cu", "myers_banded.cu",
+        "fm_index.cu", "fm_sharded.cu", "frontier_search.cu",
+        "myers_banded.cu",
         "myers_banded_wide.cu", "myers_large.cu", "myers_large_wide.cu",
         "myers_small.cu", "select_anchors.cu", "traceback_banded.cu",
         "workqueue_search.cu",
