@@ -98,11 +98,17 @@ Phases, one line each on stdout, any failure exits non-zero:
            rank-row layout and with the planes layout forced; K10 (the
            work-queue search) on pass A's first chunk of seeds against
            workqueue_search_plain on the card (sorted rows and node count
-           equal), one launch through the runner; each timed (CUDA
-           events) with its bound; K10's nodes, reports and largest tree;
-           K11 (the frontier search) on the first read's largest
-           per-query bucket and on the legacy loop's first 256-seed block
-           of the first chunk (2^15 states), K12 (device select) on the
+           equal), one search (a launch a generation) through the runner;
+           each timed (CUDA events) with its bound; K10's nodes, reports,
+           largest tree, spilled entries and generations, its search
+           timed whole and its generations alone on buffers allocated
+           once, at its budget and at K10_BUDGETS (each held to the
+           first run), and the chunk's largest root alone; K11 (the
+           frontier search) on the first read's largest per-query bucket
+           and on the legacy loop's first 256-seed block of the first
+           chunk (2^15 states), at the wrapper's pick of the cluster and
+           at every FRONTIER_CLUSTERS size (each held to the pick), K12
+           (device select) on the
            first chunk's groups after the dedup and cap replay under the
            CLI's defaults and with full_groups: each one launch, timed
            with its bound, equal to its plain version (run on the CPU in
@@ -112,10 +118,11 @@ Phases, one line each on stdout, any failure exits non-zero:
            and 4 shards (SHARD_COUNTS): K13 (rank, both directions) at
            RANK_QUERIES positions, K13l (locate) at RANK_QUERIES SA rows
            and K11 over the shard tables on the legacy loop's first
-           256-seed block: each exact against its plain version on the
-           card and against the unsharded K9, K9l and K11 (reports in
-           order, overflow, iterations, expanded states), timed with its
-           bound (a rank's ops times the shards)
+           256-seed block and on the per-query bucket: each exact against
+           its plain version on the card and against the unsharded K9,
+           K9l and K11 (reports in order, overflow, iterations, expanded
+           states), timed with its bound (a rank's ops times the shards),
+           K11's at every cluster size too
   device_select  pass G2: pass G with FLOXER_TPU_DEVICE_SELECT=1: SAM =
            pass B, one K12 launch a chunk, no K9l or K11 launch; its
            search stage seconds (the device select and its host group
@@ -130,8 +137,10 @@ Phases, one line each on stdout, any failure exits non-zero:
            launched, no K10 launch; align seconds beside the host pass
   device_search  pass G: pass A's arguments with --device-search (the
            seed search by K10 on the card; the search warmup joined
-           before the counts are set to 0); SAM = pass B, one K10 launch
-           a chunk (two for a chunk that overflows and is retried); its
+           before the counts are set to 0); SAM = pass B, one K10 search
+           a chunk (two for a chunk that overflows and is retried), a
+           launch a generation (K10's SPILL_LAUNCHES count the later
+           ones); its
            search= seconds beside pass A's and pass B's, and the seeds the
            host redid (long, overflowed)
   sharded_search  pass I: pass A's arguments with --device-search
@@ -182,7 +191,8 @@ root band, K1w and K1s at pass E's 1024-word root shape, K3w and K3s at
 its 1280-word overhang shape; K1-K3 launches of pass A, the multi-warp
 and shared-memory K1's and K3's of pass E, K4 of pass C, its wider
 layouts' of passes C and E under --profile, K5-K8 of the entry points'
-run, K9, K9x, K9l and K10 of pass G: K10 once a chunk, and K9, K9x and
+run, K9, K9x, K9l and K10 of pass G: K10 a launch a generation of each
+chunk's search, and K9, K9x and
 K9l none, because their rank, extension and locate run inside K10, K11
 and K12 as device functions; K11 of pass H, K12 of pass G2; K11s, K11
 over the shard tables, of pass I; K13 and K13l of the dryrun phase: in
@@ -332,12 +342,23 @@ RANK_OPS = 86
 EXTEND_OPS = 2 * RANK_OPS + 30
 PROBE_OPS = 4
 SEARCH_OPS_PER_NODE = 2 * RANK_OPS + 76
+# K10's searches timed back to back (each zeroes its counters and root
+# counts on the stream, then launches its generations; see k10_times),
+# and the budgets it is also timed at (nodes a unit expands before it
+# spills; the last never spills on these seeds)
+K10_REPEATS = 10
+K10_BUDGETS = (32, 64, 256, 1 << 20)
+# each work list's entries a root in that sweep (the wrapper's default
+# lists at its own budget)
+K10_SWEEP_LIST = 4
 # K11 per expanded state: as K10's node, the two ranks, the 13 kinds'
 # tests and the children's intervals, with the frame's 20 taken by the
 # children's 10-field writes; K12 per emitted anchor beside its locate:
 # its round or group and row (8), its key rank and sweep step (30), its
 # output (6), and per seed the status and the caps (16)
 FRONTIER_OPS_PER_STATE = 2 * RANK_OPS + 76
+# the cluster sizes K11 is timed at (blocks a frontier)
+FRONTIER_CLUSTERS = (1, 2, 4, 8, 16)
 SELECT_OPS_PER_ANCHOR = 44
 SELECT_OPS_PER_SEED = 16
 # the plain versions that take minutes (K1 at the root shape on both
@@ -1908,6 +1929,7 @@ def reset_launches() -> None:
                    cuda_select):
         module.LAUNCHES = 0
     cuda_frontier.SHARDED_LAUNCHES = 0
+    cuda_search_queue.SPILL_LAUNCHES = 0
     for module in (cuda_fm_index, cuda_sharded):
         module.RANK_LAUNCHES = 0
         module.LOCATE_LAUNCHES = 0
@@ -2183,7 +2205,7 @@ def run_search_kernels(device, e2e: E2E, peaks):
     RANK_QUERIES queries (combined and planes layouts), K10 against
     workqueue_search_plain on pass A's first chunk, K11 and K12 on it;
     each timed with its bound. Returns (table rows K9-K12, the phase's
-    fields, K11's legacy-block input for run_sharded_kernels)."""
+    fields, K11's inputs (frontier_inputs) for run_sharded_kernels)."""
     import numpy as np
     import torch
 
@@ -2282,14 +2304,17 @@ def run_search_kernels(device, e2e: E2E, peaks):
     (padded, classes, tables, report_cap, max_errors, seeds, gids, arrays,
      jobs) = first_chunk(e2e)
     eligible = padded.shape[0]
-    before = k10.LAUNCHES
+    before, spills_before = k10.LAUNCHES, k10.SPILL_LAUNCHES
     sorted_rows, overflow = search_queue.workqueue_runner(
         index, padded, classes, tables, report_cap, padded.shape[1],
         max_errors,
     )
-    check(k10.LAUNCHES == before + 1 and not overflow,
-          f"the runner made {k10.LAUNCHES - before} K10 launches, "
-          f"overflow {overflow}")
+    generations = k10.LAUNCHES - before
+    check(generations == 1 + k10.SPILL_LAUNCHES - spills_before
+          and not overflow,
+          f"the runner made {generations} K10 launches, "
+          f"{k10.SPILL_LAUNCHES - spills_before} of them later "
+          f"generations, overflow {overflow}")
     operands = [torch.from_numpy(a).to(device)
                 for a in (padded, classes, tables.fused())]
     kw = search_queue.key_words_needed(padded.shape[1], max_errors)
@@ -2301,8 +2326,35 @@ def run_search_kernels(device, e2e: E2E, peaks):
             report_cap, kw, frames)
 
     run = kernel()
-    ms = events_ms(kernel, 3)
+    got = search_queue.sort_reports(run.reports[:run.num_reports].cpu().numpy())
     init = padded.shape[0] * tables.num_searches
+    # the wrapper whole (its allocations and its counter read included),
+    # then the search on buffers allocated once (k10_times), at the wrapper's
+    # budget and at each of K10_BUDGETS (the last spills nothing: each
+    # root's tree on one thread), each held to the first run
+    wrapper_ms = events_ms(kernel, 3)
+    budgets = {}
+    for budget in (k10.BUDGET, *K10_BUDGETS):
+        prepared = k10.WorkqueueLaunch(
+            index, *operands, tables.num_searches, tables.num_parts,
+            report_cap, kw, frames, budget,
+            None if budget == k10.BUDGET else K10_SWEEP_LIST * init)
+        search_ms, budget_ms = k10_times(prepared)
+        last = prepared.result()
+        rows_of = search_queue.sort_reports(
+            last.reports[:last.num_reports].cpu().numpy())
+        check((last.overflow, last.nodes, last.largest_tree)
+              == (run.overflow, run.nodes, run.largest_tree)
+              and np.array_equal(rows_of, got),
+              f"K10 at a budget of {budget} nodes differs from its run at "
+              f"{k10.BUDGET}")
+        budgets[budget] = {"ms": budget_ms, "search_ms": search_ms,
+                           "spilled": last.spilled,
+                           "launches": last.launches,
+                           "list_peak": last.list_peak}
+    ms = budgets[k10.BUDGET]["ms"]
+    tail = k10_largest_root(k10, index, padded, classes, tables, report_cap,
+                            kw, frames, run.largest_tree)
     quantum = search_queue.QUANTUM
     push = search_queue.PUSH_FACTOR * quantum
     plain, plain_s = plain_seconds(lambda: search_queue.workqueue_search_plain(
@@ -2314,7 +2366,6 @@ def run_search_kernels(device, e2e: E2E, peaks):
           "version overflowed on pass A's first chunk")
     want = search_queue.sort_reports(
         plain.reports[:plain.num_reports].cpu().numpy())
-    got = search_queue.sort_reports(run.reports[:run.num_reports].cpu().numpy())
     check(got.shape == want.shape and sorted_rows.shape == want.shape,
           f"K10 gave {got.shape[0]} rows ({sorted_rows.shape[0]} through "
           f"the runner), its plain version {want.shape[0]}")
@@ -2342,6 +2393,8 @@ def run_search_kernels(device, e2e: E2E, peaks):
         "roots": init, "pad_len": padded.shape[1], "key_words": kw,
         "frames": frames, "nodes": run.nodes, "reports": run.num_reports,
         "largest_tree": run.largest_tree, "ms": ms,
+        "wrapper_ms": wrapper_ms, "largest_root": tail,
+        "budget": k10.BUDGET, "by_budget": budgets,
         "bound_ms": rows["K10"]["bound_ms"],
         "bound_by": rows["K10"]["bound_by"], "plain_ms": plain_s * 1e3,
         "grid_blocks": k10.resident_blocks(device),
@@ -2364,10 +2417,10 @@ def run_search_kernels(device, e2e: E2E, peaks):
     rows["K12"], fields["K12"] = select_kernel_checks(
         index, index_path, rep, redo, peaks
     )
-    return rows, fields, inputs["block"]
+    return rows, fields, inputs
 
 
-def run_sharded_kernels(device, e2e: E2E, peaks, block):
+def run_sharded_kernels(device, e2e: E2E, peaks, inputs):
     """K13 (both directions) at RANK_QUERIES positions, K13l at
     RANK_QUERIES SA rows and K11 over the shard tables on the legacy
     loop's first 256-seed block of pass A's first chunk, on pass A's index
@@ -2375,8 +2428,10 @@ def run_sharded_kernels(device, e2e: E2E, peaks, block):
     its plain version on the same card tensors and to the unsharded
     kernel's output (K9, K9l, K11: K11's reports in order, count,
     overflow, iterations and expanded states), then timed (CUDA events)
-    with its bound. Returns (table rows K13, K13l, K11s at
-    SHARD_COUNTS[0] shards, the phase's fields)."""
+    with its bound; K11 over the shards also on the per-query bucket
+    (held to K11), and both inputs at every cluster size. Returns (table
+    rows K13, K13l, K11s at SHARD_COUNTS[0] shards, the phase's
+    fields)."""
     import numpy as np
     import torch
 
@@ -2405,12 +2460,21 @@ def run_sharded_kernels(device, e2e: E2E, peaks, block):
                                  s.occ, s.planes)
                  for s in (flat.fwd, flat.rev)]
     want_located = k9.fm_locate_cuda(flat, sa_rows, flat.sampling_rate)
-    padded, seed_class, tables, capacity, reports, max_iterations = block
+    padded, seed_class, tables, capacity, reports, max_iterations = (
+        inputs["block"])
     operands = [torch.from_numpy(a).to(device)
                 for a in (padded, seed_class, tables.fused())]
     search_args = (tables.num_searches, tables.num_parts, capacity, reports,
                    max_iterations)
     want_k11 = k11.frontier_search_cuda(flat, *operands, *search_args)
+    # the per-query bucket (pass H2's shape) beside the block
+    q_padded, q_classes, q_tables, q_capacity, q_reports, q_iterations = (
+        inputs["per_query"])
+    q_operands = [torch.from_numpy(a).to(device)
+                  for a in (q_padded, q_classes, q_tables.fused())]
+    q_args = (q_tables.num_searches, q_tables.num_parts, q_capacity,
+              q_reports, q_iterations)
+    want_q = k11.frontier_search_cuda(flat, *q_operands, *q_args)
     seq_ids, offsets = (t.long() for t in want_located)
     text_positions = flat.seq_starts.long()[seq_ids] + offsets
     steps = int((text_positions % flat.sampling_rate).sum())
@@ -2458,6 +2522,14 @@ def run_sharded_kernels(device, e2e: E2E, peaks, block):
             abs(int(out.iterations[0]) - stats["iterations"]),
             abs(int(out.expanded[0]) - stats["expanded"]),
         )
+        def per_query(index=index):
+            return k11.frontier_search_cuda(index, *q_operands, *q_args)
+
+        q_out = per_query()
+        errs["K11s"] = max(errs["K11s"], *(
+            max_error(getattr(q_out, f), getattr(want_q, f))
+            for f in ("reports", "num_reports", "overflow", "iterations",
+                      "expanded")))
         for name, err in errs.items():
             check(err == 0, f"{name} at {S} shards differs from its plain "
                             f"version or the unsharded kernel ({err})")
@@ -2514,8 +2586,83 @@ def run_sharded_kernels(device, e2e: E2E, peaks, block):
                     f"{expanded} expanded states")
                 rows[key] = row
         case["K11s"]["expanded_states"] = expanded
+        case["K11s"]["by_cluster"] = frontier_clusters(
+            k11, index, operands, tables, capacity, reports, max_iterations,
+            out, 5)
+        case["K11s"]["per_query_ms"] = cuda_ms(per_query, 20)
+        case["K11s"]["per_query_by_cluster"] = frontier_clusters(
+            k11, index, q_operands, q_tables, q_capacity, q_reports,
+            q_iterations, q_out, 20)
         fields[f"shards_{S}"] = case
     return rows, fields
+
+
+def k10_largest_root(k10, index, padded, classes, tables, report_cap, kw,
+                     frames, largest):
+    """The root of the chunk with the largest tree, found by K10's
+    `largest` on halves of the seeds, then on each of the seed's searches
+    alone; that one root launched alone (a one-search scheme of its rows)
+    and timed as the chunk's launch is, at the wrapper's budget and at
+    one that never spills (the tree on one thread): {seed, search, nodes,
+    ms, ms_unspilled}."""
+    import numpy as np
+    import torch
+
+    device = index.device
+    fused = tables.fused()
+    parts = tables.num_parts
+
+    def run(patterns, seed_class, scheme, num_searches, budget=k10.BUDGET):
+        operands = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                    for a in (patterns, seed_class, scheme)]
+        return k10.WorkqueueLaunch(index, *operands, num_searches, parts,
+                                   report_cap, kw, frames, budget)
+
+    def largest_of(lo, hi):
+        prepared = run(padded[lo:hi], classes[lo:hi], fused,
+                       tables.num_searches)
+        prepared.launch()
+        return prepared.result().largest_tree
+
+    lo, hi = 0, padded.shape[0]
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if largest_of(lo, mid) == largest:
+            hi = mid
+        else:
+            lo = mid
+    cls = int(classes[lo])
+    for search in range(tables.num_searches):
+        first = (cls * tables.num_searches + search) * parts
+        prepared = run(padded[lo:lo + 1], np.zeros(1, dtype=np.int32),
+                       fused[first:first + parts], 1)
+        prepared.launch()
+        nodes = prepared.result().nodes
+        if nodes == largest:
+            break
+    check(nodes == largest, f"no root of seed {lo} has the largest tree "
+                            f"({largest} nodes)")
+    unspilled = run(padded[lo:lo + 1], np.zeros(1, dtype=np.int32),
+                    fused[first:first + parts], 1, K10_BUDGETS[-1])
+    return {"seed": lo, "search": search, "nodes": nodes,
+            "ms": k10_times(prepared)[1],
+            "ms_unspilled": k10_times(unspilled)[1]}
+
+
+def k10_times(prepared):
+    """A K10 search on buffers allocated once, timed (CUDA events,
+    K10_REPEATS searches back to back) as the wrapper runs it (its
+    generations, reading the last one's count between batches) and as its
+    generations alone on the card, as many as the search took, enqueued
+    with no read: (search ms, generations ms)."""
+    search_ms = cuda_ms(prepared.launch, K10_REPEATS)
+    generations = prepared.launches
+
+    def alone():
+        prepared.start()
+        prepared.enqueue(generations)
+
+    return search_ms, cuda_ms(alone, K10_REPEATS)
 
 
 def frontier_kernel_checks(index, index_path, inputs, peaks):
@@ -2550,7 +2697,13 @@ def frontier_kernel_checks(index, index_path, inputs, peaks):
                out.num_reports[:1].cpu().numpy(),
                out.overflow[0].cpu().numpy(), int(out.iterations[0]),
                expanded]
-        ms = cuda_ms(kernel, 20 if name == "per_query" else 5)
+        repeats = 20 if name == "per_query" else 5
+        ms = cuda_ms(kernel, repeats)
+        pick = k11.cluster_size(index.device, 1,
+                                padded.shape[1] * tables.num_searches)
+        by_cluster = frontier_clusters(k11, index, operands, tables,
+                                       capacity, reports, max_iterations,
+                                       out, repeats)
         nbytes = (tensor_bytes(index.rank_rows, *operands)
                   + int(got[1][0]) * 5 * 4)
         bound_ms, bound_by = bound(FRONTIER_OPS_PER_STATE * expanded,
@@ -2561,8 +2714,10 @@ def frontier_kernel_checks(index, index_path, inputs, peaks):
                      f"R={reports}",
             "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "expanded_states": expanded, "iterations": got[3],
+            "us_per_iteration": ms * 1000 / max(got[3], 1),
             "reports": int(got[1][0]), "overflow": bool(got[2].any()),
-            "max_abs_err": 0, "plain_on": "cpu",
+            "max_abs_err": 0, "plain_on": "cpu", "cluster": pick,
+            "by_cluster": by_cluster,
         }
         check(not case["overflow"], f"K11 overflowed on the {name} input")
 
@@ -2592,6 +2747,40 @@ def frontier_kernel_checks(index, index_path, inputs, peaks):
         CPU_PLAIN.expect(f"K11 on the {name} input", CPU_PLAIN.submit(*job),
                          [got], record)
     return row, fields
+
+
+def frontier_clusters(k11, index, operands, tables, capacity, reports,
+                      max_iterations, want, repeats):
+    """K11 (over the index or its shards) on one input at every cluster
+    size the kernel takes, each launch held exactly to `want` (the
+    wrapper's pick: reports, count, overflow, iterations, expanded
+    states) and timed: {blocks: ms, or "no cluster fits" where the card
+    places none (the launch must raise)}."""
+    from floxer_tpu_torch.ops.frontier import is_sharded
+
+    timed = {}
+    for cluster in FRONTIER_CLUSTERS:
+        def kernel(cluster=cluster):
+            return k11.frontier_search_cuda(
+                index, *operands, tables.num_searches, tables.num_parts,
+                capacity, reports, max_iterations, cluster)
+
+        if k11.max_clusters(index.device, cluster, is_sharded(index)) < 1:
+            try:
+                kernel()
+            except RuntimeError:
+                timed[cluster] = "no cluster fits"
+                continue
+            check(False, f"K11 launched on clusters of {cluster} blocks "
+                         "that the card cannot place")
+        out = kernel()
+        err = max(max_error(getattr(out, f), getattr(want, f))
+                  for f in ("reports", "num_reports", "overflow",
+                            "iterations", "expanded"))
+        check(err == 0, f"K11 on clusters of {cluster} blocks differs "
+                        f"from the wrapper's pick ({err})")
+        timed[cluster] = cuda_ms(kernel, repeats)
+    return timed
 
 
 def select_kernel_checks(index, index_path, rep, redo, peaks):
@@ -2697,12 +2886,14 @@ def stage_seconds(split: str, stage: str) -> float:
 
 def run_device_search_pass(device, e2e: E2E):
     """Pass G: pass A's arguments with --device-search: the seed search by
-    K10, SAM = pass B, one K10 launch a chunk's dispatch (a second for a
-    dispatch retried after an overflow), counted after the search warmup
-    (one K9 and one K10 launch) has been joined; the seconds of the
+    K10, SAM = pass B, one K10 search a chunk's dispatch (a second for a
+    dispatch retried after an overflow), one launch a generation (the
+    roots', then one a list of spilled entries), counted after the search
+    warmup (one K9 and one K10 search) has been joined; the seconds of the
     searcher's stages (the work queue with its report sort, the dedup and
     cap replay, the native select, the native redo)."""
     from floxer_tpu_torch import pipeline, search_queue
+    from floxer_tpu_torch.ops import cuda_search_queue as k10
     from floxer_tpu_torch.search_device import DeviceSearcher
 
     pipeline.start_device_warmup(device, device_search=True)
@@ -2716,17 +2907,18 @@ def run_device_search_pass(device, e2e: E2E):
     chunks = -(-e2e.num_reads // 100)
     dispatches = DeviceSearcher._chunk_dispatches - dispatches_before
     retries = search_queue.RETRIES - retries_before
+    spills = k10.SPILL_LAUNCHES  # set to 0 with the launch counts
     check(dispatches == chunks,
           f"pass G made {dispatches} work-queue dispatches for {chunks} "
           "chunks")
-    check(launches["K10"] == dispatches + retries,
+    check(launches["K10"] == dispatches + retries + spills,
           f"pass G launched K10 {launches['K10']} times for {dispatches} "
-          f"dispatches and {retries} retries")
+          f"dispatches, {retries} retries and {spills} later generations")
     splits = {name: align_seconds(e2e.workdir / f"{name}.log")
               for name in ("pass_g", "pass_a", "pass_b")}
     return {
         "reads": e2e.num_reads, "chunks": chunks, "sam_identical": True,
-        "k10_retries": retries,
+        "k10_retries": retries, "k10_later_generations": spills,
         "launches": launches,
         **{f"{name}_align_s": splits[name][0] for name in splits},
         **{f"{name}_search_s": stage_seconds(splits[name][1], "search")
@@ -3487,10 +3679,11 @@ def run_all(device, peaks, k1_sweep, k3_sweep, full_arrays,
         e2e = E2E(workdir, E2E_READS)
         result, launches = run_e2e(device, e2e)
         phase("e2e", **result)
-        search_rows, fields, block = run_search_kernels(device, e2e, peaks)
+        search_rows, fields, inputs = run_search_kernels(device, e2e, peaks)
         rows.update(search_rows)
         phase("search_kernels", **fields)
-        sharded_rows, fields = run_sharded_kernels(device, e2e, peaks, block)
+        sharded_rows, fields = run_sharded_kernels(device, e2e, peaks,
+                                                   inputs)
         rows.update(sharded_rows)
         phase("sharded_kernels", **fields)
         result, launches_g = run_device_search_pass(device, e2e)

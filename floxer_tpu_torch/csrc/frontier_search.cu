@@ -1,5 +1,5 @@
-// K11: the per-query masked-frontier scheme search, one thread block a
-// frontier.
+// K11: the per-query masked-frontier scheme search, one thread-block
+// cluster a frontier.
 //
 // Replaces floxer_tpu/search_device.py's _frontier_search (:1333) with
 // _frontier_block (:921) and _compact_done_rows (:1391): the XLA program
@@ -16,25 +16,44 @@
 // overflow flag included.
 //
 // Design: the frontier, [10 fields, C] int32 field-major, is double
-// buffered in global scratch (it stays in L2). The block walks the
-// current frontier in rounds of kThreads consecutive slots, one slot a
-// thread: the thread finds its state's kinds of child (two ranks of all
-// six symbols when the state extends, fm_extend_all), a block-wide
-// exclusive scan of the child counts gives each parent its offset after
-// the earlier rounds' children, and the thread writes its children there.
-// So every state is ranked once an iteration and the writes follow the
-// slot order. A last pass of rounds compacts the done rows into the
-// reports the same way. A launch takes F independent frontiers of one
-// shape, one block each, every one with its own capacity and flag.
+// buffered in global scratch (it stays in L2). A frontier runs on a
+// cluster of B blocks (the launch's cluster dimension: 1, 2, 4, 8 or 16,
+// picked by the wrapper), which walks the current frontier in rounds of
+// B x kThreads consecutive slots, block r of the cluster taking slots
+// [round + r kThreads, +kThreads), one slot a thread: the thread finds
+// its state's kinds of child (two ranks of all six symbols when the
+// state extends, fm_extend_all), a block-wide exclusive scan of the child
+// counts gives each parent its offset within its block, and each block
+// publishes its total in shared memory; after a cluster barrier every
+// warp reads the totals of the cluster's blocks through distributed
+// shared memory (cluster.map_shared_rank), so a block's children follow
+// those of the blocks of lower rank and of the earlier rounds: exactly
+// the slot order one block writes, so the slot order, the capacity cut
+// and the overflow flag do not depend on B. The published totals are
+// double buffered by exchange parity, so one cluster barrier a round
+// suffices. At an iteration's end the blocks' alive flags are exchanged
+// the same way; that exchange's cluster barrier (cluster.sync():
+// barrier.cluster.arrive.release and barrier.cluster.wait.acquire) also
+// orders this iteration's frontier writes before the next iteration's
+// reads of them in the other blocks of the cluster, and those reads go
+// to L2 (__ldcg), never to a stale line of the reading SM's L1. A last
+// pass of rounds compacts the done rows into the reports the same way,
+// and the expanded states are summed over the cluster. B = 1 is a plain
+// launch with no exchange and the frontier read through L1: the block's
+// scans and barriers are those of the one-block kernel it replaces.
+// A launch takes F independent frontiers of one shape, one cluster each,
+// every one with its own capacity and flag.
 //
 // What bounds it on an H100: operations, ~250 int32 ops an expanded state
 // (two ranks of 6 symbols x 4 masked popcounts, the 13 kinds' tests, the
 // children's intervals; chip_smoke.py's FRONTIER_OPS_PER_STATE) plus the
 // copy of every kept row, against a bound counted from the states this
-// run expanded. One block a frontier uses one SM, and every iteration
-// waits for the block's scans, so a launch of one small frontier (the
-// per-query path) is latency-bound: it pays ~2 barriers a round and
-// dependent rank-row gathers every iteration.
+// run expanded. A small frontier (the per-query path, one frontier a
+// launch) is latency-bound: every round pays the slot loads, two rank-row
+// gathers, a block scan and the children's writes, so a cluster that
+// takes an iteration's whole frontier in one round cuts the iteration to
+// about one round's latency plus two cluster barriers; a launch of many
+// frontiers (the legacy block loop) fills the card with B = 1.
 //
 // Over the row-sharded index (frontier_kernel<FmShardedRankTable>, the
 // counterpart of floxer_tpu/parallel/sharded_index.py's
@@ -42,15 +61,21 @@
 // and sums the shards' counts (fm_rank.cuh); the frontier, its order and
 // its flag are those of the unsharded kernel, since the counts are.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "fm_rank.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 512;
+// the largest cluster a frontier may take (above 8 blocks a non-portable
+// size, placed only where cudaOccupancyMaxActiveClusters says it fits)
+constexpr int kMaxCluster = 16;
 constexpr int kWarps = kThreads / 32;
 constexpr int kFields = 10;
 constexpr int kKinds = 13;
@@ -119,6 +144,38 @@ __device__ inline int block_exclusive_scan(int value, int* warp_sums,
   return prefix;
 }
 
+// one int of each block summed over the cluster: (the blocks of lower
+// rank, all blocks). Every thread calls it with its block's value; each
+// warp reads the cluster's published values through distributed shared
+// memory after the cluster barrier. `exchange` is double buffered by
+// `parity`, which the caller flips after each call: a block rewrites a
+// buffer only after the next exchange's barrier, which every block passes
+// once it has read this one.
+__device__ inline void cluster_sums(cg::cluster_group& cluster,
+                                    int blocks, int rank, int* exchange,
+                                    int& parity, int value, int& lower,
+                                    int& all) {
+  if (blocks == 1) {
+    lower = 0;
+    all = value;
+    return;
+  }
+  if (threadIdx.x == 0) exchange[parity] = value;
+  cluster.sync();
+  const int lane = threadIdx.x & 31;
+  const int v =
+      lane < blocks ? *cluster.map_shared_rank(exchange + parity, lane) : 0;
+  lower = __reduce_add_sync(0xFFFFFFFFu, lane < rank ? v : 0);
+  all = __reduce_add_sync(0xFFFFFFFFu, v);
+  parity ^= 1;
+}
+
+// a frontier field: through L1 when this block wrote the frontier alone,
+// from L2 when other blocks of the cluster wrote part of it
+__device__ inline int field(const int* at, bool alone) {
+  return alone ? *at : __ldcg(at);
+}
+
 __device__ inline void put(int* buffer, int C, int slot, int lb, int lb_rev,
                            int len, int pos, int err, int op, int part,
                            int search, int seed, int done) {
@@ -137,10 +194,17 @@ __device__ inline void put(int* buffer, int C, int slot, int lb, int lb_rev,
 template <class Table>
 __global__ void __launch_bounds__(kThreads) frontier_kernel(Params<Table> p) {
   __shared__ int warp_sums[kWarps + 1];
-  __shared__ int any_alive;
+  __shared__ int exchange[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int blocks = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const bool alone = blocks == 1;
+  const int width = blocks * kThreads;  // slots a round
+  const int mine = rank * kThreads + threadIdx.x;  // this thread's slot in it
+  int parity = 0;
   const int C = p.capacity;
   const int parts = p.num_parts;
-  const size_t frontier_id = blockIdx.x;
+  const size_t frontier_id = blockIdx.x / blocks;
   const int* patterns =
       p.patterns + frontier_id * (size_t)p.num_seeds * p.pad_len;
   const int* seed_class = p.seed_class + frontier_id * (size_t)p.num_seeds;
@@ -152,7 +216,7 @@ __global__ void __launch_bounds__(kThreads) frontier_kernel(Params<Table> p) {
   const long long init_count = (long long)p.num_seeds * p.num_searches;
   bool overflow = init_count > C;
   int count = overflow ? C : (int)init_count;
-  for (int j = threadIdx.x; j < count; j += kThreads) {
+  for (int j = mine; j < count; j += width) {
     const int seed = j / p.num_searches;
     const int search = j - seed * p.num_searches;
     const int* row0 =
@@ -165,13 +229,17 @@ __global__ void __launch_bounds__(kThreads) frontier_kernel(Params<Table> p) {
   bool alive = count > 0;
   int iterations = 0;
   int expanded = 0;  // this thread's expanded states
-  __syncthreads();
+  if (alone) {
+    __syncthreads();
+  } else {
+    cluster.sync();
+  }
 
   while (iterations < p.max_iterations && !overflow && alive) {
-    if (threadIdx.x == 0) any_alive = 0;
-    int written = 0;  // children of the earlier rounds (block-uniform)
-    for (int round = 0; round < count; round += kThreads) {
-      const int j = round + threadIdx.x;
+    int written = 0;  // children of the earlier rounds (cluster-uniform)
+    bool wrote_alive = false;
+    for (int round = 0; round < count; round += width) {
+      const int j = round + mine;
       unsigned mask = 0;
       int lb = 0, lb_rev = 0, len = 0, pos = 0, err = 0, op = kOpM, part = 0;
       int search = 0, seed = 0, done = 0, dir = 1, ms = 0;
@@ -184,16 +252,16 @@ __global__ void __launch_bounds__(kThreads) frontier_kernel(Params<Table> p) {
         counts[s] = 0;
       }
       if (j < count) {
-        lb = cur[fLb * C + j];
-        lb_rev = cur[fLbRev * C + j];
-        len = cur[fLen * C + j];
-        pos = cur[fPos * C + j];
-        err = cur[fErr * C + j];
-        op = cur[fOp * C + j];
-        part = cur[fPart * C + j];
-        search = cur[fSearch * C + j];
-        seed = cur[fSeed * C + j];
-        done = cur[fDone * C + j];
+        lb = field(cur + fLb * C + j, alone);
+        lb_rev = field(cur + fLbRev * C + j, alone);
+        len = field(cur + fLen * C + j, alone);
+        pos = field(cur + fPos * C + j, alone);
+        err = field(cur + fErr * C + j, alone);
+        op = field(cur + fOp * C + j, alone);
+        part = field(cur + fPart * C + j, alone);
+        search = field(cur + fSearch * C + j, alone);
+        seed = field(cur + fSeed * C + j, alone);
+        done = field(cur + fDone * C + j, alone);
         // the row of the clipped part; the raw part decides the finish
         const int part_c = part < 0 ? 0 : (part > parts - 1 ? parts - 1 : part);
         const int* row =
@@ -231,10 +299,12 @@ __global__ void __launch_bounds__(kThreads) frontier_kernel(Params<Table> p) {
           }
         }
       }
-      int round_total;
-      int at = written + block_exclusive_scan(__popc(mask), warp_sums,
-                                              &round_total);
-      bool wrote_alive = false;
+      int block_total, lower, round_total;
+      const int prefix = block_exclusive_scan(__popc(mask), warp_sums,
+                                              &block_total);
+      cluster_sums(cluster, blocks, rank, exchange, parity, block_total,
+                   lower, round_total);
+      int at = written + lower + prefix;
 #pragma unroll
       for (int k = 0; k < kKinds; ++k) {
         if (mask & (1u << k)) {
@@ -267,7 +337,6 @@ __global__ void __launch_bounds__(kThreads) frontier_kernel(Params<Table> p) {
           ++at;
         }
       }
-      if (wrote_alive) any_alive = 1;
       written += round_total;
     }
     overflow = written > C;
@@ -276,33 +345,42 @@ __global__ void __launch_bounds__(kThreads) frontier_kernel(Params<Table> p) {
     cur = next;
     next = swap;
     ++iterations;
-    __syncthreads();
-    alive = any_alive != 0;
-    __syncthreads();  // before thread 0 clears any_alive again
+    // the cluster's alive flag; with B > 1 its exchange's barrier orders
+    // this iteration's frontier writes before the next one's reads
+    const int block_alive = __syncthreads_or(wrote_alive);
+    int lower, any;
+    cluster_sums(cluster, blocks, rank, exchange, parity, block_alive, lower,
+                 any);
+    alive = any != 0;
   }
 
   // the done rows of the final frontier, in slot order
   int num_done = 0;
   int* reports = p.reports + frontier_id * (size_t)p.report_capacity * 5;
-  for (int round = 0; round < count; round += kThreads) {
-    const int j = round + threadIdx.x;
-    const int is_done = j < count && cur[fDone * C + j] != 0 ? 1 : 0;
-    int round_total;
-    const int at = num_done + block_exclusive_scan(is_done, warp_sums,
-                                                   &round_total);
+  for (int round = 0; round < count; round += width) {
+    const int j = round + mine;
+    const int is_done =
+        j < count && field(cur + fDone * C + j, alone) != 0 ? 1 : 0;
+    int block_total, lower, round_total;
+    const int prefix = block_exclusive_scan(is_done, warp_sums, &block_total);
+    cluster_sums(cluster, blocks, rank, exchange, parity, block_total, lower,
+                 round_total);
+    const int at = num_done + lower + prefix;
     if (is_done && at < p.report_capacity) {
       int* row = reports + (size_t)at * 5;
-      row[0] = cur[fLb * C + j];
-      row[1] = cur[fLbRev * C + j];
-      row[2] = cur[fLen * C + j];
-      row[3] = cur[fErr * C + j];
-      row[4] = cur[fSeed * C + j];
+      row[0] = field(cur + fLb * C + j, alone);
+      row[1] = field(cur + fLbRev * C + j, alone);
+      row[2] = field(cur + fLen * C + j, alone);
+      row[3] = field(cur + fErr * C + j, alone);
+      row[4] = field(cur + fSeed * C + j, alone);
     }
     num_done += round_total;
   }
-  int expanded_total;
-  block_exclusive_scan(expanded, warp_sums, &expanded_total);
-  if (threadIdx.x == 0) {
+  int block_expanded, lower, expanded_total;
+  block_exclusive_scan(expanded, warp_sums, &block_expanded);
+  cluster_sums(cluster, blocks, rank, exchange, parity, block_expanded, lower,
+               expanded_total);
+  if (rank == 0 && threadIdx.x == 0) {
     int* stats = p.stats + frontier_id * kStats;
     stats[sReports] =
         num_done < p.report_capacity ? num_done : p.report_capacity;
@@ -310,6 +388,8 @@ __global__ void __launch_bounds__(kThreads) frontier_kernel(Params<Table> p) {
     stats[sIterations] = iterations;
     stats[sExpanded] = expanded_total;
   }
+  // no block leaves while another may still read its shared memory
+  if (blocks > 1) cluster.sync();
 }
 
 // the operands both tables' launches share
@@ -336,13 +416,87 @@ void fill_common(Params<Table>& p, const void* C, int n, const void* patterns,
   p.stats = static_cast<int*>(stats);
 }
 
+// clusters of `cluster` blocks of `kernel` the card holds at once (0 when
+// none fits); above 8 blocks the kernel is first allowed a non-portable
+// size
+cudaError_t max_active_clusters(const void* kernel, int cluster, int* out) {
+  *out = 0;
+  if (cluster < 1 || cluster > kMaxCluster) return cudaErrorInvalidValue;
+  if (cluster > 8) {
+    const cudaError_t error = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (error != cudaSuccess) return error;
+  }
+  cudaLaunchAttribute attribute[1];
+  attribute[0].id = cudaLaunchAttributeClusterDimension;
+  attribute[0].val.clusterDim.x = cluster;
+  attribute[0].val.clusterDim.y = 1;
+  attribute[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(cluster);
+  config.blockDim = dim3(kThreads);
+  config.attrs = attribute;
+  config.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(out, kernel, &config);
+}
+
+// F frontiers on clusters of `cluster` blocks (grid F x cluster; one
+// block a frontier is a launch without clusters). A cluster size outside
+// 1..kMaxCluster, or one the card cannot place (no cluster of it fits),
+// is refused with an error, as a launch the runtime rejects is.
+template <class Table>
+cudaError_t launch_frontiers(const Params<Table>& p, int num_frontiers,
+                             int cluster, void* stream) {
+  void (*kernel)(Params<Table>) = frontier_kernel<Table>;
+  cudaError_t error;
+  if (cluster != 1) {
+    // whether a cluster of this size fits, asked once a size
+    static int fits[kMaxCluster + 1] = {-1, -1, -1, -1, -1, -1, -1, -1, -1,
+                                        -1, -1, -1, -1, -1, -1, -1, -1};
+    if (cluster < 1 || cluster > kMaxCluster) return cudaErrorInvalidValue;
+    if (fits[cluster] < 0) {
+      error = max_active_clusters((const void*)kernel, cluster,
+                                  &fits[cluster]);
+      if (error != cudaSuccess) return error;
+    }
+    if (fits[cluster] < 1) return cudaErrorLaunchOutOfResources;
+  }
+  cudaLaunchAttribute attribute[1];
+  attribute[0].id = cudaLaunchAttributeClusterDimension;
+  attribute[0].val.clusterDim.x = cluster;
+  attribute[0].val.clusterDim.y = 1;
+  attribute[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(num_frontiers * cluster);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = 0;
+  config.stream = (cudaStream_t)stream;
+  config.attrs = attribute;
+  config.numAttrs = cluster > 1 ? 1 : 0;
+  error = cudaLaunchKernelEx(&config, kernel, p);
+  if (error != cudaSuccess) return error;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
+// clusters of `cluster` blocks the card holds at once, of the instance
+// over the index (sharded = 0) or over the shard tables (sharded = 1);
+// 0 when none fits (written to an int on the host)
+int floxer_frontier_max_clusters(int sharded, int cluster, void* out) {
+  void (*index_kernel)(Params<FmRankTable>) = frontier_kernel<FmRankTable>;
+  void (*sharded_kernel)(Params<FmShardedRankTable>) =
+      frontier_kernel<FmShardedRankTable>;
+  return (int)max_active_clusters(
+      sharded ? (const void*)sharded_kernel : (const void*)index_kernel,
+      cluster, static_cast<int*>(out));
+}
+
 // rows: the combined rank table, or null for the per-direction planes
 // layout (fwd_occ, fwd_planes, rev_occ, rev_planes); F frontiers of
-// num_seeds seeds each, one block each
+// num_seeds seeds each, one cluster of `cluster` blocks each
 int floxer_frontier_search(
     const void* rows, const void* fwd_occ, const void* fwd_planes,
     const void* rev_occ, const void* rev_planes, int rev_block_offset,
@@ -350,7 +504,7 @@ int floxer_frontier_search(
     int num_frontiers, int num_seeds, int pad_len, const void* scheme,
     int num_searches, int num_parts, int capacity, int report_capacity,
     int max_iterations, void* frontier, void* reports, void* stats,
-    void* stream) {
+    int cluster, void* stream) {
   Params<FmRankTable> p;
   p.fwd.rows = static_cast<const uint32_t*>(rows);
   p.fwd.occ = static_cast<const int32_t*>(fwd_occ);
@@ -363,9 +517,7 @@ int floxer_frontier_search(
   fill_common(p, C, n, patterns, seed_class, num_seeds, pad_len, scheme,
               num_searches, num_parts, capacity, report_capacity,
               max_iterations, frontier, reports, stats);
-  frontier_kernel<FmRankTable>
-      <<<num_frontiers, kThreads, 0, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  return (int)launch_frontiers(p, num_frontiers, cluster, stream);
 }
 
 // over the row-sharded index: rows [S, shard_rows, 32], each shard's
@@ -378,7 +530,7 @@ int floxer_frontier_search_sharded(
     const void* patterns, const void* seed_class, int num_frontiers,
     int num_seeds, int pad_len, const void* scheme, int num_searches,
     int num_parts, int capacity, int report_capacity, int max_iterations,
-    void* frontier, void* reports, void* stats, void* stream) {
+    void* frontier, void* reports, void* stats, int cluster, void* stream) {
   Params<FmShardedRankTable> p;
   p.fwd.rows = static_cast<const uint32_t*>(rows);
   p.fwd.shard_rows = shard_rows;
@@ -393,9 +545,7 @@ int floxer_frontier_search_sharded(
   fill_common(p, C, n, patterns, seed_class, num_seeds, pad_len, scheme,
               num_searches, num_parts, capacity, report_capacity,
               max_iterations, frontier, reports, stats);
-  frontier_kernel<FmShardedRankTable>
-      <<<num_frontiers, kThreads, 0, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  return (int)launch_frontiers(p, num_frontiers, cluster, stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
-// K10: the work-queue seed search of --device-search, one thread per
-// (seed, search) root.
+// K10: the work-queue seed search of --device-search: a thread a (seed,
+// search) root, at most a budget of nodes at a time, the rest of a large
+// tree spilled to a work list that every idle thread takes from.
 //
 // Replaces floxer_tpu/search_queue.py's _workqueue_search (:90-511), the
 // reference's windowed LIFO work queue, whose window loop answered a TPU's
@@ -15,21 +16,43 @@
 // State: the current node in registers; the path key in shared memory
 // (MAX_KEY_WORDS words a thread, word w at keys[w * THREADS]; a local
 // array indexed by depth would be a stack frame); a frame a branching
-// node on a stack in global scratch, thread-minor so a warp's frames at
-// one depth are adjacent. The scratch, not local memory, because the
-// stack's depth is set at launch (pad_len + max_errors + 2 frames) and a
-// local array needs it at compile time. A frame holds the node's state,
+// node on a stack in global scratch, each thread's frames contiguous and
+// a frame 80 bytes written and read as five 16-byte vectors (3 sectors).
+// The scratch, not local memory, because the stack's depth is set at
+// launch (pad_len + max_errors + 2 frames) and a local array needs it at
+// compile time. A frame holds the node's state,
 // the mask of the kinds still to take, and its six (C[s] + lo[s],
 // count[s]) pairs, 20 ints: a backtrack then costs one frame read and no
 // rank, where recomputing would add two dependent rank-row gathers to
 // every resumed node. A node with one valid child pushes no frame, and
 // the match child (the first kind) is always taken at expansion, so
-// frames never need the pattern. Reports are appended at an atomicAdd
-// offset; nodes are added once a thread, the largest tree once a root.
-// The search has no stack capacity to overflow; it flags overflow when
-// the reports pass their capacity, a path reaches the key's 8 x KW
-// nibbles, or the frames their count (none of which a complete search
-// of these seeds reaches).
+// frames never need the pattern.
+//
+// The tail: one thread walking a root's whole tree alone would set the
+// launch's time (pass A's largest tree is 1645 nodes against a mean of
+// 38). So a unit of work, a root or a spilled entry, expands at most
+// `budget` nodes; the node that reaches it joins the stack as a frame
+// with all its kinds, and the whole stack is spilled to the work list,
+// bottom frame first (the bottom frames hold the largest subtrees). An
+// entry is a frame, its (seed, search) and the path key's words up to
+// the frame's depth (kEntryInts ints); the thread that takes it restores
+// the key prefix into its shared-memory words and resumes the frame, so
+// every report carries the key of the single-thread DFS and the sorted
+// rows do not depend on the budget. The search runs in generations, one
+// launch each (ops/cuda_search_queue.py enqueues them a few at a time,
+// with no synchronization between them): the first takes the roots from
+// a counter, each later one the entries the one before it spilled (their
+// count read from the card), from a counter over its input list, and
+// spills to the other list; the kernel boundary orders an entry's writes
+// before its reads, so no thread ever waits on another. A thread leaves
+// when its counter runs out; a generation with no input, or after an
+// overflow, ends at once. An output list past its capacity drops the entries
+// and flags overflow; the runner then retries at 4x. Reports are
+// appended at an atomicAdd offset; nodes are added once a thread a
+// launch; each unit adds its nodes to its root's count, and the largest
+// tree is the largest root count any unit leaves. Overflow is flagged
+// when the reports pass their capacity, a path reaches the key's 8 x KW
+// nibbles, the frames their count or a list its capacity.
 //
 // What bounds it on an H100: operations, the larger of (a) ~250 int32
 // ops an expanded node (two ranks of 6 symbols x 4 masked popcounts, the
@@ -39,8 +62,7 @@
 // patterns and the scheme rows read once and the reports written once,
 // over 3.35 TB/s. Its rank-row gathers are latency-bound and dependent
 // along a path: occupancy hides them (every SM full of threads, each on
-// its own root), not prefetch. Its known risk is the tail: one root with
-// a huge tree (a repetitive seed) runs alone at the end.
+// its own root or entry), not prefetch.
 
 #include <cuda_runtime.h>
 
@@ -53,17 +75,31 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kMaxKeyWords = 16;
 constexpr int kFrameInts = 20;
+// a spilled entry: a frame, its seed and search, the path key's words,
+// two ints of padding (entries 16-byte aligned)
+constexpr int kEntryInts = kFrameInts + 2 + kMaxKeyWords + 2;
 constexpr int kKindDelete = 12;
 
 enum { kOpM = 0, kOpI = 1, kOpD = 2 };
 // fused scheme row: direction, start, end, lower, upper, then the next
 // part's direction, start, end
 enum { kDir, kStart, kEnd, kLower, kUpper, kNextDir, kNextStart, kNextEnd };
-// frame fields (primary[6] and count[6] follow kMask)
+// frame fields (primary[6] and count[6] follow kMask); kMask holds the
+// kinds still to take (bits 1..12) and the match's symbol above them
 enum { kLb, kLbRev, kLen, kPos, kErr, kPart, kDepth, kMask, kPrimary };
+constexpr uint32_t kKindsMask = 0x1FFEu;
+constexpr int kSymbolShift = 16;
 constexpr int kCount = kPrimary + FM_SIGMA;
-// counters
-enum { cReports, cOverflow, cNextRoot, cNodes, cLargest };
+// entry fields after its frame's
+enum { kSeed = kFrameInts, kSearch, kKey };
+// counters (int64): reports appended, the overflow flag, the next root,
+// nodes expanded, the largest tree, entries spilled in all generations,
+// the most one generation spilled
+enum { cReports, cOverflow, cNextRoot, cNodes, cLargest, cSpilled,
+       cListPeak, kCounters };
+// a generation's own counters (int64, zeroed by the caller before it):
+// its next input entry, its output entries
+enum { gNextEntry, gOutEntries, kGenerationCounters };
 
 struct Params {
   FmRankTable fwd, rev;
@@ -76,8 +112,15 @@ struct Params {
   int num_searches, num_parts, key_words, report_capacity;
   int* reports;  // [report_capacity, 6 + key_words]
   unsigned long long* counters;
-  int* scratch;  // [frame_capacity * kFrameInts, grid threads]
+  int* scratch;  // [grid threads, frame_capacity, kFrameInts]
   int frame_capacity;
+  int budget;         // nodes a unit expands before it spills
+  const int* in_list;  // [*in_entries, kEntryInts], the last launch's
+  const unsigned long long* in_entries;  // null in the first generation
+  unsigned long long* generation;        // [kGenerationCounters]
+  int* out_list;       // [list_capacity, kEntryInts]
+  long long list_capacity;
+  int* root_nodes;    // [roots], zeroed by the caller
 };
 
 struct Node {
@@ -170,43 +213,148 @@ __device__ inline void report(const Params& p, const Node& node, int seed,
   }
 }
 
+// a frame's five 16-byte vectors
+__device__ inline void copy_frame(int* to, const int* from) {
+#pragma unroll
+  for (int v = 0; v < kFrameInts / 4; ++v) {
+    reinterpret_cast<int4*>(to)[v] = reinterpret_cast<const int4*>(from)[v];
+  }
+}
+
+// the thread's stack, bottom frame first, to this launch's output list at
+// an atomicAdd offset; entries past the capacity are dropped and flag
+// overflow
+__device__ inline void spill(const Params& p, const int* frames, int top,
+                             int seed, int search, const uint32_t* keys) {
+  atomicAdd(p.counters + cSpilled, (unsigned long long)top);
+  const unsigned long long first =
+      atomicAdd(p.generation + gOutEntries, (unsigned long long)top);
+  atomicMax(p.counters + cListPeak, first + top);
+  for (int i = 0; i < top; ++i) {
+    const unsigned long long slot = first + i;
+    if (slot >= (unsigned long long)p.list_capacity) {
+      flag_overflow(p);
+      break;
+    }
+    int* entry = p.out_list + slot * kEntryInts;
+    const int* f = frames + i * kFrameInts;
+    copy_frame(entry, f);
+    entry[kSeed] = seed;
+    entry[kSearch] = search;
+    const int words = (f[kDepth] + 7) >> 3;
+    for (int w = 0; w < words; ++w) entry[kKey + w] = (int)keys[w * kThreads];
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 workqueue_kernel(Params p) {
   __shared__ uint32_t key_words[kMaxKeyWords * kThreads];
   uint32_t* keys = key_words + threadIdx.x;
-  const int grid_threads = gridDim.x * blockDim.x;
-  int* frames = p.scratch + blockIdx.x * blockDim.x + threadIdx.x;
+  int* frames = p.scratch + (size_t)(blockIdx.x * blockDim.x + threadIdx.x) *
+                                p.frame_capacity * kFrameInts;
   const int num_roots = p.num_seeds * p.num_searches;
   const int parts = p.num_parts;
+  // an earlier generation overflowed: the search's result is flagged
+  // already and this generation's work would not be read
+  if (p.counters[cOverflow] != 0) return;
+  const unsigned long long in_entries =
+      p.in_entries == nullptr ? 0ull : *p.in_entries;
 
   unsigned long long nodes = 0;
-  long long tree = 0;
-  int root = -1, seed = 0, search = 0, cls = 0, top = 0;
-  bool live = false;
+  int unit_nodes = 0;  // nodes this unit expanded
+  int root = -1;       // the unit's root, -1 between units
+  int seed = 0, search = 0, cls = 0, top = 0;
+  bool live = false, roots_left = true;
   Node node{};
 
   while (true) {
     if (root < 0) {
-      root = (int)atomicAdd(p.counters + cNextRoot, 1ull);
-      if (root >= num_roots) break;
-      seed = root / p.num_searches;
-      search = root - seed * p.num_searches;
-      cls = p.seed_class[seed];
-      const int* row0 = p.scheme + (size_t)(cls * p.num_searches + search) * parts * 8;
-      const int dir0 = row0[kDir];
-      node.lb = 0;
-      node.lb_rev = 0;
-      node.len = p.n;
-      node.pos = row0[kStart] * (dir0 > 0) + (row0[kEnd] - 1) * (dir0 < 0);
-      node.err = 0;
-      node.op = kOpM;
-      node.part = 0;
-      node.depth = 0;
-      top = 0;
-      tree = 0;
-      live = true;
+      // a new unit: a root while any is left (the first launch), then
+      // the input list's entries (the later ones)
+      if (roots_left) {
+        const int next = (int)atomicAdd(p.counters + cNextRoot, 1ull);
+        if (next < num_roots) {
+          root = next;
+          seed = root / p.num_searches;
+          search = root - seed * p.num_searches;
+          cls = p.seed_class[seed];
+          const int* row0 =
+              p.scheme + (size_t)(cls * p.num_searches + search) * parts * 8;
+          const int dir0 = row0[kDir];
+          node.lb = 0;
+          node.lb_rev = 0;
+          node.len = p.n;
+          node.pos = row0[kStart] * (dir0 > 0) + (row0[kEnd] - 1) * (dir0 < 0);
+          node.err = 0;
+          node.op = kOpM;
+          node.part = 0;
+          node.depth = 0;
+          top = 0;
+          live = true;
+        } else {
+          roots_left = false;
+        }
+      }
+      if (root < 0) {
+        const unsigned long long taken =
+            atomicAdd(p.generation + gNextEntry, 1ull);
+        if (taken >= in_entries) break;
+        // the entry becomes frame 0 of the stack, its key prefix the key's
+        const int* entry = p.in_list + taken * kEntryInts;
+        seed = entry[kSeed];
+        search = entry[kSearch];
+        root = seed * p.num_searches + search;
+        cls = p.seed_class[seed];
+        copy_frame(frames, entry);
+        const int words = (entry[kDepth] + 7) >> 3;
+        for (int w = 0; w < words; ++w) keys[w * kThreads] = entry[kKey + w];
+        top = 1;
+        live = false;
+      }
+      unit_nodes = 0;
     }
-    if (live) {
+    if (!live) {
+      // the current node is done: resume the deepest frame with kinds
+      // left, and take the child in this same pass (a lane that resumes
+      // then expands with the lanes that expand)
+      if (top == 0) {
+        const int before = atomicAdd(p.root_nodes + root, unit_nodes);
+        atomicMax(p.counters + cLargest,
+                  (unsigned long long)(before + unit_nodes));
+        root = -1;
+        continue;
+      }
+      int* f = frames + (top - 1) * kFrameInts;
+      const int4* v = reinterpret_cast<const int4*>(f);
+      const int4 v0 = v[0], v1 = v[1], v2 = v[2], v3 = v[3], v4 = v[4];
+      const uint32_t word = (uint32_t)v1.w;
+      const int match_symbol = (int)(word >> kSymbolShift);
+      uint32_t mask = word & kKindsMask;
+      const int kind = __ffs(mask) - 1;
+      mask &= mask - 1;
+      if (mask != 0) {
+        f[kMask] = (int)(mask | (word & ~kKindsMask));
+      } else {
+        --top;
+      }
+      node.lb = v0.x;
+      node.lb_rev = v0.y;
+      node.len = v0.z;
+      node.pos = v0.w;
+      node.err = v1.x;
+      node.part = v1.y;
+      node.depth = v1.z;
+      const int primary[FM_SIGMA] = {v2.x, v2.y, v2.z, v2.w, v3.x, v3.y};
+      const int count[FM_SIGMA] = {v3.z, v3.w, v4.x, v4.y, v4.z, v4.w};
+      const int* row =
+          p.scheme + ((size_t)(cls * p.num_searches + search) * parts + node.part) * 8;
+      // kind 1 (the match) only from a spilled node's frame; the frame
+      // keeps the match's symbol, so the pattern need not be read
+      live = descend(p, node, kind, row[kDir], match_symbol, primary, count,
+                     keys);
+      if (!live) continue;
+    }
+    {  // the live node: a boundary, or an expansion
       const int* row =
           p.scheme + ((size_t)(cls * p.num_searches + search) * parts + node.part) * 8;
       const int dir = row[kDir];
@@ -225,7 +373,7 @@ workqueue_kernel(Params p) {
       } else {
         // expand: two ranks on the direction of the part
         ++nodes;
-        ++tree;
+        ++unit_nodes;
         const bool left = dir < 0;
         const int base = left ? node.lb : node.lb_rev;
         int lo[FM_SIGMA], hi[FM_SIGMA], primary[FM_SIGMA], count[FM_SIGMA];
@@ -249,70 +397,42 @@ workqueue_kernel(Params p) {
           }
           if (node.op != kOpI) mask |= 1u << kKindDelete;
         }
+        // the unit's budget spent: the node joins the stack with all its
+        // kinds, kind 1 (the match) included, and the stack spills
+        const bool spend = unit_nodes >= p.budget;
         if (mask == 0) {
           live = false;
         } else {
           const int kind = __ffs(mask) - 1;
-          mask &= mask - 1;
+          if (!spend) mask &= mask - 1;
           if (mask != 0) {
             if (top >= p.frame_capacity) {
               flag_overflow(p);
             } else {
-              int* f = frames + (size_t)top * kFrameInts * grid_threads;
-              f[kLb * grid_threads] = node.lb;
-              f[kLbRev * grid_threads] = node.lb_rev;
-              f[kLen * grid_threads] = node.len;
-              f[kPos * grid_threads] = node.pos;
-              f[kErr * grid_threads] = node.err;
-              f[kPart * grid_threads] = node.part;
-              f[kDepth * grid_threads] = node.depth;
-              f[kMask * grid_threads] = (int)mask;
-#pragma unroll
-              for (int s = 0; s < FM_SIGMA; ++s) {
-                f[(kPrimary + s) * grid_threads] = primary[s];
-                f[(kCount + s) * grid_threads] = count[s];
-              }
+              int4* f = reinterpret_cast<int4*>(frames + top * kFrameInts);
+              f[0] = make_int4(node.lb, node.lb_rev, node.len, node.pos);
+              f[1] = make_int4(
+                  node.err, node.part, node.depth,
+                  (int)(mask | ((uint32_t)match_symbol << kSymbolShift)));
+              f[2] = make_int4(primary[0], primary[1], primary[2],
+                               primary[3]);
+              f[3] = make_int4(primary[4], primary[5], count[0], count[1]);
+              f[4] = make_int4(count[2], count[3], count[4], count[5]);
               ++top;
             }
           }
-          live = descend(p, node, kind, dir, match_symbol, primary, count, keys);
+          if (spend) {
+            live = false;
+          } else {
+            live = descend(p, node, kind, dir, match_symbol, primary, count,
+                           keys);
+          }
         }
-        continue;
+        if (!spend) continue;
+        if (top > 0) spill(p, frames, top, seed, search, keys);
+        top = 0;
       }
     }
-    // the current node is done: resume the deepest frame with kinds left
-    if (top == 0) {
-      atomicMax(p.counters + cLargest, (unsigned long long)tree);
-      root = -1;
-      continue;
-    }
-    int* f = frames + (size_t)(top - 1) * kFrameInts * grid_threads;
-    uint32_t mask = (uint32_t)f[kMask * grid_threads];
-    const int kind = __ffs(mask) - 1;
-    mask &= mask - 1;
-    if (mask != 0) {
-      f[kMask * grid_threads] = (int)mask;
-    } else {
-      --top;
-    }
-    node.lb = f[kLb * grid_threads];
-    node.lb_rev = f[kLbRev * grid_threads];
-    node.len = f[kLen * grid_threads];
-    node.pos = f[kPos * grid_threads];
-    node.err = f[kErr * grid_threads];
-    node.part = f[kPart * grid_threads];
-    node.depth = f[kDepth * grid_threads];
-    int primary[FM_SIGMA], count[FM_SIGMA];
-#pragma unroll
-    for (int s = 0; s < FM_SIGMA; ++s) {
-      primary[s] = f[(kPrimary + s) * grid_threads];
-      count[s] = f[(kCount + s) * grid_threads];
-    }
-    const int* row =
-        p.scheme + ((size_t)(cls * p.num_searches + search) * parts + node.part) * 8;
-    // kinds 2..12 only (the match was taken at expansion), which need no
-    // pattern symbol
-    live = descend(p, node, kind, row[kDir], 0, primary, count, keys);
   }
   atomicAdd(p.counters + cNodes, nodes);
 }
@@ -330,17 +450,24 @@ int floxer_workqueue_occupancy(void* blocks_out) {
   return (int)error;
 }
 
-// rows: the combined rank table, or null for the per-direction planes
-// layout (fwd_occ, fwd_planes, rev_occ, rev_planes); counters: int64 [8],
-// zeroed by the caller
+// one generation: rows, the combined rank table, or null for the
+// per-direction planes layout (fwd_occ, fwd_planes, rev_occ, rev_planes);
+// counters int64 [kCounters] and the roots' node counts [num_seeds *
+// num_searches] zeroed by the caller before the first generation, the
+// generation's counters int64 [kGenerationCounters] before it; the first
+// generation with in_entries null, each later one with the output count
+// of the one before
 int floxer_workqueue_search(
     const void* rows, const void* fwd_occ, const void* fwd_planes,
     const void* rev_occ, const void* rev_planes, int rev_block_offset,
     const void* C, int n, const void* patterns, int num_seeds, int pad_len,
     const void* seed_class, const void* scheme, int num_searches,
     int num_parts, int key_words, int report_capacity, void* reports,
-    void* counters, void* scratch, int frame_capacity, int blocks,
-    void* stream) {
+    void* counters, void* scratch, int frame_capacity, int budget,
+    const void* in_list, const void* in_entries, void* generation,
+    void* out_list, long long list_capacity, void* root_nodes,
+    int blocks, void* stream) {
+  if (budget < 1) return (int)cudaErrorInvalidValue;
   Params p;
   p.fwd.rows = static_cast<const uint32_t*>(rows);
   p.fwd.occ = static_cast<const int32_t*>(fwd_occ);
@@ -365,6 +492,13 @@ int floxer_workqueue_search(
   p.counters = static_cast<unsigned long long*>(counters);
   p.scratch = static_cast<int*>(scratch);
   p.frame_capacity = frame_capacity;
+  p.budget = budget;
+  p.in_list = static_cast<const int*>(in_list);
+  p.in_entries = static_cast<const unsigned long long*>(in_entries);
+  p.generation = static_cast<unsigned long long*>(generation);
+  p.out_list = static_cast<int*>(out_list);
+  p.list_capacity = list_capacity;
+  p.root_nodes = static_cast<int*>(root_nodes);
   workqueue_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

@@ -219,27 +219,31 @@ ALIGNER = KernelLibrary(_PACKAGE_DIR / "csrc", "libfloxer_kernels", {
     # rows, fwd occ, fwd planes, rev occ, rev planes, rev_block_offset, C,
     # n, patterns, num_seeds, pad_len, seed_class, scheme, num_searches,
     # num_parts, key_words, report_capacity, reports, counters, scratch,
-    # frame_capacity, blocks, stream (K10)
+    # frame_capacity, budget, in_list, in_entries, generation, out_list,
+    # list_capacity, root_nodes, blocks, stream (K10, one generation)
     "floxer_workqueue_search": [
         _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I,
-        _P, _P, _P, _I, _I, _P,
+        _P, _P, _P, _I, _I, _P, _P, _P, _P, ctypes.c_longlong, _P, _I, _P,
     ],
     # rows, fwd occ, fwd planes, rev occ, rev planes, rev_block_offset, C,
     # n, patterns, seed_class, num_frontiers, num_seeds, pad_len, scheme,
     # num_searches, num_parts, capacity, report_capacity, max_iterations,
-    # frontier, reports, stats, stream (K11)
+    # frontier, reports, stats, cluster, stream (K11)
     "floxer_frontier_search": [
         _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _I, _I, _I,
-        _I, _I, _P, _P, _P, _P,
+        _I, _I, _P, _P, _P, _I, _P,
     ],
+    # sharded, cluster, the clusters one card holds (written to an int on
+    # the host) (K11)
+    "floxer_frontier_max_clusters": [_I, _I, _P],
     # rows, shard_rows, rev_block_offset, fwd starts, fwd lengths, rev
     # starts, rev lengths, num_shards, C, n, patterns, seed_class,
     # num_frontiers, num_seeds, pad_len, scheme, num_searches, num_parts,
     # capacity, report_capacity, max_iterations, frontier, reports, stats,
-    # stream (K11 over the sharded index)
+    # cluster, stream (K11 over the sharded index)
     "floxer_frontier_search_sharded": [
         _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _I,
-        _I, _I, _I, _I, _P, _P, _P, _P,
+        _I, _I, _I, _I, _P, _P, _P, _I, _P,
     ],
     # rows, shard_rows, row_offset, starts, lengths, num_shards, positions,
     # B, out, stream (K13)

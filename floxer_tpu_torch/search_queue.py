@@ -64,13 +64,18 @@ _MASK32 = 0xFFFFFFFF
 class QueueRun:
     """One search's result: report rows (int32 [R, 6 + KW], the first
     num_reports valid, in completion order), the overflow flag, the
-    expanded nodes, and the largest tree of one root (K10 only)."""
+    expanded nodes; and, of K10 only, the largest tree of one root, the
+    entries spilled to its work lists, its launches (generations) and the
+    most entries one generation spilled."""
 
     reports: torch.Tensor
     num_reports: int
     overflow: bool
     nodes: int
     largest_tree: int | None = None
+    spilled: int | None = None
+    launches: int | None = None
+    list_peak: int | None = None
 
 
 def key_words_needed(max_len: int, max_errors: int) -> int:
@@ -347,12 +352,20 @@ def workqueue_runner(
     report_capacity: int,
     max_len: int,
     max_errors: int,
+    budget: int | None = None,
+    list_capacity: int | None = None,
 ):
-    """One work-queue search on the index's device: K10 on the card, the
+    """One work-queue search on the index's device: K10 on the card (its
+    node budget and work list as given, else the wrapper's defaults), the
     plain version on the CPU. Returns (sorted report rows [n, 6 + KW] in
     host-DFS order, overflow). On overflow it retries once at 4x the
-    capacities before the caller concedes the seeds to the host redo."""
-    from .ops.cuda_search_queue import workqueue_search_cuda
+    capacities (K10's work list among them) before the caller concedes
+    the seeds to the host redo."""
+    from .ops.cuda_search_queue import (
+        BUDGET,
+        list_entries,
+        workqueue_search_cuda,
+    )
 
     global RETRIES
     device = index.device
@@ -363,6 +376,8 @@ def workqueue_runner(
     KW = key_words_needed(max_len, max_errors)
     cap = 2 * init + P + K
     r_cap = report_capacity
+    budget = BUDGET if budget is None else budget
+    list_cap = list_entries(init) if list_capacity is None else list_capacity
     patterns = torch.from_numpy(
         np.ascontiguousarray(padded, dtype=np.int32)
     ).to(device)
@@ -375,7 +390,7 @@ def workqueue_runner(
             run = workqueue_search_cuda(
                 index, patterns, classes, scheme, tables.num_searches,
                 tables.num_parts, r_cap, KW,
-                frames_needed(max_len, max_errors),
+                frames_needed(max_len, max_errors), budget, list_cap,
             )
         else:
             run = workqueue_search_plain(
@@ -387,6 +402,7 @@ def workqueue_runner(
         RETRIES += 1
         cap *= 4
         r_cap *= 4
+        list_cap *= 4
     logger.debug(
         "workqueue search: %d seeds, %d reports, %d nodes, overflow %s",
         num_seeds, run.num_reports, run.nodes, run.overflow,

@@ -705,30 +705,56 @@ def search_chunk(sequences, seed=23, count=300):
     return padded, seed_class, tables, 3
 
 
-@pytest.mark.parametrize("layout", ["combined", "planes"])
-def test_workqueue_kernel_matches_plain(cuda_device, search_index, layout):
+@pytest.mark.parametrize("layout,budget", [
+    pytest.param("combined", None, id="combined"),
+    pytest.param("planes", None, id="planes"),
+    pytest.param("combined", 1, id="combined-budget1"),
+    pytest.param("planes", 2, id="planes-budget2"),
+])
+def test_workqueue_kernel_matches_plain(cuda_device, search_index, layout,
+                                        budget):
     """K10 through workqueue_runner: exactly one launch, no overflow, rows
     equal to the plain version's (run on the same card tensors) once
-    sorted, and the same node count."""
+    sorted, and the same node count; at the kernel's budget and at 1 and
+    2 nodes a unit (every branching node spills to the work list), with
+    the same largest tree."""
     from floxer_tpu_torch import search_queue
     from floxer_tpu_torch.ops import cuda_search_queue as k10
 
     host, sequences = search_index
     index = device_index_of(host, cuda_device, layout)
     padded, seed_class, tables, max_errors = search_chunk(sequences)
-    before = k10.LAUNCHES
-    rows, overflow = search_queue.workqueue_runner(
-        index, padded, seed_class, tables, 1 << 16, padded.shape[1],
-        max_errors,
-    )
-    assert k10.LAUNCHES == before + 1 and not overflow
     kw = search_queue.key_words_needed(padded.shape[1], max_errors)
     operands = [torch.from_numpy(a).to(cuda_device)
                 for a in (padded, seed_class, tables.fused())]
+    frames = search_queue.frames_needed(padded.shape[1], max_errors)
+    whole = k10.workqueue_search_cuda(
+        index, *operands, tables.num_searches, tables.num_parts, 1 << 16, kw,
+        frames, 1 << 20,
+    )
+    assert whole.spilled == 0 and not whole.overflow
+    # a spill, one at most every `budget` nodes, moves at most budget + 1
+    # entries: at a budget of 1 or 2 at most twice the nodes
+    entries = None if budget is None else 2 * whole.nodes
+    budget = k10.BUDGET if budget is None else budget
+    before, spill_before = k10.LAUNCHES, k10.SPILL_LAUNCHES
+    rows, overflow = search_queue.workqueue_runner(
+        index, padded, seed_class, tables, 1 << 16, padded.shape[1],
+        max_errors, budget=budget, list_capacity=entries,
+    )
+    # one launch a generation: the roots', then one a list of spilled
+    # entries
+    assert not overflow
+    assert k10.LAUNCHES - before == 1 + k10.SPILL_LAUNCHES - spill_before
     run = k10.workqueue_search_cuda(
         index, *operands, tables.num_searches, tables.num_parts, 1 << 16, kw,
-        search_queue.frames_needed(padded.shape[1], max_errors),
+        frames, budget, entries,
     )
+    assert run.largest_tree == whole.largest_tree
+    if budget <= 2:
+        assert run.launches > 2
+        assert run.nodes <= budget * (padded.shape[0] * tables.num_searches
+                                      + run.spilled)
     init = padded.shape[0] * tables.num_searches
     quantum = 1 << 12
     plain = search_queue.workqueue_search_plain(
@@ -748,8 +774,10 @@ def test_workqueue_kernel_matches_plain(cuda_device, search_index, layout):
 
 
 def test_workqueue_kernel_flags_overflow(cuda_device, search_index):
-    """A report capacity below the reports, and a key too short for the
-    paths, each set K10's overflow."""
+    """A report capacity below the reports, a key too short for the paths
+    and a work list too short for the spilled entries each set K10's
+    overflow; the runner retries a list overflow at 4x and gets the
+    rows."""
     from floxer_tpu_torch import search_queue
     from floxer_tpu_torch.ops import cuda_search_queue as k10
 
@@ -771,6 +799,27 @@ def test_workqueue_kernel_flags_overflow(cuda_device, search_index):
         frames,
     )
     assert short_key.overflow
+    # work lists a quarter of the most entries one generation spills at a
+    # budget of 1 overflow; the runner's retry at 4x gives the full rows
+    spilling = k10.workqueue_search_cuda(
+        index, *operands, tables.num_searches, tables.num_parts, 1 << 16, kw,
+        frames, 1, 2 * full.nodes,
+    )
+    assert not spilling.overflow and spilling.list_peak > 4
+    quarter = -(-spilling.list_peak // 4)
+    small = k10.workqueue_search_cuda(
+        index, *operands, tables.num_searches, tables.num_parts, 1 << 16, kw,
+        frames, 1, quarter,
+    )
+    assert small.overflow
+    retries = search_queue.RETRIES
+    rows, overflow = search_queue.workqueue_runner(
+        index, padded, seed_class, tables, 1 << 16, padded.shape[1],
+        max_errors, budget=1, list_capacity=quarter,
+    )
+    assert not overflow and search_queue.RETRIES == retries + 1
+    assert np.array_equal(rows, search_queue.sort_reports(
+        full.reports[:full.num_reports].cpu().numpy()))
 
 
 def test_search_wrappers_refuse_cpu_operands(cuda_device, search_index):
@@ -837,8 +886,9 @@ def test_search_kernels_ptxas_no_spill_no_stack(cuda_device):
 def test_device_search_cli_matches_host_search(cuda_device, simulated,
                                                tmp_path, engine):
     """--device-search on the card writes the host search's SAM, with one
-    K10 launch a chunk's dispatch (a second after an overflow), counted
-    after the search warmup's own launches."""
+    K10 search a chunk's dispatch (a second after an overflow), each one
+    launch a generation (K10's SPILL_LAUNCHES count those past the
+    first), counted after the search warmup's own launches."""
     from floxer_tpu_torch import search_queue
     from floxer_tpu_torch.search_device import DeviceSearcher
 
@@ -852,11 +902,14 @@ def test_device_search_cli_matches_host_search(cuda_device, simulated,
 
     assert pipeline.run(parse_and_validate(args("host.sam")),
                         use_device=False) == 0
+    from floxer_tpu_torch.ops import cuda_search_queue as k10
+
     pipeline.start_device_warmup(cuda_device, device_search=True)
     pipeline.join_device_warmup()
     before = pipeline.kernel_launches()["K10"]
     dispatches = DeviceSearcher._chunk_dispatches
     retries = search_queue.RETRIES
+    spills = k10.SPILL_LAUNCHES
     cli = parse_and_validate(
         args("device.sam", ["--engine", engine, "--device-search"])
     )
@@ -865,6 +918,7 @@ def test_device_search_cli_matches_host_search(cuda_device, simulated,
     assert dispatches > 0
     assert pipeline.kernel_launches()["K10"] - before == (
         dispatches + search_queue.RETRIES - retries
+        + k10.SPILL_LAUNCHES - spills
     )
     assert (tmp_path / "device.sam").read_bytes() == (
         tmp_path / "host.sam"
@@ -894,10 +948,11 @@ def frontier_blocks(sequences, blocks=3, seed=31):
 
 
 def frontier_against_plain(index, patterns, classes, tables, capacity,
-                           reports, max_iterations):
-    """K11 on F frontiers (one launch) against frontier_search_plain on the
-    same card tensors, frontier by frontier: reports, count, overflow,
-    iterations and expanded states equal. Returns the kernel's batch."""
+                           reports, max_iterations, cluster=None):
+    """K11 on F frontiers (one launch, clusters of `cluster` blocks or the
+    wrapper's pick) against frontier_search_plain on the same card
+    tensors, frontier by frontier: reports, count, overflow, iterations
+    and expanded states equal. Returns the kernel's batch."""
     from floxer_tpu_torch.ops import cuda_frontier as k11
     from floxer_tpu_torch.ops.frontier import frontier_search_plain
 
@@ -907,7 +962,7 @@ def frontier_against_plain(index, patterns, classes, tables, capacity,
     before = k11.LAUNCHES
     got = k11.frontier_search_cuda(index, *operands, tables.num_searches,
                                    tables.num_parts, capacity, reports,
-                                   max_iterations)
+                                   max_iterations, cluster)
     torch.cuda.synchronize()
     assert k11.LAUNCHES == before + 1
     for f in range(patterns.shape[0]):
@@ -925,39 +980,66 @@ def frontier_against_plain(index, patterns, classes, tables, capacity,
     return got
 
 
-@pytest.mark.parametrize("layout", ["combined", "planes"])
-def test_frontier_kernel_matches_plain(cuda_device, search_index, layout):
+@pytest.mark.parametrize("layout,cluster", [
+    pytest.param("combined", None, id="combined"),
+    pytest.param("planes", None, id="planes"),
+] + [
+    pytest.param("combined", cluster, id=f"combined-cluster{cluster}")
+    for cluster in (1, 2, 4, 8, 16)
+])
+def test_frontier_kernel_matches_plain(cuda_device, search_index, layout,
+                                       cluster):
     """K11 on three 256-seed blocks at the legacy loop's capacities
-    (32768 states, 8192 reports), and on one per-query bucket (16384 and
-    4096), equals the plain version, report order included."""
+    (32768 states, 8192 reports), on one of them alone, and on one
+    per-query bucket (16384 and 4096), equals the plain version, report
+    order included: at the wrapper's pick of the cluster and at every
+    cluster size the kernel takes (16 blocks only where the card places
+    such a cluster; elsewhere the launch raises)."""
+    from floxer_tpu_torch.ops import cuda_frontier as k11
+
     host, sequences = search_index
     index = device_index_of(host, cuda_device, layout)
     patterns, classes, tables, max_iterations = frontier_blocks(sequences)
+    if cluster is not None and k11.max_clusters(cuda_device, cluster,
+                                                False) < 1:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            frontier_against_plain(index, patterns, classes, tables,
+                                   1 << 15, 1 << 13, max_iterations, cluster)
+        return
     got = frontier_against_plain(index, patterns, classes, tables, 1 << 15,
-                                 1 << 13, max_iterations)
+                                 1 << 13, max_iterations, cluster)
     assert not got.overflow.any() and int(got.num_reports.min()) > 100
+    got = frontier_against_plain(index, patterns[:1], classes[:1], tables,
+                                 1 << 15, 1 << 13, max_iterations, cluster)
+    assert not got.overflow.any()
     got = frontier_against_plain(index, patterns[:1, :16], classes[:1, :16],
-                                 tables, 1 << 14, 1 << 12, max_iterations)
+                                 tables, 1 << 14, 1 << 12, max_iterations,
+                                 cluster)
     assert not got.overflow.any()
 
 
-def test_frontier_kernel_flags_overflow(cuda_device, search_index):
-    """A frontier capacity below the states, and a report capacity below
-    the reports, each set K11's overflow on every seed of its block as
-    the plain version does, and the truncated frontier still reports."""
+@pytest.mark.parametrize("cluster", [None, 2, 8])
+def test_frontier_kernel_flags_overflow(cuda_device, search_index, cluster):
+    """A frontier capacity below the states (2048 and 1100 states: with
+    clusters of 2 and 8 blocks the cut falls inside a round's later
+    blocks), and a report capacity below the reports, each set K11's
+    overflow on every seed of its block as the plain version does, and
+    the truncated frontier still reports."""
     host, sequences = search_index
     index = device_index_of(host, cuda_device, "combined")
     patterns, classes, tables, max_iterations = frontier_blocks(
         sequences, 2, 7
     )
-    states = frontier_against_plain(index, patterns, classes, tables, 2048,
-                                    1 << 13, max_iterations)
-    assert states.overflow.all()
+    for capacity in (2048, 1100):
+        states = frontier_against_plain(index, patterns, classes, tables,
+                                        capacity, 1 << 13, max_iterations,
+                                        cluster)
+        assert states.overflow.all()
     reports = frontier_against_plain(index, patterns, classes, tables,
-                                     1 << 15, 64, max_iterations)
+                                     1 << 15, 64, max_iterations, cluster)
     assert reports.overflow.all() and int(reports.num_reports.min()) == 64
     start = frontier_against_plain(index, patterns, classes, tables, 256,
-                                   1 << 13, max_iterations)
+                                   1 << 13, max_iterations, cluster)
     assert start.overflow.all() and int(start.iterations.max()) == 0
 
 
@@ -1126,13 +1208,19 @@ def test_sharded_kernels_match_plain_and_unsharded(cuda_device, search_index,
             assert torch.equal(g, w) and torch.equal(g, f)
 
 
-@pytest.mark.parametrize("num_shards", [2, 4])
+@pytest.mark.parametrize("num_shards,cluster", [
+    pytest.param(2, None, id="2"),
+    pytest.param(4, None, id="4"),
+    pytest.param(2, 8, id="2-cluster8"),
+    pytest.param(4, 2, id="4-cluster2"),
+])
 def test_sharded_frontier_kernel_matches_plain_and_unsharded(
-    cuda_device, search_index, num_shards
+    cuda_device, search_index, num_shards, cluster
 ):
     """K11 over the shard tables on three 256-seed blocks equals its plain
     version (frontier_against_plain) and the unsharded K11: reports in
-    order, counts, overflow, iterations and expanded states."""
+    order, counts, overflow, iterations and expanded states, at the
+    wrapper's pick of the cluster and at clusters of 8 and 2 blocks."""
     from floxer_tpu_torch.index import device_index as di
     from floxer_tpu_torch.ops import cuda_frontier as k11
 
@@ -1144,7 +1232,7 @@ def test_sharded_frontier_kernel_matches_plain_and_unsharded(
     before = k11.SHARDED_LAUNCHES
     got = k11.frontier_search_cuda(index, *operands, tables.num_searches,
                                    tables.num_parts, 1 << 15, 1 << 13,
-                                   max_iterations)
+                                   max_iterations, cluster)
     torch.cuda.synchronize()
     assert k11.SHARDED_LAUNCHES == before + 1
     flat = frontier_against_plain(device_index_of(host, cuda_device,

@@ -134,19 +134,27 @@ def reference(indexes):
 
 def emulate_k11(index, patterns, seed_class, scheme, num_searches,
                 num_parts, capacity, report_capacity, max_iters,
-                threads=cuda_frontier.THREADS, extend=fm_extend_plain):
-    """K11's block (csrc/frontier_search.cu) in numpy: the frontier
-    field-major in two buffers, walked in rounds of `threads` slots; a
-    round's child counts scanned in thread order give each parent its
-    offset after the earlier rounds' children; children go out in (slot,
-    edge) order while the offset is under the capacity; the alive flag
-    from the children written; the done rows compacted in rounds. A
-    state's extension is `extend(index, lb, lb_rev, length, left=)`, K9x's
-    plain version unless given (the sharded index's tests hand it the
-    kernels' own fm_extend_all, built with g++). Returns (reports int32
+                threads=cuda_frontier.THREADS, blocks=1, extend=fm_extend_plain,
+                record=None):
+    """K11 (csrc/frontier_search.cu) in numpy: one frontier on a cluster
+    of `blocks` thread blocks of `threads` threads, the frontier
+    field-major in two buffers, walked in rounds of blocks x threads
+    slots, block r of the cluster taking slots [round + r threads,
+    +threads); each block's scan of its threads' child counts gives its
+    parents their offsets within the block, and the totals of the blocks
+    of lower rank (read across the cluster) place the block after them,
+    after the earlier rounds' children; children go out in (slot, edge)
+    order while the offset is under the capacity; the alive flag from the
+    children written, over the cluster; the done rows compacted in rounds
+    the same way. A state's extension is `extend(index, lb, lb_rev,
+    length, left=)`, K9x's plain version unless given (the sharded
+    index's tests hand it the kernels' own fm_extend_all, built with
+    g++). `record`, when given, receives each round as (iteration,
+    written before it, the blocks' child totals). Returns (reports int32
     [R, 5], num_reports, overflow, iterations, expanded)."""
     S, L = patterns.shape
     C, R = capacity, report_capacity
+    width = blocks * threads
     sym = np.arange(1, 6)
     buffers = [np.zeros((10, C), dtype=np.int64) for _ in range(2)]
     cur, nxt = 0, 1
@@ -163,14 +171,28 @@ def emulate_k11(index, patterns, seed_class, scheme, num_searches,
         zero, zero, zero + index.n, first, zero, zero + _OP_M, zero, search,
         seed, zero,
     ])
+
+    def cluster_offsets(per_thread, base):
+        """Each slot's offset: `base`, the lower ranks' block totals, and
+        the slot's exclusive prefix in its own block's scan."""
+        rank = np.arange(len(per_thread)) // threads
+        totals = np.bincount(rank, weights=per_thread,
+                             minlength=blocks).astype(np.int64)
+        lower = np.cumsum(totals) - totals
+        within = np.zeros_like(per_thread)
+        for r in range(blocks):
+            mine = per_thread[rank == r]
+            within[rank == r] = np.cumsum(mine) - mine
+        return base + lower[rank] + within, totals
+
     alive = count > 0
     iterations = expanded = 0
     while iterations < max_iters and not overflow and alive:
         any_alive = False
         written = 0
-        for start in range(0, count, threads):
+        for start in range(0, count, width):
             lb, lb_rev, ln, pos, err, op, part, srch, sd, done = (
-                buffers[cur][:, start:min(start + threads, count)]
+                buffers[cur][:, start:min(start + width, count)]
             )
             part_c = np.clip(part, 0, num_parts - 1)
             row = scheme[(seed_class[sd] * num_searches + srch) * num_parts
@@ -227,14 +249,16 @@ def emulate_k11(index, patterns, seed_class, scheme, num_searches,
                 [np.where(advancing, part + 1, part)] + [part] * 12,
                 [srch] * 13, [sd] * 13,
                 [((done != 0) | finished).astype(np.int64)] + [ones * 0] * 12,
-            )], axis=2)  # [threads, 13, 10]
+            )], axis=2)  # [slots, 13, 10]
             per_thread = valid.sum(axis=1)
-            offsets = written + np.cumsum(per_thread) - per_thread
+            offsets, totals = cluster_offsets(per_thread, written)
+            if record is not None:
+                record.append((iterations, written, totals.tolist()))
             at = offsets[:, None] + np.cumsum(valid, axis=1) - valid
             kept = valid & (at < C)
             buffers[nxt][:, at[kept]] = fields[kept].T
             any_alive |= bool((fields[kept][:, 9] == 0).any())
-            written += int(per_thread.sum())
+            written += int(totals.sum())
         overflow = written > C
         count = min(written, C)
         cur, nxt = nxt, cur
@@ -242,13 +266,13 @@ def emulate_k11(index, patterns, seed_class, scheme, num_searches,
         alive = any_alive
     reports = np.zeros((R, 5), dtype=np.int32)
     num_done = 0
-    for start in range(0, count, threads):
-        block = buffers[cur][:, start:min(start + threads, count)]
-        is_done = block[9] != 0
-        at = num_done + np.cumsum(is_done) - is_done
-        keep = is_done & (at < R)
+    for start in range(0, count, width):
+        block = buffers[cur][:, start:min(start + width, count)]
+        is_done = (block[9] != 0).astype(np.int64)
+        at, totals = cluster_offsets(is_done, num_done)
+        keep = (is_done > 0) & (at < R)
         reports[at[keep]] = block[[0, 1, 2, 4, 8]][:, keep].T
-        num_done += int(is_done.sum())
+        num_done += int(totals.sum())
     return (reports, min(num_done, R), overflow or num_done > R, iterations,
             expanded)
 
@@ -268,12 +292,27 @@ def run_port(index, sequences, name):
     return out, stats
 
 
-@pytest.mark.parametrize("layout", ["combined", "planes"])
-@pytest.mark.parametrize("name", sorted(CASES))
+# (case, layout, cluster geometry: blocks, threads): every case on one
+# block of the kernel's threads (their ids as before), then clusters of 2
+# blocks of 32 threads: rounds that span both blocks (e2), the frontier's
+# capacity cut inside the second block of a round (frontier_overflow),
+# the reports' capacity (report_overflow)
+EMULATION_CASES = [
+    pytest.param(name, layout, (1, cuda_frontier.THREADS),
+                 id=f"{name}-{layout}")
+    for layout in ("combined", "planes") for name in sorted(CASES)
+] + [
+    pytest.param(name, "combined", (2, 32), id=f"{name}-combined-cluster2x32")
+    for name in ("e2", "frontier_overflow", "report_overflow")
+]
+
+
+@pytest.mark.parametrize("name,layout,geometry", EMULATION_CASES)
 def test_plain_and_emulation_match_reference(indexes, reference, name,
-                                             layout):
-    """frontier_search_plain and emulate_k11 against the reference's
-    _frontier_search: reports, count and overflow, exactly."""
+                                             layout, geometry):
+    """frontier_search_plain and emulate_k11 (on a cluster of `geometry`)
+    against the reference's _frontier_search: reports, count and
+    overflow, exactly."""
     want_reports, want_count, want_overflow = reference(name)
     index = indexes[layout]
     (reports, count, overflow), stats = run_port(
@@ -288,21 +327,36 @@ def test_plain_and_emulation_match_reference(indexes, reference, name,
         assert want_overflow.all() and want_count == CASES[name][4]
     tables = port_tables(name)
     padded, seed_class = case_operands(indexes["sequences"], name)
+    blocks, threads = geometry
+    rounds = []
     got = emulate_k11(
         index, padded.astype(np.int64), seed_class.astype(np.int64),
         tables.fused().astype(np.int64), tables.num_searches,
         tables.num_parts, CASES[name][3], CASES[name][4],
-        max_iterations(name),
+        max_iterations(name), threads=threads, blocks=blocks, record=rounds,
     )
     assert np.array_equal(got[0], want_reports)
     assert got[1] == want_count
     assert got[2] == bool(want_overflow[0])
     assert (got[3], got[4]) == (stats["iterations"], stats["expanded"])
+    if blocks == 1:
+        return
+    # the cluster's geometry is exercised: rounds whose children come from
+    # both blocks, and for frontier_overflow the capacity cut inside the
+    # second block's children
+    assert any(totals[0] and totals[1] for _, _, totals in rounds)
+    if name == "frontier_overflow":
+        capacity = CASES[name][3]
+        assert any(written + totals[0] < capacity
+                   < written + totals[0] + totals[1]
+                   for _, written, totals in rounds)
 
 
 def test_emulation_rounds_do_not_change_the_result(indexes):
-    """The round width (the block's threads) only changes how the slots
-    are walked: 32 and 512 slots a round give the same result."""
+    """The round width (the block's threads and the cluster's blocks)
+    only changes how the slots are walked: 32 and 512 slots a round, and
+    clusters of 4 blocks of 32 and of 8 and 16 blocks of 512 (every
+    iteration in one round), give the same result."""
     name = "e2"
     tables = port_tables(name)
     padded, seed_class = case_operands(indexes["sequences"], name)
@@ -310,10 +364,11 @@ def test_emulation_rounds_do_not_change_the_result(indexes):
             seed_class.astype(np.int64), tables.fused().astype(np.int64),
             tables.num_searches, tables.num_parts, CASES[name][3],
             CASES[name][4], max_iterations(name))
-    narrow = emulate_k11(*args, threads=32)
     wide = emulate_k11(*args)
-    assert np.array_equal(narrow[0], wide[0])
-    assert narrow[1:] == wide[1:]
+    for threads, blocks in ((32, 1), (32, 4), (512, 8), (512, 16)):
+        other = emulate_k11(*args, threads=threads, blocks=blocks)
+        assert np.array_equal(other[0], wide[0])
+        assert other[1:] == wide[1:]
 
 
 def test_batch_is_frontier_by_frontier(indexes):
@@ -427,9 +482,35 @@ def test_cuda_wrapper_refuses_cpu_operands(indexes):
 
 
 def test_kernel_constants_match_the_source():
-    """The wrapper's block and slot fields are the kernel's."""
+    """The wrappers' constants are the kernels': K11's block, slot fields
+    and largest cluster (the pick within it), K10's block, key words,
+    frame and entry ints and counters."""
+    from floxer_tpu_torch.ops import cuda_search_queue
+
     source = (ROOT / cuda_frontier.SOURCE).read_text()
     threads = re.search(r"constexpr int kThreads = (\d+);", source)
     fields = re.search(r"constexpr int kFields = (\d+);", source)
+    cluster = re.search(r"constexpr int kMaxCluster = (\d+);", source)
     assert int(threads.group(1)) == cuda_frontier.THREADS
     assert int(fields.group(1)) == cuda_frontier.FIELDS
+    assert int(cluster.group(1)) == cuda_frontier.MAX_CLUSTER
+    assert cuda_frontier.PICK_MAX_CLUSTER <= cuda_frontier.MAX_CLUSTER
+    source = (ROOT / cuda_search_queue.SOURCE).read_text()
+    for name, value in (("kThreads", cuda_search_queue.THREADS),
+                        ("kMaxKeyWords", cuda_search_queue.MAX_KEY_WORDS),
+                        ("kFrameInts", cuda_search_queue.FRAME_INTS)):
+        found = re.search(rf"constexpr int {name} = (\d+);", source)
+        assert int(found.group(1)) == value, name
+    entry = re.search(r"constexpr int kEntryInts = kFrameInts \+ 2 \+ "
+                      r"kMaxKeyWords \+ 2;", source)
+    assert entry is not None
+    for first, last, count in (
+        ("cReports", "kCounters", cuda_search_queue.COUNTERS),
+        ("gNextEntry", "kGenerationCounters",
+         cuda_search_queue.GENERATION_COUNTERS),
+    ):
+        found = re.search(rf"enum \{{ ({first}[^}}]*), {last} \}};", source)
+        assert len(found.group(1).split(",")) == count, last
+    assert cuda_search_queue.ENTRY_INTS == (
+        cuda_search_queue.FRAME_INTS + 2 + cuda_search_queue.MAX_KEY_WORDS
+        + 2)

@@ -25,6 +25,7 @@ from floxer_tpu.schemes import expand_scheme as ref_expand
 from floxer_tpu_torch import search_queue
 from floxer_tpu_torch.index.device_index import DeviceIndex
 from floxer_tpu_torch.index.fmindex import FmIndex
+from floxer_tpu_torch.ops import cuda_search_queue
 from floxer_tpu_torch.ops.cuda_fm_index import fm_rank_plain
 from floxer_tpu_torch.schemes import expand_scheme
 from floxer_tpu_torch.search_device import SchemeTables
@@ -248,18 +249,31 @@ def test_r1_iteration_bound_sets_overflow(indexes, monkeypatch):
 
 def emulate_k10(index, patterns, seed_class, scheme, num_searches,
                 num_parts, report_capacity, key_words, frame_capacity,
-                root_order=None):
-    """K10's per-root search (csrc/workqueue_search.cu) in numpy, one root
-    at a time in `root_order` (any order: a thread takes roots from a
-    counter): (report rows int32 [k, 6 + KW] in completion order,
-    overflow, nodes, largest tree)."""
+                root_order=None, budget=cuda_search_queue.BUDGET,
+                list_capacity=None):
+    """K10 (csrc/workqueue_search.cu) in numpy, as one thread runs each
+    generation: the first over the roots in `root_order` (any order:
+    threads take roots from a counter), each later one over the entries
+    the one before spilled; a unit of work (a root or an entry) expands
+    at most `budget` nodes, the node that reaches the budget joining the
+    stack with all its kinds and the stack spilled, bottom frame first,
+    to the generation's output list of `list_capacity` entries (a frame,
+    its seed and search, the key words up to its depth); an entry
+    restores its key prefix into the thread's key and resumes its frame.
+    A generation whose list overflows is the last. Returns (report rows
+    int32 [k, 6 + KW] in completion order, overflow, nodes, largest tree,
+    entries spilled, the most one generation spilled, generations)."""
     C = index.C.numpy().astype(np.int64)
     n = index.n
     patterns = patterns.astype(np.int64)
     L = patterns.shape[1]
     num_roots = patterns.shape[0] * num_searches
+    if list_capacity is None:
+        list_capacity = cuda_search_queue.list_entries(num_roots)
     keys = [0] * 16  # the thread's shared-memory key, stale nibbles kept
-    reports, nodes, largest, overflow = [], 0, 0, False
+    reports, nodes, overflow = [], 0, False
+    work, spilled, peak = [], 0, 0
+    root_nodes = np.zeros(num_roots, dtype=np.int64)
 
     def rank(left, position):
         position = torch.tensor([position], dtype=torch.int32)
@@ -297,17 +311,41 @@ def emulate_k10(index, patterns, seed_class, scheme, num_searches,
             lb, lb_rev = secondary, int(primary[s])
         return (lb, lb_rev, int(count[s]), pos, err, op, part, depth + 1)
 
-    for root in (range(num_roots) if root_order is None else root_order):
-        seed, search = divmod(root, num_searches)
+    def spill(frames, seed, search):
+        nonlocal overflow, spilled
+        spilled += len(frames)
+        for parent, mask, match_symbol, primary, count in frames:
+            if len(work) >= list_capacity:
+                overflow = True
+                break
+            words = (parent[7] + 7) // 8
+            work.append(([parent, mask, match_symbol, primary, count], seed,
+                         search, keys[:words]))
+
+    # generation 0's units are the roots, each later one's the entries
+    units = [(root, None) for root in
+             (range(num_roots) if root_order is None else root_order)]
+    generations = 0
+    while units:
+        root, entry = units.pop(0)
+        if entry is None:
+            seed, search = divmod(root, num_searches)
+            frames = []
+        else:
+            frame, seed, search, key = entry
+            keys[:len(key)] = key
+            frames = [frame]
         cls = int(seed_class[seed])
 
         def row_of(part):
             return scheme[(cls * num_searches + search) * num_parts + part]
 
-        row0 = row_of(0)
-        first = row0[1] * (row0[0] > 0) + (row0[2] - 1) * (row0[0] < 0)
-        node = (0, 0, n, int(first), 0, 0, 0, 0)
-        frames, tree = [], 0
+        node = None
+        if not frames:
+            row0 = row_of(0)
+            first = row0[1] * (row0[0] > 0) + (row0[2] - 1) * (row0[0] < 0)
+            node = (0, 0, n, int(first), 0, 0, 0, 0)
+        unit_nodes = 0
         while True:
             if node is not None:
                 lb, lb_rev, length, pos, err, op, part, depth = node
@@ -337,7 +375,7 @@ def emulate_k10(index, patterns, seed_class, scheme, num_searches,
                                 part + 1, depth)
                     continue
                 nodes += 1
-                tree += 1
+                unit_nodes += 1
                 left = direction < 0
                 base = lb if left else lb_rev
                 lo = rank(left, base)
@@ -354,43 +392,80 @@ def emulate_k10(index, patterns, seed_class, scheme, num_searches,
                             mask |= 1 << (6 + s)
                     if op != 1:
                         mask |= 1 << 12
+                spend = unit_nodes >= budget
                 if mask == 0:
                     node = None
-                    continue
-                kind = (mask & -mask).bit_length() - 1
-                mask &= mask - 1
-                if mask:
-                    if len(frames) >= frame_capacity:
-                        overflow = True
-                    else:
-                        frames.append([node, mask, primary, count])
-                node = descend(node, kind, direction, match_symbol, primary,
-                               count)
+                else:
+                    kind = (mask & -mask).bit_length() - 1
+                    if not spend:
+                        mask &= mask - 1
+                    if mask:
+                        if len(frames) >= frame_capacity:
+                            overflow = True
+                        else:
+                            frames.append([node, mask, match_symbol, primary,
+                                           count])
+                    node = None if spend else descend(
+                        node, kind, direction, match_symbol, primary, count)
+                if spend:
+                    spill(frames, seed, search)
+                    break
                 continue
             if not frames:
-                largest = max(largest, tree)
                 break
             frame = frames[-1]
-            parent, mask, primary, count = frame
+            parent, mask, match_symbol, primary, count = frame
             kind = (mask & -mask).bit_length() - 1
             mask &= mask - 1
             if mask:
                 frame[1] = mask
             else:
                 frames.pop()
-            node = descend(parent, kind, row_of(parent[6])[0], 0, primary,
-                           count)
+            node = descend(parent, kind, row_of(parent[6])[0], match_symbol,
+                           primary, count)
+        root_nodes[root] += unit_nodes
+        if not units:
+            # the generation's end: the next one takes its entries
+            generations += 1
+            peak = max(peak, len(work))
+            if not overflow:
+                units = [(seed * num_searches + search,
+                          (frame, seed, search, key))
+                         for frame, seed, search, key in work]
+            work = []
     out = np.asarray(reports, dtype=np.int64).reshape(-1, 6 + key_words)
     out[:, 6:] = out[:, 6:].astype(np.uint32).view(np.int32)
-    return out.astype(np.int32), overflow, nodes, largest
+    return (out.astype(np.int32), overflow, nodes, int(root_nodes.max()),
+            spilled, peak, generations)
 
 
-@pytest.mark.parametrize("layout", ["combined", "planes"])
-@pytest.mark.parametrize("name", ["k1", "k3", "homopolymers", "mixed"])
-def test_k10_mirror_matches_plain(indexes, name, layout):
+# (case, layout, budget, list overflow): the kernel's budget on every
+# case (its ids as before), then budgets of 1 and 2 nodes, at which every
+# branching node spills, and lists a quarter of the most entries one
+# generation spills
+K10_MIRROR_CASES = [
+    pytest.param(name, layout, None, False, id=f"{name}-{layout}")
+    for layout in ("combined", "planes")
+    for name in ("k1", "k3", "homopolymers", "mixed")
+] + [
+    pytest.param("k1", "combined", 1, False, id="k1-combined-budget1"),
+    pytest.param("mixed", "planes", 2, False, id="mixed-planes-budget2"),
+    pytest.param("homopolymers", "combined", 1, True,
+                 id="homopolymers-combined-list-overflow"),
+]
+
+
+@pytest.mark.parametrize("name,layout,budget,list_overflow",
+                         K10_MIRROR_CASES)
+def test_k10_mirror_matches_plain(indexes, name, layout, budget,
+                                  list_overflow):
     """The numpy mirror of K10, its roots in a shuffled order, gives the
-    plain version's sorted rows and node count; a path deeper than the
-    key holds and a report capacity too small each set overflow."""
+    plain version's sorted rows and node count, and the same largest tree
+    at every budget (at 1 and 2 nodes every branching node spills, over
+    several generations); lists a quarter of the most entries one
+    generation spills set overflow, and 4x larger ones, as the runner's
+    retry gives them, the full rows; a path deeper than the key holds
+    and a report capacity too small each set overflow."""
     _, index, sequences = indexes
     if layout == "planes":
         index = dataclasses.replace(index, rank_rows=None)
@@ -401,25 +476,40 @@ def test_k10_mirror_matches_plain(indexes, name, layout):
     want, run = _port_run(index, padded, seed_class, tables, max_errors)
     kw = key_words_needed(padded.shape[1], max_errors)
     frames = search_queue.frames_needed(padded.shape[1], max_errors)
-    order = np.random.default_rng(5).permutation(
-        padded.shape[0] * tables.num_searches
-    )
+    roots = padded.shape[0] * tables.num_searches
+    order = np.random.default_rng(5).permutation(roots).tolist()
     scheme = tables.fused()
-    got, overflow, nodes, largest = emulate_k10(
-        index, padded, seed_class, scheme, tables.num_searches,
-        tables.num_parts, 1 << 13, kw, frames, order.tolist(),
+    args = (index, padded, seed_class, scheme, tables.num_searches,
+            tables.num_parts)
+    if budget is None:
+        got, overflow, nodes, largest = emulate_k10(
+            *args, 1 << 13, kw, frames, order,
+        )[:4]
+        assert not overflow
+        assert np.array_equal(sort_reports(got), want)
+        assert nodes == run.nodes and 0 < largest <= nodes
+        if want.shape[0] > 1:
+            overflow = emulate_k10(*args, want.shape[0] - 1, kw, frames)[1]
+            assert overflow
+        assert emulate_k10(*args, 1 << 13, 1, frames)[1]
+        return
+    whole = emulate_k10(*args, 1 << 13, kw, frames, order, budget=1 << 20)
+    assert whole[4] == 0 and whole[6] == 1 and whole[2] == run.nodes
+    got, overflow, nodes, largest, spilled, peak, generations = emulate_k10(
+        *args, 1 << 13, kw, frames, order, budget=budget,
     )
+    assert generations > 2
+    if list_overflow:
+        quarter = -(-peak // 4)
+        assert emulate_k10(*args, 1 << 13, kw, frames, order, budget=budget,
+                           list_capacity=quarter)[1]
+        got, overflow, nodes, largest = emulate_k10(
+            *args, 1 << 13, kw, frames, order, budget=budget,
+            list_capacity=4 * quarter,
+        )[:4]
     assert not overflow
     assert np.array_equal(sort_reports(got), want)
-    assert nodes == run.nodes and 0 < largest <= nodes
-    if want.shape[0] > 1:
-        _, overflow, _, _ = emulate_k10(
-            index, padded, seed_class, scheme, tables.num_searches,
-            tables.num_parts, want.shape[0] - 1, kw, frames,
-        )
-        assert overflow
-    _, overflow, _, _ = emulate_k10(
-        index, padded, seed_class, scheme, tables.num_searches,
-        tables.num_parts, 1 << 13, 1, frames,
-    )
-    assert overflow
+    assert (nodes, largest) == (run.nodes, whole[3])
+    # every unit expands at most `budget` nodes: the units beyond the
+    # roots are spilled entries
+    assert nodes <= budget * (roots + spilled)

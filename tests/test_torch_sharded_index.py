@@ -12,7 +12,8 @@ is exact (tolerance 0). The kernels' own per-query functions
 (csrc/fm_rank.cuh: the sharded rank, the locate walk over the shards and
 the extension K11 runs) are built with g++ here and held to the plain
 versions: K13's and K13l's threads one query after another, and
-emulate_k11 (K11's block in numpy) with the g++ extension.
+emulate_k11 (K11 in numpy, on one block and on a cluster of two) with the
+g++ extension.
 """
 
 import ctypes
@@ -352,16 +353,19 @@ def test_sharded_frontier_search_matches_reference(errors, emulation):
     assert sharded[1] == unsharded[1] == want_n
     assert torch.equal(sharded[2], unsharded[2])
     assert sharded_stats == flat_stats
-    emulated = emulate_k11(
-        index, padded.astype(np.int64), seed_class.astype(np.int64),
-        tables.fused().astype(np.int64), tables.num_searches,
-        tables.num_parts, capacity, report_capacity, max_iterations,
-        extend=emulated_extension(emulation),
-    )
-    assert np.array_equal(emulated[0], sharded[0].numpy())
-    assert emulated[1:3] == (want_n, bool(sharded[2][0]))
-    assert emulated[3:] == (sharded_stats["iterations"],
-                            sharded_stats["expanded"])
+    # on one block of K11's threads and on a cluster of 2 blocks of 32
+    for blocks, threads in ((1, 512), (2, 32)):
+        emulated = emulate_k11(
+            index, padded.astype(np.int64), seed_class.astype(np.int64),
+            tables.fused().astype(np.int64), tables.num_searches,
+            tables.num_parts, capacity, report_capacity, max_iterations,
+            threads=threads, blocks=blocks,
+            extend=emulated_extension(emulation),
+        )
+        assert np.array_equal(emulated[0], sharded[0].numpy())
+        assert emulated[1:3] == (want_n, bool(sharded[2][0]))
+        assert emulated[3:] == (sharded_stats["iterations"],
+                                sharded_stats["expanded"])
 
 
 # ------------------------------------------------------ empty trailing shards
