@@ -110,7 +110,9 @@ Phases, one line each on stdout, any failure exits non-zero:
            at every FRONTIER_CLUSTERS size (each held to the pick), K12
            (device select) on the
            first chunk's groups after the dedup and cap replay under the
-           CLI's defaults and with full_groups: each one launch, timed
+           CLI's defaults, with full_groups and with first_reported (the
+           histogram of each seed's valid emissions beside each): each
+           one launch, timed
            with its bound, equal to its plain version (run on the CPU in
            a worker), K11's reports in order, overflow, iterations and
            expanded states included
@@ -121,8 +123,10 @@ Phases, one line each on stdout, any failure exits non-zero:
            256-seed block and on the per-query bucket: each exact against
            its plain version on the card and against the unsharded K9,
            K9l and K11 (reports in order, overflow, iterations, expanded
-           states), timed with its bound (a rank's ops times the shards),
-           K11's at every cluster size too
+           states), timed with its bound (K13's and K11's a rank's ops
+           times the shards, K13l's the owner's one rank a step), K13l in
+           turns with K9l on the same rows (K9l, K13l, K9l) and its ratio
+           to K9l, K11's at every cluster size too
   device_select  pass G2: pass G with FLOXER_TPU_DEVICE_SELECT=1: SAM =
            pass B, one K12 launch a chunk, no K9l or K11 launch; its
            search stage seconds (the device select and its host group
@@ -336,7 +340,11 @@ PROCESS_SET_TIMEOUT = 300
 # (4 ops a probe), then one over the sequence starts. K10 per expanded
 # node: two ranks, the counts and children's primaries (12), the pattern
 # symbol and the 13 kinds' tests (30), the first child's interval and key
-# nibble (14), the frame of a branching node (20).
+# nibble (14), the frame of a branching node (20). Over S row shards a
+# rank is S ranks (K13, K11 over the shards), but a locate step (K13l)
+# needs only the owner's: one rank, the symbol, C and the earlier shards'
+# total (3), S owner tests and S sample-chunk tests, and one binary search
+# of one chunk of the SA samples, not S of each.
 RANK_QUERIES = 1 << 20
 RANK_OPS = 86
 EXTEND_OPS = 2 * RANK_OPS + 30
@@ -2428,8 +2436,9 @@ def run_sharded_kernels(device, e2e: E2E, peaks, inputs):
     its plain version on the same card tensors and to the unsharded
     kernel's output (K9, K9l, K11: K11's reports in order, count,
     overflow, iterations and expanded states), then timed (CUDA events)
-    with its bound; K11 over the shards also on the per-query bucket
-    (held to K11), and both inputs at every cluster size. Returns (table
+    with its bound, K13l in turns with K9l on the same rows; K11 over the
+    shards also on the per-query bucket (held to K11), and both inputs at
+    every cluster size. Returns (table
     rows K13, K13l, K11s at SHARD_COUNTS[0] shards, the phase's
     fields)."""
     import numpy as np
@@ -2475,6 +2484,9 @@ def run_sharded_kernels(device, e2e: E2E, peaks, inputs):
     q_args = (q_tables.num_searches, q_tables.num_parts, q_capacity,
               q_reports, q_iterations)
     want_q = k11.frontier_search_cuda(flat, *q_operands, *q_args)
+    def k9l():
+        return k9.fm_locate_cuda(flat, sa_rows, flat.sampling_rate)
+
     seq_ids, offsets = (t.long() for t in want_located)
     text_positions = flat.seq_starts.long()[seq_ids] + offsets
     steps = int((text_positions % flat.sampling_rate).sum())
@@ -2539,7 +2551,12 @@ def run_sharded_kernels(device, e2e: E2E, peaks, inputs):
         # one direction's shard tables, each shard's rows once
         table_bytes = S * (index.rev_block_offset - 1) * 128
         ns = index.sampled_rows.shape[1]
-        probes = S * PROBE_OPS * int(np.ceil(np.log2(ns + 1)))
+        # K13l's work: a step is the owner's rank, its symbol, C and the
+        # earlier shards' total (3), S owner tests and S sample-chunk
+        # tests (2 S), and one binary search of one chunk of ns samples;
+        # each row ends with one more chunk search, its S chunk tests and
+        # the search of the sequence starts
+        probes = PROBE_OPS * int(np.ceil(np.log2(ns + 1)))
         expanded = int(out.expanded[0])
         kernels = {
             "K13": ("fm_sharded_rank",
@@ -2551,8 +2568,8 @@ def run_sharded_kernels(device, e2e: E2E, peaks, inputs):
                          index, sa_rows, index.sampling_rate),
                      lambda: k13.fm_sharded_locate_plain(
                          index, sa_rows, index.sampling_rate),
-                     20, steps * (S * RANK_OPS + 3 + S + probes)
-                     + B * (probes + seq_probes),
+                     20, steps * (RANK_OPS + 3 + 2 * S + probes)
+                     + B * (probes + S + seq_probes),
                      4 * B + 8 * B + table_bytes
                      + tensor_bytes(fwd.bwt, index.sampled_rows,
                                     index.sampled_values, index.seq_starts)),
@@ -2565,7 +2582,13 @@ def run_sharded_kernels(device, e2e: E2E, peaks, inputs):
                 "shard_lengths": fwd.shard_lengths.tolist()}
         for key, (name, kernel, plain_fn, repeats, ops,
                   nbytes) in kernels.items():
-            ms = cuda_ms(kernel, repeats)
+            if key == "K13l":
+                # in turns with K9l on the same rows: K9l, K13l, K9l
+                k9l_ms = [cuda_ms(k9l, repeats)]
+                ms = cuda_ms(kernel, repeats)
+                k9l_ms.append(cuda_ms(k9l, repeats))
+            else:
+                ms = cuda_ms(kernel, repeats)
             plain_s = (k11_plain_s if plain_fn is None
                        else plain_seconds(plain_fn)[1])
             row = {
@@ -2579,6 +2602,9 @@ def run_sharded_kernels(device, e2e: E2E, peaks, inputs):
             }
             case[key] = {k: row[k] for k in
                          ("ms", "plain_ms", "bound_ms", "bound_by")}
+            if key == "K13l":
+                case[key]["k9l_ms"] = k9l_ms
+                case[key]["to_k9l"] = ms / (sum(k9l_ms) / 2)
             if S == SHARD_COUNTS[0]:
                 row["shape"] = (
                     f"S={S} on pass A's index: B={B}" if key != "K11s" else
@@ -2783,14 +2809,41 @@ def frontier_clusters(k11, index, operands, tables, capacity, reports,
     return timed
 
 
+def emissions(groups, starts, totals, statuses, perm, hard_cap, soft_cap,
+              choice_code):
+    """int64 [S]: each seed's valid emissions E, as K12 counts them: under
+    round robin min(kept_raw, the rows of its first soft_cap groups in the
+    order perm, each at most soft_cap); else kept_raw where one of those
+    groups counts a row, 0 where none does."""
+    import numpy as np
+
+    S = totals.shape[0]
+    gid = np.repeat(np.arange(S), np.diff(starts))
+    live = (np.arange(groups.shape[0]) - starts[gid]) < soft_cap
+    counts = groups[perm, 2][live]
+    rows = np.bincount(gid[live], weights=np.clip(counts, 0, soft_cap),
+                       minlength=S).astype(np.int64)
+    counting = np.bincount(gid[live], weights=counts > 0, minlength=S) > 0
+    excluded = (totals > hard_cap) & (choice_code != 2)
+    kept_raw = np.where(((statuses & 2) == 0) & ~excluded,
+                        np.minimum(totals, soft_cap), 0)
+    if choice_code == 0:
+        return np.minimum(kept_raw, rows)
+    return np.where(counting, kept_raw, 0)
+
+
 def select_kernel_checks(index, index_path, rep, redo, peaks):
     """K12 on the groups of pass A's first chunk after the dedup and cap
-    replay, under the CLI's defaults (count_first, round_robin, erase) and
-    with full_groups: one launch each, timed (CUDA events) with its bound
-    (the anchors emitted and their LF steps, counted from the same
-    selection without erase, which keeps every emission), held exactly to
-    its plain version run on the CPU in a worker. Returns (the table row:
-    the defaults; the phase's fields)."""
+    replay, under the CLI's defaults (count_first, round_robin, erase),
+    with full_groups and with first_reported: one launch each, timed (CUDA
+    events, the wrapper's allocations included; each code in turns, then
+    again in the reverse order, the smaller kept) with its bound (the
+    anchors emitted and their LF steps, counted from the same selection
+    without erase, which keeps every emission), held exactly to its plain
+    version run on the CPU in a worker; the histogram of each seed's
+    valid emissions E (0, 1, 2-8, 9 to soft cap - 1, soft cap), which
+    splits the seeds between K12's lane path (E <= 1) and its warp path.
+    Returns (the table row: the defaults; the phase's fields)."""
     import numpy as np
     import torch
 
@@ -2812,7 +2865,7 @@ def select_kernel_checks(index, index_path, rep, redo, peaks):
     operands = [torch.from_numpy(a).to(index.device) for a in host_arrays]
     fields = {"seeds": S, "groups": int(groups.shape[0]),
               "select_order_s": order_s}
-    row, plain_jobs = None, []
+    plain_jobs, timers = [], {}
     fwd = index.fwd
     table_bytes = (128 * fwd.planes.shape[0]
                    + tensor_bytes(fwd.bwt, index.sampled_rows,
@@ -2821,8 +2874,18 @@ def select_kernel_checks(index, index_path, rep, redo, peaks):
         index.sampled_rows.shape[0] + 1)))
     seq_probes = PROBE_OPS * int(np.ceil(np.log2(
         index.seq_starts.shape[0] + 1)))
-    for name, choice_code in (("defaults", 0), ("full_groups", 1)):
+    for name, choice_code in (("defaults", 0), ("full_groups", 1),
+                              ("first_reported", 2)):
         caps = (hard_cap, soft_cap, 0, choice_code, True)
+        per_seed = emissions(groups, starts, totals, statuses, perm,
+                             hard_cap, soft_cap, choice_code)
+        histogram = {
+            "0": int((per_seed == 0).sum()), "1": int((per_seed == 1).sum()),
+            "2-8": int(((per_seed >= 2) & (per_seed <= 8)).sum()),
+            f"9-{soft_cap - 1}": int(((per_seed >= 9)
+                                      & (per_seed < soft_cap)).sum()),
+            str(soft_cap): int((per_seed == soft_cap).sum()),
+        }
 
         def kernel(caps=caps):
             return k12.select_anchors_cuda(index, *operands, *caps)
@@ -2833,11 +2896,11 @@ def select_kernel_checks(index, index_path, rep, redo, peaks):
         got = [anchors.cpu().numpy(), counts.cpu().numpy()]
         ms = cuda_ms(kernel, 5)
         # every emission's locate, from the selection without erase
-        kept, kept_counts = k12.select_anchors_cuda(
+        kept, _ = k12.select_anchors_cuda(
             index, *operands, hard_cap, soft_cap, 0, choice_code, False)
-        kept, kept_counts = kept.cpu().numpy(), kept_counts.cpu().numpy()
-        emitted = int(kept_counts[:, 2].sum())
-        valid = (np.arange(soft_cap)[None, :] < kept_counts[:, 2:3])
+        kept = kept.cpu().numpy()
+        emitted = int(per_seed.sum())
+        valid = np.arange(soft_cap)[None, :] < per_seed[:, None]
         seq_starts = index.seq_starts.cpu().numpy().astype(np.int64)
         text_positions = (seq_starts[kept[:, :, 0][valid]]
                           + kept[:, :, 1][valid])
@@ -2849,20 +2912,28 @@ def select_kernel_checks(index, index_path, rep, redo, peaks):
         bound_ms, bound_by = bound(ops, nbytes, peaks)
         case = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "emitted": emitted, "lf_steps": steps,
-                "written": int(got[1][:, 1].sum()), "max_abs_err": 0,
+                "written": int(got[1][:, 1].sum()),
+                "emissions_histogram": histogram, "max_abs_err": 0,
                 "plain_on": "cpu"}
 
         fields[name] = case
         plain_jobs.append((name, case, got, caps))
-        if name == "defaults":
-            row = {
-                "name": "select_anchors", "route": "cuda",
-                "source": k12.SOURCE, "replaces": k12.REPLACES,
-                "max_abs_err": 0, "ms": ms, "plain_ms": None,
-                "plain_on": "cpu", **bound_fields((bound_ms, bound_by)),
-                "shape": f"pass A's first chunk: {S} seeds, "
-                         f"{groups.shape[0]} groups, soft cap {soft_cap}",
-            }
+        timers[name] = kernel
+    # each choice code timed again in the reverse order; its time is the
+    # smaller of its two (a host stall past the spin inflates one)
+    for name in reversed(list(timers)):
+        case = fields[name]
+        case["ms_in_turns"] = [case["ms"], cuda_ms(timers[name], 5)]
+        case["ms"] = min(case["ms_in_turns"])
+    row = {
+        "name": "select_anchors", "route": "cuda", "source": k12.SOURCE,
+        "replaces": k12.REPLACES, "max_abs_err": 0,
+        "ms": fields["defaults"]["ms"], "plain_ms": None, "plain_on": "cpu",
+        **bound_fields((fields["defaults"]["bound_ms"],
+                        fields["defaults"]["bound_by"])),
+        "shape": f"pass A's first chunk: {S} seeds, "
+                 f"{groups.shape[0]} groups, soft cap {soft_cap}",
+    }
     # started once every K12 time is taken, as K11's
     for name, case, got, caps in plain_jobs:
         def record(seconds, case=case, name=name):

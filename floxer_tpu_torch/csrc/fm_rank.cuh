@@ -9,10 +9,17 @@
 //
 // The row-sharded index (FmShardedRankTable, FmShardedLocateTables) has
 // the same functions over S shard tables (csrc/fm_sharded.cu K13, K13l;
-// K11 over shards): each shard clamps the global position into its own
-// rows and ranks there, and the shards' counts are summed in the thread,
-// where the reference sums them with a psum over its index mesh axis
-// (device_index.py:318-358, :433-446; parallel/sharded_index.py:78).
+// K11 over shards). The rank (K13, K11 over shards): each shard clamps
+// the global position into its own rows and ranks there, and the shards'
+// counts are summed in the thread, where the reference sums them with a
+// psum over its index mesh axis (device_index.py:318-358, :433-446;
+// parallel/sharded_index.py:78). The locate (K13l) resolves the one shard
+// that owns a row instead: the shards are contiguous and ascending, so
+// the clamped ranks of the shards before the owner are their totals and
+// those after it are 0, and the sum is the owner's local rank plus the
+// earlier shards' totals (a prefix the shard layout carries); a sampled
+// row can only lie in the one sample chunk that starts at or before it
+// and before the next chunk.
 // The functions that take a table are overloaded or templated on its
 // type, so the unsharded kernels compile as they did.
 //
@@ -250,10 +257,26 @@ struct FmLocateTables {
   int sampling_rate;
 };
 
-// the same over the row-sharded index: the forward shard tables, the
-// shards' BWT rows (bwt + s * bwt_stride, the owner's), and each shard's
+// the shard layout a sharded locate reads, FM_LAYOUT_COLUMNS int32 a
+// shard (index/device_index.locate_layout writes it): the shard's first
+// row, its sample chunk's first real row (1 << 30 for a chunk of pads
+// only) and its real samples, and the totals of each symbol in the shards
+// before it. The shards are contiguous and ascending, and so are the
+// chunks, whose pads-only ones come last (parallel/sharded_index.py's
+// shard_full_index), so the shard that owns a row is the last whose first
+// row is at most the row, and the one chunk that can hold it likewise.
+#define FM_LAYOUT_COLUMNS 9
+#define FM_LAYOUT_START 0
+#define FM_LAYOUT_SAMPLE_FIRST 1
+#define FM_LAYOUT_SAMPLES 2
+#define FM_LAYOUT_BEFORE 3
+
+// the same over the row-sharded index: the forward shard tables (their
+// rows; the layout holds where each shard starts), the shards' BWT rows
+// (bwt + s * bwt_stride, the owner's), each shard's
 // chunk of the SA samples (sampled_rows + s * ns, sorted, padded with
-// 1 << 30, which no row reaches)
+// 1 << 30, which no row reaches), and the shard layout ([S,
+// FM_LAYOUT_COLUMNS]; K13l's blocks read it from shared memory)
 struct FmShardedLocateTables {
   FmShardedRankTable fwd;
   const uint8_t* bwt;  // [S, bwt_stride]
@@ -265,24 +288,42 @@ struct FmShardedLocateTables {
   const int* seq_starts;
   int num_seqs;
   int sampling_rate;
+  const int* layout;  // [S, FM_LAYOUT_COLUMNS]
 };
 
-// the BWT symbol at a row
-__host__ __device__ inline int fm_bwt_at(const FmLocateTables& t, int row) {
-  return t.bwt[row];
+// one LF step: the BWT symbol at a row, C and its rank there
+__host__ __device__ inline int fm_lf(const FmLocateTables& t, int row) {
+  const int symbol = t.bwt[row];
+  return t.C[symbol] + fm_rank_symbol(t.fwd, row, symbol);
 }
 
-// the symbol from the shard that owns the row (the others add 0)
-__host__ __device__ inline int fm_bwt_at(const FmShardedLocateTables& t,
-                                         int row) {
-  int symbol = 0;
-  for (int shard = 0; shard < t.fwd.num_shards; ++shard) {
-    const int local = row - t.fwd.starts[shard];
-    if (local >= 0 && local < t.fwd.lengths[shard]) {
-      symbol += t.bwt[(size_t)shard * t.bwt_stride + local];
-    }
+// the same over the shards: the owner's BWT byte and its rank row, the
+// earlier shards' totals from the layout (S - 1 owner tests, each load
+// independent of the others, and the six totals read beside the rank row)
+__host__ __device__ inline int fm_lf(const FmShardedLocateTables& t,
+                                     int row) {
+  int owner = 0, start = t.layout[FM_LAYOUT_START];
+#pragma unroll 4
+  for (int shard = 1; shard < t.fwd.num_shards; ++shard) {
+    const int first = t.layout[shard * FM_LAYOUT_COLUMNS + FM_LAYOUT_START];
+    owner += row >= first;
+    start = row >= first ? first : start;
   }
-  return symbol;
+  const int* layout = t.layout + owner * FM_LAYOUT_COLUMNS;
+  const int local = row - start;
+  const int symbol = t.bwt[(size_t)owner * t.bwt_stride + local];
+  int before = layout[FM_LAYOUT_BEFORE];
+#pragma unroll
+  for (int s = 1; s < FM_SIGMA; ++s) {
+    const int total = layout[FM_LAYOUT_BEFORE + s];
+    before = symbol == s ? total : before;
+  }
+  FmRankTable one;
+  one.rows = t.fwd.rows + (size_t)owner * t.fwd.shard_rows * FM_ROW_WORDS;
+  one.occ = nullptr;
+  one.planes = nullptr;
+  one.row_offset = t.fwd.row_offset;
+  return t.C[symbol] + before + fm_rank_symbol(one, local, symbol);
 }
 
 // is the row sampled, and its sampled text position (*value, 0 if not):
@@ -302,22 +343,26 @@ __host__ __device__ inline bool fm_sample_lookup(const FmLocateTables& t,
   return fm_sample_lookup(t.sampled_rows, t.sampled_values, t.ns, row, value);
 }
 
-// every shard searches its own chunk; the hits and values are summed (one
-// shard at most holds the row)
+// the one sample chunk that can hold the row, searched over its real
+// samples (the chunks are sorted and disjoint; the reference's sum over
+// every chunk adds 0 for the others)
 __host__ __device__ inline bool fm_sample_lookup(
     const FmShardedLocateTables& t, int row, int* value) {
-  int hits = 0, sum = 0;
-  for (int shard = 0; shard < t.fwd.num_shards; ++shard) {
-    int part;
-    hits += fm_sample_lookup(t.sampled_rows + (size_t)shard * t.ns,
-                             t.sampled_values + (size_t)shard * t.ns, t.ns,
-                             row, &part)
-                ? 1
-                : 0;
-    sum += part;
+  int chunk = 0, samples = t.layout[FM_LAYOUT_SAMPLES];
+#pragma unroll 4
+  for (int shard = 1; shard < t.fwd.num_shards; ++shard) {
+    const int* layout = t.layout + shard * FM_LAYOUT_COLUMNS;
+    const bool holds = row >= layout[FM_LAYOUT_SAMPLE_FIRST];
+    chunk += holds;
+    samples = holds ? layout[FM_LAYOUT_SAMPLES] : samples;
   }
-  *value = sum;
-  return hits > 0;
+  if (samples == 0) {
+    *value = 0;
+    return false;
+  }
+  return fm_sample_lookup(t.sampled_rows + (size_t)chunk * t.ns,
+                          t.sampled_values + (size_t)chunk * t.ns, samples,
+                          row, value);
 }
 
 // SA row -> (reference id, position): the reference's fixed-trip walk
@@ -333,8 +378,7 @@ __host__ __device__ inline void fm_locate_row(const Tables& t, int row,
       steps += value;
       break;
     }
-    const int symbol = fm_bwt_at(t, row);
-    row = t.C[symbol] + fm_rank_symbol(t.fwd, row, symbol);
+    row = fm_lf(t, row);
     steps += 1;
   }
   const int seq = fm_upper_bound(t.seq_starts, t.num_seqs, steps) - 1;
@@ -342,3 +386,4 @@ __host__ __device__ inline void fm_locate_row(const Tables& t, int row,
   *seq_id = seq;
   *position = steps - start;
 }
+

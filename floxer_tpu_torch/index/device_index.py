@@ -323,6 +323,7 @@ class ShardedDeviceIndex:
     rank_rows: torch.Tensor  # int32 [S, nb + 1 + nb, 32]
     rev_block_offset: int
     sampling_rate: int
+    locate_layout: torch.Tensor  # int32 [S, 9] (K13l's; locate_layout)
 
     @property
     def device(self) -> torch.device:
@@ -372,7 +373,35 @@ class ShardedDeviceIndex:
             rank_rows=rank_rows,
             rev_block_offset=rev_block_offset,
             sampling_rate=sh.sampling_rate,
+            locate_layout=_int32(locate_layout(sh), device),
         )
+
+
+def locate_layout(sh) -> np.ndarray:
+    """int64 [S, cuda_sharded.LAYOUT_COLUMNS]: what K13l reads of a
+    ShardedHostIndex to resolve the one shard that owns a row: each
+    forward shard's first row, its sample chunk's first real row (1 << 30
+    for a chunk of pads only) and its real samples, and each symbol's
+    total over the shards before it (their ranks at their ends, so a rank
+    over the shards is the owner's local rank plus it)."""
+    c = cuda_sharded
+    fwd = sh.fwd
+    S = fwd.shard_starts.shape[0]
+    layout = np.zeros((S, c.LAYOUT_COLUMNS), dtype=np.int64)
+    layout[:, c.LAYOUT_START] = fwd.shard_starts
+    totals = np.stack([
+        np.bincount(fwd.bwt_shards[s, :int(fwd.shard_lengths[s])],
+                    minlength=SIGMA)[:SIGMA]
+        for s in range(S)
+    ])
+    layout[1:, c.LAYOUT_BEFORE:c.LAYOUT_BEFORE + SIGMA] = np.cumsum(
+        totals, axis=0)[:-1]
+    rows = np.asarray(sh.sampled_rows, dtype=np.int64)
+    real = rows != c.PAD_ROW
+    layout[:, c.LAYOUT_SAMPLES] = real.sum(axis=1)
+    layout[:, c.LAYOUT_SAMPLE_FIRST] = np.where(real.any(axis=1), rows[:, 0],
+                                                c.PAD_ROW)
+    return layout
 
 
 def shard_planes(sharded) -> list[np.ndarray]:

@@ -248,12 +248,12 @@ ALIGNER = KernelLibrary(_PACKAGE_DIR / "csrc", "libfloxer_kernels", {
     # rows, shard_rows, row_offset, starts, lengths, num_shards, positions,
     # B, out, stream (K13)
     "floxer_fm_sharded_rank": [_P, _I, _I, _P, _P, _I, _P, _I, _P, _P],
-    # rows, shard_rows, starts, lengths, num_shards, bwt, bwt_stride, C,
-    # sampled_rows, sampled_values, ns, seq_starts, num_seqs,
-    # sampling_rate, rows, B, seq_ids, positions, stream (K13l)
+    # rows, shard_rows, num_shards, bwt, bwt_stride, C, sampled_rows,
+    # sampled_values, ns, seq_starts, num_seqs, sampling_rate, layout,
+    # rows, B, seq_ids, positions, stream (K13l)
     "floxer_fm_sharded_locate": [
-        _P, _I, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P, _I, _P,
-        _P, _P,
+        _P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _P, _P,
+        _P,
     ],
     # rows, occ, planes, bwt, C, sampled_rows, sampled_values, ns,
     # seq_starts, num_seqs, sampling_rate, lb, cnt, err, perm,

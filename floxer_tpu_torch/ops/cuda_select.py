@@ -1,11 +1,14 @@
 """K12: anchor selection on the card (FLOXER_TPU_DEVICE_SELECT).
 
 Counterpart of floxer_tpu/search_select_device.py's _select_kernel. The
-kernel (csrc/select_anchors.cu) runs one warp a seed and gives what
-search_select_device.select_plain, its plain version, gives: the anchors
-[S, soft_cap, 3] and the counts [S, 5]. The locate of each chosen SA row
-is K9l's walk as a device function inside it, so a selection is one
-launch. This wrapper takes CUDA tensors only
+kernel (csrc/select_anchors.cu) runs one warp for 32 seeds (a lane a seed
+of at most one valid emission, the whole warp for each larger one, the
+locates of the warp's emissions side by side) and gives what
+search_select_device.select_plain, its plain version, gives:
+the anchors [S, soft_cap, 3] (every slot written, zeros included) and the
+counts [S, 5]. The locate of each chosen SA row is K9l's walk as a device
+function inside it, so a selection is one launch. This wrapper takes CUDA
+tensors only
 (search_select_device.select_anchors runs the plain version for CPU
 tensors); it does not synchronize.
 """
@@ -19,19 +22,30 @@ from ._build import check_operand, launch
 
 SOURCE = "floxer_tpu_torch/csrc/select_anchors.cu"
 REPLACES = "floxer_tpu/search_select_device.py:73"
-# warps (seeds) a block, the int32 arrays of soft_cap a seed keeps, and
-# the shared memory a block may take without an opt-in
+# warps a block (32 seeds a warp); the int32 arrays a warp keeps: of
+# soft_cap, the columns of the seed it expands, and of the batch size
+# (max(BATCH_MIN, soft_cap)), its batch of emissions; and the shared
+# memory a block may take without an opt-in
 WARPS = 8
-ARRAYS = 11
+SEEDS_PER_WARP = 32
+COLUMN_ARRAYS = 5
+BATCH_ARRAYS = 6
+BATCH_MIN = 64
 SHARED_LIMIT = 48 * 1024
 # kernel launches in this process (read and reset by chip_smoke.py)
 LAUNCHES = 0
 
 
+def warp_words(soft_cap: int) -> int:
+    """The int32 words of a warp's rows."""
+    return (COLUMN_ARRAYS * soft_cap
+            + BATCH_ARRAYS * max(BATCH_MIN, soft_cap))
+
+
 def shared_bytes(soft_cap: int) -> int:
-    """A block's shared memory for its seeds' rows, or 0 when they do not
+    """A block's shared memory for its warps' rows, or 0 when they do not
     fit SHARED_LIMIT and go to global scratch instead."""
-    needed = WARPS * ARRAYS * soft_cap * 4
+    needed = WARPS * warp_words(soft_cap) * 4
     return needed if needed <= SHARED_LIMIT else 0
 
 
@@ -76,13 +90,14 @@ def select_anchors_cuda(index, lb, cnt, err, gid, perm, group_starts, totals,
                     statuses, soft_cap)
     device = lb.device
     S = totals.shape[0]
-    anchors = torch.zeros((S, soft_cap, 3), dtype=torch.int32, device=device)
-    counts = torch.zeros((S, 5), dtype=torch.int32, device=device)
+    anchors = torch.empty((S, soft_cap, 3), dtype=torch.int32, device=device)
+    counts = torch.empty((S, 5), dtype=torch.int32, device=device)
     if S == 0:
         return anchors, counts
     smem = shared_bytes(soft_cap)
+    warps = -(-S // SEEDS_PER_WARP)
     scratch = None if smem else torch.empty(
-        S * ARRAYS * soft_cap, dtype=torch.int32, device=device
+        warps * warp_words(soft_cap), dtype=torch.int32, device=device
     )
     fwd = index.fwd
     with torch.cuda.device(device):

@@ -13,7 +13,9 @@ The shards lie on one device, as one stacked table: rows int32 [S, R, 32]
 counts are exact and its pad adds nothing), starts and lengths int32 [S].
 A global position counts in shard s at clamp(position - start, 0,
 length); the shards' counts are summed (the reference's psum over its
-index mesh axis, here in the thread). The index arguments are
+index mesh axis, here in the thread). K13l takes that sum as the owner's
+local rank plus the earlier shards' totals (the index's locate_layout),
+which equals it bit for bit. The index arguments are
 index/device_index.py's ShardedDeviceIndex (duck-typed here).
 """
 
@@ -24,6 +26,12 @@ import torch
 from ..alphabet import SIGMA
 from ._build import check_operand, launch
 from .cuda_fm_index import fm_rank_plain
+
+# the columns of ShardedDeviceIndex.locate_layout, int32 a shard
+# (csrc/fm_rank.cuh's FM_LAYOUT_*), and the SA samples' pad
+LAYOUT_COLUMNS = 9
+LAYOUT_START, LAYOUT_SAMPLE_FIRST, LAYOUT_SAMPLES, LAYOUT_BEFORE = 0, 1, 2, 3
+PAD_ROW = 1 << 30
 
 SOURCE = "floxer_tpu_torch/csrc/fm_sharded.cu"
 REPLACES = {
@@ -156,6 +164,8 @@ def _check_locate(index, rows):
         check_operand(tensor, name, (S, ns), torch.int32, device)
     check_operand(index.seq_starts, "seq_starts",
                   (index.seq_starts.shape[0],), torch.int32, device)
+    check_operand(index.locate_layout, "locate_layout",
+                  (S, LAYOUT_COLUMNS), torch.int32, device)
     check_operand(rows, "rows", (rows.shape[0],), torch.int32, device)
 
 
@@ -170,7 +180,8 @@ def fm_sharded_locate(index, rows, sampling_rate: int):
 
 
 def fm_sharded_locate_cuda(index, rows, sampling_rate: int):
-    """K13l on CUDA operands; raises on CPU tensors."""
+    """K13l on CUDA operands (the walk resolves each row's owner through
+    index.locate_layout); raises on CPU tensors."""
     global LOCATE_LAUNCHES
     _check_locate(index, rows)
     _require_cuda(rows)
@@ -183,13 +194,13 @@ def fm_sharded_locate_cuda(index, rows, sampling_rate: int):
     with torch.cuda.device(rows.device):
         launch(
             "floxer_fm_sharded_locate", fwd.rank_rows.data_ptr(),
-            fwd.rank_rows.shape[1], fwd.shard_starts.data_ptr(),
-            fwd.shard_lengths.data_ptr(), fwd.rank_rows.shape[0],
+            fwd.rank_rows.shape[1], fwd.rank_rows.shape[0],
             fwd.bwt.data_ptr(), fwd.bwt.shape[1], index.C.data_ptr(),
             index.sampled_rows.data_ptr(), index.sampled_values.data_ptr(),
             index.sampled_rows.shape[1], index.seq_starts.data_ptr(),
-            index.seq_starts.shape[0], int(sampling_rate), rows.data_ptr(),
-            B, seq_ids.data_ptr(), positions.data_ptr(), _stream(rows.device),
+            index.seq_starts.shape[0], int(sampling_rate),
+            index.locate_layout.data_ptr(), rows.data_ptr(), B,
+            seq_ids.data_ptr(), positions.data_ptr(), _stream(rows.device),
         )
     LOCATE_LAUNCHES += 1
     return seq_ids, positions

@@ -1078,6 +1078,35 @@ def select_groups(host, sequences, seed=41, count=120):
     return groups, starts, np.asarray(totals, dtype=np.int64), statuses
 
 
+def edge_select_groups(n, seed=43, hard_cap=500):
+    """Seeds at K12's edges, their groups at random SA rows below n - 300
+    (so a row past a group's stays in the text): (groups [G, 4], group
+    starts, totals, statuses, the seeds whose totals are their groups'
+    rows and whose counts are positive, as the search's are). In order: a
+    seed with no groups; one emission (E = 1); 60 groups of one row; three
+    groups of 30, 20 and 25 rows (E = soft_cap after many rounds); a
+    total past the hard cap; an overflow status; a total past its groups'
+    rows (3 + 2 of 20); one group of one row in a total of 5 (E = 1 under
+    round robin, 5 otherwise); a group of no rows before one of 4; and two
+    groups of 2 rows beside an aborted status."""
+    rng = np.random.default_rng(seed)
+    counts_of = [[], [1], [1] * 60, [30, 20, 25], [2, 3], [2, 2], [3, 2],
+                 [1], [0, 4], [2, 2]]
+    totals = [3, 1, 60, 75, hard_cap + 1000, 4, 20, 5, 4, 4]
+    statuses = [0, 0, 0, 0, 0, 2, 0, 0, 0, 1]
+    consistent = [1, 2, 3, 5, 9]
+    groups = []
+    for counts in counts_of:
+        for count in counts:
+            groups.append((int(rng.integers(0, n - 300)), 0, count,
+                           int(rng.integers(0, 3))))
+    starts = np.zeros(len(counts_of) + 1, dtype=np.int64)
+    np.cumsum([len(c) for c in counts_of], out=starts[1:])
+    return (np.asarray(groups, dtype=np.int64).reshape(-1, 4), starts,
+            np.asarray(totals, dtype=np.int64),
+            np.asarray(statuses, dtype=np.int64), consistent)
+
+
 @pytest.mark.parametrize("erase", [True, False])
 @pytest.mark.parametrize("choice_code", [0, 1, 2])
 def test_select_kernel_matches_plain(cuda_device, search_index, choice_code,
@@ -1085,37 +1114,50 @@ def test_select_kernel_matches_plain(cuda_device, search_index, choice_code,
     """K12 against select_plain on the same card tensors, under each
     choice code, at the default caps (rows in shared memory) and at a
     soft cap of 200 (rows in global scratch), equal in every anchor row
-    and count; one launch each."""
+    and count, on real groups and on the edge seeds (edge_select_groups,
+    three times over, so a warp holds seeds of every kind); one launch
+    each."""
     from floxer_tpu_torch import search_select_device as ssd
     from floxer_tpu_torch.ops import cuda_select as k12
 
     host, sequences = search_index
     index = device_index_of(host, cuda_device, "combined")
-    groups, starts, totals, statuses = select_groups(host, sequences)
-    S, G = len(totals), groups.shape[0]
-    gid = np.repeat(np.arange(S), np.diff(starts))
+    edge = edge_select_groups(host.n)[:4]
+    edge_groups = np.concatenate([edge[0]] * 3)
+    edge_starts = np.concatenate(
+        [[0], *(edge[1][1:] + k * edge[1][-1] for k in range(3))])
+    batches = {
+        "real": select_groups(host, sequences),
+        "edge": (edge_groups, edge_starts, np.tile(edge[2], 3),
+                 np.tile(edge[3], 3)),
+    }
 
     def t(array):
         return torch.from_numpy(
             np.ascontiguousarray(array, dtype=np.int32)).to(cuda_device)
 
-    for order_code, hard_cap, soft_cap in ((0, 500, 50), (1, 60, 7),
-                                           (0, 500, 200)):
-        perm = ssd.group_order(groups, starts, order_code)
-        args = (index, t(groups[:, 0]), t(groups[:, 2]), t(groups[:, 3]),
-                t(gid), t(perm), t(starts), t(totals), t(statuses), hard_cap,
-                soft_cap, order_code, choice_code, erase)
-        before = k12.LAUNCHES
-        got = k12.select_anchors_cuda(*args)
-        torch.cuda.synchronize()
-        assert k12.LAUNCHES == before + 1
-        assert (k12.shared_bytes(soft_cap) == 0) == (soft_cap == 200)
-        want = ssd.select_plain(*args)
-        assert torch.equal(got[1], want[1])
-        assert torch.equal(got[0], want[0])
-        assert int(got[1][:, 1].sum()) > S
-        if hard_cap == 60 and choice_code != 2:
-            assert bool((got[1][:, 0] & 4).any())
+    for name, (groups, starts, totals, statuses) in batches.items():
+        S = len(totals)
+        gid = np.repeat(np.arange(S), np.diff(starts))
+        for order_code, hard_cap, soft_cap in ((0, 500, 50), (1, 60, 7),
+                                               (0, 500, 200)):
+            perm = ssd.group_order(groups, starts, order_code)
+            args = (index, t(groups[:, 0]), t(groups[:, 2]),
+                    t(groups[:, 3]), t(gid), t(perm), t(starts), t(totals),
+                    t(statuses), hard_cap, soft_cap, order_code,
+                    choice_code, erase)
+            before = k12.LAUNCHES
+            got = k12.select_anchors_cuda(*args)
+            torch.cuda.synchronize()
+            assert k12.LAUNCHES == before + 1
+            assert (k12.shared_bytes(soft_cap) == 0) == (soft_cap == 200)
+            want = ssd.select_plain(*args)
+            assert torch.equal(got[1], want[1]), name
+            assert torch.equal(got[0], want[0]), name
+            if name == "real":
+                assert int(got[1][:, 1].sum()) > S
+            if hard_cap == 60 and choice_code != 2:
+                assert bool((got[1][:, 0] & 4).any())
 
 
 @pytest.mark.parametrize("branch", [

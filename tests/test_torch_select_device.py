@@ -6,11 +6,17 @@ the CPU).
 On real FM-index groups (the reference's tests/test_select_device.py
 fixture: unique, mutated, repetitive and junk seeds, an empty seed, the
 hard cap excluding some), select_plain and emulate_k12, a numpy mirror of
-K12's per-seed warp program (csrc/select_anchors.cu), must give the native
+K12's warp program (csrc/select_anchors.cu: a lane a seed of at most one
+valid emission, the warp for each larger one), must give the native
 select's counts and written anchor rows exactly (integer equality) under
 all 18 configurations (3 group orders x 3 choices x erase or not) at three
-cap pairs, with the incoming status bits, and the reference's
-_select_kernel on four of them (its jit is slow on the CPU).
+cap pairs, with the incoming status bits, emulate_k12 every slot of
+select_plain's, and the reference's _select_kernel on four of them (its
+jit is slow on the CPU). Seeds at the kernel's edges (no groups, one
+emission, more groups than the soft cap, many rounds, the caps and
+statuses, totals past their groups' rows, a group of no rows) are held to
+select_plain, to the native select where it emits the same rows, and to
+the reference's _select_kernel on three configurations.
 """
 
 import itertools
@@ -32,6 +38,7 @@ from floxer_tpu_torch.index.fmindex import FmIndex
 from floxer_tpu_torch.native import native_select_from_groups_batch
 from floxer_tpu_torch.ops import cuda_select
 from floxer_tpu_torch.search_host import search_seed_groups
+from test_torch_cuda import edge_select_groups
 
 CPU = torch.device("cpu")
 ROOT = Path(__file__).resolve().parent.parent
@@ -99,102 +106,197 @@ def fixture():
 
 def emulate_k12(index, groups, group_starts, totals, statuses, hard_cap,
                 soft_cap, order_code, choice_code, erase):
-    """K12 (csrc/select_anchors.cu) in numpy, one seed (a warp) at a time:
-    the seed's first soft_cap groups in the host order, each emission's
-    round or group counted over the soft_cap columns, the locate of the
-    valid ones (the others take ref INT32_MAX), each emission's rank among
-    the keys, lane 0's sweep with its marks and its compaction. Returns
-    (anchors int64 [S, soft_cap, 3], counts int64 [S, 5])."""
+    """K12 (csrc/select_anchors.cu) in numpy, a warp (32 seeds) at a time
+    on its own schedule: the warp's zeros over its anchor rows; each
+    lane's status, caps and counts row, and its seed's emission count E
+    told apart as the kernel scans its groups (0, 1, or at least 2); the
+    batch of max(64, soft_cap) emissions, first each E = 1 seed's one
+    (round robin: the first group that counts a row; the others: column
+    0), then each larger seed's, expanded by the warp (round robin by
+    ballot rounds over chunks of 32 live columns, full_groups by a warp
+    scan of the capped row prefix and an upper bound per emission) while
+    it fits, else into the next batch; each batch's locates, then its E = 1
+    seeds' anchors by their lanes and each larger seed's rank of each key
+    among its E, lane 0's sweep with its retroactive marks and the ballot
+    compaction. Every slot starts as -1, so a slot the kernel would not
+    write shows. Returns (anchors int64 [S, soft_cap, 3], counts int64
+    [S, 5])."""
     CAP = soft_cap
+    size = max(64, CAP)
     S = len(totals)
     perm = ssd.group_order(groups, group_starts, order_code)
     totals = np.minimum(totals, I32MAX)
-    anchors = np.zeros((S, CAP, 3), dtype=np.int64)
-    counts = np.zeros((S, 5), dtype=np.int64)
-    for s in range(S):
-        total = int(totals[s])
-        excluded = total > hard_cap and choice_code != 2
-        status = int(statuses[s]) | (4 if excluded else 0)
-        kept_raw = min(total, CAP) if (status & 6) == 0 else 0
-        first, last = int(group_starts[s]), int(group_starts[s + 1])
-        d_lb = np.zeros(CAP, dtype=np.int64)
-        d_cnt = np.zeros(CAP, dtype=np.int64)
-        d_err = np.zeros(CAP, dtype=np.int64)
-        for c in range(min(CAP, last - first)):
-            g = perm[first + c]
-            d_lb[c], d_cnt[c], d_err[c] = groups[g, 0], groups[g, 2], groups[g, 3]
-        row = np.zeros(CAP, dtype=np.int64)
-        em_err = np.zeros(CAP, dtype=np.int64)
-        valid = np.zeros(CAP, dtype=bool)
+    lb_of, cnt_of, err_of = groups[:, 0], groups[:, 2], groups[:, 3]
+    anchors = np.full((S, CAP, 3), -1, dtype=np.int64)
+    counts = np.full((S, 5), -1, dtype=np.int64)
+    lanes = np.arange(32)
+
+    def expand(first, live, kept_raw):
+        """A large seed's E and its emissions (SA rows, errors)."""
+        cols = perm[first:first + live]
+        d_lb, d_cnt, d_err = lb_of[cols], cnt_of[cols], err_of[cols]
         if choice_code == 0:
-            n_r = np.array([(d_cnt > r).sum() for r in range(CAP)])
-            aux = np.cumsum(n_r) - n_r
-            for e in range(CAP):
-                r = int((aux <= e).sum()) - 1
-                k = e - aux[r]
-                seen, got, pick_lb, pick_err = 0, False, 0, 0
-                for c in range(CAP):
-                    if d_cnt[c] > r:
-                        seen += 1
-                        if seen == k + 1:
-                            got, pick_lb, pick_err = True, d_lb[c], d_err[c]
-                row[e], em_err[e] = pick_lb + r, pick_err
-                valid[e] = got and e < kept_raw
-        else:
-            aux = np.cumsum(d_cnt) - d_cnt
-            for e in range(CAP):
-                g = int(((aux <= e) & (d_cnt > 0)).sum()) - 1
-                g_cl = min(max(g, 0), CAP - 1)
-                row[e] = d_lb[g_cl] + e - aux[g_cl]
-                em_err[e] = d_err[g_cl]
-                valid[e] = g >= 0 and e < kept_raw
-        ref = np.full(CAP, I32MAX, dtype=np.int64)
-        pos = np.zeros(CAP, dtype=np.int64)
-        chosen = np.flatnonzero(valid)
-        if chosen.size:
+            rows_here = np.zeros(32, dtype=np.int64)
+            for c in range(live):
+                rows_here[c % 32] = min(
+                    rows_here[c % 32] + min(max(d_cnt[c], 0), CAP), CAP)
+            E = min(kept_raw, int(rows_here.sum()))
+            em_row = np.zeros(E, dtype=np.int64)
+            em_err = np.zeros(E, dtype=np.int64)
+            base, r = 0, 0
+            while base < E:
+                for c0 in range(0, live, 32):
+                    c = c0 + lanes
+                    take = (c < live) & (np.where(
+                        c < live, d_cnt[np.minimum(c, live - 1)], 0) > r)
+                    e = base + np.cumsum(take) - take
+                    for lane in np.flatnonzero(take & (e < E)):
+                        em_row[e[lane]] = d_lb[c[lane]] + r
+                        em_err[e[lane]] = d_err[c[lane]]
+                    base += int(take.sum())
+                r += 1
+            return E, em_row, em_err
+        E = kept_raw
+        aux = np.zeros(live, dtype=np.int64)
+        col = np.zeros(live, dtype=np.int64)
+        carry = counting = 0
+        for c0 in range(0, live, 32):
+            c = c0 + lanes
+            n = np.where(c < live, d_cnt[np.minimum(c, live - 1)], 0)
+            n = np.clip(n, 0, CAP)
+            inclusive = np.cumsum(n)
+            nonzero = n > 0
+            here = c < live
+            aux[c[here]] = (carry + inclusive - n)[here]
+            col[c[here]] = (counting + np.cumsum(nonzero) - 1)[here]
+            carry = min(carry + int(inclusive[-1]), CAP)
+            counting += int(nonzero.sum())
+        em_row = np.zeros(E, dtype=np.int64)
+        em_err = np.zeros(E, dtype=np.int64)
+        for e in range(E):
+            g = int(col[int(np.searchsorted(aux, e, side="right")) - 1])
+            em_row[e], em_err[e] = d_lb[g] + e - aux[g], d_err[g]
+        return E, em_row, em_err
+
+    def finish(ref, pos, em_err, kept_raw, out):
+        """A located large seed's order, sweep and output: the anchors
+        written."""
+        E = ref.shape[0]
+        order = np.zeros(E, dtype=np.int64)
+        for e in range(E):
+            if erase:
+                less = ((ref < ref[e]) | ((ref == ref[e]) & (pos < pos[e]))
+                        | ((ref == ref[e]) & (pos == pos[e])
+                           & (np.arange(E) < e)))
+            else:
+                less = (ref < ref[e]) | ((ref == ref[e])
+                                         & (np.arange(E) < e))
+            order[int(less.sum())] = e
+        if not erase:
+            for c in range(E):
+                a = order[c]
+                out[c] = (ref[a], pos[a], em_err[a])
+            return kept_raw
+        mark = np.zeros(E, dtype=bool)
+        p_ref, p_pos, p_err, p_idx, p_live = -1, 0, 0, 0, False
+        for c in range(E):  # lane 0
+            a = order[c]
+            same = p_live and ref[a] == p_ref
+            d = abs(p_pos - pos[a])
+            piv = same and p_err <= em_err[a] and d <= em_err[a] - p_err
+            a_dom = same and em_err[a] <= p_err and d <= p_err - em_err[a]
+            mark[c] |= piv
+            if same and not piv and a_dom:
+                mark[p_idx] = True
+            if not same or not piv:
+                p_ref, p_pos, p_err, p_idx = ref[a], pos[a], em_err[a], c
+            p_live = True
+        written = 0
+        for c0 in range(0, E, 32):
+            c = c0 + lanes
+            keep = (c < E) & ~mark[np.minimum(c, E - 1)]
+            slot = written + np.cumsum(keep) - keep
+            for lane in np.flatnonzero(keep):
+                a = order[c[lane]]
+                out[slot[lane]] = (ref[a], pos[a], em_err[a])
+            written += int(keep.sum())
+        return written
+
+    for first_seed in range(0, S, 32):
+        seeds = min(32, S - first_seed)
+        anchors[first_seed:first_seed + seeds] = 0
+        head = []
+        for lane in range(seeds):
+            seed = first_seed + lane
+            total = int(totals[seed])
+            excluded = total > hard_cap and choice_code != 2
+            status = int(statuses[seed]) | (4 if excluded else 0)
+            kept_raw = min(total, CAP) if (status & 6) == 0 else 0
+            first = int(group_starts[seed])
+            live = min(int(group_starts[seed + 1]) - first, CAP)
+            counting_col, large = -1, False
+            if kept_raw > 0:
+                for c in range(live):
+                    n = cnt_of[perm[first + c]]
+                    if n <= 0:
+                        continue
+                    if counting_col >= 0:
+                        large = True
+                        break
+                    counting_col = c
+                    if kept_raw == 1:
+                        break
+                    if choice_code != 0 or n >= 2:
+                        large = True
+                        break
+            written = (counting_col >= 0) if erase else kept_raw
+            counts[seed] = (status, written, kept_raw, written, total)
+            head.append((seed, kept_raw, first, live, counting_col, large))
+        # the first batch: the E = 1 seeds' emissions, in lane order
+        em_rows, em_errs, batch = [], [], []
+        for seed, kept_raw, first, live, counting_col, large in head:
+            if counting_col >= 0 and not large:
+                g = perm[first + (counting_col if choice_code == 0 else 0)]
+                batch.append((seed, len(em_rows), 1, kept_raw))
+                em_rows.append(lb_of[g])
+                em_errs.append(err_of[g])
+        pending = [h for h in head if h[5]]
+        while True:
+            while pending:
+                seed, kept_raw, first, live, _, _ = pending[0]
+                E, rows, errs = expand(first, live, kept_raw)
+                if len(em_rows) + E > size:
+                    break
+                batch.append((seed, len(em_rows), E, kept_raw))
+                em_rows.extend(rows)
+                em_errs.extend(errs)
+                pending.pop(0)
             seq, at = locate_batch(index, torch.from_numpy(
-                row[chosen].astype(np.int32)))
-            ref[chosen], pos[chosen] = seq.numpy(), at.numpy()
-
-        def less(a, b):
-            if ref[a] != ref[b]:
-                return ref[a] < ref[b]
-            if erase and pos[a] != pos[b]:
-                return pos[a] < pos[b]
-            return a < b
-
-        order = np.zeros(CAP, dtype=np.int64)
-        for e in range(CAP):
-            order[sum(less(f, e) for f in range(CAP))] = e
-        if erase:
-            mark = np.zeros(CAP, dtype=bool)
-            p_ref, p_pos, p_err, p_idx, p_live = -1, 0, 0, 0, False
-            for c in range(CAP):
-                a = order[c]
-                same = bool(valid[a]) and p_live and ref[a] == p_ref
-                d = abs(p_pos - pos[a])
-                piv = same and p_err <= em_err[a] and d <= em_err[a] - p_err
-                a_dom = same and em_err[a] <= p_err and d <= p_err - em_err[a]
-                mark[c] |= piv
-                if same and not piv and a_dom:
-                    mark[p_idx] = True
-                if (valid[a] and not same) or (same and not piv):
-                    p_ref, p_pos, p_err, p_idx = ref[a], pos[a], em_err[a], c
-                p_live = p_live or bool(valid[a])
-            written = 0
-            for c in range(CAP):
-                a = order[c]
-                if valid[a] and not mark[c]:
-                    anchors[s, written] = (ref[a], pos[a], em_err[a])
-                    written += 1
-        else:
-            for c in range(CAP):
-                a = order[c]
-                if valid[a]:
-                    anchors[s, c] = (ref[a], pos[a], em_err[a])
-            written = kept_raw
-        counts[s] = (status, written, kept_raw, written, total)
+                np.asarray(em_rows, dtype=np.int32).reshape(-1)))
+            ref = seq.numpy().astype(np.int64)
+            pos = at.numpy().astype(np.int64)
+            em_err = np.asarray(em_errs, dtype=np.int64).reshape(-1)
+            for seed, off, E, kept_raw in batch:
+                if E == 1:
+                    anchors[seed, 0] = (ref[off], pos[off], em_err[off])
+            for seed, off, E, kept_raw in batch:
+                if E >= 2:
+                    part = slice(off, off + E)
+                    written = finish(ref[part], pos[part], em_err[part],
+                                     kept_raw, anchors[seed])
+                    if erase:
+                        counts[seed, 1] = counts[seed, 3] = written
+            if not pending:
+                break
+            em_rows, em_errs, batch = [], [], []
     return anchors, counts
+
+
+def assert_equal_selection(got, want, label):
+    """Every anchor slot and count equal (K12 and select_plain write the
+    whole [S, soft_cap, 3], zeros past a seed's anchors)."""
+    np.testing.assert_array_equal(got[1], np.asarray(want[1]), err_msg=label)
+    np.testing.assert_array_equal(got[0], np.asarray(want[0]), err_msg=label)
 
 
 def assert_same_selection(got, want, label):
@@ -240,8 +342,67 @@ def test_select_matches_native(fixture, order_code, choice_code, erase):
         emulated = emulate_k12(fixture["device"], *args, hard_cap, soft_cap,
                                order_code, choice_code, erase)
         assert_same_selection(emulated, want, f"emulate_k12 {label}")
+        assert_equal_selection(emulated, got, f"emulate_k12 {label}")
         if hard_cap == 40 and choice_code != 2:
             assert (got[1][:, 0] & 4).any(), "the hard cap excluded no seed"
+
+
+def seeds_subset(groups, starts, totals, statuses, keep):
+    """The batch of only the seeds `keep` (their groups, in order)."""
+    rows = np.concatenate([np.arange(starts[s], starts[s + 1])
+                           for s in keep]).astype(np.int64)
+    sizes = np.diff(starts)[keep]
+    sub_starts = np.zeros(len(keep) + 1, dtype=np.int64)
+    np.cumsum(sizes, out=sub_starts[1:])
+    return groups[rows], sub_starts, totals[keep], statuses[keep]
+
+
+@pytest.mark.parametrize("erase", [False, True])
+@pytest.mark.parametrize("choice_code", [0, 1, 2])
+def test_select_edge_seeds(fixture, choice_code, erase):
+    """Seeds at K12's edges (test_torch_cuda.edge_select_groups: no groups,
+    E = 1, 60 groups, many rounds, the hard cap, an overflow, a total past
+    its groups' rows, a group of no rows) under every group order at the
+    three cap pairs: emulate_k12 equals select_plain in every slot, and
+    both equal the native select on the seeds whose totals are their
+    groups' rows (the native select emits only real rows)."""
+    host = fixture["host"]
+    groups, starts, totals, statuses, consistent = edge_select_groups(host.n)
+    for (hard_cap, soft_cap), order_code in itertools.product(CAPS,
+                                                              range(3)):
+        caps = (hard_cap, soft_cap, order_code, choice_code, erase)
+        label = f"caps={hard_cap}/{soft_cap} order={order_code}"
+        plain = ssd.device_select_from_groups_batch(
+            fixture["device"], groups, starts, totals, statuses, *caps)
+        emulated = emulate_k12(fixture["device"], groups, starts, totals,
+                               statuses, *caps)
+        assert_equal_selection(emulated, plain, label)
+        sub = seeds_subset(groups, starts, totals, statuses, consistent)
+        want = native_select_from_groups_batch(host, *sub, *caps)
+        assert_same_selection(
+            (plain[0][consistent], plain[1][consistent]), want, label)
+        emitted = plain[1][:, 1]
+        if erase is False:
+            assert emitted[1] == 1 and emitted[0] == min(3, soft_cap)
+        if soft_cap == 50 and choice_code == 0 and hard_cap == 500:
+            assert plain[1][3, 2] == 50  # many rounds, E = soft_cap
+
+
+@pytest.mark.parametrize("config", [(2, 0, True), (0, 1, False),
+                                    (2, 2, True)])
+def test_edge_seeds_match_reference_select_kernel(fixture, config):
+    """select_plain (K12's plain version) on the edge seeds equals the
+    reference's _select_kernel, which defines its formulas past the native
+    select's (a total past its groups' rows, a group of no rows)."""
+    order_code, choice_code, erase = config
+    ref_device = RefDeviceIndex.from_host(RefFmIndex(fixture["sequences"]))
+    groups, starts, totals, statuses, _ = edge_select_groups(
+        fixture["host"].n)
+    args = (groups, starts, totals, statuses, 500, 50, order_code,
+            choice_code, erase)
+    want = ref_device_select(ref_device, *args)
+    got = ssd.device_select_from_groups_batch(fixture["device"], *args)
+    assert_equal_selection(got, want, f"config {config}")
 
 
 def test_status_bits_and_planes_layout(fixture):
@@ -309,19 +470,29 @@ def test_cuda_wrapper_refuses_cpu_operands(fixture):
 
 @pytest.mark.parametrize("soft_cap", [1, 50, 139, 140, 500])
 def test_rows_go_to_global_scratch_past_shared_memory(soft_cap):
-    """A block's 8 seeds keep 11 arrays of soft_cap in shared memory up
-    to 48 KB (soft_cap <= 139), else in global scratch."""
+    """A block's 8 warps keep their rows in shared memory up to 48 KB (the
+    expanded seed's 5 arrays of soft_cap and the batch's 6 of
+    max(64, soft_cap): soft_cap <= 139), else in global scratch; the
+    constants are the kernel's."""
     smem = cuda_select.shared_bytes(soft_cap)
     fits = soft_cap <= 139
     assert (smem > 0) == fits
+    words = 5 * soft_cap + 6 * max(64, soft_cap)
+    assert cuda_select.warp_words(soft_cap) == words
     if fits:
-        assert smem == cuda_select.WARPS * cuda_select.ARRAYS * soft_cap * 4
+        assert smem == cuda_select.WARPS * words * 4
     source = (ROOT / cuda_select.SOURCE).read_text()
     assert int(re.search(r"constexpr int kWarps = (\d+);",
                          source).group(1)) == cuda_select.WARPS
-    arrays = re.search(r"enum \{ (aLb.*?)kArrays \};", source, re.S)
-    assert len(re.findall(r"a[A-Z]\w*", arrays.group(1))) == \
-        cuda_select.ARRAYS
+    assert int(re.search(r"constexpr int kBatchMin = (\d+);",
+                         source).group(1)) == cuda_select.BATCH_MIN
+    for first, last, count in (("cLb", "kColumnArrays",
+                                cuda_select.COLUMN_ARRAYS),
+                               ("bRow", "kBatchArrays",
+                                cuda_select.BATCH_ARRAYS)):
+        arrays = re.search(rf"enum \{{ ({first}.*?){last} \}};", source,
+                           re.S)
+        assert len(re.findall(r"[cb][A-Z]\w*", arrays.group(1))) == count
 
 
 def test_group_order_is_the_native_order(fixture):

@@ -95,20 +95,20 @@ void emu_sharded_rank(const unsigned* rows, int shard_rows, int row_offset,
 }
 
 // K13l's threads
-void emu_sharded_locate(const unsigned* rows, int shard_rows,
-                        const int* starts, const int* lengths, int num_shards,
+void emu_sharded_locate(const unsigned* rows, int shard_rows, int num_shards,
                         const unsigned char* bwt, int bwt_stride,
                         const int* C, const int* sampled_rows,
                         const int* sampled_values, int ns,
                         const int* seq_starts, int num_seqs,
-                        int sampling_rate, const int* query_rows, int B,
-                        int* seq_ids, int* positions) {
+                        int sampling_rate, const int* layout,
+                        const int* query_rows, int B, int* seq_ids,
+                        int* positions) {
   FmShardedLocateTables t;
-  t.fwd = table(rows, shard_rows, 0, starts, lengths, num_shards);
+  t.fwd = table(rows, shard_rows, 0, nullptr, nullptr, num_shards);
   t.bwt = bwt; t.bwt_stride = bwt_stride; t.C = C;
   t.sampled_rows = sampled_rows; t.sampled_values = sampled_values;
   t.ns = ns; t.seq_starts = seq_starts; t.num_seqs = num_seqs;
-  t.sampling_rate = sampling_rate;
+  t.sampling_rate = sampling_rate; t.layout = layout;
   for (int i = 0; i < B; ++i)
     fm_locate_row(t, query_rows[i], seq_ids + i, positions + i);
 }
@@ -167,13 +167,13 @@ def emulate_locate(lib, index, rows):
     seq_ids = torch.zeros(rows.shape[0], dtype=torch.int32)
     positions = torch.zeros_like(seq_ids)
     lib.emu_sharded_locate(
-        _ptr(fwd.rank_rows), fwd.rank_rows.shape[1], _ptr(fwd.shard_starts),
-        _ptr(fwd.shard_lengths), index.num_shards, _ptr(fwd.bwt),
+        _ptr(fwd.rank_rows), fwd.rank_rows.shape[1], index.num_shards,
+        _ptr(fwd.bwt),
         fwd.bwt.shape[1], _ptr(index.C), _ptr(index.sampled_rows),
         _ptr(index.sampled_values), index.sampled_rows.shape[1],
         _ptr(index.seq_starts), index.seq_starts.shape[0],
-        index.sampling_rate, _ptr(rows), rows.shape[0], _ptr(seq_ids),
-        _ptr(positions),
+        index.sampling_rate, _ptr(index.locate_layout), _ptr(rows),
+        rows.shape[0], _ptr(seq_ids), _ptr(positions),
     )
     return seq_ids, positions
 
@@ -281,6 +281,56 @@ def test_sharded_locate_matches_reference(num_shards, emulation):
     emulated = emulate_locate(emulation, index, torch.from_numpy(rows))
     assert torch.equal(emulated[0], got_ids)
     assert torch.equal(emulated[1], got_pos)
+
+
+@pytest.mark.parametrize("num_shards", [3, 4])
+def test_sharded_locate_edge_rows(num_shards, emulation):
+    """K13l's owner resolution at its edges, through the g++ build of its
+    thread: the first and last row of every shard, row 0, the text's last
+    row, the rows beside every sample chunk's bounds (which fall between
+    the row shards' bounds) and then every row, on a 247-row text whose
+    last shard is empty; each equal to the plain version, the unsharded
+    locate and the reference's sharded locate."""
+    rng = np.random.default_rng(31)
+    sequences = [rng.integers(1, 5, size=200).astype(np.uint8),
+                 rng.integers(1, 5, size=45).astype(np.uint8)]
+    ref_host, host = RefFmIndex(sequences), FmIndex(sequences)
+    n = host.n
+    sh = port_si.shard_full_index(host, num_shards)
+    index = ShardedDeviceIndex.from_shards(sh, CPU)
+    starts = sh.fwd.shard_starts
+    ends = starts + sh.fwd.shard_lengths
+    assert sh.fwd.shard_lengths[-1] == 0 and sh.fwd.shard_lengths[0] > 0
+    layout = index.locate_layout.numpy()
+    real = sh.sampled_rows != 1 << 30
+    chunk_bounds = {int(b) for r, m in zip(sh.sampled_rows, real)
+                    for b in (r[m][0], r[m][-1])}
+    assert chunk_bounds - set(starts.tolist()) - set((ends - 1).tolist())
+    assert layout[:, cuda_sharded.LAYOUT_SAMPLE_FIRST].tolist() == [
+        int(r[0]) for r in sh.sampled_rows]
+
+    edges = {0, n - 1}
+    for start, end in zip(starts, ends):
+        if end > start:
+            edges |= {int(start), int(end) - 1}
+    for bound in chunk_bounds:
+        edges |= {b for b in (bound - 1, bound, bound + 1) if 0 <= b < n}
+    edge_rows = np.array(sorted(edges), dtype=np.int32)
+    every_row = np.arange(n, dtype=np.int32)
+    flat = DeviceIndex.from_host(host, CPU)
+    ref_sh = ref_si.shard_full_index(ref_host, num_shards)
+    for rows in (edge_rows, every_row):
+        tensor = torch.from_numpy(rows)
+        want = cuda_sharded.fm_sharded_locate_plain(index, tensor,
+                                                    index.sampling_rate)
+        ref_ids, ref_pos = ref_si.sharded_locate(ref_mesh_1d(num_shards),
+                                                 ref_sh, rows)
+        assert np.array_equal(want[0].numpy(), np.asarray(ref_ids))
+        assert np.array_equal(want[1].numpy(), np.asarray(ref_pos))
+        for got in (emulate_locate(emulation, index, tensor),
+                    port_di.locate_batch(flat, tensor)):
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
 
 
 # --------------------------------------------------------------- frontier
