@@ -247,9 +247,17 @@ E2E_READS = 200
 # plain versions loop over columns in Python, so the scripts' 23040 would
 # take minutes); rows and band words are the scripts' own
 COMPARE_TEXT = 1280
+# K5's band widths beside the script's 256 words (it is built at 128, 256
+# and 384, K1's register widths): every variant is held to its plain
+# version there too, on the script's inputs at that width and COMPARE_TEXT
+# columns (the plain versions run in the workers below)
+K5_OTHER_BAND_WORDS = (128, 384)
+# launches a turn when K5's variants are timed with K1's register kernel
+# on K1's root operands (the column decomposition)
+K5_ROOT_REPEATS = 5
 # processes that run K5-K8's plain versions at the scripts' 23040 columns
-# on the CPU while the card runs on, and how long the scripts phase waits
-# for them at its end
+# (and K5's at K5_OTHER_BAND_WORDS) on the CPU while the card runs on, and
+# how long the scripts phase waits for them at its end
 PLAIN_WORKERS = 4
 PLAIN_TIMEOUT = 600
 # SM clock cycles the card spins before a timed run of launches (~10 ms at
@@ -945,8 +953,8 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain, large_sweep,
     async result of _k1_plain per case), and K3's past the register
     kernel's widest (`large_sweep`, k3_sweep_cases, against `large_plain`,
     of _k3_plain) likewise. Returns the table rows K1, K2, K3 (launch
-    counts filled in later), K1's (operands, end columns) of two K1
-    checks, the sweep's fields, and the plain versions' times at the
+    counts filled in later), K1's (arguments, end columns) by case (the
+    small cases, the root shape on both bands), the sweep's fields, and the plain versions' times at the
     sweeps' widths (run_long_shapes' rows carry them)."""
     import numpy as np
     import torch
@@ -980,8 +988,9 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain, large_sweep,
         return (*operands, band_words, num_text)
 
     rows = {}
-    # K1's operands and end columns, which K5 `full` must reproduce
-    k1_ends = []
+    # K1's arguments and end columns, which K5 `full` must reproduce, by
+    # case: the small cases on 128 band words, the root shape on both bands
+    k1_ends = {}
     # K1 seeded small cases (test_pallas_myers_banded.py's generator), then
     # the 20 kb root shape: T=256, m ~ 20.6k, k = 1442, on the 256-word
     # band the tasks need and on the fused wave's root band
@@ -993,7 +1002,7 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain, large_sweep,
         cuda_myers_banded.myers_banded, cuda_myers_banded.myers_banded_plain, args
     )
     check(err_small == 0, f"K1 differs from its plain version ({err_small})")
-    k1_ends.append((args[:5], got[1]))
+    k1_ends["small BW=128"] = (args, got[1])
 
     T, m_root, k_root, bw_root = ROOT_SHAPE
     patterns, texts = root_patterns, root_texts
@@ -1036,8 +1045,7 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain, large_sweep,
         for i, pair in enumerate(mirror):
             check((int(got[0][i]), int(got[1][i])) == pair,
                   f"K1 differs from myers_banded_np on root task {i} {at}")
-        if band_words == bw_root:
-            k1_ends.append((args[:5], got[1]))
+        k1_ends[f"root BW={band_words}"] = (args, got[1])
         # both kernels on the same operands, in turns: shared, register,
         # register, shared
         turns = {"register": [], "shared": []}
@@ -1707,6 +1715,26 @@ def script_cases(device, arrays):
     )
 
 
+def k5_width_cases(device):
+    """(kernel, label, launch, plain) for every K5 variant at
+    K5_OTHER_BAND_WORDS, on the script's inputs at that width and
+    COMPARE_TEXT columns as tensors on `device`."""
+    from floxer_tpu_torch.scripts import ablate_banded_kernel as k5
+
+    cases = []
+    for band_words in K5_OTHER_BAND_WORDS:
+        operands = k5.device_operands(
+            k5.script_inputs(COMPARE_TEXT, band_words), device
+        )
+        cases += [
+            ("K5", f"{v} BW={band_words}",
+             functools.partial(k5.ablate_banded, *operands, v),
+             functools.partial(k5.ablate_banded_plain, *operands, v))
+            for v in k5.VARIANTS
+        ]
+    return cases
+
+
 def host_arrays(result):
     """A kernel's output tensor or (dist, end) pair as int64 arrays."""
     tensors = result if isinstance(result, tuple) else (result,)
@@ -1722,7 +1750,8 @@ def _plain_init(arrays):
     import torch
 
     torch.set_num_threads(1)
-    _PLAIN_CASES = script_cases(torch.device("cpu"), arrays)
+    cpu = torch.device("cpu")
+    _PLAIN_CASES = script_cases(cpu, arrays) + k5_width_cases(cpu)
 
 
 def _plain_run(index):
@@ -1734,32 +1763,138 @@ def _plain_run(index):
 
 
 def start_full_width_plain(arrays):
-    """The plain versions of every K5-K8 case on CPU copies of `arrays`, in
-    PLAIN_WORKERS spawned processes (no CUDA), while the card runs on:
-    (pool, async result of [(outputs, seconds)] in script_cases' order).
-    The caller terminates the pool."""
+    """The plain versions of every K5-K8 case on CPU copies of `arrays`,
+    then of k5_width_cases, in PLAIN_WORKERS spawned processes (no CUDA),
+    while the card runs on: (pool, async result of [(outputs, seconds)] in
+    script_cases' order, then k5_width_cases'). The caller terminates the
+    pool."""
     import multiprocessing
 
     from floxer_tpu_torch.scripts import ablate_banded_kernel as k5
     from floxer_tpu_torch.scripts import microbench_carry_scaling as k78
     from floxer_tpu_torch.scripts import microbench_column_loop as k6
 
-    count = (len(k5.VARIANTS) + len(k6.VARIANTS) + len(k78.CONFIGS)
-             + len(k78.BCASTS))
+    count = (len(k5.VARIANTS) * (1 + len(K5_OTHER_BAND_WORDS))
+             + len(k6.VARIANTS) + len(k78.CONFIGS) + len(k78.BCASTS))
     pool = multiprocessing.get_context("spawn").Pool(
         min(PLAIN_WORKERS, os.cpu_count() or 1), _plain_init, (arrays,)
     )
     return pool, pool.map_async(_plain_run, range(count), chunksize=1)
 
 
+def scripts_ptxas() -> dict:
+    """What ptxas -v reported in the scripts' build for K5's 27 instances
+    (ablate_banded_kernel<R, F>: R = 4, 8, 12 words a lane, F each variant's
+    sections) and K7's 8 (carry_scaling_kernel<n_carry, n_ops, n_rolls>),
+    with the instructions of their column loops (cuobjdump -sass). Fails
+    on a missing instance, a spill or a stack frame, and unless K7 holds
+    its carried arrays in registers: carry=14 (ops and rolls 0) at least
+    80 registers above carry=3 and its column loop at least 2 instructions
+    above for each of the 11 x 8 array words a lane it adds."""
+    from floxer_tpu_torch.ops import _build
+    from floxer_tpu_torch.scripts import ablate_banded_kernel as k5
+    from floxer_tpu_torch.scripts import microbench_carry_scaling as k78
+
+    usage = _build.SCRIPTS.ptxas_usage()
+    loops = _build.sass_loops(_build.SCRIPTS.sass())
+    flags = {sum(k5._FLAGS[s] for s in k5._sections_off(v)): v
+             for v in k5.VARIANTS}
+    report = {"K5": {}, "K7": {}}
+    for name, found in usage.items():
+        k5_match = re.search(r"ablate_banded_kernelILi(\d+)ELi(\d+)E", name)
+        k7_match = re.search(
+            r"carry_scaling_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name)
+        if k5_match:
+            r, f = map(int, k5_match.groups())
+            key, kernel = f"BW={32 * r} {flags.get(f, f)}", "K5"
+        elif k7_match:
+            key, kernel = "carry={} ops={} rolls={}".format(
+                *k7_match.groups()), "K7"
+        else:
+            continue
+        check(found.get("spill_stores", 1) == 0
+              and found.get("spill_loads", 1) == 0
+              and found.get("stack", 1) == 0,
+              f"{kernel} {key} spills or keeps a stack frame: {found}")
+        report[kernel][key] = {**found, "sass_loop_instructions": loops[name]}
+    want_k5 = {f"BW={w} {v}" for w in k5.CUDA_BAND_WORDS for v in k5.VARIANTS}
+    want_k7 = {"carry={} ops={} rolls={}".format(*c) for c in k78.CONFIGS}
+    check(set(report["K5"]) == want_k5,
+          f"K5's instances are {sorted(report['K5'])}")
+    check(set(report["K7"]) == want_k7,
+          f"K7's instances are {sorted(report['K7'])}")
+    few, many = (report["K7"][f"carry={c} ops=0 rolls=0"] for c in (3, 14))
+    check(many["registers"] - few["registers"] >= 80,
+          f"K7 at carry=14 takes {many['registers']} registers, carry=3 "
+          f"{few['registers']}: the carried arrays are not in registers")
+    check(len(few["sass_loop_instructions"]) == 1
+          and len(many["sass_loop_instructions"]) == 1
+          and many["sass_loop_instructions"][0]
+          - few["sass_loop_instructions"][0] >= 2 * 11 * 8,
+          f"K7's column loops at carry=3 and 14: "
+          f"{few['sass_loop_instructions']}, "
+          f"{many['sass_loop_instructions']}")
+    return report
+
+
+def k1_column_decomposition(k1_ends) -> dict:
+    """K5's nine variants on K1's root operands (from_banded_operands, at
+    each root band of `k1_ends`), timed in turns with K1's register kernel
+    on the same tasks: K1, the variants, the variants reversed, K1
+    (K5_ROOT_REPEATS launches a turn). Each variant's ms and us per column
+    (K5 runs all of every row's num_text columns) and its difference from
+    `full`: that section's cost in the column K1 runs."""
+    from floxer_tpu_torch.ops import cuda_myers_banded
+    from floxer_tpu_torch.scripts import ablate_banded_kernel as k5
+
+    out = {}
+    for key, (args, _) in k1_ends.items():
+        if not key.startswith("root"):
+            continue
+        operands = k5.from_banded_operands(*args[:5])
+        num_text = operands[2].shape[1]
+        runs = {"K1": functools.partial(
+            cuda_myers_banded.myers_banded_register, *args)}
+        for v in k5.VARIANTS:
+            runs[v] = functools.partial(k5.ablate_banded, *operands, v)
+        turns = {name: [] for name in runs}
+        for name in ["K1", *k5.VARIANTS, *reversed(k5.VARIANTS), "K1"]:
+            turns[name].append(cuda_ms(runs[name], K5_ROOT_REPEATS))
+        ms = {name: sum(turn) / len(turn) for name, turn in turns.items()}
+        scalars = args[4].cpu().numpy()
+        k1_columns = int(
+            scalars[:, cuda_myers_banded.COL_TLEN].max()) - 1
+        out[key] = {
+            "tasks": int(args[0].shape[0]), "k5_columns": num_text,
+            "k1_columns": k1_columns,
+            "K1": {"ms": ms["K1"], "turns_ms": turns["K1"],
+                   "us_per_col": ms["K1"] * 1000 / k1_columns},
+            "full_over_K1": ms["full"] / ms["K1"],
+            "variants": {
+                v: {"ms": ms[v], "turns_ms": turns[v],
+                    "us_per_col": ms[v] * 1000 / num_text,
+                    "minus_full_ms": ms[v] - ms["full"],
+                    "minus_full_us_per_col":
+                        (ms[v] - ms["full"]) * 1000 / num_text}
+                for v in k5.VARIANTS
+            },
+        }
+    return out
+
+
 def run_scripts_phase(device, scripts_build, k1_row, k1_ends, full_arrays,
                       full_plain, peaks):
     """K5-K8: every variant against its plain version at COMPARE_TEXT
-    columns on the card; K5 `full` at K1's end columns on K1's operands;
-    every variant timed at the scripts' full width on `full_arrays`, its
-    output held against `full_plain` (the plain versions on CPU copies of
-    the same arrays); then the three entry points' main() with the launch
-    counts set to 0 just before. Returns (phase fields, table rows)."""
+    columns on the card (K5 at 256 band words there, and at
+    K5_OTHER_BAND_WORDS against the plain versions in the CPU workers);
+    K5 `full` at K1's end columns on K1's operands (128 words, and the
+    root shape on 256 and 384); K5's variants on K1's root operands timed
+    in turns with K1's register kernel (k1_column_decomposition); every
+    variant timed at the scripts' full width on `full_arrays`, its output
+    held against `full_plain` (the plain versions on CPU copies of the
+    same arrays); K5's and K7's ptxas and column loops (scripts_ptxas);
+    then the three entry points' main() with the launch counts set to 0
+    just before. Returns (phase fields, table rows)."""
     import numpy as np
     import torch
 
@@ -1770,6 +1905,7 @@ def run_scripts_phase(device, scripts_build, k1_row, k1_ends, full_arrays,
     from floxer_tpu_torch.scripts import microbench_column_loop as k6
 
     scripts_build.result()  # re-raises a failed build
+    ptxas = scripts_ptxas()
     variants = {}
     compare_arrays = script_arrays(COMPARE_TEXT)
     for kernel, label, launch, plain in script_cases(device, compare_arrays):
@@ -1785,10 +1921,12 @@ def run_scripts_phase(device, scripts_build, k1_row, k1_ends, full_arrays,
             "max_abs_err": err, f"ms_{COMPARE_TEXT}": cuda_ms(launch, 5),
             f"plain_ms_{COMPARE_TEXT}": plain_ms,
         }
-    for operands, k1_end in k1_ends:
-        _, end = k5.ablate_banded(*k5.from_banded_operands(*operands), "full")
+    for key, (args, k1_end) in k1_ends.items():
+        _, end = k5.ablate_banded(*k5.from_banded_operands(*args[:5]), "full")
         check(np.array_equal(end.cpu().numpy(), k1_end),
-              f"K5 full and K1 end columns differ on {len(k1_end)} tasks")
+              f"K5 full and K1 end columns differ ({key}, "
+              f"{len(k1_end)} tasks)")
+    decomposition = k1_column_decomposition(k1_ends)
     full_outputs = []
     for kernel, label, launch, _ in script_cases(device, full_arrays):
         ms = cuda_ms(launch, 3)
@@ -1799,6 +1937,8 @@ def run_scripts_phase(device, scripts_build, k1_row, k1_ends, full_arrays,
     full, r4 = (full_outputs[k5.VARIANTS.index(v)] for v in ("full", "r4"))
     check(all(np.array_equal(a, b) for a, b in zip(full, r4)),
           "K5 full and r4 differ")
+    width_cases = k5_width_cases(device)
+    width_outputs = [host_arrays(launch()) for _, _, launch, _ in width_cases]
     started = time.monotonic()
     plain_results = full_plain.get(timeout=PLAIN_TIMEOUT)
     plain_wait_s = time.monotonic() - started
@@ -1811,6 +1951,21 @@ def run_scripts_phase(device, scripts_build, k1_row, k1_ends, full_arrays,
         variants[(kernel, label)].update({
             f"max_abs_err_{NUM_TEXT}": err, f"plain_cpu_s_{NUM_TEXT}": seconds,
         })
+    k5_widths = {}
+    for (_, label, launch, _), got, (want, seconds) in zip(
+        width_cases, width_outputs, plain_results[len(full_outputs):]
+    ):
+        err = max(int(np.max(np.abs(g - w))) for g, w in zip(got, want))
+        check(err == 0, f"K5 {label} differs from its plain version ({err})")
+        k5_widths[label] = {
+            "max_abs_err": err, f"ms_{COMPARE_TEXT}": cuda_ms(launch, 5),
+            f"plain_cpu_s_{COMPARE_TEXT}": seconds,
+        }
+    for band_words in K5_OTHER_BAND_WORDS:
+        full_w, r4_w = (width_outputs[[c[1] for c in width_cases].index(
+            f"{v} BW={band_words}")] for v in ("full", "r4"))
+        check(all(np.array_equal(a, b) for a, b in zip(full_w, r4_w)),
+              f"K5 full and r4 differ at {band_words} band words")
 
     # the entry points as a user runs them
     reset_launches()
@@ -1841,30 +1996,44 @@ def run_scripts_phase(device, scripts_build, k1_row, k1_ends, full_arrays,
     ):
         rows = [v for (k, _), v in variants.items() if k == kernel]
         rep = variants[(kernel, representative)]
+        errors = [max(r["max_abs_err"], r[f"max_abs_err_{NUM_TEXT}"])
+                  for r in rows]
+        if kernel == "K5":
+            errors += [r["max_abs_err"] for r in k5_widths.values()]
         table[kernel] = {
             "name": name, "route": "cuda", "source": module.SOURCE,
             "replaces": replaces, "launches": launches[kernel],
-            "max_abs_err": max(
-                max(r["max_abs_err"], r[f"max_abs_err_{NUM_TEXT}"])
-                for r in rows
-            ),
+            "max_abs_err": max(errors),
             "ms": rep[f"ms_{COMPARE_TEXT}"],
             "plain_ms": rep[f"plain_ms_{COMPARE_TEXT}"],
             **bounds[kernel],
         }
+    k7_build = {
+        label: {"us_per_col": variants[("K7", label)]["us_per_col"],
+                "registers": entry["registers"],
+                "sass_loop_instructions": entry["sass_loop_instructions"]}
+        for label, entry in ptxas["K7"].items()
+    }
     fields = {
         "nvcc_seconds": _build.SCRIPTS.last_build_seconds,
         "library": str(_build.SCRIPTS.path().relative_to(ROOT)),
         "shape": f"rows=32 BW=256 compare on the card at n={COMPARE_TEXT}, "
                  f"timed and compared with the plain versions on the CPU "
-                 f"at n={NUM_TEXT}",
+                 f"at n={NUM_TEXT}; K5 also at BW={K5_OTHER_BAND_WORDS} "
+                 f"n={COMPARE_TEXT} against the plain versions on the CPU",
         "plain_wait_s": plain_wait_s,
-        "k5_full_at_k1_end_tasks": sum(len(end) for _, end in k1_ends),
+        "k5_full_at_k1_end_tasks": {
+            key: len(end) for key, (_, end) in k1_ends.items()
+        },
         "k1_us_per_col_bw256": {
             name: k1_row["root"]["BW=256"][name]["us_per_col"]
             for name in ("register", "shared")
         },
         "k5_full_us_per_col": variants[("K5", "full")]["us_per_col"],
+        "k1_column_decomposition": decomposition,
+        "k5_widths": k5_widths,
+        "k7_build": k7_build,
+        "ptxas": ptxas,
         "variants": {f"{k} {label}": v for (k, label), v in variants.items()},
         "launches": launches, "entry_points": printed,
     }

@@ -65,10 +65,8 @@
 
 namespace {
 
-using floxer_banded::head_bits;
+using floxer_banded::column_reg;
 using floxer_banded::kFull;
-using floxer_banded::or_tree;
-using floxer_banded::slide_reg;
 constexpr int kArrays = 9;  // VP VN P0 P1 P2 AM EQ PH MH
 
 // Slide one band array one bit toward word 0; `entering` is the bit that
@@ -262,90 +260,8 @@ __global__ void myers_banded_kernel(
 
 // ---- register kernel -----------------------------------------------------
 
-// One text column on register state. Returns the score delta at the band
-// bottom (meaningful in lane 31 only).
-template <int R, bool kSliding>
-__device__ __forceinline__ int column_reg(
-    uint32_t (&vp)[R], uint32_t (&vn)[R], uint32_t (&p0)[R],
-    uint32_t (&p1)[R], uint32_t (&p2)[R], uint32_t (&am)[R], uint32_t tch,
-    uint32_t pch, uint32_t pessim, int lane) {
-  // 1) band slide: every array moves one bit toward word 0; the row
-  // entering at the bottom gets a pessimistic VP bit and the plane bits of
-  // its pattern char
-  if (kSliding) {
-    const uint32_t head = head_bits(vp[0], vn[0], p0[0], p1[0], p2[0], am[0]);
-    uint32_t nxt = __shfl_down_sync(kFull, head, 1);
-    if (lane == 31) nxt = 1u | ((pch & 7u) << 2);
-    slide_reg<R>(vp, nxt);
-    slide_reg<R>(vn, nxt >> 1);
-    slide_reg<R>(p0, nxt >> 2);
-    slide_reg<R>(p1, nxt >> 3);
-    slide_reg<R>(p2, nxt >> 4);
-    slide_reg<R>(am, nxt >> 5);
-  }
-
-  // 2) Eq from the char bit-planes, and each word's carry generate and
-  // propagate bit of the add eq & vp + vp, as R-bit masks of the lane's
-  // run; they are exclusive (a word that propagates, t == ~0, cannot
-  // overflow)
-  const uint32_t x0 = (tch & 1u) ? 0u : kFull;
-  const uint32_t x1 = (tch & 2u) ? 0u : kFull;
-  const uint32_t x2 = (tch & 4u) ? 0u : kFull;
-  uint32_t eq[R], t[R], gen[R], prop[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    eq[i] = ((p0[i] ^ x0) & (p1[i] ^ x1) & (p2[i] ^ x2)) | am[i];
-    const uint32_t a = eq[i] & vp[i];
-    t[i] = a + vp[i];
-    gen[i] = (t[i] < a ? 1u : 0u) << i;
-    prop[i] = (t[i] == kFull ? 1u : 0u) << i;
-  }
-  const uint32_t gen_run = or_tree<R>(gen);
-  const uint32_t prop_run = or_tree<R>(prop);
-  const uint32_t any_run = gen_run | prop_run;
-  // the run generates a carry (its add from carry-in 0 overflows) or
-  // propagates one (every word propagates)
-  const uint32_t G = (any_run + gen_run) >> R;
-  const bool P = prop_run == (1u << R) - 1u;
-  // carry-lookahead across the 32 lanes in one add, then across the run's
-  // words in another: bit i of `carries` is the carry into word i
-  const uint32_t gm = __ballot_sync(kFull, G != 0u);
-  const uint32_t pm = __ballot_sync(kFull, P);
-  const uint32_t any = gm | pm;
-  const uint32_t carry_in = (((any + gm) ^ any ^ gm) >> lane) & 1u;
-  const uint32_t carries = (any_run + gen_run + carry_in) ^ any_run ^ gen_run;
-
-  // 3) the add with carries and the horizontal deltas; Xv parks in vn
-  uint32_t ph[R], mh[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const uint32_t sum = t[i] + ((carries >> i) & 1u);
-    const uint32_t xh = (sum ^ vp[i]) | eq[i];
-    ph[i] = vn[i] | ~(xh | vp[i]);
-    mh[i] = vp[i] & xh;
-    vn[i] = eq[i] | vn[i];
-  }
-
-  // 4) horizontal deltas shift down one row; the delta entering at word 0
-  // is +1 (pessimistic) once the top stored row is a real row
-  const uint32_t top = (ph[R - 1] >> 31) | ((mh[R - 1] >> 31) << 1);
-  uint32_t hcarry = __shfl_up_sync(kFull, top, 1);
-  if (lane == 0) hcarry = pessim;
-  const uint32_t ph_sh0 = (ph[0] << 1) | (hcarry & 1u);
-  const uint32_t mh_sh0 = (mh[0] << 1) | ((hcarry >> 1) & 1u);
-  vp[0] = mh_sh0 | ~(vn[0] | ph_sh0);
-  vn[0] = ph_sh0 & vn[0];
-#pragma unroll
-  for (int i = 1; i < R; ++i) {
-    const uint32_t ph_sh = __funnelshift_l(ph[i - 1], ph[i], 1);
-    const uint32_t mh_sh = __funnelshift_l(mh[i - 1], mh[i], 1);
-    vp[i] = mh_sh | ~(vn[i] | ph_sh);
-    vn[i] = ph_sh & vn[i];
-  }
-  // 5) the score delta at the band bottom: the top bit of the last word
-  return static_cast<int>(top & 1u) - static_cast<int>(top >> 1);
-}
-
+// Its column body is column_reg<R, kSliding> of myers_banded_column.cuh,
+// which the section ablation (K5) runs too.
 template <int R>
 __global__ void __launch_bounds__(32) myers_banded_reg_kernel(
     const uint32_t* __restrict__ vp0,      // [T, BW]

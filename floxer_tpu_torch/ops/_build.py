@@ -6,10 +6,12 @@ under build/floxer_tpu_torch_kernels/ at first use, then loaded with
 ctypes: the aligner's kernels (csrc/*.cu, `ALIGNER`) and the
 research scripts' kernels (scripts/csrc/*.cu, `SCRIPTS`), so the aligner
 never builds the research kernels. A library's name carries a hash of its
-sources and of the headers beside them (*.cuh, which the sources include
-by a quoted path, so nvcc finds them beside the including file), so an
-edited kernel or header is never served from a stale build. A file
-lock per library keeps concurrent processes from building it twice.
+sources and of the headers they include: those beside them (*.cuh, which
+nvcc finds beside the including file) and any named from elsewhere (the
+scripts' K5 includes the aligner's csrc/myers_banded_column.cuh, whose
+directory goes on nvcc's include path), so an edited kernel or header is
+never served from a stale build. A file lock per library keeps concurrent
+processes from building it twice.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine without nvcc or a GPU.
@@ -62,12 +64,16 @@ class KernelLibrary:
 
     `signatures` maps each C entry point to its argtypes (pointers and the
     stream as c_void_p); every entry returns cudaGetLastError() as an int.
+    `extra_headers` are headers outside `csrc_dir` that its sources
+    include by name.
     """
 
-    def __init__(self, csrc_dir: Path, stem: str, signatures: dict):
+    def __init__(self, csrc_dir: Path, stem: str, signatures: dict,
+                 extra_headers: tuple[Path, ...] = ()):
         self.csrc_dir = csrc_dir
         self.stem = stem
         self.signatures = signatures
+        self.extra_headers = tuple(extra_headers)
         self.last_build_seconds: float | None = None
         self._lock = threading.Lock()
         self._library = None
@@ -78,7 +84,11 @@ class KernelLibrary:
 
     def headers(self) -> list[Path]:
         """The headers the sources include."""
-        return sorted(self.csrc_dir.glob("*.cuh"))
+        return sorted(self.csrc_dir.glob("*.cuh")) + list(self.extra_headers)
+
+    def include_flags(self) -> list[str]:
+        """nvcc's -I for the extra headers' directories."""
+        return [f"-I{d}" for d in sorted({h.parent for h in self.extra_headers})]
 
     def path(self) -> Path:
         digest = hashlib.sha256()
@@ -106,7 +116,8 @@ class KernelLibrary:
                 started = time.monotonic()
                 nvcc = _nvcc()
                 compile_flags = [
-                    *(f for f in NVCC_FLAGS if f != "-shared"), *COMPILE_FLAGS
+                    *(f for f in NVCC_FLAGS if f != "-shared"), *COMPILE_FLAGS,
+                    *self.include_flags(),
                 ]
                 with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
                     objects = [
@@ -272,11 +283,11 @@ SCRIPTS = KernelLibrary(_PACKAGE_DIR / "scripts" / "csrc", "libfloxer_scripts", 
     "floxer_ablate_banded": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     # texts, rows, num_text, variant, out, stream
     "floxer_column_loop": [_P, _I, _I, _I, _P, _P],
-    # texts, rows, num_text, n_carry, n_ops, n_rolls, out, stream
-    "floxer_carry_scaling": [_P, _I, _I, _I, _I, _I, _P, _P],
+    # texts, starts, rows, num_text, n_carry, n_ops, n_rolls, out, stream
+    "floxer_carry_scaling": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
     # texts, jstar, rows, num_text, n_bcast, out, stream
     "floxer_bcast": [_P, _P, _I, _I, _I, _P, _P],
-})
+}, extra_headers=(_PACKAGE_DIR / "csrc" / "myers_banded_column.cuh",))
 
 launch = ALIGNER.launch
 

@@ -1,12 +1,13 @@
 """K5: the banded Myers kernel's column, ablated section by section.
 
-Counterpart of scripts/tpu_ablate_banded_kernel.py. It ablates the port's
-K1 as its shared-memory kernel computes it (csrc/myers_banded.cu, the
-kernel of bands wider than the register kernel's):
-csrc/ablate_banded_kernel.cu is that column body with each section (band
-slide, Eq, carry scan, score, horizontal shift, second stream) behind a
-compile-time flag, one template instance per variant of the script. `ablate_banded` launches it for CUDA
-tensors and runs `ablate_banded_plain` for CPU tensors.
+Counterpart of scripts/tpu_ablate_banded_kernel.py. It ablates the column
+the port's main path runs, K1's register column: csrc/ablate_banded_kernel.cu
+runs `column_reg` of csrc/myers_banded_column.cuh, the body of K1's
+one-warp register kernel, with each section (band slide, Eq, carries,
+score, horizontal shift, second stream) behind a compile-time flag, one
+template instance per variant of the script and band width (128, 256 or
+384 words: CUDA_BAND_WORDS). `ablate_banded` launches it for CUDA tensors
+and runs `ablate_banded_plain` (any multiple of 32 words) for CPU tensors.
 
 It computes the TPU script's function, whose outputs only consume every
 carried array (the sections are broken on purpose; only the time per
@@ -47,7 +48,10 @@ VARIANTS = (
     "nostream2",
     "noslide+noeq+noks+noscore+nohshift+nostream2",
 )
-# csrc/ablate_banded_kernel.cu's compile-time flags
+# the band widths the CUDA kernel is instantiated at (R = 4, 8, 12 words a
+# lane, as K1's register kernel)
+CUDA_BAND_WORDS = (128, 256, 384)
+# csrc/myers_banded_column.cuh's ColumnSection bits
 _FLAGS = {
     "full": 0, "noslide": 1, "noeq": 2, "noks": 4, "noscore": 8,
     "nohshift": 16, "nostream2": 32, "r4": 64,
@@ -94,8 +98,13 @@ def ablate_banded_cuda(vp0, planes0, texts, stream, scalars, variant: str):
     """Launch K5 on the operands' GPU."""
     global LAUNCHES
     _check(vp0, planes0, texts, stream, scalars, variant)
-    require_cuda(vp0, "vp0")
     rows, band_words = vp0.shape
+    if band_words not in CUDA_BAND_WORDS:
+        raise ValueError(
+            f"vp0: {band_words} band words; the CUDA kernel takes "
+            f"{', '.join(map(str, CUDA_BAND_WORDS))} only"
+        )
+    require_cuda(vp0, "vp0")
     dist = torch.empty(rows, dtype=torch.int32, device=vp0.device)
     end = torch.empty(rows, dtype=torch.int32, device=vp0.device)
     with torch.cuda.device(vp0.device):
@@ -224,15 +233,15 @@ def ablate_banded_plain(vp0, planes0, texts, stream, scalars, variant: str):
     return narrow(s_bot + s_m + best + best_end + acc), best_end.to(torch.int32)
 
 
-def script_inputs(num_text: int = NUM_TEXT):
+def script_inputs(num_text: int = NUM_TEXT, band_words: int = BAND_WORDS):
     """The script's seeded inputs (seed 0, in its order): vp0 uint32
-    [32, 256], planes0 uint32 [32, 4, 256], texts and stream int32
-    [32, num_text] (chars 0..4), scalars int32 [32, 6], each in [1,
-    num_text // 2)."""
+    [32, band_words], planes0 uint32 [32, 4, band_words], texts and stream
+    int32 [32, num_text] (chars 0..4), scalars int32 [32, 6], each in [1,
+    num_text // 2). The script's band is 256 words."""
     rng = np.random.default_rng(0)
-    vp0 = rng.integers(0, 2**32, size=(ROWS, BAND_WORDS), dtype=np.uint32)
+    vp0 = rng.integers(0, 2**32, size=(ROWS, band_words), dtype=np.uint32)
     planes0 = rng.integers(
-        0, 2**32, size=(ROWS, 4, BAND_WORDS), dtype=np.uint32
+        0, 2**32, size=(ROWS, 4, band_words), dtype=np.uint32
     )
     texts = rng.integers(0, 5, size=(ROWS, num_text)).astype(np.int32)
     stream = rng.integers(0, 5, size=(ROWS, num_text)).astype(np.int32)

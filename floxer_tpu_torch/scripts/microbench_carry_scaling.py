@@ -8,6 +8,8 @@ conditions per column. Each launches its CUDA kernel
 version for a CPU tensor; a configuration outside the script's lists is
 refused on both routes. Operands: texts int32 [rows, num_text] (chars
 0..4), K8's jstar int32 [rows] -> int32 [rows, 256] holding uint32 words.
+K7 holds its carried arrays in registers, as K1 holds its band, and
+loads their start values from a table the wrapper keeps on each device.
 
     python -m floxer_tpu_torch.scripts.microbench_carry_scaling
 """
@@ -40,6 +42,10 @@ CONFIGS = (
     (10, 80, 12),
 )
 BCASTS = (0, 4, 10, 18)
+# per device, K7's start values: row a holds a + 1 in every word, for the
+# most carried arrays a configuration has (the kernel loads its arrays'
+# starts from memory, so the compiler cannot fold them)
+_STARTS: dict[torch.device, torch.Tensor] = {}
 # kernel launches in this process (read and reset by chip_smoke.py)
 CARRY_LAUNCHES = 0
 BCAST_LAUNCHES = 0
@@ -69,17 +75,28 @@ def carry_scaling(texts: torch.Tensor, n_carry: int, n_ops: int, n_rolls: int):
     return carry_scaling_cuda(texts, n_carry, n_ops, n_rolls)
 
 
+def _starts(device: torch.device) -> torch.Tensor:
+    if device not in _STARTS:
+        carried = max(c for c, _, _ in CONFIGS)
+        _STARTS[device] = (
+            torch.arange(1, carried + 1, dtype=torch.int32, device=device)
+            .view(carried, 1).expand(carried, BAND_WORDS).contiguous()
+        )
+    return _STARTS[device]
+
+
 def carry_scaling_cuda(texts, n_carry, n_ops, n_rolls) -> torch.Tensor:
     """Launch K7 on the texts' GPU."""
     global CARRY_LAUNCHES
     _check_carry(texts, n_carry, n_ops, n_rolls)
     require_cuda(texts, "texts")
     rows, num_text = texts.shape
+    starts = _starts(texts.device)
     out = torch.empty((rows, BAND_WORDS), dtype=torch.int32, device=texts.device)
     with torch.cuda.device(texts.device):
         SCRIPTS.launch(
-            "floxer_carry_scaling", texts.data_ptr(), rows, num_text,
-            n_carry, n_ops, n_rolls, out.data_ptr(),
+            "floxer_carry_scaling", texts.data_ptr(), starts.data_ptr(),
+            rows, num_text, n_carry, n_ops, n_rolls, out.data_ptr(),
             torch.cuda.current_stream(texts.device).cuda_stream,
         )
     CARRY_LAUNCHES += 1

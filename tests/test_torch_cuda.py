@@ -527,15 +527,19 @@ def test_engine_device_mode_matches_host_engine(
 
 
 # the research scripts' kernels K5-K8 (floxer_tpu_torch.scripts) at the
-# scripts' 32 rows and 256 band words, on 512 text columns
+# scripts' 32 rows and 256 band words (K5 also at 128 and 384), on 512
+# text columns
 SCRIPT_TEXT = 512
 
 
+@pytest.mark.parametrize("band_words", ablate_banded_kernel.CUDA_BAND_WORDS)
 @pytest.mark.parametrize("variant", ablate_banded_kernel.VARIANTS)
-def test_ablation_kernel_matches_plain(cuda_device, variant):
-    """K5: each variant equals its plain version; r4 also equals full."""
+def test_ablation_kernel_matches_plain(cuda_device, variant, band_words):
+    """K5: each variant equals its plain version at each band width it is
+    built for; r4 also equals full."""
     operands = ablate_banded_kernel.device_operands(
-        ablate_banded_kernel.script_inputs(SCRIPT_TEXT), cuda_device
+        ablate_banded_kernel.script_inputs(SCRIPT_TEXT, band_words),
+        cuda_device,
     )
     launches = ablate_banded_kernel.LAUNCHES
     got = ablate_banded_kernel.ablate_banded(*operands, variant)
@@ -549,11 +553,11 @@ def test_ablation_kernel_matches_plain(cuda_device, variant):
             assert torch.equal(g.cpu(), f.cpu())
 
 
-@pytest.mark.parametrize("band_words", [128, 256])
+@pytest.mark.parametrize("band_words", [128, 256, 384])
 def test_ablation_full_ends_where_k1_ends(cuda_device, band_words):
-    """K5's column is a copy of K1's (csrc/myers_banded.cu): on K1's
-    operands K5 `full` ends every task at K1's end column, so a change to
-    one kernel's column that the other lacks fails here."""
+    """K5 runs K1's register column (csrc/myers_banded_column.cuh's
+    column_reg): on K1's operands K5 `full` ends every task at K1's end
+    column."""
     rng = np.random.default_rng(band_words + 1)
     patterns, texts = cases(rng, 96, 60, 2000)
     budgets = np.asarray([max(1, len(p) // 10) for p in patterns])
@@ -569,6 +573,59 @@ def test_ablation_full_ends_where_k1_ends(cuda_device, band_words):
     assert ablate_banded_kernel.LAUNCHES == launches + 1
     assert torch.equal(k5_end.cpu(), k1_end.cpu())
     assert bool((k1_end > 0).all())
+
+
+def test_ablation_kernel_refuses_other_widths(cuda_device):
+    """K5 is built at 128, 256 and 384 band words only: another width
+    raises and launches nothing, on the card too."""
+    for band_words in (64, 512):
+        operands = ablate_banded_kernel.device_operands(
+            ablate_banded_kernel.script_inputs(64, band_words), cuda_device
+        )
+        launches = ablate_banded_kernel.LAUNCHES
+        with pytest.raises(ValueError, match="128, 256, 384"):
+            ablate_banded_kernel.ablate_banded(*operands, "full")
+        assert ablate_banded_kernel.LAUNCHES == launches
+
+
+def scripts_instances(usage, kernel, params):
+    """{template arguments: ptxas usage} of one kernel of the scripts'
+    build, its mangled int template arguments read by `params` fields."""
+    import re
+
+    pattern = kernel + "".join([r"ILi(\d+)E"] + [r"Li(\d+)E"] * (params - 1))
+    found = {}
+    for name, entry in usage.items():
+        match = re.search(pattern, name)
+        if match:
+            found[tuple(map(int, match.groups()))] = (name, entry)
+    return found
+
+
+def test_scripts_kernels_registers_and_loops(cuda_device):
+    """ptxas -v of the scripts' build: K5's 27 instances (9 variants x R =
+    4, 8, 12) and K7's 8 keep no stack frame and spill nothing; K7 holds
+    its carried arrays in registers, so carry=14 takes at least 80 more
+    registers than carry=3, and its column loop at least 2 more
+    instructions for each added array word (11 arrays x 8 words)."""
+    from floxer_tpu_torch.ops import _build
+
+    _build.SCRIPTS.load()
+    usage = _build.SCRIPTS.ptxas_usage()
+    k5 = scripts_instances(usage, "ablate_banded_kernel", 2)
+    k7 = scripts_instances(usage, "carry_scaling_kernel", 3)
+    assert len(k5) == 27 and {r for r, _ in k5} == {4, 8, 12}
+    assert sorted(k7) == sorted(microbench_carry_scaling.CONFIGS)
+    for name, entry in list(k5.values()) + list(k7.values()):
+        assert entry.get("stack", 1) == 0, (name, entry)
+        assert entry.get("spill_stores", 1) == 0, (name, entry)
+        assert entry.get("spill_loads", 1) == 0, (name, entry)
+    assert (k7[(14, 0, 0)][1]["registers"]
+            - k7[(3, 0, 0)][1]["registers"]) >= 80
+    loops = _build.sass_loops(_build.SCRIPTS.sass())
+    few, many = (loops[k7[(c, 0, 0)][0]] for c in (3, 14))
+    assert len(few) == len(many) == 1
+    assert many[0] - few[0] >= 2 * 11 * 8
 
 
 @pytest.mark.parametrize("variant", microbench_column_loop.VARIANTS)

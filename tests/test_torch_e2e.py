@@ -8,6 +8,7 @@ and modes ported since must write the reference's SAM."""
 
 import json
 import os
+import socketserver
 import subprocess
 import sys
 import threading
@@ -18,7 +19,7 @@ import pytest
 import torch
 
 from floxer_tpu_torch.cli import parse_and_validate
-from floxer_tpu_torch import pipeline
+from floxer_tpu_torch import pipeline, server
 from floxer_tpu_torch.__main__ import main
 from floxer_tpu_torch.backend import accelerator_available
 from test_e2e import check_output_records, parse_sam
@@ -116,7 +117,9 @@ SERVER_FLAGS = ("--serve", "--server", "--shutdown-server")
 
 def serve_in_thread(sock: str):
     """python -m floxer_tpu_torch --serve SOCK, in a thread of this
-    process; returns (thread, result) once the socket exists."""
+    process; returns (thread, result) once the daemon answers a ping. The
+    socket file appears at bind(), before listen(), so a client that
+    connects as soon as it exists can be refused."""
     result = {}
     thread = threading.Thread(
         target=lambda: result.setdefault("code", main(["--serve", sock])),
@@ -124,10 +127,39 @@ def serve_in_thread(sock: str):
     )
     thread.start()
     deadline = time.monotonic() + 60
-    while not os.path.exists(sock) and time.monotonic() < deadline:
+    while True:
+        try:
+            if server._request(sock, {"op": "ping"}) == 0:
+                return thread, result
+        except (ConnectionRefusedError, FileNotFoundError):
+            pass
+        assert time.monotonic() < deadline, "the server did not answer a ping"
         time.sleep(0.05)
-    assert os.path.exists(sock), "the server did not create its socket"
-    return thread, result
+
+
+def test_serve_in_thread_waits_until_the_server_listens(
+    tmp_path, data_dir, reference_sam, monkeypatch
+):
+    """A daemon slow between bind() and listen() (server_activate delayed
+    by 0.5 s): the helper still returns a server that answers a job."""
+    activate = socketserver.TCPServer.server_activate
+
+    def slow_activate(self):
+        time.sleep(0.5)
+        activate(self)
+
+    monkeypatch.setattr(socketserver.TCPServer, "server_activate",
+                        slow_activate)
+    sock = str(tmp_path / "sock")
+    output = tmp_path / "out.sam"
+    thread, result = serve_in_thread(sock)
+    try:
+        assert main(["--server", sock, *cli_args(data_dir, output)]) == 0
+        assert output.read_bytes() == reference_sam
+    finally:
+        assert main(["--shutdown-server", sock]) == 0
+        thread.join(timeout=60)
+    assert not thread.is_alive() and result["code"] == 0
 
 
 @pytest.mark.parametrize(

@@ -233,6 +233,231 @@ def test_ablation_full_ends_where_k1_ends(seed):
     assert (k1_end.numpy() > 0).all()
 
 
+FULL = np.uint32(0xFFFFFFFF)
+
+
+def _shfl_up(x, d, fill=0):
+    """__shfl_up_sync over axis 1 (lanes): lane l reads lane l - d; the
+    lanes below d read `fill` (each caller's value for them)."""
+    out = np.empty_like(x)
+    out[:, d:] = x[:, :-d]
+    out[:, :d] = fill
+    return out
+
+
+def _radix4_scan(G, P):
+    """myers_banded_column.cuh's radix4_scan on [rows, 32] lanes: the
+    inclusive scan of (G, P) in rounds of shuffles at d, 2d, 3d."""
+    gp = G | (P.astype(np.uint32) << np.uint32(1))
+    d = 1
+    while d < 32:
+        s1 = _shfl_up(gp, d)
+        cg, cp = gp & 1, gp >> 1
+        if 2 * d < 32:
+            s2, s3 = _shfl_up(gp, 2 * d), _shfl_up(gp, 3 * d)
+            q1 = cp & (s1 >> 1)
+            q2 = q1 & (s2 >> 1)
+            cg = cg | (cp & s1 & 1) | (q1 & s2 & 1) | (q2 & s3 & 1)
+            cp = q2 & (s3 >> 1)
+        else:
+            cg = cg | (cp & s1 & 1)
+            cp = cp & (s1 >> 1)
+        gp = cg | (cp << np.uint32(1))
+        d *= 4
+    return gp & 1
+
+
+def emulate_k5(inputs, variant: str):
+    """K5 as its CUDA kernel schedules it (csrc/ablate_banded_kernel.cu on
+    csrc/myers_banded_column.cuh's column_reg), in numpy: [rows, 32 lanes,
+    R words] uint32 arrays, lane l holding the band words [lR, (l+1)R);
+    per column the slide's head shuffle down with lane 31 taking the
+    entering row, the words' generate and propagate bits as per-run masks,
+    the lanes' carries by the ballot look-ahead (or, for r4, the radix-4
+    scan with shuffles at d, 2d, 3d), the in-run carries from the same
+    identity, the shift's top bits shuffled up with lane 0 taking the
+    pessimistic bit; then the sliding and the frozen loops' score updates
+    in lane 31. Returns (dist, end) int32 [rows]."""
+    off = k5._sections_off(variant) - {"full"}
+    vp0, planes0, texts, stream, scalars = inputs
+    rows, band_words = vp0.shape
+    R = band_words // 32
+    one = np.uint32(1)
+    lane = np.arange(32, dtype=np.uint32)[None, :]
+
+    def runs(a):
+        return np.ascontiguousarray(a, dtype=np.uint32).reshape(rows, 32, R)
+
+    vp, p0, p1, p2, am = runs(vp0), *(runs(planes0[:, k]) for k in range(4))
+    vn = np.zeros_like(vp)
+    tlen, jstar, topshift, mfrozen, minit, binit = scalars.astype(np.int64).T
+    s_bot, s_m, best = binit.copy(), minit.copy(), minit.copy()
+    best_end = np.zeros(rows, dtype=np.int64)
+    num_text = texts.shape[1]
+    slide_end = np.minimum(jstar, num_text)
+    for col in range(1, num_text + 1):
+        sliding = col <= slide_end
+        tch = texts[:, col - 1].astype(np.uint32)[:, None, None]
+        pch = stream[:, col - 1].astype(np.uint32)
+        if "nostream2" in off:
+            pch = np.zeros_like(pch)
+        if "noslide" not in off:
+            head = ((vp[:, :, 0] & 1) | ((vn[:, :, 0] & 1) << one)
+                    | ((p0[:, :, 0] & 1) << np.uint32(2))
+                    | ((p1[:, :, 0] & 1) << np.uint32(3))
+                    | ((p2[:, :, 0] & 1) << np.uint32(4))
+                    | ((am[:, :, 0] & 1) << np.uint32(5)))
+            nxt = np.empty_like(head)
+            nxt[:, :31] = head[:, 1:]
+            nxt[:, 31] = 1 | ((pch & 7) << np.uint32(2))
+            slid = []
+            for bit, x in enumerate((vp, vn, p0, p1, p2, am)):
+                above = np.concatenate(
+                    [x[:, :, 1:], ((nxt >> np.uint32(bit)) & 1)[:, :, None]],
+                    axis=2,
+                )
+                shifted = (x >> one) | (above << np.uint32(31))
+                slid.append(np.where(sliding[:, None, None], shifted, x))
+            vp, vn, p0, p1, p2, am = slid
+        if "noeq" in off:
+            eq = p0 ^ p1 ^ p2 ^ am ^ tch
+        else:
+            x0, x1, x2 = (np.where(tch & np.uint32(b), np.uint32(0), FULL)
+                          for b in (1, 2, 4))
+            eq = ((p0 ^ x0) & (p1 ^ x1) & (p2 ^ x2)) | am
+        a = eq & vp
+        t = a + vp
+        carries = np.zeros((rows, 32), dtype=np.uint32)
+        if "noks" not in off:
+            word = np.arange(R, dtype=np.uint32)[None, None, :]
+            gen_run = ((t < a).astype(np.uint32) << word).sum(
+                axis=2, dtype=np.uint32)
+            prop_run = ((t == FULL).astype(np.uint32) << word).sum(
+                axis=2, dtype=np.uint32)
+            any_run = gen_run | prop_run
+            G = (any_run + gen_run) >> np.uint32(R)
+            P = prop_run == np.uint32((1 << R) - 1)
+            if "r4" in off:
+                carry_in = _shfl_up(_radix4_scan(G, P), 1)
+            else:
+                gm = ((G != 0).astype(np.uint64) << lane).sum(
+                    axis=1, dtype=np.uint64)[:, None]
+                pm = (P.astype(np.uint64) << lane).sum(
+                    axis=1, dtype=np.uint64)[:, None]
+                any_ = gm | pm
+                carry_in = ((((any_ + gm) ^ any_ ^ gm) >> lane) & 1).astype(
+                    np.uint32)
+            carries = (any_run + gen_run + carry_in) ^ any_run ^ gen_run
+        word = np.arange(R, dtype=np.uint32)[None, None, :]
+        summ = t + ((carries[:, :, None] >> word) & 1)
+        xh = (summ ^ vp) | eq
+        ph = vn | ~(xh | vp)
+        mh = vp & xh
+        vn = eq | vn
+        top = (ph[:, :, -1] >> np.uint32(31)) | (
+            (mh[:, :, -1] >> np.uint32(31)) << one)
+        if "nohshift" in off:
+            ph_sh, mh_sh = ph, mh
+        else:
+            pessim = np.where(sliding, col >= topshift, mfrozen != 0)
+            hcarry = _shfl_up(top, 1)
+            hcarry[:, 0] = pessim
+            below_ph = np.concatenate(
+                [(hcarry & 1)[:, :, None], ph[:, :, :-1] >> np.uint32(31)],
+                axis=2)
+            below_mh = np.concatenate(
+                [((hcarry >> one) & 1)[:, :, None],
+                 mh[:, :, :-1] >> np.uint32(31)], axis=2)
+            ph_sh = (ph << one) | below_ph
+            mh_sh = (mh << one) | below_mh
+        vp = mh_sh | ~(vn | ph_sh)
+        vn = ph_sh & vn
+        d = (top[:, 31] & 1).astype(np.int64) - (top[:, 31] >> one)
+        if "noslide" not in off:
+            s_bot = s_bot + sliding
+        if "noscore" in off:
+            best, best_end = best + 1, best_end + 1
+            continue
+        s_bot = s_bot + d
+        # the frozen loop; then, after the sliding loop's last column j*,
+        # row m at the band bottom
+        s_m = np.where(sliding, s_m, s_m + d)
+        reaches = sliding & (col == jstar)
+        s_m = np.where(reaches, s_bot, s_m)
+        improves = (reaches | ~sliding) & (col < tlen) & (s_m <= best)
+        best = np.where(improves, s_m, best)
+        best_end = np.where(improves, col, best_end)
+    acc = (vp ^ vn ^ p0 ^ p1 ^ p2 ^ am)[:, 31, R - 1].astype(np.int64)
+    dist = (s_bot + s_m + best + best_end + acc) & 0xFFFFFFFF
+    return (dist.astype(np.uint32).view(np.int32),
+            best_end.astype(np.int32))
+
+
+def _bit_planes(bits: np.ndarray) -> np.ndarray:
+    """[rows, words, 32] bits (bit b of word w at [:, w, b]) -> uint32
+    [rows, words]."""
+    weights = np.uint32(1) << np.arange(32, dtype=np.uint32)
+    return (bits.astype(np.uint32) * weights).sum(axis=2, dtype=np.uint32)
+
+
+def emulation_inputs(R: int, num_text: int = 64):
+    """4 rows of a band of 32 R words as K1 starts one (Vp all ones, the
+    char planes of a pattern of chars 1..4, a rare all-match bit), where
+    the carries run across words and lanes: a row that slides to j*
+    mid-text and scores, one that slides the whole text, one frozen from
+    the start with tlen 3, and a seeded one."""
+    rng = np.random.default_rng(R)
+    band_words = 32 * R
+    vp0 = np.full((4, band_words), 0xFFFFFFFF, dtype=np.uint32)
+    chars = rng.integers(1, 5, size=(4, band_words, 32))
+    all_match = rng.random((4, band_words, 32)) < 0.002
+    planes0 = np.stack(
+        [_bit_planes((chars >> b) & 1) for b in range(3)]
+        + [_bit_planes(all_match)], axis=1,
+    )
+    texts = rng.integers(0, 5, size=(4, num_text)).astype(np.int32)
+    stream = rng.integers(0, 5, size=(4, num_text)).astype(np.int32)
+    scalars = np.array([
+        [num_text + 5, num_text // 3, 5, 1, 30, 10],
+        [num_text // 2, num_text + 4, num_text // 4, 0, 12, 40],
+        [3, 0, 0, 1, 7, 2],
+        rng.integers(0, num_text + 8, size=6),
+    ], dtype=np.int32)
+    return vp0, planes0, texts, stream, scalars
+
+
+@pytest.mark.parametrize("R", [1, 4])
+@pytest.mark.parametrize("variant", k5.VARIANTS)
+def test_k5_schedule_emulation_matches_plain(variant, R):
+    """emulate_k5, the CUDA kernel's lane schedule, computes the plain
+    version's function under every variant; r4 equals full."""
+    inputs = emulation_inputs(R)
+    dist, end = emulate_k5(inputs, variant)
+    want = k5.ablate_banded_plain(
+        *k5.device_operands(inputs, torch.device("cpu")), variant
+    )
+    np.testing.assert_array_equal(dist, want[0].numpy())
+    np.testing.assert_array_equal(end, want[1].numpy())
+    if variant == "r4":
+        full = emulate_k5(inputs, "full")
+        np.testing.assert_array_equal(dist, full[0])
+
+
+def test_cuda_wrapper_refuses_other_band_widths():
+    """The CUDA kernel is built at 128, 256 and 384 band words; another
+    width is refused before the device is looked at, never sent to the
+    plain version."""
+    for band_words in (64, 512):
+        operands = k5.device_operands(
+            k5.script_inputs(64, band_words), torch.device("cpu")
+        )
+        before = k5.LAUNCHES
+        with pytest.raises(ValueError, match="128, 256, 384"):
+            k5.ablate_banded_cuda(*operands, "full")
+        assert k5.LAUNCHES == before
+    assert k5.CUDA_BAND_WORDS == (128, 256, 384)
+
+
 def test_launch_wrappers_refuse_cpu_tensors():
     texts = torch.from_numpy(texts_for(0))
     jstar = torch.zeros(32, dtype=torch.int32)
@@ -365,8 +590,10 @@ def test_an_edited_header_changes_the_library(tmp_path):
     """A library's name hashes the headers beside its sources too (the
     aligner's K2 and K3 include csrc/myers_full_column.cuh, K1's two
     register kernels csrc/myers_banded_column.cuh, K9-K9l, K10, K11 and
-    K12 csrc/fm_rank.cuh), so an edited header is never served from a stale
-    build; nvcc compiles the .cu files only."""
+    K12 csrc/fm_rank.cuh), and the headers it names from elsewhere (the
+    scripts' K5 that same csrc/myers_banded_column.cuh), so an edited
+    header is never served from a stale build; nvcc compiles the .cu files
+    only."""
     from floxer_tpu_torch.ops import _build
 
     assert [h.name for h in _build.ALIGNER.headers()] == [
@@ -381,6 +608,64 @@ def test_an_edited_header_changes_the_library(tmp_path):
     before = library.path()
     (csrc / "a.cuh").write_text("// two\n")
     assert library.path() != before
+    # the scripts' K5 includes the aligner's K1 column header from csrc/:
+    # the scripts library (here over copies of its sources and that
+    # header) hashes it too
+    column = ROOT / "floxer_tpu_torch" / "csrc" / "myers_banded_column.cuh"
+    assert column in _build.SCRIPTS.headers()
+    scripts = tmp_path / "scripts"
+    scripts.mkdir()
+    for source in _build.SCRIPTS.sources():
+        (scripts / source.name).write_bytes(source.read_bytes())
+    shared = tmp_path / "aligner_csrc" / column.name
+    shared.parent.mkdir()
+    shared.write_bytes(column.read_bytes())
+    library = _build.KernelLibrary(scripts, "libtest", {}, (shared,))
+    before = library.path()
+    shared.write_bytes(column.read_bytes() + b"// edited\n")
+    assert library.path() != before
+
+
+def test_the_scripts_library_compiles_with_the_column_headers_directory(
+    tmp_path, monkeypatch
+):
+    """nvcc compiles each of the scripts' sources with -I<the directory of
+    K1's column header>, which K5 includes by name."""
+    from floxer_tpu_torch.ops import _build
+
+    column = ROOT / "floxer_tpu_torch" / "csrc" / "myers_banded_column.cuh"
+    assert _build.SCRIPTS.include_flags() == [f"-I{column.parent}"]
+    shared = tmp_path / "include" / column.name
+    shared.parent.mkdir()
+    shared.write_text("// a header\n")
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("a.cu", "b.cu"):
+        (csrc / name).write_text(f'#include "{column.name}"\n')
+    library = _build.KernelLibrary(csrc, "libtest", {}, (shared,))
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text(FAKE_NVCC_ARGS)
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    library._build(library.path())
+    compiles = [line for line in library.log_path().read_text().splitlines()
+                if " -c " in line]
+    assert len(compiles) == 2
+    assert all(f" -I{shared.parent} " in f"{line} " for line in compiles)
+
+
+FAKE_NVCC_ARGS = """#!/bin/sh
+# writes its -o target; a compile prints its arguments
+out=""; prev=""
+for arg in "$@"; do
+  [ "$prev" = "-o" ] && out="$arg"
+  prev="$arg"
+done
+case " $* " in *" -c "*) echo "nvcc $*";; esac
+echo built > "$out"
+"""
 
 
 FAKE_NVCC_PTXAS = """#!/bin/sh
