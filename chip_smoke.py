@@ -12,8 +12,10 @@ Phases, one line each on stdout, any failure exits non-zero:
   ptxas    what nvcc -Xptxas -v reported, in the aligner's own build, for
            every instance of the register kernels: K1's
            myers_banded_reg_kernel<R> and multi-warp
-           myers_banded_wide_kernel, K3's myers_large_reg_kernel<R> and
-           multi-warp myers_large_wide_kernel, and K2's
+           myers_banded_wide_kernel and cluster
+           myers_banded_cluster_kernel<Q> (Q = 1, 2, 4), K3's
+           myers_large_reg_kernel<R>, multi-warp myers_large_wide_kernel
+           and cluster myers_large_cluster_kernel, and K2's
            myers_small_kernel<G>, and of the device search's kernels
            (K9, K9x, K9l, K10, K11, K12):
            registers, stack and spill bytes (a spill or a stack frame
@@ -25,12 +27,13 @@ Phases, one line each on stdout, any failure exits non-zero:
            kernels: the register kernel at every instantiated width, the
            multi-warp kernel at the SWEEP_WIDE_BANDS widths and the
            shared-memory kernel at those and at a
-           2176-word band (past the multi-warp kernel's widest), each
+           2176-word band (past the multi-warp kernel's widest, beside the
+           cluster kernel), each
            against the plain version (run on CPU copies of the operands in
            worker processes that start before the build), and each width
            past the register kernel's driven once through myers_banded
            with the counts at 0 (it must take the multi-warp kernel, at
-           2176 words the shared-memory one). K1 at the 20 kb root shape, on the 256
+           2176 words the cluster one). K1 at the 20 kb root shape, on the 256
            band words its tasks need and on the 384 the fused wave runs its
            root level at: the register kernel against the plain version
            (run on the CPU in workers), the native host engine, the
@@ -43,7 +46,8 @@ Phases, one line each on stdout, any failure exits non-zero:
            the register kernel at every instance (Wp = 32..512 words,
            tasks of 1 to Wp/32 groups in one launch), the multi-warp kernel
            at 544, 1280 and 2048 words (tasks spread up to the width's last
-           group) and the shared-memory kernel at those and at 2080 words,
+           group) and the shared-memory kernel at those and at 2080 words
+           (beside the cluster kernel there),
            each against the plain version, each width past the register
            kernel's driven once through myers_large with the counts at 0,
            and the register and shared-memory kernels timed in turns at
@@ -73,7 +77,19 @@ Phases, one line each on stdout, any failure exits non-zero:
            1280 pattern words; each width driven once through the routing
            entry with the counts at 0; each with its bound; and the plain
            versions once on the CPU in workers, on K1's 1024 words and
-           on K3's shape, every kernel equal to them
+           on K3's shape, every kernel equal to them; and the cluster
+           kernels at theirs, in turns with the shared-memory kernels (one
+           launch a turn) and held to them and to the native host engine:
+           K1u at 8 roots of 200 kb reads (k = 30000) on 3200 band words,
+           K3u at 8 roots of 100 kb reads with 60 kb on the chromosome on
+           3200 pattern words; each with its bound, the share's ceiling
+           (the SMs its clusters hold) and the clusters the card holds
+  cluster_sweep  K1u and K3u at CLUSTER_SWEEP_WIDTHS (2176 to the widest,
+           16384 words; F3's 6528 among them) on tasks of at most 2000
+           columns (K1u's on deep bands whose rows reach every warp, tlen
+           0 and 1 among them; K3u's spread to the width's last group),
+           each against its plain version run in the sweep workers, each
+           width once through the routing entry with the counts at 0
   scripts  the research scripts' kernels K5-K8 (floxer_tpu_torch.scripts):
            every variant against its plain version on the card at
            COMPARE_TEXT columns (exact); K5 full at K1's end columns on
@@ -188,12 +204,24 @@ Phases, one line each on stdout, any failure exits non-zero:
            seconds; then pass E again under --profile and with the
            roots' CIGARs by K4 (FLOXER_TPU_DEVICE_TRACEBACK=1, its 16- or
            32-cell layout), its device time by kernel from the trace
+  ultra_reads  pass J: on pass E's genome at its -p, one read of 100 kb
+           at 12% error (the longest the aligner takes), one of 100 kb
+           that runs off the chromosome's end with 60 kb on it and one of
+           200 kb (ULTRA_READ, ULTRA_OVERHANG, ULTRA_SKIPPED), --engine
+           device against its own pass B: the overhanging read's root runs
+           full past 2048 pattern words (K3u) and its merged root windows
+           take bands past 2048 words (K1u), no shared-memory launch; the
+           200 kb read skipped by both passes; SAM identical; the widths
+           the cluster kernels ran, the launches by kernel and
+           device_kernel_s beside pass E's
 Each path is driven with the launch counts set to 0 just before it and
 read just after (server jobs report theirs in their stage split line). The
 line before the last is the kernel table as JSON (K1 at the 384-word
 root band, K1w and K1s at pass E's 1024-word root shape, K3w and K3s at
-its 1280-word overhang shape; K1-K3 launches of pass A, the multi-warp
-and shared-memory K1's and K3's of pass E, K4 of pass C, its wider
+its 1280-word overhang shape, K1u and K3u at their 200 kb and 100 kb
+shapes with their plain ms at the sweep's 3200 words; K1-K3 launches of
+pass A, the multi-warp K1's and K3's of pass E, the cluster ones of pass
+J, the shared-memory ones of passes E and J, K4 of pass C, its wider
 layouts' of passes C and E under --profile, K5-K8 of the entry points'
 run, K9, K9x, K9l and K10 of pass G: K10 a launch a generation of each
 chunk's search, and K9, K9x and
@@ -266,8 +294,9 @@ ENQUEUE_CYCLES = 20_000_000
 # K1's exactness sweep: seeded cases per band width (every width of the
 # register kernel; SWEEP_WIDE_CASES at SWEEP_WIDE_BANDS for the
 # multi-warp kernel's instances, then at WIDE_BAND_WORDS, wider than its
-# widest, for the shared-memory kernel), and the processes that run the
-# plain versions (K1's, and K3's past the register kernel's widest)
+# widest, for the shared-memory kernel and the cluster kernel), and the
+# processes that run the plain versions (K1's, and K3's past the register
+# kernel's widest)
 SWEEP_CASES = 48
 SWEEP_WIDE_CASES = 16
 SWEEP_WIDE_BANDS = (640, 1024, 2048)
@@ -276,9 +305,9 @@ SWEEP_WORKERS = 3
 # K3's exactness sweep: seeded tasks per width (every instance of the
 # register kernel; SWEEP_WIDE_LARGE (words, longest pattern) for the
 # multi-warp kernel, its tasks spread up to that pattern's group; then
-# WIDE_LARGE_WORDS, wider than its widest, for the shared-memory kernel,
-# on patterns of up to WIDE_LARGE_CHARS chars); K2's takes 75 tasks at
-# every W
+# WIDE_LARGE_WORDS, wider than its widest, for the shared-memory kernel
+# and the cluster kernel, on patterns of up to WIDE_LARGE_CHARS chars);
+# K2's takes 75 tasks at every W
 LARGE_CASES = 12
 SWEEP_WIDE_LARGE = ((544, None), (1280, 20_480), (2048, 16_384))
 WIDE_LARGE_WORDS = 2080
@@ -292,13 +321,30 @@ WIDE_LARGE_CHARS = 3000
 # length, pattern words)
 LONG_ROOT_SHAPE = (64, 40_000, 6_000, 7_800, (1024, 640, 2048))
 OVERHANG_SHAPE = (64, 40_000, 25_000, 30_000, 1280)
+# the cluster kernels' shapes (K1u, K3u), timed in turns with the
+# shared-memory kernels on the same operands and held to the native host
+# engine: K1u at the roots of 200 kb reads at -p 0.15 (tasks, pattern
+# length, budget, window chars past m, band words) and K3u at 100 kb
+# reads that run off a chromosome's end with 60 kb on it (tasks, pattern
+# length, chars of it from the window's end, window length, pattern words)
+ULTRA_ROOT_SHAPE = (8, 200_000, 30_000, 39_000, 3200)
+ULTRA_OVERHANG_SHAPE = (8, 100_000, 60_000, 60_000, 3200)
 # timed launches a turn of the shared-memory kernels at those shapes
-# (~0.2 s each)
+# (~0.2 s each at pass E's, seconds at the cluster kernels')
 LONG_SHARED_REPEATS = 1
-# K1's plain versions, the longest of the CPU plain versions, run in
-# this many workers each (at the root shape on each band, and at pass E's
-# long root shape), each worker on its share of the tasks
-K1_PLAIN_PARTS = 2
+# the cluster kernels' exactness sweep: every width (band words for K1u,
+# pattern words for K3u; F3's 6528 and the widest among them), on
+# deep_band_cases / full_myers_operands tasks of at most
+# CLUSTER_SWEEP_COLUMNS text columns (two more of tlen 0 and 1 at K1u's),
+# each against its plain version in a sweep worker
+CLUSTER_SWEEP_WIDTHS = (2176, 3200, 4096, 6528, 8192, 16384)
+CLUSTER_SWEEP_TASKS = 4
+CLUSTER_SWEEP_COLUMNS = 2000
+# K1's plain versions and K3w's at pass E's overhang shape, the longest of
+# the CPU plain versions, run in this many workers each (at the root shape
+# on each band, at pass E's long root shape and its overhang shape), each
+# worker on its share of the tasks, the longest parts submitted first
+K1_PLAIN_PARTS = 4
 # the card's memory rate for the bounds (NVIDIA's H100 SXM data sheet) and
 # its int32 issue rate per SM and clock: four sub-partitions, each
 # dispatching one 32-lane warp instruction per clock, to the integer pipe
@@ -334,6 +380,17 @@ LONG_READS = (1_000_000, 6, 40_000, 0.12, 0.15)
 # pass E also maps reads that run off the chromosome's end: how many, and
 # how many of their chars come from the chromosome (the rest is random)
 OVERHANG_READS = (2, 25_000)
+# pass J, on pass E's genome at its -p: one read of ULTRA_READ[0] chars at
+# ULTRA_READ[1] error, the longest the aligner takes (floxer, and both
+# packages after it, skip a query past 100,000 chars:
+# io/sequence_io.py's MAX_ALLOWED_QUERY_LENGTH); one of ULTRA_OVERHANG[0]
+# chars that runs off the chromosome's end with ULTRA_OVERHANG[1] of them
+# on it, whose root runs full on more than 2048 pattern words (K3u) and
+# whose merged root windows take bands past 2048 words (K1u); and one of
+# ULTRA_SKIPPED chars at ULTRA_READ[1] error, which both passes skip
+ULTRA_READ = (100_000, 0.12)
+ULTRA_OVERHANG = (100_000, 60_000)
+ULTRA_SKIPPED = 200_000
 # pass F: processes joined in one process set on the one card, and how
 # long each may take
 PROCESS_SET = 2
@@ -537,6 +594,47 @@ def k3_sweep_cases(seed):
     return cases
 
 
+def cluster_sweep_cases(seed):
+    """The cluster kernels' sweep, at every CLUSTER_SWEEP_WIDTHS width:
+    ([(band_words, K1 operands as numpy arrays, num_text)], [(words, K3
+    operands as numpy arrays)]). K1u's: CLUSTER_SWEEP_TASKS deep bands
+    (deep_band_cases: pattern rows in every warp from the first column,
+    chars 6..15 in some texts) and two band_cases tasks whose tlen is set
+    to 0 and 1; K3u's: full_myers_operands' tasks spread from one group to
+    the width's last (m == 0, tlen 0 and 1 among them), each text cut to
+    CLUSTER_SWEEP_COLUMNS columns."""
+    import numpy as np
+    import torch
+
+    from floxer_tpu_torch.ops.cuda_myers_banded import (
+        band_cases,
+        banded_operands,
+        deep_band_cases,
+    )
+    from floxer_tpu_torch.ops.myers import full_myers_operands
+
+    rng = np.random.default_rng(seed)
+    cpu = torch.device("cpu")
+    k1_cases, k3_cases = [], []
+    for width in CLUSTER_SWEEP_WIDTHS:
+        patterns, texts, budgets = deep_band_cases(
+            rng, CLUSTER_SWEEP_TASKS, width, CLUSTER_SWEEP_COLUMNS)
+        more = band_cases(rng, 2, width)
+        texts_u8, lens = pad(texts + more[1])
+        lens[-2:] = (0, 1)
+        operands, num_text = banded_operands(
+            patterns + more[0], texts_u8, lens,
+            np.concatenate([budgets, more[2]]), width, cpu,
+        )
+        k1_cases.append((width, [t.numpy() for t in operands], num_text))
+        args = full_myers_operands(
+            rng, CLUSTER_SWEEP_TASKS + 2, width, False, cpu, spread=True,
+            max_columns=CLUSTER_SWEEP_COLUMNS,
+        )
+        k3_cases.append((width, [t.numpy() for t in args]))
+    return k1_cases, k3_cases
+
+
 def _k3_plain(case):
     """K3's plain version on one sweep case, on the CPU (worker process)."""
     import torch
@@ -616,6 +714,35 @@ def long_shape_inputs():
         patterns.append(mutate(rng, window[offset : offset + m], 0.12)[:m])
         texts.append(window)
     B, m3, inside, n3, words = OVERHANG_SHAPE
+    patterns3, texts3 = [], []
+    for _ in range(B):
+        start = int(rng.integers(0, len(genome) - n3))
+        window = genome[start : start + n3]
+        read = mutate(rng, window[n3 - inside :], 0.12)
+        tail = rng.integers(1, 5, size=max(0, m3 - len(read)))
+        patterns3.append(np.concatenate([read, tail]).astype(np.uint8)[:m3])
+        texts3.append(window)
+    return (patterns, texts), (patterns3, texts3)
+
+
+def ultra_shape_inputs():
+    """The cluster kernels' long shapes from their seed (SEED + 4): K1u's
+    roots of 200 kb reads (patterns, texts) and K3u's overhanging roots
+    (patterns, texts), as long_shape_inputs makes pass E's."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 4)
+    genome = rng.integers(1, 5, size=2_000_000).astype(np.uint8)
+    T, m, k, extra, _ = ULTRA_ROOT_SHAPE
+    patterns, texts = [], []
+    for _ in range(T):
+        n = m + extra + int(rng.integers(0, 400))
+        start = int(rng.integers(0, len(genome) - n))
+        window = genome[start : start + n]
+        offset = int(rng.integers(0, extra // 2))
+        patterns.append(mutate(rng, window[offset : offset + m], 0.12)[:m])
+        texts.append(window)
+    B, m3, inside, n3, _ = ULTRA_OVERHANG_SHAPE
     patterns3, texts3 = [], []
     for _ in range(B):
         start = int(rng.integers(0, len(genome) - n3))
@@ -729,16 +856,19 @@ class JoinedResult:
         return outputs, sum(seconds for _, seconds in results)
 
 
-def _long_k3_plain():
-    """K3's plain version at pass E's overhang shape (CPU worker)."""
+def _long_k3_plain(part):
+    """K3's plain version at pass E's overhang shape, on part `part` of
+    K1_PLAIN_PARTS equal parts of the tasks (CPU worker)."""
     import torch
 
     from floxer_tpu_torch.ops.cuda_myers_large import myers_large_plain
     from floxer_tpu_torch.ops.myers import u32_tensor
 
     _, (patterns3, texts3) = long_shape_inputs()
-    peq, plen, txt, tlen = k3_overhang_operands(patterns3, texts3,
-                                                OVERHANG_SHAPE[4])
+    size = OVERHANG_SHAPE[0] // K1_PLAIN_PARTS
+    tasks = slice(part * size, (part + 1) * size)
+    peq, plen, txt, tlen = k3_overhang_operands(
+        patterns3[tasks], texts3[tasks], OVERHANG_SHAPE[4])
     cpu = torch.device("cpu")
     args = (u32_tensor(peq, cpu), torch.from_numpy(plen),
             torch.from_numpy(txt), torch.from_numpy(tlen))
@@ -1102,19 +1232,19 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain, large_sweep,
                        ("shared", cuda_myers_banded.myers_banded_shared)]
         else:
             wide = band_words in cuda_myers_banded.WIDE_BAND_WORDS
-            kernels = [("shared", cuda_myers_banded.myers_banded_shared)]
-            if wide:
-                kernels.insert(0, ("wide",
-                                   cuda_myers_banded.myers_banded_wide))
+            kernels = [("wide", cuda_myers_banded.myers_banded_wide) if wide
+                       else ("cluster",
+                             cuda_myers_banded.myers_banded_cluster),
+                       ("shared", cuda_myers_banded.myers_banded_shared)]
             # the band through the routing entry, counted alone: it must
-            # take the multi-warp kernel, past its widest the shared one
+            # take the multi-warp kernel, past its widest the cluster one
             reset_launches()
             cuda_myers_banded.myers_banded(*sweep_args)
             torch.cuda.synchronize()
             routed = launch_split(cuda_myers_banded)
-            expected = (0, 1, 0) if wide else (0, 0, 1)
+            expected = (0, 1, 0, 0) if wide else (0, 0, 1, 0)
             check(routed == expected, f"a {band_words}-word band took the "
-                  f"kernels (register, wide, shared) {routed} times")
+                  f"kernels {SPLIT_KERNELS} {routed} times")
         for name, kernel in kernels:
             got = [t.cpu().numpy() for t in kernel(*sweep_args)]
             err = max(int(np.max(np.abs(g.astype(np.int64) - w)))
@@ -1125,7 +1255,7 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain, large_sweep,
         sweep_errors[f"plain_cpu_s BW={band_words}"] = plain_s
     sweep_fields = {
         "tasks_per_width": SWEEP_CASES, "max_abs_err": sweep_errors,
-        "routed_past_register": "multi-warp at SWEEP_WIDE_BANDS, shared "
+        "routed_past_register": "multi-warp at SWEEP_WIDE_BANDS, cluster "
                                 f"at {WIDE_BAND_WORDS}",
         "plain_wait_s": sweep_wait_s,
     }
@@ -1222,18 +1352,18 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain, large_sweep,
         else:
             args = tuple(to_dev(a) for a in wide_arrays[words])
             past = words > cuda_myers_large.WIDE_WORDS
-            kernels = ("shared",) if past else ("wide", "shared")
+            kernels = ("cluster" if past else "wide", "shared")
             want, _ = large_results[words]
             # the pattern state through the routing entry, counted alone:
             # it must take the multi-warp kernel, past its widest the
-            # shared-memory one
+            # cluster one
             reset_launches()
             cuda_myers_large.myers_large(*args)
             torch.cuda.synchronize()
             routed = launch_split(cuda_myers_large)
-            expected = (0, 0, 1) if past else (0, 1, 0)
+            expected = (0, 0, 1, 0) if past else (0, 1, 0, 0)
             check(routed == expected, f"{words} pattern words took the K3 "
-                  f"kernels (register, wide, shared) {routed} times")
+                  f"kernels {SPLIT_KERNELS} {routed} times")
         for name in kernels:
             kernel = getattr(cuda_myers_large, f"myers_large_{name}")
             got = [t.cpu().numpy() for t in kernel(*args)]
@@ -1352,7 +1482,7 @@ def run_long_shapes(device, peaks):
         args = (*operands, band_words, num_text)
         reset_launches()
         routed = [t.cpu().numpy() for t in k1.myers_banded(*args)]
-        check(launch_split(k1) == (0, 1, 0), f"a {band_words}-word long "
+        check(launch_split(k1) == (0, 1, 0, 0), f"a {band_words}-word long "
               f"root took the K1 kernels {launch_split(k1)}")
         references = [native, routed]
         kernels = {"shared": functools.partial(k1.myers_banded_shared, *args),
@@ -1411,7 +1541,7 @@ def run_long_shapes(device, peaks):
                                           num_threads=threads)
     reset_launches()
     routed3 = [t.cpu().numpy() for t in k3.myers_large(*args3)]
-    check(launch_split(k3) == (0, 1, 0), f"the {words}-word overhang roots "
+    check(launch_split(k3) == (0, 1, 0, 0), f"the {words}-word overhang roots "
           f"took the K3 kernels {launch_split(k3)}")
     kernels3 = {"shared": functools.partial(k3.myers_large_shared, *args3),
                 "wide": functools.partial(k3.myers_large_wide, *args3)}
@@ -1451,6 +1581,201 @@ def run_long_shapes(device, peaks):
     fields = {"k1": {"shape": shape, **k1_fields},
               "k3": {"shape": shape3, **k3_fields}}
     return rows, fields
+
+
+def array_error(got, want) -> int:
+    """Largest absolute difference of two tuples of numpy arrays (a shape
+    mismatch fails)."""
+    import numpy as np
+
+    err = 0
+    for g, w in zip(got, want):
+        check(np.shape(g) == np.shape(w),
+              f"shapes {np.shape(g)} and {np.shape(w)} differ")
+        if np.size(g):
+            err = max(err, int(np.max(np.abs(np.asarray(g, np.int64)
+                                             - np.asarray(w, np.int64)))))
+    return err
+
+
+def run_ultra_shapes(device, peaks):
+    """The cluster kernels at their long shapes, each timed in turns with
+    the shared-memory kernel on the same operands (shared, cluster,
+    cluster, shared; the shared kernel LONG_SHARED_REPEATS launches a
+    turn) and held to it and to the native host engine: K1u at
+    ULTRA_ROOT_SHAPE, K3u at ULTRA_OVERHANG_SHAPE; each once through the
+    routing entry with the counts at 0. Returns the table rows K1u and K3u
+    (their plain ms come from the sweep) and the phase's fields, each with
+    its bound, its share and the share's ceiling (the SMs the launch's
+    clusters hold)."""
+    import numpy as np
+    import torch
+
+    from floxer_tpu_torch.native import native_myers_distance_batch
+    from floxer_tpu_torch.ops import cuda_myers_banded as k1
+    from floxer_tpu_torch.ops import cuda_myers_large as k3
+    from floxer_tpu_torch.ops.myers import u32_tensor
+
+    threads = min(8, os.cpu_count() or 1)
+    (patterns, texts), (patterns3, texts3) = ultra_shape_inputs()
+
+    def timed(kernels, columns, bound_and_by, blocks, tasks):
+        """{kernel: {ms, turns_ms, us_per_col, bound_share}} in turns and
+        the bound's fields."""
+        turns = {"shared": [], "cluster": []}
+        repeats = {"shared": LONG_SHARED_REPEATS, "cluster": 5}
+        for name in ("shared", "cluster", "cluster", "shared"):
+            turns[name].append(cuda_ms(kernels[name], repeats[name]))
+        bound_ms, bound_by = bound_and_by
+        fields = {"bound_ms": bound_ms, "bound_by": bound_by,
+                  "columns": columns, "blocks_a_task": blocks,
+                  "share_ceiling": min(1.0, tasks * blocks
+                                       / peaks["sm_count"])}
+        for name, turn in turns.items():
+            ms = sum(turn) / len(turn)
+            fields[name] = {"ms": ms, "turns_ms": turn,
+                            "us_per_col": ms * 1000 / columns,
+                            "bound_share": bound_ms / ms}
+        fields["speedup"] = fields["shared"]["ms"] / fields["cluster"]["ms"]
+        return fields
+
+    def held(kernels, references, label):
+        err = 0
+        for name, kernel in kernels.items():
+            got = [t.cpu().numpy() for t in kernel()]
+            err = max(err, *(array_error(got, want) for want in references))
+        check(err == 0, f"{label} differs from the native engine ({err})")
+        return err
+
+    # ---- K1u: 200 kb reads' roots
+    T, m, k, extra, band_words = ULTRA_ROOT_SHAPE
+    check(all(len(t) - len(p) + 2 * k + 1 <= 32 * band_words
+              and 32 * (band_words - 128) < len(t) - len(p) + 2 * k + 1
+              for p, t in zip(patterns, texts)),
+          "a 200 kb root's band does not take its width")
+    native = native_myers_distance_batch(texts, patterns,
+                                         num_threads=threads,
+                                         budgets=[k] * T)
+    check(bool((native[0] <= k).all()), "200 kb roots must be within budget")
+    texts_u8, lens = pad(texts)
+    operands, num_text = k1.banded_operands(
+        patterns, texts_u8, lens, np.full(T, k), band_words, device
+    )
+    args = (*operands, band_words, num_text)
+    reset_launches()
+    routed = [t.cpu().numpy() for t in k1.myers_banded(*args)]
+    check(launch_split(k1) == (0, 0, 1, 0), f"a {band_words}-word 200 kb "
+          f"root took the K1 kernels {launch_split(k1)}")
+    kernels = {"shared": functools.partial(k1.myers_banded_shared, *args),
+               "cluster": functools.partial(k1.myers_banded_cluster, *args)}
+    err1 = held(kernels, [native, routed], "K1u or K1 shared at the 200 kb "
+                                           "root shape")
+    blocks = k1.cluster_blocks(band_words)
+    k1_fields = timed(kernels, max(len(t) for t in texts) - 1,
+                      k1_bound(args, peaks), blocks, T)
+    k1_fields["max_clusters"] = k1.cluster_max_clusters(device, band_words,
+                                                        blocks)
+    shape = (f"T={T} m={m} k={k} n~{m + extra + 200} BW={band_words} "
+             f"(200 kb roots, {k1_fields['blocks_a_task']} blocks a task)")
+
+    # ---- K3u: 100 kb reads overhanging a chromosome's end
+    B, m3, inside, n3, words = ULTRA_OVERHANG_SHAPE
+    padded, plen, txt, tlen = k3_overhang_operands(patterns3, texts3, words)
+    check(padded.shape[2] == words and -(-int(plen.max()) // 32) > 2048,
+          "a 100 kb overhang root does not take its width")
+    args3 = (
+        u32_tensor(padded, device),
+        torch.from_numpy(plen).to(device),
+        torch.from_numpy(txt).to(device),
+        torch.from_numpy(tlen).to(device),
+    )
+    native3 = native_myers_distance_batch(texts3, patterns3,
+                                          num_threads=threads)
+    reset_launches()
+    routed3 = [t.cpu().numpy() for t in k3.myers_large(*args3)]
+    check(launch_split(k3) == (0, 0, 1, 0), f"the {words}-word 100 kb "
+          f"overhang roots took the K3 kernels {launch_split(k3)}")
+    kernels3 = {"shared": functools.partial(k3.myers_large_shared, *args3),
+                "cluster": functools.partial(k3.myers_large_cluster, *args3)}
+    err3 = held(kernels3, [native3, routed3], "K3u or K3 shared at the "
+                                              "100 kb overhang shape")
+    blocks3 = k3.cluster_blocks(words)
+    k3_fields = timed(kernels3, int(tlen.max()) - 1, full_bound(args3, peaks),
+                      blocks3, B)
+    k3_fields["max_clusters"] = k3.cluster_max_clusters(device, words,
+                                                        blocks3)
+    shape3 = (f"B={B} m={m3} n={n3} Wp={words} (100 kb reads, {inside} "
+              f"chars on the chromosome, {k3_fields['blocks_a_task']} "
+              f"blocks a task)")
+    rows = {}
+    for key, module, name, fields, bound_of, err, at in (
+        ("K1u", k1, "myers_banded_cluster", k1_fields, k1_fields, err1,
+         shape),
+        ("K3u", k3, "myers_large_cluster", k3_fields, k3_fields, err3,
+         shape3),
+    ):
+        rows[key] = {
+            "name": name, "route": "cuda", "source": module.CLUSTER_SOURCE,
+            "replaces": module.REPLACES, "max_abs_err": err,
+            "ms": fields["cluster"]["ms"], "plain_ms": None,
+            "plain_on": "cpu", "bound_ms": bound_of["bound_ms"],
+            "bound_by": bound_of["bound_by"], "library_ms": None,
+            "shape": at, "us_per_col": fields["cluster"]["us_per_col"],
+        }
+    return rows, {"k1u": {"shape": shape, **k1_fields},
+                  "k3u": {"shape": shape3, **k3_fields}}
+
+
+def run_cluster_sweep(device, rows, cases, plain):
+    """K1u and K3u at every CLUSTER_SWEEP_WIDTHS width against their plain
+    versions, run on CPU copies of the same operands in the sweep workers
+    (`plain`: the async results of _k1_plain and _k3_plain over `cases`);
+    each width once through the routing entry with the counts at 0. The
+    rows' plain ms and plain shape are the workers' at 3200 words; their
+    max_abs_err takes the sweep's."""
+    import numpy as np
+    import torch
+
+    from floxer_tpu_torch.ops import cuda_myers_banded as k1
+    from floxer_tpu_torch.ops import cuda_myers_large as k3
+
+    waited = time.monotonic()
+    k1_plain, k3_plain = (result.get(timeout=900) for result in plain)
+    fields = {"plain_wait_s": time.monotonic() - waited}
+    for key, module, kernel, entry, case_list, results in (
+        ("K1u", k1, k1.myers_banded_cluster, k1.myers_banded, cases[0],
+         k1_plain),
+        ("K3u", k3, k3.myers_large_cluster, k3.myers_large, cases[1],
+         k3_plain),
+    ):
+        errors = {}
+        for case, (want, plain_s) in zip(case_list, results):
+            width, arrays = case[0], case[1]
+            args = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                    for a in arrays]
+            args = (*args, width, case[2]) if key == "K1u" else tuple(args)
+            reset_launches()
+            routed = [t.cpu().numpy() for t in entry(*args)]
+            torch.cuda.synchronize()
+            check(launch_split(module) == (0, 0, 1, 0),
+                  f"{width} words took the {key[:2]} kernels "
+                  f"{launch_split(module)}")
+            got = [t.cpu().numpy() for t in kernel(*args)]
+            err = max(array_error(got, want), array_error(routed, want))
+            check(err == 0, f"{key} differs from its plain version at "
+                  f"{width} words ({err})")
+            errors[f"{width}"] = {"max_abs_err": err, "plain_cpu_s": plain_s,
+                                  "tasks": len(want[0])}
+            if width == 3200:
+                rows[key]["plain_ms"] = plain_s * 1000
+                rows[key]["plain_shape"] = (
+                    f"{len(want[0])} tasks of at most "
+                    f"{CLUSTER_SWEEP_COLUMNS} columns at 3200 words")
+        rows[key]["max_abs_err"] = max(
+            rows[key]["max_abs_err"],
+            *(e["max_abs_err"] for e in errors.values()))
+        fields[key] = errors
+    return fields
 
 
 def traceback_bound(batch, peaks) -> tuple[float, str]:
@@ -2115,15 +2440,22 @@ def reset_launches() -> None:
     for module in (cuda_myers_banded, cuda_myers_large):
         module.REGISTER_LAUNCHES = 0
         module.WIDE_LAUNCHES = 0
+        module.CLUSTER_LAUNCHES = 0
         module.SHARED_LAUNCHES = 0
+        module.CLUSTER_WIDTHS.clear()
     microbench_carry_scaling.CARRY_LAUNCHES = 0
     microbench_carry_scaling.BCAST_LAUNCHES = 0
 
 
-def launch_split(module) -> tuple[int, int, int]:
-    """K1's or K3's launches by kernel: (register, multi-warp, shared)."""
+# K1's and K3's kernels, in launch_split's order
+SPLIT_KERNELS = ("register", "wide", "cluster", "shared")
+
+
+def launch_split(module) -> tuple[int, int, int, int]:
+    """K1's or K3's launches by kernel: (register, multi-warp, cluster,
+    shared)."""
     return (module.REGISTER_LAUNCHES, module.WIDE_LAUNCHES,
-            module.SHARED_LAUNCHES)
+            module.CLUSTER_LAUNCHES, module.SHARED_LAUNCHES)
 
 
 def run_logged_launches(logfile: Path) -> dict:
@@ -2189,8 +2521,8 @@ class E2E:
         with the launch counts set to 0 just before it, its SAM held to
         `oracle`'s; (launches, fused dispatches). The launches
         also hold K1's and K3's split by kernel (K1_register, K1_wide,
-        K1_shared, and K3's likewise) and K4's launches by the layouts
-        their blocks ran in (K4_reg8, K4_reg16, ...)."""
+        K1_cluster, K1_shared, and K3's likewise) and K4's launches by
+        the layouts their blocks ran in (K4_reg8, K4_reg16, ...)."""
         from floxer_tpu_torch import pipeline, verify_batch
         from floxer_tpu_torch.__main__ import main
         from floxer_tpu_torch.ops import (
@@ -2208,7 +2540,7 @@ class E2E:
             launches = pipeline.kernel_launches()
             for kernel, module in (("K1", cuda_myers_banded),
                                    ("K3", cuda_myers_large)):
-                for split, count in zip(("register", "wide", "shared"),
+                for split, count in zip(SPLIT_KERNELS,
                                         launch_split(module)):
                     launches[f"{kernel}_{split}"] = count
             for layout, count in traceback_device.LAYOUT_LAUNCHES.items():
@@ -3482,14 +3814,16 @@ def run_legacy_pass(e2e: E2E):
     }
 
 
-def append_overhanging_reads(e2e: E2E, rng) -> None:
-    """Add OVERHANG_READS[0] reads to the workload that run off the end of
-    the genome's (one) chromosome: the chromosome's last OVERHANG_READS[1]
-    chars, mutated at the workload's read error rate, then random chars up
-    to the read length, as reads that span a contig end of a draft
-    assembly do. Their roots verify against windows that the chromosome
-    end cuts shorter than m - k, so the fused wave runs them full (K3) at
-    over 512 pattern words, on the shared-memory kernel."""
+def append_overhanging_reads(e2e: E2E, rng, count=OVERHANG_READS[0],
+                             inside=OVERHANG_READS[1],
+                             length=None) -> None:
+    """Add `count` reads of `length` chars (the workload's read length by
+    default) that run off the end of the genome's (one) chromosome: the
+    chromosome's last `inside` chars, mutated at the workload's read error
+    rate, then random chars up to the read length, as reads that span a
+    contig end of a draft assembly do. Their roots verify against windows
+    that the chromosome end cuts shorter than m - k, so the fused wave runs
+    them full (K3): pass E's over 512 pattern words, pass J's over 2048."""
     import numpy as np
 
     letters = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -3498,11 +3832,11 @@ def append_overhanging_reads(e2e: E2E, rng) -> None:
         if not line.startswith(b">")
     )
     codes = np.searchsorted(letters, np.frombuffer(genome, np.uint8)) + 1
-    count, inside = OVERHANG_READS
+    length = length or e2e.read_len
     with open(e2e.reads, "a") as handle:
         for i in range(count):
             read = mutate(rng, codes[-inside:], e2e.read_error)
-            tail = rng.integers(1, 5, size=max(0, e2e.read_len - len(read)))
+            tail = rng.integers(1, 5, size=max(0, length - len(read)))
             text = letters[np.concatenate([read, tail]) - 1].tobytes().decode()
             handle.write(f"@overhang_{i}\n{text}\n+\n{'I' * len(text)}\n")
 
@@ -3535,6 +3869,79 @@ def run_long_pass(e2e: E2E, rng):
         "align_s": e2e.seconds("pass_e"),
         "pass_b_align_s": e2e.seconds("pass_b"),
         "stage_split": align_seconds(e2e.workdir / "pass_e.log")[1],
+        "launches": launches, "fused_dispatches": fused,
+        "sam_identical": True,
+    }, launches
+
+
+def append_skipped_read(e2e: E2E, seed) -> str:
+    """Add one ULTRA_SKIPPED-char read, a mutated slice of the chromosome,
+    longer than the aligner takes; its name."""
+    import numpy as np
+
+    letters = np.frombuffer(b"ACGT", dtype=np.uint8)
+    genome = b"".join(
+        line.strip() for line in e2e.genome.read_bytes().splitlines()
+        if not line.startswith(b">")
+    )
+    codes = np.searchsorted(letters, np.frombuffer(genome, np.uint8)) + 1
+    rng = np.random.default_rng(seed)
+    start = int(rng.integers(0, len(codes) - ULTRA_SKIPPED))
+    read = mutate(rng, codes[start : start + ULTRA_SKIPPED], e2e.read_error)
+    text = letters[np.asarray(read) - 1].tobytes().decode()
+    with open(e2e.reads, "a") as handle:
+        handle.write(f"@too_long_0\n{text}\n+\n{'I' * len(text)}\n")
+    return "too_long_0"
+
+
+def run_ultra_pass(e2e: E2E, rng, long_result):
+    """Pass J: one ULTRA_READ read on pass E's genome at its -p, one
+    ULTRA_OVERHANG read that runs off the chromosome's end and one
+    ULTRA_SKIPPED read, --engine device against its own pass B. The
+    overhanging read's root, cut short by the chromosome's end, runs full
+    on K3u past 2048 pattern words, and its merged root windows on K1u
+    past 2048 band words; no launch of either shared-memory kernel; the
+    ULTRA_SKIPPED read is skipped by both passes, as by the reference.
+    Prints the widths the cluster kernels ran (the roots' bands, the
+    overhang root's pattern words), the launches by kernel and
+    device_kernel_s beside pass E's."""
+    from floxer_tpu_torch import verify_batch
+    from floxer_tpu_torch.ops import cuda_myers_banded, cuda_myers_large
+
+    append_overhanging_reads(e2e, rng, 1, ULTRA_OVERHANG[1],
+                             ULTRA_OVERHANG[0])
+    skipped = append_skipped_read(e2e, SEED + 6)
+    e2e.run_host_pass()
+    kernel_before = verify_batch._BATCH_TIMERS["kernel"]
+    launches, fused = e2e.run_device_pass("pass_j")
+    device_kernel_s = verify_batch._BATCH_TIMERS["kernel"] - kernel_before
+    band_words = dict(cuda_myers_banded.CLUSTER_WIDTHS)
+    pattern_words = dict(cuda_myers_large.CLUSTER_WIDTHS)
+    for name in ("K1", "K3"):
+        check(launches[f"{name}_cluster"] > 0
+              and launches[f"{name}_shared"] == 0,
+              f"pass J's {name} launches did not take the cluster kernel "
+              f"and no shared-memory one: {launches}")
+    check(min(band_words) > 2048 and min(pattern_words) > 2048,
+          f"pass J's cluster launches ran at {band_words}, {pattern_words}")
+    for name in ("pass_b", "pass_j"):
+        check(f"skipping too large query: {skipped}"
+              in (e2e.workdir / f"{name}.log").read_text()
+              and skipped.encode() not in e2e.sam(name),
+              f"{name} did not skip the {ULTRA_SKIPPED}-char read")
+    return {
+        "root_band_words": band_words,
+        "overhang_pattern_words": pattern_words,
+        "device_kernel_s": device_kernel_s,
+        "pass_e_device_kernel_s": long_result["device_kernel_s"],
+        "reads": 3, "read_len": ULTRA_READ[0], "read_error": ULTRA_READ[1],
+        "overhang": {"read_len": ULTRA_OVERHANG[0],
+                     "on_chromosome": ULTRA_OVERHANG[1]},
+        "skipped": {"read_len": ULTRA_SKIPPED, "name": skipped},
+        "genome_bp": LONG_READS[0], "query_error": e2e.query_error,
+        "align_s": e2e.seconds("pass_j"),
+        "pass_b_align_s": e2e.seconds("pass_b"),
+        "stage_split": align_seconds(e2e.workdir / "pass_j.log")[1],
         "launches": launches, "fused_dispatches": fused,
         "sam_identical": True,
     }, launches
@@ -3762,9 +4169,12 @@ def ptxas_phase() -> dict:
             report[f"{kernel}<{n}>"] = entry
     # the multi-warp kernels: K1's two column loops (sliding, frozen); K3's
     # column loop per group count 1..4 (listed with any other innermost
-    # loop the compiler made)
+    # loop the compiler made); the cluster kernels likewise, K3u's with
+    # the spare warps' barrier loop, K1u's instances of Q = 1, 2, 4
+    # lookahead words each with its two column loops and that loop
     for kernel, enough in (("myers_banded_wide_kernel", lambda n: n == 2),
-                           ("myers_large_wide_kernel", lambda n: n >= 4)):
+                           ("myers_large_wide_kernel", lambda n: n >= 4),
+                           ("myers_large_cluster_kernel", lambda n: n >= 4)):
         names = [name for name in usage if kernel in name]
         check(len(names) == 1, f"{kernel} is compiled as {names}")
         found = usage[names[0]]
@@ -3780,6 +4190,22 @@ def ptxas_phase() -> dict:
             entry["per_lane_word"] = [i / WIDE_WORDS_PER_LANE
                                       for i in kernel_loops]
         report[kernel] = entry
+    names = {int(found.group(1)): name for name in usage
+             if (found := re.search(r"myers_banded_cluster_kernelILi(\d+)E",
+                                    name))}
+    check(sorted(names) == [1, 2, 4],
+          f"myers_banded_cluster_kernel's instances are {sorted(names)}")
+    for q, name in sorted(names.items()):
+        found = usage[name]
+        check(found.get("spill_stores", 1) == 0
+              and found.get("spill_loads", 1) == 0
+              and found.get("stack", 1) == 0,
+              f"myers_banded_cluster_kernel<{q}> spills or keeps a stack "
+              f"frame: {found}")
+        check(len(loops[name]) >= 2, f"myers_banded_cluster_kernel<{q}> has "
+              f"innermost loops of {loops[name]} instructions")
+        report[f"myers_banded_cluster_kernel<{q}>"] = {
+            **found, "sass_loop_instructions": loops[name]}
     # the device search's kernels: K9, K9x, K9l (csrc/fm_index.cu), K10
     # (csrc/workqueue_search.cu), K11 (csrc/frontier_search.cu) and K12
     # (csrc/select_anchors.cu), one instance each
@@ -3834,6 +4260,7 @@ def main() -> int:
 
     sweep = k1_sweep_cases(SEED + 1)
     large_sweep = k3_sweep_cases(SEED + 3)
+    cluster_sweep = cluster_sweep_cases(SEED + 5)
     full_arrays = script_arrays(NUM_TEXT)
     spawn = multiprocessing.get_context("spawn")
     cpu_pool = spawn.Pool(CPU_PLAIN_WORKERS, _cpu_plain_init)
@@ -3841,18 +4268,20 @@ def main() -> int:
     sweep_pool = spawn.Pool(SWEEP_WORKERS)
     pools = [cpu_pool, search_pool, sweep_pool]
     try:
-        # the plain versions that take minutes, the longest first: each
-        # makes its own tasks from the seed
+        # the plain versions that take minutes, in parts, the longest
+        # parts first (K1 at the root shape on its wider band, K3w, K1w,
+        # K1 on the narrower band, then K4's): each makes its own tasks
+        # from the seed
         CPU_PLAIN = CpuPlain(cpu_pool, search_pool)
         results = CPU_PLAIN.results
-        results["long_k1"] = JoinedResult([
-            CPU_PLAIN.submit(_long_k1_plain, part)
-            for part in range(K1_PLAIN_PARTS)
-        ])
-        results["long_k3"] = CPU_PLAIN.submit(_long_k3_plain)
-        for band_words in (ROOT_WAVE_BAND_WORDS, ROOT_SHAPE[3]):
-            results[band_words] = JoinedResult([
-                CPU_PLAIN.submit(_k1_root_plain, band_words, part)
+        for key, fn, args in (
+            (ROOT_WAVE_BAND_WORDS, _k1_root_plain, (ROOT_WAVE_BAND_WORDS,)),
+            ("long_k3", _long_k3_plain, ()),
+            ("long_k1", _long_k1_plain, ()),
+            (ROOT_SHAPE[3], _k1_root_plain, (ROOT_SHAPE[3],)),
+        ):
+            results[key] = JoinedResult([
+                CPU_PLAIN.submit(fn, *args, part)
                 for part in range(K1_PLAIN_PARTS)
             ])
         for key in ("K4s", "K4", "K4r32", "K4r16"):
@@ -3860,17 +4289,23 @@ def main() -> int:
         large_plain = sweep_pool.map_async(_k3_plain, large_sweep,
                                            chunksize=1)
         sweep_plain = sweep_pool.map_async(_k1_plain, sweep, chunksize=1)
+        cluster_plain = (
+            sweep_pool.map_async(_k1_plain, cluster_sweep[0], chunksize=1),
+            sweep_pool.map_async(_k3_plain, cluster_sweep[1], chunksize=1),
+        )
         full_pool, full_plain = start_full_width_plain(full_arrays)
         pools.append(full_pool)
         return run_all(device, peaks, (sweep, sweep_plain),
-                       (large_sweep, large_plain), full_arrays, full_plain)
+                       (large_sweep, large_plain), (cluster_sweep,
+                                                    cluster_plain),
+                       full_arrays, full_plain)
     finally:
         for pool in pools:
             pool.terminate()
             pool.join()
 
 
-def run_all(device, peaks, k1_sweep, k3_sweep, full_arrays,
+def run_all(device, peaks, k1_sweep, k3_sweep, cluster_sweep, full_arrays,
             full_plain) -> int:
     import numpy as np
     import torch
@@ -3901,10 +4336,15 @@ def run_all(device, peaks, k1_sweep, k3_sweep, full_arrays,
           **{name: {k: v for k, v in row.items()
                     if k not in ("name", "route", "source", "replaces")}
              for name, row in rows.items()})
-    # the multi-warp and shared-memory rows, at pass E's shapes
+    # the multi-warp and shared-memory rows, at pass E's shapes, and the
+    # cluster kernels' rows at theirs
     long_rows, long_fields = run_long_shapes(device, peaks)
     rows.update(long_rows)
-    phase("long_shapes", **long_fields)
+    ultra_rows, ultra_fields = run_ultra_shapes(device, peaks)
+    rows.update(ultra_rows)
+    phase("long_shapes", **long_fields, **ultra_fields)
+    phase("cluster_sweep", widths=list(CLUSTER_SWEEP_WIDTHS),
+          **run_cluster_sweep(device, rows, *cluster_sweep))
 
     fields, script_rows = run_scripts_phase(
         device, scripts_build, rows["K1"], k1_ends, full_arrays,
@@ -3952,6 +4392,10 @@ def run_all(device, peaks, k1_sweep, k3_sweep, full_arrays,
         result["profiled"] = run_long_profile_pass(long)
         launches_ep = result["profiled"]["launches"]
         phase("long_reads", **result)
+        ultra = E2E(workdir / "ultra", 1, LONG_READS[0], *ULTRA_READ,
+                    LONG_READS[4])
+        result_j, launches_j = run_ultra_pass(ultra, rng, result)
+        phase("ultra_reads", **result_j)
         # every plain version run on the CPU beside the card, compared
         # (the search kernels' read the workload's index)
         phase("cpu_plain", seconds=CPU_PLAIN.settle())
@@ -3960,7 +4404,9 @@ def run_all(device, peaks, k1_sweep, k3_sweep, full_arrays,
         rows[name]["launches"] = launches[name]
     for name in ("K1", "K3"):
         rows[f"{name}w"]["launches"] = launches_e[f"{name}_wide"]
-        rows[f"{name}s"]["launches"] = launches_e[f"{name}_shared"]
+        rows[f"{name}u"]["launches"] = launches_j[f"{name}_cluster"]
+        rows[f"{name}s"]["launches"] = (launches_e[f"{name}_shared"]
+                                        + launches_j[f"{name}_shared"])
     rows["K4"]["launches"] = launches_c["K4"]
     for name in ("K9", "K9x", "K9l", "K10"):
         rows[name]["launches"] = launches_g[name]
@@ -3979,7 +4425,8 @@ def run_all(device, peaks, k1_sweep, k3_sweep, full_arrays,
             "library_ms")
     print(json.dumps({"kernels": [
         {k: rows[name][k] for k in keys}
-        for name in ("K1", "K1w", "K1s", "K2", "K3", "K3w", "K3s", "K4",
+        for name in ("K1", "K1w", "K1u", "K1s", "K2", "K3", "K3w", "K3u",
+                     "K3s", "K4",
                      "K4r16", "K4r32", "K4s", "K5", "K6", "K7", "K8",
                      "K9", "K9x", "K9l", "K10", "K11", "K12", "K11s",
                      "K13", "K13l")

@@ -390,7 +390,12 @@ extern "C" int floxer_myers_banded(
     const cudaError_t err = cudaFuncSetAttribute(
         myers_banded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) {
+      // refused (past the card's shared memory a block): reset the
+      // runtime's last error, so the next launch does not report it
+      cudaGetLastError();
+      return static_cast<int>(err);
+    }
   }
   myers_banded_kernel<<<T, 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(vp0),

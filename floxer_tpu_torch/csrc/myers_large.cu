@@ -377,7 +377,12 @@ extern "C" int floxer_myers_large(
     const cudaError_t err = cudaFuncSetAttribute(
         myers_large_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) {
+      // refused (past the card's shared memory a block): reset the
+      // runtime's last error, so the next launch does not report it
+      cudaGetLastError();
+      return static_cast<int>(err);
+    }
   }
   myers_large_kernel<<<B, 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(peq), static_cast<const int32_t*>(plen),

@@ -202,6 +202,12 @@ ALIGNER = KernelLibrary(_PACKAGE_DIR / "csrc", "libfloxer_kernels", {
     "floxer_myers_banded": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "floxer_myers_banded_reg": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "floxer_myers_banded_wide": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # ... text_words, blocks a cluster, dist, end, stream (K1u); band
+    # words, blocks, the clusters the card holds (an int on the host)
+    "floxer_myers_banded_cluster": [
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+    ],
+    "floxer_myers_banded_cluster_max_clusters": [_I, _I, _P],
     # peq, plen, texts, tlen, B, num_words, num_text, dist, end, stream
     "floxer_myers_small": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # peq, plen, texts, tlen, B, words_padded, num_text, dist, end, stream
@@ -209,6 +215,10 @@ ALIGNER = KernelLibrary(_PACKAGE_DIR / "csrc", "libfloxer_kernels", {
     "floxer_myers_large": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "floxer_myers_large_reg": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "floxer_myers_large_wide": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # ... num_text, blocks a cluster, dist, end, stream (K3u); words,
+    # blocks, the clusters the card holds (an int on the host)
+    "floxer_myers_large_cluster": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "floxer_myers_large_cluster_max_clusters": [_I, _I, _P],
     # windows, patterns, table, T, threads, stored, walk, dirs, ops,
     # num_ops, begin_cols, stream
     "floxer_traceback_banded": [

@@ -1,13 +1,17 @@
 """K1: banded sliding-window Myers, the production verification kernel.
 
 Counterpart of floxer_tpu/ops/pallas_myers_banded.py. `myers_banded`
-launches one of three hand-written CUDA kernels for CUDA tensors, chosen by
+launches one of four hand-written CUDA kernels for CUDA tensors, chosen by
 band width alone: the one-warp register kernel (`myers_banded_register`,
 csrc/myers_banded.cu) at the widths in REGISTER_BAND_WORDS, the multi-warp
 register kernel (`myers_banded_wide`, csrc/myers_banded_wide.cu) at those
-in WIDE_BAND_WORDS, the shared-memory kernel (`myers_banded_shared`,
-csrc/myers_banded.cu) at any other; all three compute the same function
-and count their launches apart. For CPU tensors it runs
+in WIDE_BAND_WORDS, the cluster kernel (`myers_banded_cluster`,
+csrc/myers_banded_cluster.cu: the multi-warp column on a thread-block
+cluster) at those in CLUSTER_BAND_WORDS, the shared-memory kernel
+(`myers_banded_shared`, csrc/myers_banded.cu) at any other width up to
+CLUSTER_MAX_WORDS; a wider band is refused with a ValueError that names
+its width. All four compute the same function and count their launches
+apart. For CPU tensors it runs
 `myers_banded_plain`, the same recurrence as vectorized PyTorch with a
 Python loop over text columns. The host packers `pack_nibbles` and
 `prepare_banded_batch` are copied from the reference module, which imports
@@ -22,6 +26,8 @@ Kernel operands (uint32 words travel as int32 tensors with the same bits):
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -30,6 +36,7 @@ from .myers import MASK32, WORD, u32_tensor, widen
 
 SOURCE = "floxer_tpu_torch/csrc/myers_banded.cu"
 WIDE_SOURCE = "floxer_tpu_torch/csrc/myers_banded_wide.cu"
+CLUSTER_SOURCE = "floxer_tpu_torch/csrc/myers_banded_cluster.cu"
 REPLACES = "floxer_tpu/ops/pallas_myers_banded.py:96"
 # band widths (32-bit words) the register kernel is instantiated at: the
 # cases of floxer_myers_banded_reg in csrc/myers_banded.cu (R = BW / 32
@@ -44,16 +51,35 @@ WIDE_WORDS_PER_LANE = 4
 WIDE_MAX_WORDS = 2048
 WIDE_BAND_WORDS = tuple(range(REGISTER_BAND_WORDS[-1] + 128,
                               WIDE_MAX_WORDS + 1, 128))
+# the cluster kernel (csrc/myers_banded_cluster.cu: kBlockWarps,
+# kMaxBlocks, kMaxBandWords): the multi-warp kernel's column on a
+# thread-block cluster of up to CLUSTER_MAX_BLOCKS blocks of up to
+# CLUSTER_BLOCK_WARPS warps a task, WIDE_WORDS_PER_LANE words a lane; it
+# runs a band of a multiple of 32 WIDE_WORDS_PER_LANE words up to
+# CLUSTER_MAX_WORDS, and myers_banded sends it every 128-word tile past
+# the multi-warp kernel's widest
+CLUSTER_BLOCK_WARPS = 16
+CLUSTER_MAX_BLOCKS = 8
+CLUSTER_MAX_WORDS = 16384
+CLUSTER_BAND_WORDS = tuple(range(WIDE_MAX_WORDS + 128, CLUSTER_MAX_WORDS + 1,
+                                 128))
+# the warps a cluster block aims at: one for each of an SM's four
+# sub-partitions (a column is dispatch-bound on its SM, and 4-warp blocks ran
+# fastest: tools/k1_bench.py --clusters)
+CLUSTER_AIM_WARPS = 4
 # kernel launches in this process, per kernel (read and reset by
-# chip_smoke.py); `launches()` is K1's total
+# chip_smoke.py); `launches()` is K1's total; CLUSTER_WIDTHS counts the
+# cluster kernel's launches by band words
 REGISTER_LAUNCHES = 0
 WIDE_LAUNCHES = 0
+CLUSTER_LAUNCHES = 0
 SHARED_LAUNCHES = 0
+CLUSTER_WIDTHS: dict[int, int] = {}
 
 
 def launches() -> int:
-    """K1's launches in this process, the three kernels together."""
-    return REGISTER_LAUNCHES + WIDE_LAUNCHES + SHARED_LAUNCHES
+    """K1's launches in this process, the four kernels together."""
+    return REGISTER_LAUNCHES + WIDE_LAUNCHES + CLUSTER_LAUNCHES + SHARED_LAUNCHES
 
 (COL_TLEN, COL_JSTAR, COL_TOPSHIFT, COL_MFROZEN, COL_M, COL_K) = range(6)
 NUM_SCALARS = 6
@@ -134,8 +160,10 @@ def myers_banded(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dist, end) int32 [T] on the operands' device: for CUDA tensors the
     register kernel at REGISTER_BAND_WORDS, the multi-warp kernel at
-    WIDE_BAND_WORDS and the shared-memory kernel at any other width, the
-    plain version for CPU tensors."""
+    WIDE_BAND_WORDS, the cluster kernel at CLUSTER_BAND_WORDS and the
+    shared-memory kernel at any other width up to CLUSTER_MAX_WORDS (a
+    wider band raises a ValueError naming its width); the plain version
+    for CPU tensors."""
     args = (vp0, planes0, texts_packed, stream_packed, scalars, band_words,
             num_text)
     if vp0.device.type != "cpu":
@@ -143,6 +171,13 @@ def myers_banded(
             return myers_banded_register(*args)
         if band_words in WIDE_BAND_WORDS:
             return myers_banded_wide(*args)
+        if band_words in CLUSTER_BAND_WORDS:
+            return myers_banded_cluster(*args)
+        if band_words > CLUSTER_MAX_WORDS:
+            raise ValueError(
+                f"a K1 band of {band_words} words is wider than any kernel "
+                f"takes on the card (the widest is {CLUSTER_MAX_WORDS} words)"
+            )
         return myers_banded_shared(*args)
     _check_operands(*args)
     return myers_banded_plain(*args)
@@ -165,8 +200,9 @@ def _check_operands(
 
 
 def _launch_cuda(entry, vp0, planes0, texts_packed, stream_packed, scalars,
-                 band_words, num_text):
-    """One launch of a C entry point; (dist, end) and whether it ran."""
+                 band_words, num_text, *extra):
+    """One launch of a C entry point (`extra`: its int arguments after
+    text_words); (dist, end) and whether it ran."""
     T = vp0.shape[0]
     dist = torch.empty(T, dtype=torch.int32, device=vp0.device)
     end = torch.empty(T, dtype=torch.int32, device=vp0.device)
@@ -177,8 +213,8 @@ def _launch_cuda(entry, vp0, planes0, texts_packed, stream_packed, scalars,
             entry,
             vp0.data_ptr(), planes0.data_ptr(), texts_packed.data_ptr(),
             stream_packed.data_ptr(), scalars.data_ptr(),
-            T, band_words, num_text // 8, dist.data_ptr(), end.data_ptr(),
-            torch.cuda.current_stream(vp0.device).cuda_stream,
+            T, band_words, num_text // 8, *extra, dist.data_ptr(),
+            end.data_ptr(), torch.cuda.current_stream(vp0.device).cuda_stream,
         )
     return dist, end, True
 
@@ -214,6 +250,59 @@ def myers_banded_wide(*args):
     dist, end, ran = _launch_cuda("floxer_myers_banded_wide", *args)
     WIDE_LAUNCHES += ran
     return dist, end
+
+
+def pick_cluster_blocks(warps: int) -> int:
+    """The blocks of a cluster kernel's cluster (K1u, K3u) for `warps`
+    warps a task: blocks of about CLUSTER_AIM_WARPS warps, at most
+    CLUSTER_MAX_BLOCKS (then up to CLUSTER_BLOCK_WARPS warps each)."""
+    return max(-(-warps // CLUSTER_BLOCK_WARPS),
+               min(CLUSTER_MAX_BLOCKS, -(-warps // CLUSTER_AIM_WARPS)))
+
+
+def cluster_blocks(band_words: int) -> int:
+    """pick_cluster_blocks for K1u at a band width."""
+    return pick_cluster_blocks(band_words // (WORD * WIDE_WORDS_PER_LANE))
+
+
+def myers_banded_cluster(*args, blocks: int | None = None):
+    """The cluster kernel on CUDA operands (myers_banded's arguments), on
+    a cluster of `blocks` blocks a task (cluster_blocks' pick unless
+    given); raises at a band width that is not a multiple of
+    32 WIDE_WORDS_PER_LANE words up to CLUSTER_MAX_WORDS, at a cluster
+    size the width cannot take, and when the card refuses the cluster."""
+    global CLUSTER_LAUNCHES
+    band_words = args[5]
+    if (band_words % (WORD * WIDE_WORDS_PER_LANE)
+            or not 0 < band_words <= CLUSTER_MAX_WORDS):
+        raise ValueError(
+            f"the cluster kernel takes a multiple of "
+            f"{WORD * WIDE_WORDS_PER_LANE} words up to {CLUSTER_MAX_WORDS}, "
+            f"got {band_words}"
+        )
+    warps = band_words // (WORD * WIDE_WORDS_PER_LANE)
+    if blocks is not None and (not 1 <= blocks <= CLUSTER_MAX_BLOCKS
+                               or -(-warps // blocks) > CLUSTER_BLOCK_WARPS):
+        raise ValueError(f"a cluster of {blocks} blocks cannot hold "
+                         f"{band_words} band words")
+    _check_cuda(*args)
+    blocks = cluster_blocks(band_words) if blocks is None else blocks
+    dist, end, ran = _launch_cuda("floxer_myers_banded_cluster", *args, blocks)
+    CLUSTER_LAUNCHES += ran
+    if ran:
+        CLUSTER_WIDTHS[band_words] = CLUSTER_WIDTHS.get(band_words, 0) + 1
+    return dist, end
+
+
+def cluster_max_clusters(device: torch.device, band_words: int,
+                         blocks: int) -> int:
+    """Clusters of the cluster kernel's launch shape at `band_words` on
+    `blocks` blocks the card holds at once; 0 when none fits."""
+    clusters = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        launch("floxer_myers_banded_cluster_max_clusters", band_words,
+               blocks, ctypes.addressof(clusters))
+    return clusters.value
 
 
 def myers_banded_shared(*args):
@@ -412,3 +501,43 @@ def band_cases(rng: np.random.Generator, count: int, band_words: int):
         texts.append(text)
         budgets.append(k)
     return patterns, texts, np.asarray(budgets)
+
+
+def deep_band_cases(rng: np.random.Generator, count: int, band_words: int,
+                    max_columns: int):
+    """Seeded K1 tasks whose pattern rows fill most of a band of
+    band_words words from the first column on: a budget k of half to
+    nearly all of the band's bits, m = k + j* with j* below the text's
+    length, texts of max_columns / 2 to max_columns chars (a mutated copy
+    of the pattern's end, after random chars where the pattern is
+    shorter; chars 6..15 in some), so every warp of a wide
+    band holds real rows within a few columns. Every other pattern is made
+    of runs of one char, 200-3000 long: a text char that a run lacks
+    leaves its rows propagating, so a carry crosses whole warps.
+    (patterns, texts, budgets) for banded_operands, after padding the
+    texts."""
+    bits = WORD * band_words
+    patterns, texts, budgets = [], [], []
+    for i in range(count):
+        n = int(rng.integers(max(2, max_columns // 2), max_columns + 1))
+        jstar = int(rng.integers(1, n))
+        k_top = bits - n + jstar  # the band's limit, exclusive
+        k = int(rng.integers(max(1, min(bits // 2, k_top - 1)), k_top))
+        if i % 2:
+            runs = rng.integers(200, 3001, size=(k + jstar) // 200 + 1)
+            chars = rng.integers(1, 5, size=len(runs))
+            pattern = np.repeat(chars, runs)[: k + jstar].astype(np.uint8)
+        else:
+            pattern = rng.integers(1, 5, size=k + jstar).astype(np.uint8)
+        tail = pattern[-n:]
+        text = np.concatenate(
+            [rng.integers(1, 5, size=n - len(tail)), tail]).astype(np.uint8)
+        for pos in rng.integers(0, n, size=int(rng.integers(0, n // 8 + 2))):
+            text[pos] = 1 + (text[pos] % 4)
+        if rng.random() < 0.5:
+            text[::9] = rng.integers(6, 16, size=len(text[::9]))
+        patterns.append(pattern)
+        texts.append(text)
+        budgets.append(k)
+    return patterns, texts, np.asarray(budgets)
+

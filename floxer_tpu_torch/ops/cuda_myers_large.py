@@ -5,9 +5,14 @@ launches one of three hand-written CUDA kernels for CUDA tensors, chosen
 by the padded word count Wp alone: the one-warp register kernel
 (`myers_large_register`, csrc/myers_large.cu) for Wp up to the widest of
 REGISTER_WORDS, the multi-warp register kernel (`myers_large_wide`,
-csrc/myers_large_wide.cu) up to WIDE_WORDS, the shared-memory kernel
-(`myers_large_shared`, csrc/myers_large.cu) above; all three compute the
-same function and count their launches apart. For CPU tensors it runs
+csrc/myers_large_wide.cu) up to WIDE_WORDS, the cluster kernel
+(`myers_large_cluster`, csrc/myers_large_cluster.cu: the multi-warp
+wavefront on a thread-block cluster) up to CLUSTER_WORDS; a wider Wp is
+refused with a ValueError that names it. The shared-memory kernel
+(`myers_large_shared`, csrc/myers_large.cu) stays as an entry point of its
+own: no width routes to it, since the cluster kernel reaches past its
+11,622-word limit of shared memory. All four compute the same function
+and count their launches apart. For CPU tensors it runs
 `myers_large_plain`. Operands keep the Pallas kernel's
 layouts: peq [B, 6, Wp] (Wp a multiple of 32; uint32 bits in int32), plen
 [B], texts [B, N] (chars 0..15, anything >= 6 matches nothing), tlen [B]
@@ -16,17 +21,20 @@ layouts: peq [B, 6, Wp] (Wp a multiple of 32; uint32 bits in int32), plen
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from ..alphabet import SIGMA
 
 from ._build import check_operand, launch
-from .cuda_myers_banded import _exclusive_carries
+from .cuda_myers_banded import _exclusive_carries, pick_cluster_blocks
 from .myers import MASK32, WORD, build_peq_vectorized, u32_tensor, widen
 
 SOURCE = "floxer_tpu_torch/csrc/myers_large.cu"
 WIDE_SOURCE = "floxer_tpu_torch/csrc/myers_large_wide.cu"
+CLUSTER_SOURCE = "floxer_tpu_torch/csrc/myers_large_cluster.cu"
 REPLACES = "floxer_tpu/ops/pallas_myers_large.py:48"
 # the widths (pattern words) of the register kernel's instances: the cases
 # of floxer_myers_large_reg in csrc/myers_large.cu (R = words / 32 groups
@@ -36,18 +44,28 @@ REGISTER_WORDS = (32, 64, 128, 256, 384, 512)
 # the widest Wp the multi-warp kernel takes (csrc/myers_large_wide.cu, in
 # ceil(Wp / 128) warps of four 32-word groups)
 WIDE_WORDS = 2048
+# the cluster kernel (csrc/myers_large_cluster.cu: kBlockWarps, kMaxBlocks,
+# kMaxWords): the multi-warp wavefront on a thread-block cluster of up to
+# CLUSTER_MAX_BLOCKS blocks of up to CLUSTER_BLOCK_WARPS warps of four
+# 32-word groups a task, for any Wp up to CLUSTER_WORDS
+CLUSTER_BLOCK_WARPS = 16
+CLUSTER_MAX_BLOCKS = 8
+CLUSTER_WORDS = 16384
 # kernel launches in this process, per kernel (read and reset by
-# chip_smoke.py); `launches()` is K3's total
+# chip_smoke.py); `launches()` is K3's total; CLUSTER_WIDTHS counts the
+# cluster kernel's launches by Wp
 REGISTER_LAUNCHES = 0
 WIDE_LAUNCHES = 0
+CLUSTER_LAUNCHES = 0
 SHARED_LAUNCHES = 0
+CLUSTER_WIDTHS: dict[int, int] = {}
 # word-axis padding of the host entry (the Pallas kernel's lane tile)
 WORD_TILE = 128
 
 
 def launches() -> int:
-    """K3's launches in this process, the three kernels together."""
-    return REGISTER_LAUNCHES + WIDE_LAUNCHES + SHARED_LAUNCHES
+    """K3's launches in this process, the four kernels together."""
+    return REGISTER_LAUNCHES + WIDE_LAUNCHES + CLUSTER_LAUNCHES + SHARED_LAUNCHES
 
 
 def myers_large(
@@ -58,7 +76,8 @@ def myers_large(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dist, end) int32 [B]: for CUDA tensors the register kernel up to
     REGISTER_WORDS' widest Wp, the multi-warp kernel up to WIDE_WORDS and
-    the shared-memory kernel above, the plain version for CPU tensors."""
+    the cluster kernel up to CLUSTER_WORDS (a wider Wp raises a ValueError
+    naming it); the plain version for CPU tensors."""
     _check_operands(peq, plen, texts, tlen)
     if peq.device.type == "cpu":
         return myers_large_plain(peq, plen, texts, tlen)
@@ -66,7 +85,12 @@ def myers_large(
         return myers_large_register(peq, plen, texts, tlen)
     if peq.shape[2] <= WIDE_WORDS:
         return myers_large_wide(peq, plen, texts, tlen)
-    return myers_large_shared(peq, plen, texts, tlen)
+    if peq.shape[2] <= CLUSTER_WORDS:
+        return myers_large_cluster(peq, plen, texts, tlen)
+    raise ValueError(
+        f"a K3 pattern of {peq.shape[2]} words is wider than any kernel takes "
+        f"on the card (the widest is {CLUSTER_WORDS} words)"
+    )
 
 
 def _check_operands(peq, plen, texts, tlen):
@@ -82,9 +106,9 @@ def _check_operands(peq, plen, texts, tlen):
         check_operand(tensor, name, shape, torch.int32, peq.device)
 
 
-def _launch_cuda(entry, peq, plen, texts, tlen):
-    """One launch of a C entry point on CUDA operands; (dist, end) and
-    whether it ran."""
+def _launch_cuda(entry, peq, plen, texts, tlen, *extra):
+    """One launch of a C entry point on CUDA operands (`extra`: its int
+    arguments after num_text); (dist, end) and whether it ran."""
     _check_operands(peq, plen, texts, tlen)
     if peq.device.type != "cuda":
         raise ValueError(f"a CUDA kernel got operands on {peq.device}")
@@ -97,7 +121,7 @@ def _launch_cuda(entry, peq, plen, texts, tlen):
         launch(
             entry,
             peq.data_ptr(), plen.data_ptr(), texts.data_ptr(),
-            tlen.data_ptr(), B, Wp, texts.shape[1], dist.data_ptr(),
+            tlen.data_ptr(), B, Wp, texts.shape[1], *extra, dist.data_ptr(),
             end.data_ptr(), torch.cuda.current_stream(peq.device).cuda_stream,
         )
     return dist, end, True
@@ -133,9 +157,52 @@ def myers_large_wide(peq, plen, texts, tlen):
     return dist, end
 
 
+def cluster_blocks(words: int) -> int:
+    """pick_cluster_blocks for K3u at Wp words."""
+    return pick_cluster_blocks(-(-words // (WORD * 4)))
+
+
+def myers_large_cluster(peq, plen, texts, tlen, blocks: int | None = None):
+    """The cluster kernel on CUDA operands (myers_large's arguments), on a
+    cluster of `blocks` blocks a task (cluster_blocks' pick unless given),
+    at any Wp up to CLUSTER_WORDS; raises above, at a cluster size the
+    width cannot take, and when the card refuses the cluster."""
+    global CLUSTER_LAUNCHES
+    words = peq.shape[2]
+    if words > CLUSTER_WORDS:
+        raise ValueError(
+            f"the cluster kernel takes up to {CLUSTER_WORDS} words, got "
+            f"{words}"
+        )
+    warps = -(-words // (WORD * 4))
+    if blocks is not None and (not 1 <= blocks <= CLUSTER_MAX_BLOCKS
+                               or -(-warps // blocks) > CLUSTER_BLOCK_WARPS):
+        raise ValueError(f"a cluster of {blocks} blocks cannot hold {words} "
+                         f"pattern words")
+    blocks = cluster_blocks(words) if blocks is None else blocks
+    dist, end, ran = _launch_cuda("floxer_myers_large_cluster", peq, plen,
+                                  texts, tlen, blocks)
+    CLUSTER_LAUNCHES += ran
+    if ran:
+        CLUSTER_WIDTHS[words] = CLUSTER_WIDTHS.get(words, 0) + 1
+    return dist, end
+
+
+def cluster_max_clusters(device: torch.device, words: int,
+                         blocks: int) -> int:
+    """Clusters of the cluster kernel's launch shape at Wp words on
+    `blocks` blocks the card holds at once; 0 when none fits."""
+    clusters = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        launch("floxer_myers_large_cluster_max_clusters", words, blocks,
+               ctypes.addressof(clusters))
+    return clusters.value
+
+
 def myers_large_shared(peq, plen, texts, tlen):
     """The shared-memory kernel on CUDA operands (myers_large's
-    arguments), at any Wp."""
+    arguments), at any Wp its shared memory holds (up to 11,622 words on
+    an H100)."""
     global SHARED_LAUNCHES
     dist, end, ran = _launch_cuda("floxer_myers_large", peq, plen, texts,
                                   tlen)

@@ -124,6 +124,7 @@ def full_myers_operands(
     device: torch.device,
     max_chars: int | None = None,
     spread: bool = False,
+    max_columns: int | None = None,
 ):
     """Seeded operands of K2 (small=True: peq [W, 6, B], texts [N, B]) or
     K3 (peq [B, 6, Wp], texts [B, N]) at `words` pattern words, for the
@@ -134,7 +135,9 @@ def full_myers_operands(
     from the smallest to the largest over the tasks, so fewer tasks than
     sizes still reach the largest); each text holds a mutated copy of its
     pattern, with chars 6..15 at every 7th column (garbage past a fused
-    window); task 0 has m == 0, tasks 1 and 2 tlen 0 and 1."""
+    window), cut to its first max_columns chars when given (a wide
+    pattern's every group then runs on a short text); task 0 has m == 0,
+    tasks 1 and 2 tlen 0 and 1."""
     top = min(max_chars or WORD * words, WORD * words)
     step = WORD if small else WORD * WORD
     spans = [(lo, min(lo + step, top + 1)) for lo in range(1, top + 1, step)]
@@ -151,6 +154,8 @@ def full_myers_operands(
         for pos in rng.integers(0, m, size=int(rng.integers(0, m // 12 + 2))):
             pattern[pos] = 1 + (pattern[pos] % 4)
         text[::7] = rng.integers(6, 16, size=len(text[::7]))
+        if max_columns is not None:
+            text = text[:max_columns]
         patterns.append(pattern)
         texts.append(text)
     plen = np.asarray([len(p) for p in patterns], dtype=np.int32)

@@ -1,7 +1,7 @@
 """Time K1's one-warp register kernel on seeded 20 kb root tasks.
 
     python -m floxer_tpu_torch.tools.k1_bench [--bands 256,384]
-        [--rounds 3] [--repeats 5] [--seed 20261016]
+        [--rounds 3] [--repeats 5] [--seed 20261016] [--long] [--clusters]
 
 It makes 256 root tasks (a genome window of m + 2 k + 1 chars and up to
 1200 more, the pattern m = 20600 chars of a slice of it mutated at 5%,
@@ -15,9 +15,22 @@ end columns. A last line holds what ptxas -v reported in the aligner's
 build for every myers_banded_reg_kernel<R> instance (registers, stack,
 spills) and the instructions of its column loops (cuobjdump -sass).
 
-It calls only entry points that every version of the port with the
-register kernel has, so it times another checkout's K1 on the same tasks
-when that checkout is first on the path (run it in turns for an A/B):
+With --long it also times the multi-warp kernels at the shapes of the
+long reads' pass (64 roots of 40 kb reads at k = 6000 on K1w's 1024 band
+words; 64 roots of 40 kb overhanging reads on K3w's 1280 pattern words),
+one JSON line each, and prints their instances' ptxas and column loops.
+With --clusters it times, in turns, the layouts of the cluster kernels:
+K1u (csrc/myers_banded_cluster.cu) on 16 of those long roots at 2048,
+2560, 3200, 4096, 6528 and 8192 band words, and K3u
+(csrc/myers_large_cluster.cu) on 16 overhanging roots of 30 kb windows
+whose patterns fill 2048, 3200, 4096 and 8192 words; K1w's or K3w's one
+block (2048 only) against clusters of 1, 2, 4 and 8 blocks, whichever
+hold the width.
+
+Without --clusters it calls only entry points that every version of the
+port with the multi-warp kernels has, so it times another checkout's K1
+and K3 on the same tasks when that checkout is first on the path (run it
+in turns for an A/B):
 
     PYTHONPATH=<checkout> python floxer_tpu_torch/tools/k1_bench.py
 
@@ -36,6 +49,17 @@ import numpy as np
 SEED = 20261016
 TASKS, M, BUDGET = 256, 20_600, 1_442
 GENOME_BP = 400_000
+# the long reads' pass: K1w's roots (tasks, m, k, window chars past m, band
+# words) and K3w's overhanging roots (tasks, m, chars of it from the
+# window's end, window chars, pattern words)
+LONG_ROOTS = (64, 40_000, 6_000, 7_800, 1024)
+OVERHANG_ROOTS = (64, 40_000, 25_000, 30_000, 1280)
+LONG_GENOME_BP = 2_000_000
+# the cluster layouts' widths (K1u's band words, K3u's pattern words) and
+# tasks
+CLUSTER_WIDTHS = (2048, 2560, 3200, 4096, 6528, 8192)
+CLUSTER_LARGE_WIDTHS = (2048, 3200, 4096, 8192)
+CLUSTER_TASKS = 16
 # SM clock cycles the card spins before a timed round (~10 ms)
 ENQUEUE_CYCLES = 20_000_000
 
@@ -55,6 +79,176 @@ def root_tasks(seed):
         patterns.append(mutate(rng, window[offset : offset + M], 0.05)[:M])
         windows.append(window)
     return patterns, windows
+
+
+def long_tasks(seed):
+    """((patterns, windows) of LONG_ROOTS, (patterns, windows) of
+    OVERHANG_ROOTS): reads at 12% error; an overhanging read is its
+    window's last chars, mutated, then random chars up to m."""
+    from floxer_tpu_torch.tools.k4_bench import mutate
+
+    rng = np.random.default_rng(seed + 2)
+    genome = rng.integers(1, 5, size=LONG_GENOME_BP).astype(np.uint8)
+    T, m, _, extra, _ = LONG_ROOTS
+    roots = ([], [])
+    for _ in range(T):
+        n = m + extra + int(rng.integers(0, 400))
+        start = int(rng.integers(0, len(genome) - n))
+        window = genome[start : start + n]
+        offset = int(rng.integers(0, extra // 2))
+        roots[0].append(mutate(rng, window[offset : offset + m], 0.12)[:m])
+        roots[1].append(window)
+    B, m3, inside, n3, _ = OVERHANG_ROOTS
+    return roots, overhang_roots(rng, genome, B, m3, inside, n3)
+
+
+def overhang_roots(rng, genome, count, m, inside, n):
+    """(patterns, windows) of `count` reads of m chars that run off a
+    window of n chars with `inside` of them on it (its last chars,
+    mutated at 12%, then random chars up to m)."""
+    from floxer_tpu_torch.tools.k4_bench import mutate
+
+    patterns, windows = [], []
+    for _ in range(count):
+        start = int(rng.integers(0, len(genome) - n))
+        window = genome[start : start + n]
+        read = mutate(rng, window[n - inside :], 0.12)
+        tail = rng.integers(1, 5, size=max(0, m - len(read)))
+        patterns.append(np.concatenate([read, tail]).astype(np.uint8)[:m])
+        windows.append(window)
+    return patterns, windows
+
+
+def padded(seqs, dtype=np.uint8):
+    """[len(seqs), longest] zero padded, and the lengths."""
+    out = np.zeros((len(seqs), max(map(len, seqs))), dtype=dtype)
+    for i, seq in enumerate(seqs):
+        out[i, : len(seq)] = seq
+    return out, np.asarray([len(s) for s in seqs], dtype=np.int32)
+
+
+def banded_args(patterns, windows, budget, band_words, device):
+    from floxer_tpu_torch.ops import cuda_myers_banded as k1
+
+    texts, lengths = padded(windows)
+    operands, num_text = k1.banded_operands(
+        patterns, texts, lengths, np.full(len(patterns), budget), band_words,
+        device,
+    )
+    return (*operands, band_words, num_text)
+
+
+def timed(name, fn, columns, rounds, repeats, **fields) -> dict:
+    """One JSON line's fields: fn's mean ms, us per column, checksum."""
+    import torch
+
+    dist, end = (t.cpu().numpy().astype(np.int64) for t in fn())
+    times = rounds_ms(fn, rounds, repeats)
+    ms = sum(times) / len(times)
+    return {"kernel": name, **fields, "ms": ms, "rounds_ms": times,
+            "us_per_col": ms * 1000 / columns, "columns": columns,
+            "checksum": int((dist * 1_000_003 + end).sum()),
+            "card": torch.cuda.get_device_name(0)}
+
+
+def full_args(patterns, windows, words, device):
+    """K3's operands (peq padded to `words`, plen, texts, tlen)."""
+    import torch
+
+    from floxer_tpu_torch.ops.myers import build_peq_vectorized, u32_tensor
+
+    pat, plen = padded(patterns)
+    txt, tlen = padded(windows, np.int32)
+    peq = build_peq_vectorized(pat, plen)
+    wide = np.zeros(peq.shape[:2] + (words,), dtype=np.uint32)
+    wide[:, :, : peq.shape[2]] = peq
+    return (u32_tensor(wide, device), torch.from_numpy(plen).to(device),
+            torch.from_numpy(txt).to(device),
+            torch.from_numpy(tlen).to(device))
+
+
+def long_benches(seed, rounds, repeats, device):
+    """K1w at LONG_ROOTS and K3w at OVERHANG_ROOTS (multi-warp entry
+    points only)."""
+    from floxer_tpu_torch.ops import cuda_myers_banded as k1
+    from floxer_tpu_torch.ops import cuda_myers_large as k3
+
+    (patterns, windows), (patterns3, windows3) = long_tasks(seed)
+    T, m, k, _, band_words = LONG_ROOTS
+    args = banded_args(patterns, windows, k, band_words, device)
+    yield timed("K1w", lambda: k1.myers_banded_wide(*args),
+                max(map(len, windows)) - 1, rounds, repeats,
+                shape=f"T={T} m={m} k={k} BW={band_words}")
+    B, m3, _, n3, words = OVERHANG_ROOTS
+    args3 = full_args(patterns3, windows3, words, device)
+    tlen = args3[3].cpu().numpy()
+    yield timed("K3w", lambda: k3.myers_large_wide(*args3),
+                int(tlen.max()) - 1, rounds, repeats,
+                shape=f"B={B} m={m3} n={n3} Wp={words}")
+
+
+def cluster_layouts(seed, rounds, repeats, device):
+    """K1u's layouts at CLUSTER_WIDTHS on CLUSTER_TASKS long roots and
+    K3u's at CLUSTER_LARGE_WIDTHS on CLUSTER_TASKS overhanging roots, in
+    turns (each round runs the layouts forward, then backward)."""
+    from floxer_tpu_torch.ops import cuda_myers_banded as k1
+    from floxer_tpu_torch.ops import cuda_myers_large as k3
+
+    (patterns, windows), _ = long_tasks(seed)
+    _, m, k, _, _ = LONG_ROOTS
+    patterns = patterns[:CLUSTER_TASKS]
+    windows = windows[:CLUSTER_TASKS]
+    for band_words in CLUSTER_WIDTHS:
+        args = banded_args(patterns, windows, k, band_words, device)
+        layouts = {}
+        if band_words <= k1.WIDE_MAX_WORDS:
+            layouts["wide"] = lambda: k1.myers_banded_wide(*args)
+        for blocks in (1, 2, 4, 8):
+            if -(-(band_words // 128) // blocks) <= k1.CLUSTER_BLOCK_WARPS:
+                layouts[f"cluster{blocks}"] = (
+                    lambda b=blocks: k1.myers_banded_cluster(*args, blocks=b))
+        yield {"kernel": "K1u", "band_words": band_words,
+               "shape": f"m={m} k={k}",
+               **in_turns(layouts, max(map(len, windows)) - 1, rounds,
+                          repeats)}
+    genome = np.random.default_rng(seed + 3).integers(
+        1, 5, size=LONG_GENOME_BP).astype(np.uint8)
+    for words in CLUSTER_LARGE_WIDTHS:
+        patterns3, windows3 = overhang_roots(
+            np.random.default_rng(seed + words), genome, CLUSTER_TASKS,
+            32 * words - 100, 25_000, 30_000)
+        args3 = full_args(patterns3, windows3, words, device)
+        layouts = {}
+        if words <= k3.WIDE_WORDS:
+            layouts["wide"] = lambda: k3.myers_large_wide(*args3)
+        for blocks in (1, 2, 4, 8):
+            if -(-(words // 128) // blocks) <= k3.CLUSTER_BLOCK_WARPS:
+                layouts[f"cluster{blocks}"] = (
+                    lambda b=blocks: k3.myers_large_cluster(*args3, blocks=b))
+        yield {"kernel": "K3u", "words": words,
+               "shape": f"m={32 * words - 100} n=30000",
+               **in_turns(layouts, 29_999, rounds, repeats)}
+
+
+def in_turns(layouts, columns, rounds, repeats) -> dict:
+    """Each layout's outputs held equal to the first's, and its ms in
+    turns (each round runs the layouts forward, then backward)."""
+    import torch
+
+    outputs = {name: [t.cpu() for t in fn()] for name, fn in layouts.items()}
+    first = next(iter(outputs.values()))
+    equal = all(all(bool((a == b).all()) for a, b in zip(out, first))
+                for out in outputs.values())
+    turns = {name: [] for name in layouts}
+    for _ in range(rounds):
+        for name in [*layouts, *reversed(layouts)]:
+            turns[name] += rounds_ms(layouts[name], 1, repeats)
+    return {"tasks": CLUSTER_TASKS, "columns": columns, "equal": equal,
+            "card": torch.cuda.get_device_name(0), **{
+                name: {"ms": sum(t) / len(t), "turns_ms": t,
+                       "us_per_col": sum(t) / len(t) * 1000 / columns,
+                       "blocks": 1 if name == "wide" else int(name[7:])}
+                for name, t in turns.items()}}
 
 
 def rounds_ms(fn, rounds, repeats) -> list[float]:
@@ -105,8 +299,9 @@ def bench(patterns, windows, band_words, rounds, repeats, device) -> dict:
     }
 
 
-def register_instances() -> dict:
-    """ptxas -v and the column loops of each myers_banded_reg_kernel<R>."""
+def register_instances(long=False) -> dict:
+    """ptxas -v and the column loops of each myers_banded_reg_kernel<R>
+    (and with `long` of the multi-warp kernels)."""
     from floxer_tpu_torch.ops import _build
 
     usage = _build.ALIGNER.ptxas_usage()
@@ -117,7 +312,13 @@ def register_instances() -> dict:
         if match:
             out[f"myers_banded_reg_kernel<{match.group(1)}>"] = {
                 **found, "sass_loop_instructions": loops.get(name)}
-    return dict(sorted(out.items(), key=lambda kv: int(kv[0][24:-1])))
+    out = dict(sorted(out.items(), key=lambda kv: int(kv[0][24:-1])))
+    for kernel in ("myers_banded_wide_kernel", "myers_large_wide_kernel"):
+        for name, found in usage.items():
+            if long and kernel in name:
+                out[kernel] = {**found,
+                               "sass_loop_instructions": loops.get(name)}
+    return out
 
 
 def main(argv=None) -> int:
@@ -126,6 +327,8 @@ def main(argv=None) -> int:
     parser.add_argument("--rounds", type=int, default=3)
     parser.add_argument("--repeats", type=int, default=5)
     parser.add_argument("--seed", type=int, default=SEED)
+    parser.add_argument("--long", action="store_true")
+    parser.add_argument("--clusters", action="store_true")
     args = parser.parse_args(argv)
     import torch
 
@@ -137,7 +340,16 @@ def main(argv=None) -> int:
     for band_words in map(int, args.bands.split(",")):
         print(json.dumps(bench(patterns, windows, band_words, args.rounds,
                                args.repeats, device)), flush=True)
-    print(json.dumps({"instances": register_instances()}), flush=True)
+    if args.long:
+        for line in long_benches(args.seed, args.rounds, args.repeats,
+                                 device):
+            print(json.dumps(line), flush=True)
+    if args.clusters:
+        for line in cluster_layouts(args.seed, args.rounds, args.repeats,
+                                    device):
+            print(json.dumps(line), flush=True)
+    print(json.dumps({"instances": register_instances(args.long)}),
+          flush=True)
     return 0
 
 

@@ -98,7 +98,15 @@ def band_args(rng, band_words, device, count=48):
 def k1_counts():
     return (cuda_myers_banded.REGISTER_LAUNCHES,
             cuda_myers_banded.WIDE_LAUNCHES,
+            cuda_myers_banded.CLUSTER_LAUNCHES,
             cuda_myers_banded.SHARED_LAUNCHES)
+
+
+def zero_k1_counts():
+    cuda_myers_banded.REGISTER_LAUNCHES = 0
+    cuda_myers_banded.WIDE_LAUNCHES = 0
+    cuda_myers_banded.CLUSTER_LAUNCHES = 0
+    cuda_myers_banded.SHARED_LAUNCHES = 0
 
 
 @pytest.mark.parametrize("band_words", cuda_myers_banded.REGISTER_BAND_WORDS)
@@ -112,7 +120,7 @@ def test_register_kernel_matches_plain_and_shared(cuda_device, band_words):
     register = cuda_myers_banded.myers_banded_register(*args)
     shared = cuda_myers_banded.myers_banded_shared(*args)
     routed = cuda_myers_banded.myers_banded(*args)
-    assert k1_counts() == (before[0] + 2, before[1], before[2] + 1)
+    assert k1_counts() == (before[0] + 2, *before[1:3], before[3] + 1)
     plain = cuda_myers_banded.myers_banded_plain(
         *(t.cpu() for t in args[:5]), *args[5:]
     )
@@ -122,13 +130,15 @@ def test_register_kernel_matches_plain_and_shared(cuda_device, band_words):
 
 
 def test_wide_band_runs_the_shared_kernel(cuda_device):
-    """A 2176-word band is wider than the multi-warp kernel's widest: it
-    goes to the shared-memory kernel, equal to the plain version, and the
-    register kernels refuse it."""
+    """No routed band reaches the shared-memory kernel past the new
+    widest any more (the cluster kernel takes every 128-word tile up to
+    16384 words, past the shared kernel's limit): its entry point runs a
+    2176-word band directly, equal to the plain version, and the register
+    kernels refuse that band."""
     args = band_args(np.random.default_rng(640), 2176, cuda_device, count=24)
     before = k1_counts()
-    got = cuda_myers_banded.myers_banded(*args)
-    assert k1_counts() == (before[0], before[1], before[2] + 1)
+    got = cuda_myers_banded.myers_banded_shared(*args)
+    assert k1_counts() == (*before[:3], before[3] + 1)
     plain = cuda_myers_banded.myers_banded_plain(
         *(t.cpu() for t in args[:5]), *args[5:]
     )
@@ -149,7 +159,7 @@ def test_banded_wide_kernel_matches_plain(cuda_device, band_words):
                      cuda_device, count=32)
     before = k1_counts()
     got = cuda_myers_banded.myers_banded_wide(*args)
-    assert k1_counts() == (before[0], before[1] + 1, before[2])
+    assert k1_counts() == (before[0], before[1] + 1, *before[2:])
     # the plain version on the card (on the host a 2048-word band takes
     # seconds per case)
     plain = cuda_myers_banded.myers_banded_plain(*args)
@@ -164,11 +174,9 @@ def test_wide_band_runs_the_multi_warp_kernel(cuda_device, band_words):
     version and to the shared-memory kernel."""
     args = band_args(np.random.default_rng(band_words + 5), band_words,
                      cuda_device, count=24)
-    cuda_myers_banded.REGISTER_LAUNCHES = 0
-    cuda_myers_banded.WIDE_LAUNCHES = 0
-    cuda_myers_banded.SHARED_LAUNCHES = 0
+    zero_k1_counts()
     got = cuda_myers_banded.myers_banded(*args)
-    assert k1_counts() == (0, 1, 0)
+    assert k1_counts() == (0, 1, 0, 0)
     shared = cuda_myers_banded.myers_banded_shared(*args)
     plain = cuda_myers_banded.myers_banded_plain(*args)
     for g, s, w in zip(got, shared, plain):
@@ -217,7 +225,15 @@ def test_small_kernel_every_instance_matches_plain(cuda_device, words):
 def k3_counts():
     return (cuda_myers_large.REGISTER_LAUNCHES,
             cuda_myers_large.WIDE_LAUNCHES,
+            cuda_myers_large.CLUSTER_LAUNCHES,
             cuda_myers_large.SHARED_LAUNCHES)
+
+
+def zero_k3_counts():
+    cuda_myers_large.REGISTER_LAUNCHES = 0
+    cuda_myers_large.WIDE_LAUNCHES = 0
+    cuda_myers_large.CLUSTER_LAUNCHES = 0
+    cuda_myers_large.SHARED_LAUNCHES = 0
 
 
 @pytest.mark.parametrize("words", cuda_myers_large.REGISTER_WORDS)
@@ -231,7 +247,7 @@ def test_large_register_kernel_matches_plain_and_shared(cuda_device, words):
     register = cuda_myers_large.myers_large_register(*args)
     shared = cuda_myers_large.myers_large_shared(*args)
     routed = cuda_myers_large.myers_large(*args)
-    assert k3_counts() == (before[0] + 2, before[1], before[2] + 1)
+    assert k3_counts() == (before[0] + 2, *before[1:3], before[3] + 1)
     want = cuda_myers_large.myers_large_plain(*(t.cpu() for t in args))
     for w, *got in zip(want, register, shared, routed):
         for tensor in got:
@@ -239,14 +255,16 @@ def test_large_register_kernel_matches_plain_and_shared(cuda_device, words):
 
 
 def test_wide_large_runs_the_shared_kernel(cuda_device):
-    """2080 pattern words are wider than the multi-warp kernel's widest:
-    the shared-memory kernel takes them, equal to the plain version, and
-    the register kernels refuse them."""
+    """No routed width reaches the shared-memory kernel past the new
+    widest any more (the cluster kernel takes every Wp up to 16384 words,
+    past the shared kernel's limit): its entry point runs 2080 pattern
+    words directly, equal to the plain version, and the register kernels
+    refuse them."""
     args = full_myers_operands(np.random.default_rng(640), 6, 2080, False,
                                cuda_device, max_chars=3000)
     before = k3_counts()
-    got = cuda_myers_large.myers_large(*args)
-    assert k3_counts() == (before[0], before[1], before[2] + 1)
+    got = cuda_myers_large.myers_large_shared(*args)
+    assert k3_counts() == (*before[:3], before[3] + 1)
     want = cuda_myers_large.myers_large_plain(*(t.cpu() for t in args))
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
@@ -265,7 +283,7 @@ def test_large_wide_kernel_matches_plain(cuda_device, words):
                                False, cuda_device, spread=True)
     before = k3_counts()
     got = cuda_myers_large.myers_large_wide(*args)
-    assert k3_counts() == (before[0], before[1] + 1, before[2])
+    assert k3_counts() == (before[0], before[1] + 1, *before[2:])
     # the plain version on the card (tasks of up to 65k chars)
     want = cuda_myers_large.myers_large_plain(*args)
     for g, w in zip(got, want):
@@ -279,14 +297,176 @@ def test_wide_large_runs_the_multi_warp_kernel(cuda_device, words):
     shared-memory kernel on the same operands."""
     args = full_myers_operands(np.random.default_rng(words + 11), 8, words,
                                False, cuda_device, max_chars=4000)
-    cuda_myers_large.REGISTER_LAUNCHES = 0
-    cuda_myers_large.WIDE_LAUNCHES = 0
-    cuda_myers_large.SHARED_LAUNCHES = 0
+    zero_k3_counts()
     got = cuda_myers_large.myers_large(*args)
-    assert k3_counts() == (0, 1, 0)
+    assert k3_counts() == (0, 1, 0, 0)
     shared = cuda_myers_large.myers_large_shared(*args)
     for g, s in zip(got, shared):
         assert torch.equal(g.cpu(), s.cpu())
+
+
+# the cluster kernels' sweep (K1u, K3u): every width chip_smoke.py's sweep
+# holds them to the plain version at, the widest included
+CLUSTER_SWEEP = (2176, 3200, 4096, 6528, 8192, 16384)
+
+
+def deep_band_args(rng, band_words, device):
+    """Two tasks of ~2000 columns whose pattern rows fill the band from the
+    first column (deep_band_cases), two of band_cases' shape, and two
+    whose tlen is 0 and 1."""
+    patterns, texts, budgets = cuda_myers_banded.deep_band_cases(
+        rng, 4, band_words, 2000)
+    more = band_cases(rng, 2, band_words)
+    patterns, texts = patterns + more[0], texts + more[1]
+    budgets = np.concatenate([budgets, more[2]])
+    txt, tlen = pad(texts)
+    tlen[0], tlen[1] = 0, 1
+    operands, num_text = cuda_myers_banded.banded_operands(
+        patterns, txt, tlen, budgets, band_words, device
+    )
+    return (*operands, band_words, num_text)
+
+
+@pytest.mark.parametrize("band_words", CLUSTER_SWEEP)
+def test_banded_cluster_kernel_matches_plain(cuda_device, band_words):
+    """K1u (csrc/myers_banded_cluster.cu) at every width of the sweep, on
+    its pick of the cluster: equal to the plain version on the card, one
+    cluster launch counted."""
+    args = deep_band_args(np.random.default_rng(band_words + 21), band_words,
+                          cuda_device)
+    before = k1_counts()
+    got = cuda_myers_banded.myers_banded_cluster(*args)
+    assert k1_counts() == (*before[:2], before[2] + 1, before[3])
+    plain = cuda_myers_banded.myers_banded_plain(*args)
+    for g, w in zip(got, plain):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("band_words,blocks", [
+    (256, 2), (384, 2), (1024, 1), (1024, 4), (2048, 1), (2048, 2),
+    (2176, 3), (4096, 8), (6528, 5),
+])
+def test_banded_cluster_sizes_match_plain(cuda_device, band_words, blocks):
+    """K1u on a cluster of `blocks` blocks, a spare warp idle where the
+    warps do not divide evenly, the one-block cluster included: equal to
+    the plain version and to the multi-warp kernel where it takes the
+    band."""
+    args = deep_band_args(np.random.default_rng(band_words + blocks),
+                          band_words, cuda_device)
+    got = cuda_myers_banded.myers_banded_cluster(*args, blocks=blocks)
+    plain = cuda_myers_banded.myers_banded_plain(*args)
+    for g, w in zip(got, plain):
+        assert torch.equal(g, w)
+    if band_words <= cuda_myers_banded.WIDE_MAX_WORDS:
+        for g, w in zip(cuda_myers_banded.myers_banded_wide(*args), plain):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("band_words,kernel", [
+    (2048, (0, 1, 0, 0)), (2176, (0, 0, 1, 0)), (8192, (0, 0, 1, 0)),
+])
+def test_band_routing_from_zeroed_counts(cuda_device, band_words, kernel):
+    """myers_banded from zeroed counts: 2176 and 8192 band words take the
+    cluster kernel, 2048 still the multi-warp one; one launch, equal to
+    the plain version; CLUSTER_WIDTHS counts the cluster launch's width."""
+    args = deep_band_args(np.random.default_rng(band_words + 2), band_words,
+                          cuda_device)
+    zero_k1_counts()
+    cuda_myers_banded.CLUSTER_WIDTHS.clear()
+    got = cuda_myers_banded.myers_banded(*args)
+    assert k1_counts() == kernel
+    assert cuda_myers_banded.CLUSTER_WIDTHS == (
+        {band_words: 1} if kernel[2] else {})
+    for g, w in zip(got, cuda_myers_banded.myers_banded_plain(*args)):
+        assert torch.equal(g, w)
+
+
+def test_f3_shared_kernel_past_its_memory_and_the_widest_band(cuda_device):
+    """F3: the shared-memory kernel's nine arrays of a 6528-word band
+    (235,008 bytes) pass the card's 232,448 bytes of shared memory a
+    block, so its launch is refused and raises; myers_banded runs that
+    band on the cluster kernel, equal to the plain version; past the
+    widest band any kernel takes (16384 words) it raises a ValueError
+    naming the width, with no launch and no fallback."""
+    rng = np.random.default_rng(6528)
+    patterns, texts, budgets = band_cases(rng, 2, 6528)
+    txt, tlen = pad(texts)
+    operands, num_text = cuda_myers_banded.banded_operands(
+        patterns, txt, tlen, budgets, 6528, cuda_device
+    )
+    args = (*operands, 6528, num_text)
+    before = k1_counts()
+    with pytest.raises(RuntimeError, match="floxer_myers_banded"):
+        cuda_myers_banded.myers_banded_shared(*args)
+    assert k1_counts() == before
+    zero_k1_counts()
+    got = cuda_myers_banded.myers_banded(*args)
+    assert k1_counts() == (0, 0, 1, 0)
+    for g, w in zip(got, cuda_myers_banded.myers_banded_plain(*args)):
+        assert torch.equal(g, w)
+    widest = cuda_myers_banded.CLUSTER_MAX_WORDS
+    operands, num_text = cuda_myers_banded.banded_operands(
+        patterns, txt, tlen, budgets, widest + 128, cuda_device
+    )
+    zero_k1_counts()
+    with pytest.raises(ValueError, match=f"{widest + 128} words"):
+        cuda_myers_banded.myers_banded(*operands, widest + 128, num_text)
+    assert k1_counts() == (0, 0, 0, 0)
+
+
+def short_full_args(rng, words, device):
+    """Six K3 tasks spread from one group to the width's last, each text
+    cut to 2000 columns (m == 0, tlen 0 and 1, chars 6..15 among them)."""
+    return full_myers_operands(rng, 6, words, False, device, spread=True,
+                               max_columns=2000)
+
+
+@pytest.mark.parametrize("words", CLUSTER_SWEEP)
+def test_large_cluster_kernel_matches_plain(cuda_device, words):
+    """K3u (csrc/myers_large_cluster.cu) at every width of the sweep, on its
+    pick of the cluster: equal to the plain version on the card, one
+    cluster launch counted."""
+    args = short_full_args(np.random.default_rng(words + 31), words,
+                           cuda_device)
+    before = k3_counts()
+    got = cuda_myers_large.myers_large_cluster(*args)
+    assert k3_counts() == (*before[:2], before[2] + 1, before[3])
+    want = cuda_myers_large.myers_large_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("words,blocks", [
+    (544, 2), (1280, 1), (1280, 3), (2048, 2), (3200, 4), (8192, 8),
+])
+def test_large_cluster_sizes_match_plain(cuda_device, words, blocks):
+    """K3u on a cluster of `blocks` blocks (warps that do not divide evenly
+    and the one-block cluster included): equal to the plain version."""
+    args = short_full_args(np.random.default_rng(words + blocks), words,
+                           cuda_device)
+    got = cuda_myers_large.myers_large_cluster(*args, blocks=blocks)
+    for g, w in zip(got, cuda_myers_large.myers_large_plain(*args)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("words,kernel", [
+    (2048, (0, 1, 0, 0)), (2176, (0, 0, 1, 0)), (8192, (0, 0, 1, 0)),
+])
+def test_large_routing_from_zeroed_counts(cuda_device, words, kernel):
+    """myers_large from zeroed counts: 2176 and 8192 pattern words take the
+    cluster kernel, 2048 still the multi-warp one; past the widest
+    (16384) it raises a ValueError naming the width."""
+    args = short_full_args(np.random.default_rng(words + 5), words,
+                           cuda_device)
+    zero_k3_counts()
+    got = cuda_myers_large.myers_large(*args)
+    assert k3_counts() == kernel
+    for g, w in zip(got, cuda_myers_large.myers_large_plain(*args)):
+        assert torch.equal(g, w)
+    wider = cuda_myers_large.CLUSTER_WORDS + 32
+    peq = torch.zeros((6, 6, wider), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match=f"{wider} words"):
+        cuda_myers_large.myers_large(peq, *args[1:])
 
 
 def traceback_tasks(rng, count, length, error_rate):

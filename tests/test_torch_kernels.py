@@ -16,7 +16,7 @@ from hypothesis import strategies as st
 
 from floxer_tpu.ops.device_dp import pad_batch
 from floxer_tpu.ops.dp_reference import _rightmost_argmin, semi_global_dp_matrix
-from floxer_tpu.ops.myers_banded import band_store_bits
+from floxer_tpu.ops.myers_banded import band_store_bits, myers_banded_np
 from floxer_tpu.ops.pallas_myers import myers_pallas
 from floxer_tpu.ops.pallas_myers_banded import myers_pallas_banded
 from floxer_tpu.ops.pallas_myers_large import myers_pallas_large
@@ -450,18 +450,28 @@ def test_warp_lookahead_and_carry_select_equal_the_word_scan(warps, R, data):
     assert got == word_scan(g, p)
 
 
-def emulate_banded_wide(args, warps, R):
+def emulate_banded_wide(args, warps, R, blocks=1):
     """csrc/myers_banded_wide.cu's kernel on K1's operands (numpy, as
     myers_banded takes them) at `warps` warps of 32 lanes with R words each:
     per column the in-warp steps, the (G, P) words and the top bits each
     warp publishes, the carry into each warp from the warps' masks, the
     heads lane 31 takes from the warp above; the sliding and frozen columns
     and the scores as the kernel runs them. Tasks run together, each masked
-    to its own columns."""
+    to its own columns. With blocks > 1 it is csrc/myers_banded_cluster.cu's
+    kernel on a cluster of `blocks` blocks of ceil(warps / blocks) warps:
+    each warp pushes one word into every block's copy, with the top bits of
+    its last word for either carry into it, and after the one barrier
+    reads only its own block's: the carries into itself and the warp below
+    (the lookahead over 32-warp words chained by their carries), the warp
+    below's top bits for its carry, the warp above's slide bits."""
     vp0, planes0, texts_packed, stream_packed, scalars, band_words, _ = args
     assert band_words == 32 * warps * R
     T = vp0.shape[0]
     shape = (T, warps, 32, R)
+    block_warps = -(-warps // blocks)
+    assert -(-warps // block_warps) == blocks  # no block is idle throughout
+    block_of = np.arange(warps) // block_warps
+    cluster = blocks > 1
 
     def unsigned(a):
         return a.astype(np.int64) & MASK
@@ -531,24 +541,53 @@ def emulate_banded_wide(args, warps, R):
                | (((eq[:, :, 0, 0] | vn[:, :, 0, 0]) & 1) << 2)
                | (head_bits(0, 0, p0[:, :, 0, 0], p1[:, :, 0, 0],
                             p2[:, :, 0, 0], am[:, :, 0, 0]) << 1))
+        if cluster:
+            # lane 31's top bits of its last word for either carry into
+            # the warp, in the warp's word
+            for c, at in ((0, 7), (1, 9)):
+                last = ((runs[c][..., 31] >> (R - 1)) & 1)
+                xh_l = ((((t[..., 31, R - 1] + last) & MASK)
+                         ^ vp[..., 31, R - 1]) | eq[..., 31, R - 1])
+                ph_l = vn[..., 31, R - 1] | ((xh_l | vp[..., 31, R - 1]) ^ MASK)
+                mh_l = vp[..., 31, R - 1] & xh_l
+                low = low | (((ph_l >> 31) | ((mh_l >> 31) << 1)) << at)
 
-        # 3) after the barrier: the carry into each warp, the deltas
-        warp_carries = [cuda_myers_banded._ballot_carries(
-            mask_of((low[i] & 1).tolist()), mask_of(((low[i] >> 1) & 1).tolist())
-        ) for i in range(T)]
-        cin = bits_of(np.asarray(warp_carries, dtype=np.int64), warps)
+        # 3) after the barrier: the carries into every warp from each
+        # block's copy of the warps' words, the deltas
+        copies = np.repeat(low[:, None, :], blocks, axis=1)  # [T, C, W]
+        seen_cin = np.zeros((T, blocks, warps), dtype=np.int64)
+        for i in range(T):
+            for b in range(blocks):
+                seen = copies[i, b]
+                carries = cuda_myers_large._chained_ballot_carries(
+                    [mask_of((seen[q:q + 32] & 1).tolist())
+                     for q in range(0, warps, 32)],
+                    [mask_of(((seen[q:q + 32] >> 1) & 1).tolist())
+                     for q in range(0, warps, 32)],
+                )
+                w = np.arange(warps)
+                seen_cin[i, b] = (np.asarray(carries, dtype=np.int64)[w >> 5]
+                                  >> (w & 31)) & 1
+        # warp g reads its own block's copy: its carry, the warp below's
+        cin = seen_cin[:, block_of, warp_ids]
+        cin_below = seen_cin[:, block_of, np.maximum(warp_ids - 1, 0)]
         runs_in = np.where(cin[..., None] != 0, runs[1], runs[0])
         carry = (runs_in[..., None] >> words) & 1
         xh = (((t + carry) & MASK) ^ vp) | eq
         ph, mh = vn | ((xh | vp) ^ MASK), vp & xh
         xv = eq | vn
         top = (ph[..., R - 1] >> 31) | ((mh[..., R - 1] >> 31) << 1)
-        # 4) after the second barrier the shift; lane 0 takes the warp
-        # below's top bits
+        # 4) the shift (after the one-block kernel's second barrier); lane 0
+        # takes the warp below's top bits: in the cluster from the word it
+        # published, for the carry into it
         pessim = np.where(sliding, col >= topshift, mfrozen).astype(np.int64)
         below = np.empty((T, warps), dtype=np.int64)
+        if cluster:
+            published = copies[:, block_of, np.maximum(warp_ids - 1, 0)]
+            below[:] = (published >> np.where(cin_below != 0, 9, 7)) & 3
+        else:
+            below[:, 1:] = top[:, :-1, 31]
         below[:, 0] = pessim
-        below[:, 1:] = top[:, :-1, 31]
         hcarry = np.roll(top, 1, axis=2)
         hcarry[:, :, 0] = below
         ph_sh = ((ph << 1) & MASK) | np.concatenate(
@@ -559,8 +598,9 @@ def emulate_banded_wide(args, warps, R):
         new_vn = ph_sh & xv
         lv = live[:, None, None, None]
         vp, vn = np.where(lv, new_vp, vp), np.where(lv, new_vn, vn)
-        # 5) lane 31's next head from the warp above's published word
-        above = low[:, np.minimum(warp_ids + 1, warps - 1)]
+        # 5) lane 31's next head from the warp above's published word, in
+        # its own block's copy
+        above = copies[:, block_of, np.minimum(warp_ids + 1, warps - 1)]
         top31 = top[:, :, 31]
         ph_t, mh_t, xv_a = top31 & 1, top31 >> 1, (above >> 2) & 1
         next_head = (((mh_t | ((xv_a | ph_t) ^ 1)) & 1) | ((ph_t & xv_a) << 1)
@@ -590,9 +630,52 @@ def test_banded_wide_emulation_equals_plain(warps, R, seed):
     below, the scores of the top warp) emulated lane by lane equals
     myers_banded_plain on two seeds' tasks, tlen 0 and 1 among them, some
     with chars 6..15 in their texts."""
+    check_banded_emulation(warps, R, seed)
+
+
+@pytest.mark.parametrize("blocks,warps,R,deep", [
+    (2, 2, 1, False), (2, 3, 2, False), (3, 5, 1, False), (2, 2, 1, True),
+    (3, 5, 1, True), (4, 4, 2, True), (4, 8, 1, True),
+])
+def test_banded_cluster_emulation_equals_plain(blocks, warps, R, deep):
+    """K1u's column across a cluster (csrc/myers_banded_cluster.cu): each
+    warp's word pushed into every block and read there for the lookahead
+    and the slide's head bits from the warp above, the top bits pushed
+    into the block of the warp above, the top block's scores; 2-4 blocks
+    of 1-2 warps, the last block's spare warp idle, emulated lane by lane
+    and block by block, equal to myers_banded_plain (on deep bands, whose
+    pattern rows reach every warp from the first column, too)."""
+    check_banded_emulation(warps, R, 0, blocks, deep)
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.lists(st.integers(0, 2), min_size=1, max_size=128))
+def test_cluster_lookahead_equals_the_word_scan(states):
+    """K1u's carry into each of up to 128 warps (csrc/myers_banded_cluster.cu
+    warp_carry<Q>): the warps' (G, P) bits in Q = ceil(W / 32) ballot
+    words, one lookahead add each, each word's carry out into the next,
+    equal the plain version's scan over the warps."""
+    g, p = lane_vectors(states)
+    carries = cuda_myers_large._chained_ballot_carries(
+        [mask_of(g[q:q + 32]) for q in range(0, len(states), 32)],
+        [mask_of(p[q:q + 32]) for q in range(0, len(states), 32)],
+    )
+    got = [(carries[w >> 5] >> (w & 31)) & 1 for w in range(len(states))]
+    assert got == word_scan(g, p)
+
+
+def check_banded_emulation(warps, R, seed, blocks=1, deep=False):
+    """emulate_banded_wide at (warps, R, blocks) on seeded band_cases (or
+    deep_band_cases of up to 1500 columns) equals myers_banded_plain, tlen
+    0 and 1 and chars 6..15 among the tasks."""
     band_words = 32 * warps * R
     rng = np.random.default_rng(band_words + warps + 97 * seed)
-    patterns, texts, budgets = cuda_myers_banded.band_cases(rng, 12, band_words)
+    if deep:
+        patterns, texts, budgets = cuda_myers_banded.deep_band_cases(
+            rng, 12, band_words, 1500)
+    else:
+        patterns, texts, budgets = cuda_myers_banded.band_cases(
+            rng, 12, band_words)
     texts[3] = texts[3].copy()
     texts[3][::5] = 9  # garbage chars in at least one task
     txt, tlen = pad_batch(texts)
@@ -603,28 +686,40 @@ def test_banded_wide_emulation_equals_plain(warps, R, seed):
     operands[4][1, cuda_myers_banded.COL_TLEN] = 1
     want = cuda_myers_banded.myers_banded_plain(*operands, band_words, num_text)
     got = emulate_banded_wide(
-        (*(t.numpy() for t in operands), band_words, num_text), warps, R
+        (*(t.numpy() for t in operands), band_words, num_text), warps, R,
+        blocks,
     )
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w.numpy())
     assert int(want[1][0]) == 0 and int(want[0][0]) == int(operands[4][0, 4])
 
 
-def emulate_large_wide(args, warps, R):
+def emulate_large_wide(args, warps, R, blocks=1):
     """csrc/myers_large_wide.cu's kernel on K3's operands (numpy) at `warps`
     warps of R groups of 32 words: each task runs its ceil(m / 1024)
     groups on ceil(groups / R) warps; at step s warp w runs chunk s - w of
     32 columns, reading the carry out and lane 31's top bits the warp below
     published for that chunk at step s - 1 (ring slot (s - 1) & 1) and
     publishing its own (slot s & 1); the top warp keeps the score. All
-    warps of a step run at once, as the barrier between steps allows."""
+    warps of a step run at once, as the barrier between steps allows.
+    With blocks > 1 it is csrc/myers_large_cluster.cu's kernel on a
+    cluster of `blocks` blocks of ceil(warps / blocks) warps: each block
+    holds its own words' Peq rows, and a warp pushes into the ring of the
+    block that holds the warp above, indexed by that warp's place there."""
     peq, plen, texts, tlen = (a.astype(np.int64) for a in args)
     peq &= MASK
     B, _, Wp = peq.shape
     N = texts.shape[1]
     assert Wp == 32 * warps * R
-    # Peq rows by word [B, 7, Wp] with the zero row 6
-    rows = np.concatenate([peq, np.zeros((B, 1, Wp), dtype=np.int64)], 1)
+    block_warps = -(-warps // blocks)
+    block_of = np.arange(warps) // block_warps
+    local_of = np.arange(warps) % block_warps
+    stride = 32 * R * block_warps  # words a block holds
+    # each block's Peq rows by its words [B, C, 7, stride] with the zero
+    # row 6 (past Wp: zero words)
+    padded = np.zeros((B, 7, stride * blocks), dtype=np.int64)
+    padded[:, :6, :Wp] = peq
+    block_rows = padded.reshape(B, 7, blocks, stride).transpose(0, 2, 1, 3)
     ncols = np.maximum(np.minimum(tlen - 1, N), 0)
     msb_word = np.floor_divide(plen - 1, 32)
     dead = (msb_word < 0) | (msb_word >= Wp)
@@ -639,7 +734,7 @@ def emulate_large_wide(args, warps, R):
     vn = np.zeros_like(vp)
     score, best = plen.copy(), plen.copy()
     best_end = np.zeros(B, dtype=np.int64)
-    ring = np.zeros((2, B, warps, 32), dtype=np.int64)
+    ring = np.zeros((2, B, blocks, block_warps, 32), dtype=np.int64)
     top_warp = active - 1
     last_group = my_groups[np.arange(B), top_warp] - 1
     msb_lane, msb_bit = msb_word & 31, (plen - 1) & 31
@@ -647,18 +742,19 @@ def emulate_large_wide(args, warps, R):
     for step in range(int(steps.max(initial=0))):
         chunk = np.tile(step - wi, (B, 1))  # [B, W]
         runs = (chunk >= 0) & (chunk < chunks[:, None]) & (wi < active[:, None])
-        from_below = np.zeros((B, warps, 32), dtype=np.int64)
-        from_below[:, 1:] = ring[(step - 1) & 1, :, :-1]
+        # warp g's slots in its own block (warp 0's stay unread)
+        from_below = ring[(step - 1) & 1][:, block_of, local_of]
+        from_below[:, 0] = 0
         for q in range(32):
             col = 32 * chunk + q
             live = runs & (col < ncols[:, None])
             c = np.take_along_axis(texts, np.clip(col, 0, N - 1), 1)
             c = np.where((col < N) & (c < 6), c, 6)
-            eq = np.take_along_axis(
-                rows, c[:, :, None], 1
-            )  # [B, W, Wp] rows of each warp's char
+            # each warp's char's row in its own block's Peq [B, W, stride]
+            eq = block_rows[np.arange(B)[:, None], block_of[None, :], c]
+            local_word = word - (stride * block_of)[:, None, None]
             eq = np.take_along_axis(eq, np.broadcast_to(
-                word.reshape(1, warps, -1), (B, warps, 32 * R)
+                local_word.reshape(1, warps, -1), (B, warps, 32 * R)
             ), 2).reshape(vp.shape)
             a = eq & vp
             t = (a + vp) & MASK
@@ -691,9 +787,11 @@ def emulate_large_wide(args, warps, R):
             last = np.clip(my_groups - 1, 0, R - 1)
             cout = np.take_along_axis(couts, last[..., None], 2)[..., 0]
             top31 = np.take_along_axis(top[..., 31], last[..., None], 2)[..., 0]
+            # pushed into the ring of the warp above, in its block
             publish = live & (wi < top_warp[:, None])
-            ring[step & 1, :, :, q] = np.where(
-                publish, cout | (top31 << 1), ring[step & 1, :, :, q]
+            slots = ring[step & 1][:, block_of[1:], local_of[1:], q]
+            ring[step & 1][:, block_of[1:], local_of[1:], q] = np.where(
+                publish[:, :-1], (cout | (top31 << 1))[:, :-1], slots
             )
             # the score in the top warp's lane that owns row m
             tw = np.arange(B), top_warp
@@ -724,12 +822,68 @@ def test_large_wide_wavefront_emulation_equals_plain(warps, R):
         np.testing.assert_array_equal(g, w.numpy())
 
 
+@pytest.mark.parametrize("blocks,warps,R", [(2, 2, 1), (3, 3, 1), (2, 3, 2),
+                                            (3, 5, 1)])
+def test_large_cluster_wavefront_emulation_equals_plain(blocks, warps, R):
+    """K3u's wavefront across a cluster (csrc/myers_large_cluster.cu): each
+    block's Peq rows of its own words, a warp's carry out and top bits
+    pushed into the ring of the block that holds the warp above, one
+    barrier a step over the cluster; 2-3 blocks of 1-2 warps, the last
+    block's spare warp idle, emulated lane by lane and block by block on
+    tasks of every group count, with m == 0, tlen 0 and 1 and chars 6..15
+    among them, equal to myers_large_plain."""
+    words = 32 * warps * R
+    args = full_myers_operands(np.random.default_rng(words + R + blocks),
+                               3 * warps * R, words, False, CPU)
+    want = cuda_myers_large.myers_large_plain(*args)
+    got = emulate_large_wide([t.numpy() for t in args], warps, R, blocks)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+
+
+def test_banded_plain_past_2048_words_equals_the_reference_oracle():
+    """myers_banded_plain at 2176 band words, the narrowest band the cluster
+    kernel takes (the card kernels are held to it there), equals the JAX
+    package's own banded oracle myers_banded_np at the same band store on
+    2 tasks of about 200 columns (substitutions; then an insertion and a
+    deletion besides)."""
+    band_words = cuda_myers_banded.CLUSTER_BAND_WORDS[0]
+    assert band_words == 2176
+    rng = np.random.default_rng(2176)
+    patterns, texts, budgets = [], [], []
+    for indels in (False, True):
+        text = rng.integers(1, 5, size=200).astype(np.uint8)
+        pattern = text[20:190].copy()
+        pattern[::13] = 1 + (pattern[::13] % 4)
+        if indels:
+            pattern = np.insert(np.delete(pattern, 40), 120, 3)
+        patterns.append(pattern)
+        texts.append(text)
+        budgets.append(60)
+    txt, tlen = pad_batch(texts)
+    operands, num_text = cuda_myers_banded.banded_operands(
+        patterns, txt, tlen, np.asarray(budgets), band_words, CPU
+    )
+    dist, end = cuda_myers_banded.myers_banded_plain(*operands, band_words,
+                                                     num_text)
+    for i, (pattern, text, budget) in enumerate(zip(patterns, texts,
+                                                    budgets)):
+        want = myers_banded_np(pattern, text, budget, b_store=32 * band_words)
+        assert (int(dist[i]), int(end[i])) == want
+        assert int(dist[i]) <= budget
+
+
 def test_wide_instances_are_the_kernel_sources():
     """WIDE_WORDS_PER_LANE and WIDE_MAX_WORDS are csrc/myers_banded_wide.cu's
     kWordsPerLane and kMaxBandWords, and WIDE_WORDS is
     csrc/myers_large_wide.cu's kMaxWords; WIDE_BAND_WORDS holds every
     128-word tile from past the register kernel's widest to 2048, each a
-    width the kernel takes, and myers_large's wide range covers 544..2048."""
+    width the kernel takes, and myers_large's wide range covers 544..2048.
+    The cluster kernels' widest widths, block warps and cluster sizes are
+    csrc/myers_banded_cluster.cu's and csrc/myers_large_cluster.cu's
+    constants; CLUSTER_BAND_WORDS holds every 128-word tile from 2176 to
+    past F3's 6528 words (the widest 16384), and the pick of blocks holds
+    each routed width."""
     root = Path(__file__).resolve().parent.parent / "floxer_tpu_torch" / "csrc"
 
     def constant(source, name):
@@ -748,6 +902,27 @@ def test_wide_instances_are_the_kernel_sources():
             == cuda_myers_large.WIDE_WORDS)
     assert cuda_myers_large.REGISTER_WORDS[-1] + 32 == 544
     assert cuda_myers_large.WIDE_WORDS >= 2048
+    k1, k3 = cuda_myers_banded, cuda_myers_large
+    for source, module, widest in (
+        ("myers_banded_cluster.cu", k1, k1.CLUSTER_MAX_WORDS),
+        ("myers_large_cluster.cu", k3, k3.CLUSTER_WORDS),
+    ):
+        assert constant(source, "kBlockWarps") == module.CLUSTER_BLOCK_WARPS
+        assert constant(source, "kMaxBlocks") == module.CLUSTER_MAX_BLOCKS
+        assert constant(source, "kMaxBandWords" if module is k1
+                        else "kMaxWords") == widest
+        assert widest == (32 * 4 * module.CLUSTER_BLOCK_WARPS
+                          * module.CLUSTER_MAX_BLOCKS)
+    assert constant("myers_banded_cluster.cu", "kWordsPerLane") == R
+    assert constant("myers_large_cluster.cu", "kGroupsPerWarp") == 4
+    assert k1.CLUSTER_BAND_WORDS == tuple(range(2176, 16385, 128))
+    assert 6528 in k1.CLUSTER_BAND_WORDS and k3.CLUSTER_WORDS >= 8192
+    for words in k1.CLUSTER_BAND_WORDS:
+        warps = words // (32 * R)
+        blocks = k1.cluster_blocks(words)
+        assert blocks <= k1.CLUSTER_MAX_BLOCKS
+        assert -(-warps // blocks) <= k1.CLUSTER_BLOCK_WARPS
+        assert k3.cluster_blocks(words) == blocks
 
 
 @pytest.mark.parametrize("band_words", [1024, 2176])
@@ -772,6 +947,38 @@ def test_wide_and_past_wide_bands_refuse_cpu_operands(band_words):
     with pytest.raises(ValueError, match="multi-warp"):
         cuda_myers_banded.myers_banded_wide(*operands, band_words - 32,
                                             num_text)
+
+
+@pytest.mark.parametrize("band_words", [2176, 6528, 16384])
+def test_cluster_bands_refuse_cpu_operands(band_words):
+    """On the CPU myers_banded runs the plain version at a cluster width,
+    counting no launch; the cluster wrappers refuse CPU tensors, a width
+    past their widest or off their tiles, and a cluster that cannot hold
+    the width."""
+    patterns, texts, budgets = banded_cases(6, count=2)
+    txt, tlen = pad_batch(texts)
+    operands, num_text = cuda_myers_banded.banded_operands(
+        patterns, txt, tlen, np.asarray(budgets), band_words, CPU
+    )
+    before = cuda_myers_banded.launches()
+    dist, _ = cuda_myers_banded.myers_banded(*operands, band_words, num_text)
+    assert cuda_myers_banded.launches() == before and dist.device == CPU
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        cuda_myers_banded.myers_banded_cluster(*operands, band_words,
+                                               num_text)
+    with pytest.raises(ValueError, match="cannot hold"):
+        cuda_myers_banded.myers_banded_cluster(*operands, band_words,
+                                               num_text, blocks=1)
+    for wrong in (band_words + 32, 16384 + 128):
+        with pytest.raises(ValueError, match="cluster kernel takes"):
+            cuda_myers_banded.myers_banded_cluster(
+                *operands[:2], *operands[2:], wrong, num_text)
+    args = full_myers_operands(np.random.default_rng(band_words), 6, 32,
+                               False, CPU)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        cuda_myers_large.myers_large_cluster(*args)
+    with pytest.raises(ValueError, match="cannot hold"):
+        cuda_myers_large.myers_large_cluster(*args, blocks=9)
 
 
 @pytest.mark.parametrize("words,count", [(544, 12), (2048, 12)])

@@ -551,10 +551,10 @@ def test_each_source_set_builds_its_own_library(tmp_path, monkeypatch):
 
     assert [s.name for s in _build.ALIGNER.sources()] == [
         "fm_index.cu", "fm_sharded.cu", "frontier_search.cu",
-        "myers_banded.cu",
-        "myers_banded_wide.cu", "myers_large.cu", "myers_large_wide.cu",
-        "myers_small.cu", "select_anchors.cu", "traceback_banded.cu",
-        "workqueue_search.cu",
+        "myers_banded.cu", "myers_banded_cluster.cu",
+        "myers_banded_wide.cu", "myers_large.cu", "myers_large_cluster.cu",
+        "myers_large_wide.cu", "myers_small.cu", "select_anchors.cu",
+        "traceback_banded.cu", "workqueue_search.cu",
     ]
     assert [s.name for s in _build.SCRIPTS.sources()] == [
         "ablate_banded_kernel.cu", "microbench_carry_scaling.cu",
