@@ -14,8 +14,8 @@ Phases, one line each on stdout, any failure exits non-zero:
            myers_banded_reg_kernel<R> and multi-warp
            myers_banded_wide_kernel and cluster
            myers_banded_cluster_kernel<Q> (Q = 1, 2, 4), K3's
-           myers_large_reg_kernel<R>, multi-warp myers_large_wide_kernel
-           and cluster myers_large_cluster_kernel, and K2's
+           myers_large_reg_kernel<R> and cluster
+           myers_large_cluster_kernel, and K2's
            myers_small_kernel<G>, and of the device search's kernels
            (K9, K9x, K9l, K10, K11, K12):
            registers, stack and spill bytes (a spill or a stack frame
@@ -42,12 +42,12 @@ Phases, one line each on stdout, any failure exits non-zero:
            register, register, shared). K2 at every W = 1..8 (its
            instances of G = 1, 2, 4, 8 lanes per task), tasks of 1..W
            words, garbage chars, tlen 0 and 1 and m == 0 in each launch,
-           and timed at 2048 tasks of 172 chars. K3 has three kernels too:
+           and timed at 2048 tasks of 172 chars. K3 has three kernels:
            the register kernel at every instance (Wp = 32..512 words,
-           tasks of 1 to Wp/32 groups in one launch), the multi-warp kernel
-           at 544, 1280 and 2048 words (tasks spread up to the width's last
-           group) and the shared-memory kernel at those and at 2080 words
-           (beside the cluster kernel there),
+           tasks of 1 to Wp/32 groups in one launch), the cluster kernel
+           (which takes every Wp past 512 words) at 544, 1280, 2048 and
+           2080 words (tasks spread up to the width's last group) and the
+           shared-memory kernel at those,
            each against the plain version, each width past the register
            kernel's driven once through myers_large with the counts at 0,
            and the register and shared-memory kernels timed in turns at
@@ -69,12 +69,13 @@ Phases, one line each on stdout, any failure exits non-zero:
            30, 40 or 80 kb roots against the host traceback, timed with
            its bound; kernel and plain-version times, and each kernel's
            bound (see `bound`)
-  long_shapes  the multi-warp kernels at pass E's shapes, in turns with the
+  long_shapes  the routed kernels at pass E's shapes, in turns with the
            shared-memory kernels on the same operands and held to them and
-           to the native host engine: K1 at 64 roots of 40 kb reads
-           (k = 6000) on 1024 and 640 band words (pass E's) and on 2048
-           (the multi-warp kernel's widest); K3 at 64 overhanging roots on
-           1280 pattern words; each width driven once through the routing
+           to the native host engine: K1's multi-warp kernel at 64 roots
+           of 40 kb reads (k = 6000) on 1024 and 640 band words (pass E's)
+           and on 2048 (its widest); K3u at 64 overhanging roots on 1280
+           pattern words (2 blocks a task); each width driven once through
+           the routing
            entry with the counts at 0; each with its bound; and the plain
            versions once on the CPU in workers, on K1's 1024 words and
            on K3's shape, every kernel equal to them; and the cluster
@@ -199,9 +200,11 @@ Phases, one line each on stdout, any failure exits non-zero:
            end (OVERHANG_READS), --engine device against its own pass B:
            the roots' bands are wider than 512 words, so the multi-warp K1
            runs, and the overhanging reads' roots, cut short by the
-           chromosome's end, run full on the multi-warp K3 (no launch of
-           either shared-memory kernel); SAM identical; its device kernel
-           seconds; then pass E again under --profile and with the
+           chromosome's end, run full on K3u (no launch of either
+           shared-memory kernel); SAM identical; its device kernel
+           seconds, and the tasks of each launch of the multi-warp K1 and
+           of K3u at 544-2048 words; then pass E again under --profile
+           and with the
            roots' CIGARs by K4 (FLOXER_TPU_DEVICE_TRACEBACK=1, its 16- or
            32-cell layout), its device time by kernel from the trace
   ultra_reads  pass J: on pass E's genome at its -p, one read of 100 kb
@@ -217,11 +220,11 @@ Phases, one line each on stdout, any failure exits non-zero:
 Each path is driven with the launch counts set to 0 just before it and
 read just after (server jobs report theirs in their stage split line). The
 line before the last is the kernel table as JSON (K1 at the 384-word
-root band, K1w and K1s at pass E's 1024-word root shape, K3w and K3s at
-its 1280-word overhang shape, K1u and K3u at their 200 kb and 100 kb
+root band, K1w and K1s at pass E's 1024-word root shape, K3s at its
+1280-word overhang shape, K1u and K3u at their 200 kb and 100 kb
 shapes with their plain ms at the sweep's 3200 words; K1-K3 launches of
-pass A, the multi-warp K1's and K3's of pass E, the cluster ones of pass
-J, the shared-memory ones of passes E and J, K4 of pass C, its wider
+pass A, the multi-warp K1's of pass E, K1u's of pass J, K3u's of passes E
+and J, the shared-memory ones of passes E and J, K4 of pass C, its wider
 layouts' of passes C and E under --profile, K5-K8 of the entry points'
 run, K9, K9x, K9l and K10 of pass G: K10 a launch a generation of each
 chunk's search, and K9, K9x and
@@ -304,16 +307,17 @@ WIDE_BAND_WORDS = 2176
 SWEEP_WORKERS = 3
 # K3's exactness sweep: seeded tasks per width (every instance of the
 # register kernel; SWEEP_WIDE_LARGE (words, longest pattern) for the
-# multi-warp kernel, its tasks spread up to that pattern's group; then
-# WIDE_LARGE_WORDS, wider than its widest, for the shared-memory kernel
-# and the cluster kernel, on patterns of up to WIDE_LARGE_CHARS chars);
+# cluster kernel at the long reads' widths, its tasks spread up to that
+# pattern's group; then WIDE_LARGE_WORDS, past 2048, for the shared-memory
+# kernel and the cluster kernel, on patterns of up to WIDE_LARGE_CHARS
+# chars);
 # K2's takes 75 tasks at every W
 LARGE_CASES = 12
 SWEEP_WIDE_LARGE = ((544, None), (1280, 20_480), (2048, 16_384))
 WIDE_LARGE_WORDS = 2080
 WIDE_LARGE_CHARS = 3000
-# pass E's shapes, where the multi-warp kernels are timed in turns with
-# the shared-memory ones: K1 at the long reads' roots (tasks, pattern
+# pass E's shapes, where the routed kernels are timed in turns with the
+# shared-memory ones: K1 at the long reads' roots (tasks, pattern
 # length, budget, window chars past m, band widths: the root bands pass E
 # runs, the first the table's and the plain version's, then the multi-warp
 # kernel's widest on the same roots) and K3 at the overhanging reads'
@@ -340,7 +344,7 @@ LONG_SHARED_REPEATS = 1
 CLUSTER_SWEEP_WIDTHS = (2176, 3200, 4096, 6528, 8192, 16384)
 CLUSTER_SWEEP_TASKS = 4
 CLUSTER_SWEEP_COLUMNS = 2000
-# K1's plain versions and K3w's at pass E's overhang shape, the longest of
+# K1's plain versions and K3's at pass E's overhang shape, the longest of
 # the CPU plain versions, run in this many workers each (at the root shape
 # on each band, at pass E's long root shape and its overhang shape), each
 # worker on its share of the tasks, the longest parts submitted first
@@ -436,7 +440,7 @@ SELECT_OPS_PER_ANCHOR = 44
 SELECT_OPS_PER_SEED = 16
 # the plain versions that take minutes (K1 at the root shape on both
 # bands and K1w at pass E's 1024 words, each in K1_PLAIN_PARTS workers,
-# K3w at its overhang shape, K4's four layouts) and the search kernels'
+# K3 at its overhang shape, K4's four layouts) and the search kernels'
 # (K11, K12) run on
 # the CPU in these spawned worker processes (no CUDA), started before the
 # build, each with this many torch threads; the script waits this long
@@ -1244,7 +1248,7 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain, large_sweep,
             routed = launch_split(cuda_myers_banded)
             expected = (0, 1, 0, 0) if wide else (0, 0, 1, 0)
             check(routed == expected, f"a {band_words}-word band took the "
-                  f"kernels {SPLIT_KERNELS} {routed} times")
+                  f"kernels {K1_SPLIT} {routed} times")
         for name, kernel in kernels:
             got = [t.cpu().numpy() for t in kernel(*sweep_args)]
             err = max(int(np.max(np.abs(g.astype(np.int64) - w)))
@@ -1351,19 +1355,16 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain, large_sweep,
                     cuda_myers_large.myers_large_plain(*args)]
         else:
             args = tuple(to_dev(a) for a in wide_arrays[words])
-            past = words > cuda_myers_large.WIDE_WORDS
-            kernels = ("cluster" if past else "wide", "shared")
+            kernels = ("cluster", "shared")
             want, _ = large_results[words]
             # the pattern state through the routing entry, counted alone:
-            # it must take the multi-warp kernel, past its widest the
-            # cluster one
+            # it must take the cluster kernel
             reset_launches()
             cuda_myers_large.myers_large(*args)
             torch.cuda.synchronize()
             routed = launch_split(cuda_myers_large)
-            expected = (0, 0, 1, 0) if past else (0, 1, 0, 0)
-            check(routed == expected, f"{words} pattern words took the K3 "
-                  f"kernels {SPLIT_KERNELS} {routed} times")
+            check(routed == (0, 1, 0), f"{words} pattern words took the K3 "
+                  f"kernels {K3_SPLIT} {routed} times")
         for name in kernels:
             kernel = getattr(cuda_myers_large, f"myers_large_{name}")
             got = [t.cpu().numpy() for t in kernel(*args)]
@@ -1415,14 +1416,17 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain, large_sweep,
 
 
 def run_long_shapes(device, peaks):
-    """The multi-warp kernels at pass E's shapes, each timed in turns with
-    the shared-memory kernel on the same operands (shared, multi-warp,
-    multi-warp, shared) and held to it and to the native host engine: K1
-    at LONG_ROOT_SHAPE on each of its band widths and K3 at
+    """The routed kernels at pass E's shapes, each timed in turns with the
+    shared-memory kernel on the same operands (shared, routed, routed,
+    shared) and held to it and to the native host engine: K1's multi-warp
+    kernel at LONG_ROOT_SHAPE on each of its band widths and K3's cluster
+    kernel (K3u, on its pick of blocks for the shape's tasks) at
     OVERHANG_SHAPE; each width once through the routing entry with the
-    counts at 0. The plain versions run once on the card, on K1's first
-    width and on K3's shape, and every kernel there equals them. Returns
-    the table rows K1w, K1s, K3w, K3s and the phase's fields."""
+    counts at 0. The plain versions run once on the CPU in workers, on
+    K1's first width and on K3's shape, and every kernel there equals
+    them. Returns the table rows K1w, K1s, K3s and the phase's fields
+    (K3u's time at this shape among them; its row is its 100 kb
+    shape's)."""
     import numpy as np
     import torch
 
@@ -1450,7 +1454,7 @@ def run_long_shapes(device, peaks):
         return max(int(np.max(np.abs(g.astype(np.int64) - w)))
                    for g, w in zip(got, want))
 
-    errors = {"K1w": 0, "K1s": 0, "K3w": 0, "K3s": 0}
+    errors = {"K1w": 0, "K1s": 0, "K3u": 0, "K3s": 0}
     rows = {}
 
     def record_plain(keys, field_row):
@@ -1541,10 +1545,11 @@ def run_long_shapes(device, peaks):
                                           num_threads=threads)
     reset_launches()
     routed3 = [t.cpu().numpy() for t in k3.myers_large(*args3)]
-    check(launch_split(k3) == (0, 1, 0, 0), f"the {words}-word overhang roots "
+    check(launch_split(k3) == (0, 1, 0), f"the {words}-word overhang roots "
           f"took the K3 kernels {launch_split(k3)}")
+    blocks3 = k3.cluster_blocks(words, B, peaks["sm_count"])
     kernels3 = {"shared": functools.partial(k3.myers_large_shared, *args3),
-                "wide": functools.partial(k3.myers_large_wide, *args3)}
+                "cluster": functools.partial(k3.myers_large_cluster, *args3)}
     outputs3 = []
     for name, kernel in kernels3.items():
         got = [t.cpu().numpy() for t in kernel()]
@@ -1552,32 +1557,32 @@ def run_long_shapes(device, peaks):
         err = max(max_err(got, want) for want in (native3, routed3))
         check(err == 0, f"K3 {name} differs from the native engine at the "
               f"overhang shape ({err})")
-        errors["K3s" if name == "shared" else "K3w"] = err
-    turns3 = turns_of(kernels3, {"shared": LONG_SHARED_REPEATS, "wide": 5})
+        errors["K3s" if name == "shared" else "K3u"] = err
+    turns3 = turns_of(kernels3, {"shared": LONG_SHARED_REPEATS,
+                                 "cluster": 5})
     bound3 = full_bound(args3, peaks)
     columns3 = int(tlen.max()) - 1
     k3_fields = {
         "bound_ms": bound3[0], "bound_by": bound3[1], "columns": columns3,
+        "blocks_a_task": blocks3,
+        "max_clusters": k3.cluster_max_clusters(device, words, blocks3),
         **{name: {"ms": mean(turn), "turns_ms": turn,
                   "us_per_col": mean(turn) * 1000 / columns3,
                   "bound_share": bound3[0] / mean(turn)}
            for name, turn in turns3.items()},
     }
     shape3 = (f"B={B} m={m3} n={n3} Wp={words} (pass E's overhanging "
-              f"roots)")
-    for key, name, label in (("K3w", "myers_large_wide", "wide"),
-                             ("K3s", "myers_large_shared", "shared")):
-        rows[key] = {
-            "name": name, "route": "cuda",
-            "source": k3.WIDE_SOURCE if key == "K3w" else k3.SOURCE,
-            "replaces": k3.REPLACES, "max_abs_err": errors[key],
-            "ms": k3_fields[label]["ms"], "plain_ms": None,
-            **bound_fields(bound3), "shape": shape3,
-            "us_per_col": k3_fields[label]["us_per_col"],
-        }
-    CPU_PLAIN.expect("K3w and K3s at the overhang shape",
+              f"roots, {blocks3} blocks a task)")
+    rows["K3s"] = {
+        "name": "myers_large_shared", "route": "cuda", "source": k3.SOURCE,
+        "replaces": k3.REPLACES, "max_abs_err": errors["K3s"],
+        "ms": k3_fields["shared"]["ms"], "plain_ms": None,
+        **bound_fields(bound3), "shape": shape3,
+        "us_per_col": k3_fields["shared"]["us_per_col"],
+    }
+    CPU_PLAIN.expect("K3u and K3s at the overhang shape",
                      CPU_PLAIN.results["long_k3"], outputs3,
-                     record_plain(("K3w", "K3s"), k3_fields))
+                     record_plain(("K3s",), k3_fields))
     fields = {"k1": {"shape": shape, **k1_fields},
               "k3": {"shape": shape3, **k3_fields}}
     return rows, fields
@@ -1693,13 +1698,13 @@ def run_ultra_shapes(device, peaks):
                                           num_threads=threads)
     reset_launches()
     routed3 = [t.cpu().numpy() for t in k3.myers_large(*args3)]
-    check(launch_split(k3) == (0, 0, 1, 0), f"the {words}-word 100 kb "
+    check(launch_split(k3) == (0, 1, 0), f"the {words}-word 100 kb "
           f"overhang roots took the K3 kernels {launch_split(k3)}")
     kernels3 = {"shared": functools.partial(k3.myers_large_shared, *args3),
                 "cluster": functools.partial(k3.myers_large_cluster, *args3)}
     err3 = held(kernels3, [native3, routed3], "K3u or K3 shared at the "
                                               "100 kb overhang shape")
-    blocks3 = k3.cluster_blocks(words)
+    blocks3 = k3.cluster_blocks(words, B, peaks["sm_count"])
     k3_fields = timed(kernels3, int(tlen.max()) - 1, full_bound(args3, peaks),
                       blocks3, B)
     k3_fields["max_clusters"] = k3.cluster_max_clusters(device, words,
@@ -1757,7 +1762,8 @@ def run_cluster_sweep(device, rows, cases, plain):
             reset_launches()
             routed = [t.cpu().numpy() for t in entry(*args)]
             torch.cuda.synchronize()
-            check(launch_split(module) == (0, 0, 1, 0),
+            check(launch_split(module) == tuple(
+                      int(name == "cluster") for name in split_kernels(module)),
                   f"{width} words took the {key[:2]} kernels "
                   f"{launch_split(module)}")
             got = [t.cpu().numpy() for t in kernel(*args)]
@@ -2438,24 +2444,30 @@ def reset_launches() -> None:
     cuda_fm_index.EXTEND_LAUNCHES = 0
     traceback_device.LAYOUT_LAUNCHES.clear()
     for module in (cuda_myers_banded, cuda_myers_large):
-        module.REGISTER_LAUNCHES = 0
-        module.WIDE_LAUNCHES = 0
-        module.CLUSTER_LAUNCHES = 0
-        module.SHARED_LAUNCHES = 0
+        for name in split_kernels(module):
+            setattr(module, f"{name.upper()}_LAUNCHES", 0)
         module.CLUSTER_WIDTHS.clear()
+        module.LONG_TASKS.clear()
     microbench_carry_scaling.CARRY_LAUNCHES = 0
     microbench_carry_scaling.BCAST_LAUNCHES = 0
 
 
-# K1's and K3's kernels, in launch_split's order
-SPLIT_KERNELS = ("register", "wide", "cluster", "shared")
+# K1's and K3's kernels, in launch_split's order (K3 has no one-block
+# multi-warp kernel: its cluster kernel takes every width past the
+# register kernel's)
+K1_SPLIT = ("register", "wide", "cluster", "shared")
+K3_SPLIT = ("register", "cluster", "shared")
 
 
-def launch_split(module) -> tuple[int, int, int, int]:
-    """K1's or K3's launches by kernel: (register, multi-warp, cluster,
-    shared)."""
-    return (module.REGISTER_LAUNCHES, module.WIDE_LAUNCHES,
-            module.CLUSTER_LAUNCHES, module.SHARED_LAUNCHES)
+def split_kernels(module) -> tuple[str, ...]:
+    """K1's or K3's kernels, by the wrapper module."""
+    return K1_SPLIT if module.__name__.endswith("banded") else K3_SPLIT
+
+
+def launch_split(module) -> tuple[int, ...]:
+    """K1's or K3's launches by kernel, in split_kernels' order."""
+    return tuple(getattr(module, f"{name.upper()}_LAUNCHES")
+                 for name in split_kernels(module))
 
 
 def run_logged_launches(logfile: Path) -> dict:
@@ -2540,7 +2552,7 @@ class E2E:
             launches = pipeline.kernel_launches()
             for kernel, module in (("K1", cuda_myers_banded),
                                    ("K3", cuda_myers_large)):
-                for split, count in zip(SPLIT_KERNELS,
+                for split, count in zip(split_kernels(module),
                                         launch_split(module)):
                     launches[f"{kernel}_{split}"] = count
             for layout, count in traceback_device.LAYOUT_LAUNCHES.items():
@@ -3845,9 +3857,12 @@ def run_long_pass(e2e: E2E, rng):
     """Pass E: the LONG_READS workload, with overhanging reads appended,
     with --engine device against its own pass B. Its PEX roots need bands
     over 512 words, so the fused wave runs them on the multi-warp K1, and
-    the overhanging reads' roots take the multi-warp K3 (each counted
+    the overhanging reads' roots take K3's cluster kernel (each counted
     apart from its other kernels' launches); no launch of either
-    shared-memory kernel."""
+    shared-memory kernel. Beside the launches, the tasks of each launch at
+    the long reads' widths (K1's multi-warp kernel at 640-2048 band words,
+    K3u at 544-2048 pattern words): (width, tasks)."""
+    from floxer_tpu_torch.ops import cuda_myers_banded, cuda_myers_large
     from floxer_tpu_torch import verify_batch
 
     append_overhanging_reads(e2e, rng)
@@ -3855,11 +3870,16 @@ def run_long_pass(e2e: E2E, rng):
     kernel_before = verify_batch._BATCH_TIMERS["kernel"]
     launches, fused = e2e.run_device_pass("pass_e")
     device_kernel_s = verify_batch._BATCH_TIMERS["kernel"] - kernel_before
-    for name in ("K1", "K3"):
-        check(launches[f"{name}_wide"] > 0
+    for name, routed in (("K1", "wide"), ("K3", "cluster")):
+        check(launches[f"{name}_{routed}"] > 0
               and launches[f"{name}_shared"] == 0,
               f"pass E's long {name} launches did not all take the "
-              f"multi-warp kernel: {launches}")
+              f"{routed} kernel: {launches}")
+    long_tasks = {"K1": list(cuda_myers_banded.LONG_TASKS),
+                  "K3": list(cuda_myers_large.LONG_TASKS)}
+    check(len(long_tasks["K1"]) == launches["K1_wide"],
+          f"pass E's multi-warp K1 launches and their tasks differ: "
+          f"{long_tasks}")
     return {
         "device_kernel_s": device_kernel_s,
         "reads": e2e.num_reads, "overhanging_reads": OVERHANG_READS[0],
@@ -3869,8 +3889,8 @@ def run_long_pass(e2e: E2E, rng):
         "align_s": e2e.seconds("pass_e"),
         "pass_b_align_s": e2e.seconds("pass_b"),
         "stage_split": align_seconds(e2e.workdir / "pass_e.log")[1],
-        "launches": launches, "fused_dispatches": fused,
-        "sam_identical": True,
+        "launches": launches, "long_tasks": long_tasks,
+        "fused_dispatches": fused, "sam_identical": True,
     }, launches
 
 
@@ -3903,8 +3923,9 @@ def run_ultra_pass(e2e: E2E, rng, long_result):
     past 2048 band words; no launch of either shared-memory kernel; the
     ULTRA_SKIPPED read is skipped by both passes, as by the reference.
     Prints the widths the cluster kernels ran (the roots' bands, the
-    overhang root's pattern words), the launches by kernel and
-    device_kernel_s beside pass E's."""
+    patterns' words), the launches by kernel, the tasks of each launch at
+    the long reads' widths (as pass E) and device_kernel_s beside pass
+    E's."""
     from floxer_tpu_torch import verify_batch
     from floxer_tpu_torch.ops import cuda_myers_banded, cuda_myers_large
 
@@ -3922,8 +3943,12 @@ def run_ultra_pass(e2e: E2E, rng, long_result):
               and launches[f"{name}_shared"] == 0,
               f"pass J's {name} launches did not take the cluster kernel "
               f"and no shared-memory one: {launches}")
-    check(min(band_words) > 2048 and min(pattern_words) > 2048,
+    # K1u only past K1w's widest; K3u past 2048 words for the overhanging
+    # root and at 544-2048 for the other overhanging roots
+    check(min(band_words) > 2048 and max(pattern_words) > 2048,
           f"pass J's cluster launches ran at {band_words}, {pattern_words}")
+    long_tasks = {"K1": list(cuda_myers_banded.LONG_TASKS),
+                  "K3": list(cuda_myers_large.LONG_TASKS)}
     for name in ("pass_b", "pass_j"):
         check(f"skipping too large query: {skipped}"
               in (e2e.workdir / f"{name}.log").read_text()
@@ -3942,8 +3967,8 @@ def run_ultra_pass(e2e: E2E, rng, long_result):
         "align_s": e2e.seconds("pass_j"),
         "pass_b_align_s": e2e.seconds("pass_b"),
         "stage_split": align_seconds(e2e.workdir / "pass_j.log")[1],
-        "launches": launches, "fused_dispatches": fused,
-        "sam_identical": True,
+        "launches": launches, "long_tasks": long_tasks,
+        "fused_dispatches": fused, "sam_identical": True,
     }, launches
 
 
@@ -3963,7 +3988,7 @@ def run_long_profile_pass(e2e: E2E):
     traces = list(trace_dir.glob("*.json"))
     check(len(traces) == 1, f"expected one trace in {trace_dir}: {traces}")
     text = traces[0].read_text()
-    for kernel in ("myers_banded_wide_kernel", "myers_large_wide_kernel",
+    for kernel in ("myers_banded_wide_kernel", "myers_large_cluster_kernel",
                    "traceback_kernel"):
         check(kernel in text, f"pass E's trace does not name {kernel}")
     return {"align_s": e2e.seconds("pass_ep"), "launches": launches,
@@ -4122,18 +4147,16 @@ def ptxas_phase() -> dict:
     instructions of each column loop (a loop runs once per text column):
     K1 two (sliding, then frozen; also per band word), K3 one per group
     count 1..R (a task runs the loop of its own), K2 one; and the
-    multi-warp kernels (K1 myers_banded_wide_kernel, two loops; K3
-    myers_large_wide_kernel, one per group count 1..4 and any other
-    innermost loop the compiler made); and the device search's K9, K9x,
-    K9l, K10, K11 and K12 (ptxas only). Fails on a missing instance, a
-    spill, a
-    stack frame or another loop count."""
+    multi-warp and cluster kernels (K1 myers_banded_wide_kernel<R>, R =
+    1..16 words a lane, its column loops beside its barrier waits; K1u
+    myers_banded_cluster_kernel<Q>; K3u myers_large_cluster_kernel, one
+    per group count 1..4 and any other innermost loop the compiler made);
+    and the device search's K9, K9x, K9l, K10, K11 and K12 (ptxas only).
+    Fails on a missing instance, a spill, a stack frame or another loop
+    count."""
     from floxer_tpu_torch.ops import _build
     from floxer_tpu_torch.ops.cuda_myers import LANES_FOR_WORDS
-    from floxer_tpu_torch.ops.cuda_myers_banded import (
-        REGISTER_BAND_WORDS,
-        WIDE_WORDS_PER_LANE,
-    )
+    from floxer_tpu_torch.ops.cuda_myers_banded import REGISTER_BAND_WORDS
     from floxer_tpu_torch.ops.cuda_myers_large import REGISTER_WORDS
 
     usage = _build.ALIGNER.ptxas_usage()
@@ -4167,14 +4190,30 @@ def ptxas_phase() -> dict:
             if kernel == "myers_banded_reg_kernel":
                 entry["per_band_word"] = [i / n for i in loops[name]]
             report[f"{kernel}<{n}>"] = entry
-    # the multi-warp kernels: K1's two column loops (sliding, frozen); K3's
-    # column loop per group count 1..4 (listed with any other innermost
-    # loop the compiler made); the cluster kernels likewise, K3u's with
-    # the spare warps' barrier loop, K1u's instances of Q = 1, 2, 4
-    # lookahead words each with its two column loops and that loop
-    for kernel, enough in (("myers_banded_wide_kernel", lambda n: n == 2),
-                           ("myers_large_wide_kernel", lambda n: n >= 4),
-                           ("myers_large_cluster_kernel", lambda n: n >= 4)):
+    # the multi-warp K1's instances of R = 1..16 words a lane (4 warps):
+    # its column loops (merged sliding, the last sliding and frozen ones)
+    # beside the barrier waits the compiler made innermost loops of
+    names = {int(found.group(1)): name for name in usage
+             if (found := re.search(r"myers_banded_wide_kernelILi(\d+)E",
+                                    name))}
+    check(sorted(names) == list(range(1, 17)),
+          f"myers_banded_wide_kernel's instances are {sorted(names)}")
+    for r, name in sorted(names.items()):
+        found = usage[name]
+        check(found.get("spill_stores", 1) == 0
+              and found.get("spill_loads", 1) == 0
+              and found.get("stack", 1) == 0,
+              f"myers_banded_wide_kernel<{r}> spills or keeps a stack "
+              f"frame: {found}")
+        check(len(loops[name]) >= 2, f"myers_banded_wide_kernel<{r}> has "
+              f"innermost loops of {loops[name]} instructions")
+        report[f"myers_banded_wide_kernel<{r}>"] = {
+            **found, "sass_loop_instructions": loops[name]}
+    # K3u's column loop per group count 1..4 (listed with the spare warps'
+    # barrier loop and any other innermost loop the compiler made); K1u's
+    # instances of Q = 1, 2, 4 lookahead words each with its two column
+    # loops and that loop
+    for kernel, enough in (("myers_large_cluster_kernel", lambda n: n >= 4),):
         names = [name for name in usage if kernel in name]
         check(len(names) == 1, f"{kernel} is compiled as {names}")
         found = usage[names[0]]
@@ -4185,11 +4224,7 @@ def ptxas_phase() -> dict:
         kernel_loops = loops[names[0]]
         check(enough(len(kernel_loops)),
               f"{kernel} has innermost loops of {kernel_loops} instructions")
-        entry = {**found, "sass_loop_instructions": kernel_loops}
-        if kernel == "myers_banded_wide_kernel":
-            entry["per_lane_word"] = [i / WIDE_WORDS_PER_LANE
-                                      for i in kernel_loops]
-        report[kernel] = entry
+        report[kernel] = {**found, "sass_loop_instructions": kernel_loops}
     names = {int(found.group(1)): name for name in usage
              if (found := re.search(r"myers_banded_cluster_kernelILi(\d+)E",
                                     name))}
@@ -4269,7 +4304,7 @@ def main() -> int:
     pools = [cpu_pool, search_pool, sweep_pool]
     try:
         # the plain versions that take minutes, in parts, the longest
-        # parts first (K1 at the root shape on its wider band, K3w, K1w,
+        # parts first (K1 at the root shape on its wider band, K3, K1w,
         # K1 on the narrower band, then K4's): each makes its own tasks
         # from the seed
         CPU_PLAIN = CpuPlain(cpu_pool, search_pool)
@@ -4402,9 +4437,12 @@ def run_all(device, peaks, k1_sweep, k3_sweep, cluster_sweep, full_arrays,
 
     for name in ("K1", "K2", "K3"):
         rows[name]["launches"] = launches[name]
+    rows["K1w"]["launches"] = launches_e["K1_wide"]
+    rows["K1u"]["launches"] = launches_j["K1_cluster"]
+    # K3u runs pass E's overhanging roots and pass J's
+    rows["K3u"]["launches"] = (launches_e["K3_cluster"]
+                               + launches_j["K3_cluster"])
     for name in ("K1", "K3"):
-        rows[f"{name}w"]["launches"] = launches_e[f"{name}_wide"]
-        rows[f"{name}u"]["launches"] = launches_j[f"{name}_cluster"]
         rows[f"{name}s"]["launches"] = (launches_e[f"{name}_shared"]
                                         + launches_j[f"{name}_shared"])
     rows["K4"]["launches"] = launches_c["K4"]
@@ -4425,8 +4463,8 @@ def run_all(device, peaks, k1_sweep, k3_sweep, cluster_sweep, full_arrays,
             "library_ms")
     print(json.dumps({"kernels": [
         {k: rows[name][k] for k in keys}
-        for name in ("K1", "K1w", "K1u", "K1s", "K2", "K3", "K3w", "K3u",
-                     "K3s", "K4",
+        for name in ("K1", "K1w", "K1u", "K1s", "K2", "K3", "K3u", "K3s",
+                     "K4",
                      "K4r16", "K4r32", "K4s", "K5", "K6", "K7", "K8",
                      "K9", "K9x", "K9l", "K10", "K11", "K12", "K11s",
                      "K13", "K13l")

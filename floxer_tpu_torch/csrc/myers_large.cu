@@ -12,9 +12,9 @@
 // crosses every word; one 4-byte char and the char's Peq row enter per
 // column, so the per-column latency chain bounds it, not memory.
 //
-// Two kernels here and a third in myers_large_wide.cu compute the same
-// function; the wrapper picks one by the padded word count Wp alone. The
-// two here run one warp per task; all three stop each task at its own
+// Two kernels here and a third in myers_large_cluster.cu compute the
+// same function; the wrapper picks one by the padded word count Wp alone.
+// The two here run one warp per task; all three stop each task at its own
 // tlen.
 //
 // myers_large_reg_kernel<R> (Wp <= 32 * R words; R = 1, 2, 4, 8, 12, 16,
@@ -37,10 +37,11 @@
 // so no Eq waits on a load. The lane that owns row m keeps the score and
 // writes the result.
 //
-// myers_large_kernel (Wp past 2048; myers_large_wide.cu's multi-warp
-// register kernel takes 544-2048): VP/VN and per-column scratch in
-// shared memory, interleaved [i*32 + lane] (conflict-free, lane-private),
-// lane l owning words [l*R, (l+1)*R) with R = Wp/32, the carry of the
+// myers_large_kernel (any Wp its shared memory holds; no width routes to
+// it, myers_large_cluster.cu takes every Wp past 512): VP/VN and
+// per-column scratch in shared memory, interleaved [i*32 + lane]
+// (conflict-free, lane-private), lane l owning words [l*R, (l+1)*R) with
+// R = Wp/32, the carry of the
 // multi-word add scanned across lanes with __shfl_up_sync (generate,
 // propagate), the one-bit left shift carried by __shfl_up_sync. The Peq
 // rows are read from global memory. Chars >= 6 (garbage nibbles past a

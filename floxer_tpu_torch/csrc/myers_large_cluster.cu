@@ -1,23 +1,22 @@
-// Full Myers (K3) on patterns past the one-block multi-warp kernel's
-// widest: myers_large_cluster_kernel, a thread-block cluster a task.
+// Full Myers (K3) on patterns past the register kernel's widest (544 to
+// 16384 words): myers_large_cluster_kernel, a thread-block cluster a task.
 //
-// Replaces, beside myers_large.cu and myers_large_wide.cu,
+// Replaces, beside myers_large.cu,
 // floxer_tpu/ops/pallas_myers_large.py::_kernel: the same function on the
 // same operands (per task the minimum semi-global distance at row m over
 // end columns 0 <= col < tlen, ties to the rightmost column, starting
 // from score m).
 //
 // What bounds it on an H100: the per-column chain of int32 ops over the
-// pattern's words, as in myers_large.cu. Patterns past 2048 words (reads
-// past 65,536 chars whose window the chromosome's end cuts short) went to
-// the shared-memory kernel, one warp a task walking each lane's words
-// through shared memory on every column (4.2 us a column at 1280 words,
-// growing with the width).
+// pattern's words, as in myers_large.cu. The shared-memory kernel walks
+// each lane's words through shared memory on every column, one warp a
+// task (4.2 us a column at 1280 words, growing with the width); a
+// wavefront of warps on one block puts all of a task's warps on one SM.
 //
-// Layout: myers_large_wide.cu's wavefront on a cluster of C blocks of Wb
-// warps a task (C <= 8, a portable cluster; Wb <= 16). Warp g = Wb r + w
-// (block rank r, warp w of the block) holds the four 32-word groups
-// [4 g, 4 g + 4), as warp g of the one-block kernel, and runs chunk s - g
+// Layout: a wavefront of warps on a cluster of C blocks of Wb warps a
+// task (C <= 8, a portable cluster; Wb <= 16). Warp g = Wb r + w (block
+// rank r, warp w of the block) holds the four 32-word groups
+// [4 g, 4 g + 4), and runs chunk s - g
 // of 32 columns at step s. Full Myers has no slide, so a warp only reads
 // what the warp below published a step before: its carry out and the top
 // Ph and Mh bits of its lane 31, per column of the chunk. Each warp's

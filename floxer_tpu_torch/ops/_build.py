@@ -5,7 +5,8 @@ source file, all started together, and linked into its own shared library
 under build/floxer_tpu_torch_kernels/ at first use, then loaded with
 ctypes: the aligner's kernels (csrc/*.cu, `ALIGNER`) and the
 research scripts' kernels (scripts/csrc/*.cu, `SCRIPTS`), so the aligner
-never builds the research kernels. A library's name carries a hash of its
+never builds the research kernels, and tools/k1_bench.py's own
+(tools/csrc/*.cu, `BENCH`). A library's name carries a hash of its
 sources and of the headers they include: those beside them (*.cuh, which
 nvcc finds beside the including file) and any named from elsewhere (the
 scripts' K5 includes the aligner's csrc/myers_banded_column.cuh, whose
@@ -211,10 +212,9 @@ ALIGNER = KernelLibrary(_PACKAGE_DIR / "csrc", "libfloxer_kernels", {
     # peq, plen, texts, tlen, B, num_words, num_text, dist, end, stream
     "floxer_myers_small": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # peq, plen, texts, tlen, B, words_padded, num_text, dist, end, stream
-    # (the three K3 kernels)
+    # (the K3 kernels)
     "floxer_myers_large": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "floxer_myers_large_reg": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "floxer_myers_large_wide": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # ... num_text, blocks a cluster, dist, end, stream (K3u); words,
     # blocks, the clusters the card holds (an int on the host)
     "floxer_myers_large_cluster": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
@@ -297,6 +297,14 @@ SCRIPTS = KernelLibrary(_PACKAGE_DIR / "scripts" / "csrc", "libfloxer_scripts", 
     "floxer_carry_scaling": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
     # texts, jstar, rows, num_text, n_bcast, out, stream
     "floxer_bcast": [_P, _P, _I, _I, _I, _P, _P],
+}, extra_headers=(_PACKAGE_DIR / "csrc" / "myers_banded_column.cuh",))
+
+# tools/k1_bench.py's own kernels (tools/csrc/*.cu), built only when the
+# bench asks: the lockstep multi-warp K1 column and its ablations
+BENCH = KernelLibrary(_PACKAGE_DIR / "tools" / "csrc", "libfloxer_bench", {
+    # vp0, planes0, texts, pattern stream, scalars, T, band_words,
+    # text_words, the parts dropped, dist, end, stream
+    "floxer_wide_lockstep": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
 }, extra_headers=(_PACKAGE_DIR / "csrc" / "myers_banded_column.cuh",))
 
 launch = ALIGNER.launch

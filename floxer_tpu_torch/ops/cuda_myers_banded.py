@@ -42,22 +42,25 @@ REPLACES = "floxer_tpu/ops/pallas_myers_banded.py:96"
 # cases of floxer_myers_banded_reg in csrc/myers_banded.cu (R = BW / 32
 # words per lane)
 REGISTER_BAND_WORDS = (32, 64, 128, 256, 384, 512)
-# the multi-warp kernel's words per lane R (kWordsPerLane in
-# csrc/myers_banded_wide.cu): it runs a band of a multiple of 32 R words up
-# to WIDE_MAX_WORDS in BW / (32 R) warps; myers_banded sends it every
-# 128-word tile (the fused wave's and the batcher's) past the register
-# kernel's widest up to WIDE_MAX_WORDS
-WIDE_WORDS_PER_LANE = 4
+# the multi-warp kernel (csrc/myers_banded_wide.cu: kWarps, kTileWords,
+# kMaxBandWords): WIDE_WARPS warps a task of BW / WIDE_TILE_WORDS words a
+# lane, for a band of a multiple of WIDE_TILE_WORDS words up to
+# WIDE_MAX_WORDS; myers_banded sends it every 128-word tile (the fused
+# wave's and the batcher's) past the register kernel's widest up to
+# WIDE_MAX_WORDS
+WIDE_WARPS = 4
+WIDE_TILE_WORDS = WORD * WIDE_WARPS
 WIDE_MAX_WORDS = 2048
 WIDE_BAND_WORDS = tuple(range(REGISTER_BAND_WORDS[-1] + 128,
                               WIDE_MAX_WORDS + 1, 128))
-# the cluster kernel (csrc/myers_banded_cluster.cu: kBlockWarps,
-# kMaxBlocks, kMaxBandWords): the multi-warp kernel's column on a
-# thread-block cluster of up to CLUSTER_MAX_BLOCKS blocks of up to
-# CLUSTER_BLOCK_WARPS warps a task, WIDE_WORDS_PER_LANE words a lane; it
-# runs a band of a multiple of 32 WIDE_WORDS_PER_LANE words up to
-# CLUSTER_MAX_WORDS, and myers_banded sends it every 128-word tile past
-# the multi-warp kernel's widest
+# the cluster kernel (csrc/myers_banded_cluster.cu: kWordsPerLane,
+# kBlockWarps, kMaxBlocks, kMaxBandWords): a lockstep column (every warp
+# meets every other at a cluster barrier each column) on a thread-block cluster of up to CLUSTER_MAX_BLOCKS
+# blocks of up to CLUSTER_BLOCK_WARPS warps a task, CLUSTER_WORDS_PER_LANE
+# words a lane; it runs a band of a multiple of 32 CLUSTER_WORDS_PER_LANE
+# words up to CLUSTER_MAX_WORDS, and myers_banded sends it every 128-word
+# tile past the multi-warp kernel's widest
+CLUSTER_WORDS_PER_LANE = 4
 CLUSTER_BLOCK_WARPS = 16
 CLUSTER_MAX_BLOCKS = 8
 CLUSTER_MAX_WORDS = 16384
@@ -69,12 +72,14 @@ CLUSTER_BAND_WORDS = tuple(range(WIDE_MAX_WORDS + 128, CLUSTER_MAX_WORDS + 1,
 CLUSTER_AIM_WARPS = 4
 # kernel launches in this process, per kernel (read and reset by
 # chip_smoke.py); `launches()` is K1's total; CLUSTER_WIDTHS counts the
-# cluster kernel's launches by band words
+# cluster kernel's launches by band words; LONG_TASKS holds (band words,
+# tasks) of each multi-warp launch
 REGISTER_LAUNCHES = 0
 WIDE_LAUNCHES = 0
 CLUSTER_LAUNCHES = 0
 SHARED_LAUNCHES = 0
 CLUSTER_WIDTHS: dict[int, int] = {}
+LONG_TASKS: list[tuple[int, int]] = []
 
 
 def launches() -> int:
@@ -237,18 +242,19 @@ def myers_banded_register(*args):
 def myers_banded_wide(*args):
     """The multi-warp register kernel on CUDA operands (myers_banded's
     arguments); raises at a band width that is not a multiple of
-    32 WIDE_WORDS_PER_LANE words up to WIDE_MAX_WORDS."""
+    WIDE_TILE_WORDS words up to WIDE_MAX_WORDS."""
     global WIDE_LAUNCHES
     band_words = args[5]
-    if band_words % (WORD * WIDE_WORDS_PER_LANE) or band_words > WIDE_MAX_WORDS:
+    if band_words % WIDE_TILE_WORDS or band_words > WIDE_MAX_WORDS:
         raise ValueError(
-            f"the multi-warp kernel takes a multiple of "
-            f"{WORD * WIDE_WORDS_PER_LANE} words up to {WIDE_MAX_WORDS}, got "
-            f"{band_words}"
+            f"the multi-warp kernel takes a multiple of {WIDE_TILE_WORDS} "
+            f"words up to {WIDE_MAX_WORDS}, got {band_words}"
         )
     _check_cuda(*args)
     dist, end, ran = _launch_cuda("floxer_myers_banded_wide", *args)
     WIDE_LAUNCHES += ran
+    if ran:
+        LONG_TASKS.append((band_words, args[0].shape[0]))
     return dist, end
 
 
@@ -262,25 +268,25 @@ def pick_cluster_blocks(warps: int) -> int:
 
 def cluster_blocks(band_words: int) -> int:
     """pick_cluster_blocks for K1u at a band width."""
-    return pick_cluster_blocks(band_words // (WORD * WIDE_WORDS_PER_LANE))
+    return pick_cluster_blocks(band_words // (WORD * CLUSTER_WORDS_PER_LANE))
 
 
 def myers_banded_cluster(*args, blocks: int | None = None):
     """The cluster kernel on CUDA operands (myers_banded's arguments), on
     a cluster of `blocks` blocks a task (cluster_blocks' pick unless
     given); raises at a band width that is not a multiple of
-    32 WIDE_WORDS_PER_LANE words up to CLUSTER_MAX_WORDS, at a cluster
+    32 CLUSTER_WORDS_PER_LANE words up to CLUSTER_MAX_WORDS, at a cluster
     size the width cannot take, and when the card refuses the cluster."""
     global CLUSTER_LAUNCHES
     band_words = args[5]
-    if (band_words % (WORD * WIDE_WORDS_PER_LANE)
+    if (band_words % (WORD * CLUSTER_WORDS_PER_LANE)
             or not 0 < band_words <= CLUSTER_MAX_WORDS):
         raise ValueError(
             f"the cluster kernel takes a multiple of "
-            f"{WORD * WIDE_WORDS_PER_LANE} words up to {CLUSTER_MAX_WORDS}, "
+            f"{WORD * CLUSTER_WORDS_PER_LANE} words up to {CLUSTER_MAX_WORDS}, "
             f"got {band_words}"
         )
-    warps = band_words // (WORD * WIDE_WORDS_PER_LANE)
+    warps = band_words // (WORD * CLUSTER_WORDS_PER_LANE)
     if blocks is not None and (not 1 <= blocks <= CLUSTER_MAX_BLOCKS
                                or -(-warps // blocks) > CLUSTER_BLOCK_WARPS):
         raise ValueError(f"a cluster of {blocks} blocks cannot hold "

@@ -1,17 +1,17 @@
 """K3: full Myers for patterns of more than 256 chars.
 
 Counterpart of floxer_tpu/ops/pallas_myers_large.py. `myers_large`
-launches one of three hand-written CUDA kernels for CUDA tensors, chosen
-by the padded word count Wp alone: the one-warp register kernel
+launches one of two hand-written CUDA kernels for CUDA tensors, chosen by
+the padded word count Wp alone: the one-warp register kernel
 (`myers_large_register`, csrc/myers_large.cu) for Wp up to the widest of
-REGISTER_WORDS, the multi-warp register kernel (`myers_large_wide`,
-csrc/myers_large_wide.cu) up to WIDE_WORDS, the cluster kernel
-(`myers_large_cluster`, csrc/myers_large_cluster.cu: the multi-warp
-wavefront on a thread-block cluster) up to CLUSTER_WORDS; a wider Wp is
-refused with a ValueError that names it. The shared-memory kernel
+REGISTER_WORDS and the cluster kernel (`myers_large_cluster`,
+csrc/myers_large_cluster.cu: a wavefront of warps on a thread-block
+cluster) up to CLUSTER_WORDS, on as many blocks a task as
+`cluster_blocks` picks for the launch's tasks; a wider Wp is refused with
+a ValueError that names it. The shared-memory kernel
 (`myers_large_shared`, csrc/myers_large.cu) stays as an entry point of its
 own: no width routes to it, since the cluster kernel reaches past its
-11,622-word limit of shared memory. All four compute the same function
+11,622-word limit of shared memory. All three compute the same function
 and count their launches apart. For CPU tensors it runs
 `myers_large_plain`. Operands keep the Pallas kernel's
 layouts: peq [B, 6, Wp] (Wp a multiple of 32; uint32 bits in int32), plen
@@ -22,6 +22,7 @@ layouts: peq [B, 6, Wp] (Wp a multiple of 32; uint32 bits in int32), plen
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -33,7 +34,6 @@ from .cuda_myers_banded import _exclusive_carries, pick_cluster_blocks
 from .myers import MASK32, WORD, build_peq_vectorized, u32_tensor, widen
 
 SOURCE = "floxer_tpu_torch/csrc/myers_large.cu"
-WIDE_SOURCE = "floxer_tpu_torch/csrc/myers_large_wide.cu"
 CLUSTER_SOURCE = "floxer_tpu_torch/csrc/myers_large_cluster.cu"
 REPLACES = "floxer_tpu/ops/pallas_myers_large.py:48"
 # the widths (pattern words) of the register kernel's instances: the cases
@@ -41,31 +41,31 @@ REPLACES = "floxer_tpu/ops/pallas_myers_large.py:48"
 # of 32 words, one word per lane); a launch takes the smallest instance
 # that holds Wp
 REGISTER_WORDS = (32, 64, 128, 256, 384, 512)
-# the widest Wp the multi-warp kernel takes (csrc/myers_large_wide.cu, in
-# ceil(Wp / 128) warps of four 32-word groups)
-WIDE_WORDS = 2048
 # the cluster kernel (csrc/myers_large_cluster.cu: kBlockWarps, kMaxBlocks,
-# kMaxWords): the multi-warp wavefront on a thread-block cluster of up to
-# CLUSTER_MAX_BLOCKS blocks of up to CLUSTER_BLOCK_WARPS warps of four
-# 32-word groups a task, for any Wp up to CLUSTER_WORDS
+# kMaxWords): a wavefront of warps of four 32-word groups on a
+# thread-block cluster of up to CLUSTER_MAX_BLOCKS blocks of up to
+# CLUSTER_BLOCK_WARPS warps a task, for any Wp past the register kernel's
+# widest up to CLUSTER_WORDS
 CLUSTER_BLOCK_WARPS = 16
 CLUSTER_MAX_BLOCKS = 8
 CLUSTER_WORDS = 16384
 # kernel launches in this process, per kernel (read and reset by
 # chip_smoke.py); `launches()` is K3's total; CLUSTER_WIDTHS counts the
-# cluster kernel's launches by Wp
+# cluster kernel's launches by Wp; LONG_TASKS holds (Wp, tasks) of each
+# cluster launch at the long reads' widths (up to LONG_WORDS)
 REGISTER_LAUNCHES = 0
-WIDE_LAUNCHES = 0
 CLUSTER_LAUNCHES = 0
 SHARED_LAUNCHES = 0
 CLUSTER_WIDTHS: dict[int, int] = {}
+LONG_WORDS = 2048
+LONG_TASKS: list[tuple[int, int]] = []
 # word-axis padding of the host entry (the Pallas kernel's lane tile)
 WORD_TILE = 128
 
 
 def launches() -> int:
-    """K3's launches in this process, the four kernels together."""
-    return REGISTER_LAUNCHES + WIDE_LAUNCHES + CLUSTER_LAUNCHES + SHARED_LAUNCHES
+    """K3's launches in this process, the three kernels together."""
+    return REGISTER_LAUNCHES + CLUSTER_LAUNCHES + SHARED_LAUNCHES
 
 
 def myers_large(
@@ -75,16 +75,14 @@ def myers_large(
     tlen: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dist, end) int32 [B]: for CUDA tensors the register kernel up to
-    REGISTER_WORDS' widest Wp, the multi-warp kernel up to WIDE_WORDS and
-    the cluster kernel up to CLUSTER_WORDS (a wider Wp raises a ValueError
-    naming it); the plain version for CPU tensors."""
+    REGISTER_WORDS' widest Wp and the cluster kernel up to CLUSTER_WORDS
+    (a wider Wp raises a ValueError naming it); the plain version for CPU
+    tensors."""
     _check_operands(peq, plen, texts, tlen)
     if peq.device.type == "cpu":
         return myers_large_plain(peq, plen, texts, tlen)
     if peq.shape[2] <= REGISTER_WORDS[-1]:
         return myers_large_register(peq, plen, texts, tlen)
-    if peq.shape[2] <= WIDE_WORDS:
-        return myers_large_wide(peq, plen, texts, tlen)
     if peq.shape[2] <= CLUSTER_WORDS:
         return myers_large_cluster(peq, plen, texts, tlen)
     raise ValueError(
@@ -142,31 +140,35 @@ def myers_large_register(peq, plen, texts, tlen):
     return dist, end
 
 
-def myers_large_wide(peq, plen, texts, tlen):
-    """The multi-warp register kernel on CUDA operands (myers_large's
-    arguments), at any Wp up to WIDE_WORDS; raises above."""
-    global WIDE_LAUNCHES
-    if peq.shape[2] > WIDE_WORDS:
-        raise ValueError(
-            f"the multi-warp kernel takes up to {WIDE_WORDS} words, got "
-            f"{peq.shape[2]}"
-        )
-    dist, end, ran = _launch_cuda("floxer_myers_large_wide", peq, plen,
-                                  texts, tlen)
-    WIDE_LAUNCHES += ran
-    return dist, end
+def cluster_blocks(words: int, tasks: int | None = None,
+                   sms: int | None = None) -> int:
+    """K3u's blocks a task at Wp words: pick_cluster_blocks' aim (blocks of
+    about four warps) while `tasks` clusters of it fit the card's `sms`
+    SMs a block each, else the most that fit, never fewer than the
+    blocks that hold the width (without `tasks`, the aim). Measured in
+    turns on overhanging roots at 544-2048 words and 8, 64 and 264 tasks
+    (tools/k1_bench.py --large-layouts): a block more than the SMs hold
+    runs its warps beside another cluster's on one SM, slower."""
+    warps = -(-words // (WORD * 4))
+    aim = pick_cluster_blocks(warps)
+    if tasks is None:
+        return aim
+    fewest = -(-warps // CLUSTER_BLOCK_WARPS)
+    return max(fewest, min(aim, sms // max(tasks, 1)))
 
 
-def cluster_blocks(words: int) -> int:
-    """pick_cluster_blocks for K3u at Wp words."""
-    return pick_cluster_blocks(-(-words // (WORD * 4)))
+@functools.lru_cache(maxsize=None)
+def card_sms(device: torch.device) -> int:
+    """The SMs of the card that holds `device`."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def myers_large_cluster(peq, plen, texts, tlen, blocks: int | None = None):
     """The cluster kernel on CUDA operands (myers_large's arguments), on a
-    cluster of `blocks` blocks a task (cluster_blocks' pick unless given),
-    at any Wp up to CLUSTER_WORDS; raises above, at a cluster size the
-    width cannot take, and when the card refuses the cluster."""
+    cluster of `blocks` blocks a task (cluster_blocks' pick for the
+    launch's tasks on this card unless given), at any Wp up to
+    CLUSTER_WORDS; raises above, at a cluster size the width cannot take,
+    and when the card refuses the cluster."""
     global CLUSTER_LAUNCHES
     words = peq.shape[2]
     if words > CLUSTER_WORDS:
@@ -179,12 +181,15 @@ def myers_large_cluster(peq, plen, texts, tlen, blocks: int | None = None):
                                or -(-warps // blocks) > CLUSTER_BLOCK_WARPS):
         raise ValueError(f"a cluster of {blocks} blocks cannot hold {words} "
                          f"pattern words")
-    blocks = cluster_blocks(words) if blocks is None else blocks
+    if blocks is None and peq.device.type == "cuda":
+        blocks = cluster_blocks(words, peq.shape[0], card_sms(peq.device))
     dist, end, ran = _launch_cuda("floxer_myers_large_cluster", peq, plen,
                                   texts, tlen, blocks)
     CLUSTER_LAUNCHES += ran
     if ran:
         CLUSTER_WIDTHS[words] = CLUSTER_WIDTHS.get(words, 0) + 1
+        if words <= LONG_WORDS:
+            LONG_TASKS.append((words, peq.shape[0]))
     return dist, end
 
 

@@ -2,6 +2,7 @@
 
     python -m floxer_tpu_torch.tools.k1_bench [--bands 256,384]
         [--rounds 3] [--repeats 5] [--seed 20261016] [--long] [--clusters]
+        [--price] [--large-layouts]
 
 It makes 256 root tasks (a genome window of m + 2 k + 1 chars and up to
 1200 more, the pattern m = 20600 chars of a slice of it mutated at 5%,
@@ -15,22 +16,30 @@ end columns. A last line holds what ptxas -v reported in the aligner's
 build for every myers_banded_reg_kernel<R> instance (registers, stack,
 spills) and the instructions of its column loops (cuobjdump -sass).
 
-With --long it also times the multi-warp kernels at the shapes of the
-long reads' pass (64 roots of 40 kb reads at k = 6000 on K1w's 1024 band
-words; 64 roots of 40 kb overhanging reads on K3w's 1280 pattern words),
-one JSON line each, and prints their instances' ptxas and column loops.
+With --long it also times K1's multi-warp kernel and the routed K3 at
+the shapes of the long reads' pass (64 roots of 40 kb reads at k = 6000
+on 1024 band words; 64 roots of 40 kb overhanging reads on 1280 pattern
+words), one JSON line each, and prints their ptxas and innermost loops.
 With --clusters it times, in turns, the layouts of the cluster kernels:
 K1u (csrc/myers_banded_cluster.cu) on 16 of those long roots at 2048,
 2560, 3200, 4096, 6528 and 8192 band words, and K3u
 (csrc/myers_large_cluster.cu) on 16 overhanging roots of 30 kb windows
-whose patterns fill 2048, 3200, 4096 and 8192 words; K1w's or K3w's one
-block (2048 only) against clusters of 1, 2, 4 and 8 blocks, whichever
-hold the width.
+whose patterns fill 2048, 3200, 4096 and 8192 words; K1's multi-warp
+kernel (2048 only) against clusters of 1, 2, 4 and 8 blocks, whichever
+hold the width. With --price it prices K1's multi-warp column on those
+long roots at 640, 1024 and 2048 band words: the routed kernel in turns
+with the lockstep column (two block barriers a column, built from
+tools/csrc/k1w_lockstep.cu into a library of its own) whole and with
+each of its parts left out (either barrier, both, the exchange's stores;
+those columns compute wrong results by design, and nothing else runs
+them). With --large-layouts it times K3u on 1 block up to one past its
+aim of blocks at 544, 768, 1280 and 2048 pattern words on 8, 64 and 264
+overhanging roots, in turns.
 
-Without --clusters it calls only entry points that every version of the
-port with the multi-warp kernels has, so it times another checkout's K1
-and K3 on the same tasks when that checkout is first on the path (run it
-in turns for an A/B):
+Without --clusters, --price and --large-layouts it calls only entry
+points that every version of the port with the multi-warp kernels has,
+so it times another checkout's K1 and K3 on the same tasks when that
+checkout is first on the path (run it in turns for an A/B):
 
     PYTHONPATH=<checkout> python floxer_tpu_torch/tools/k1_bench.py
 
@@ -49,8 +58,8 @@ import numpy as np
 SEED = 20261016
 TASKS, M, BUDGET = 256, 20_600, 1_442
 GENOME_BP = 400_000
-# the long reads' pass: K1w's roots (tasks, m, k, window chars past m, band
-# words) and K3w's overhanging roots (tasks, m, chars of it from the
+# the long reads' pass: K1's roots (tasks, m, k, window chars past m, band
+# words) and K3's overhanging roots (tasks, m, chars of it from the
 # window's end, window chars, pattern words)
 LONG_ROOTS = (64, 40_000, 6_000, 7_800, 1024)
 OVERHANG_ROOTS = (64, 40_000, 25_000, 30_000, 1280)
@@ -60,6 +69,16 @@ LONG_GENOME_BP = 2_000_000
 CLUSTER_WIDTHS = (2048, 2560, 3200, 4096, 6528, 8192)
 CLUSTER_LARGE_WIDTHS = (2048, 3200, 4096, 8192)
 CLUSTER_TASKS = 16
+# --price: the band widths at which K1's multi-warp column is priced, and
+# the lockstep column's variants (tools/csrc/k1w_lockstep.cu's Dropped
+# bits: the block barrier after the (G, P) words, the one after the top
+# bits, both, the exchange's shared-memory stores)
+PRICE_WIDTHS = (640, 1024, 2048)
+PRICE_VARIANTS = {"lockstep": 0, "no_barrier1": 1, "no_barrier2": 2,
+                  "no_barriers": 3, "no_stores": 4}
+# --large-layouts: K3's layouts at these pattern words and task counts
+K3_LAYOUT_WORDS = (544, 768, 1280, 2048)
+K3_LAYOUT_TASKS = (8, 64, 264)
 # SM clock cycles the card spins before a timed round (~10 ms)
 ENQUEUE_CYCLES = 20_000_000
 
@@ -168,8 +187,9 @@ def full_args(patterns, windows, words, device):
 
 
 def long_benches(seed, rounds, repeats, device):
-    """K1w at LONG_ROOTS and K3w at OVERHANG_ROOTS (multi-warp entry
-    points only)."""
+    """K1's multi-warp kernel at LONG_ROOTS (its own entry point) and K3 at
+    OVERHANG_ROOTS (the routing entry: the multi-warp kernel before the
+    cluster kernel took these widths, the cluster kernel since)."""
     from floxer_tpu_torch.ops import cuda_myers_banded as k1
     from floxer_tpu_torch.ops import cuda_myers_large as k3
 
@@ -182,7 +202,7 @@ def long_benches(seed, rounds, repeats, device):
     B, m3, _, n3, words = OVERHANG_ROOTS
     args3 = full_args(patterns3, windows3, words, device)
     tlen = args3[3].cpu().numpy()
-    yield timed("K3w", lambda: k3.myers_large_wide(*args3),
+    yield timed("K3", lambda: k3.myers_large(*args3),
                 int(tlen.max()) - 1, rounds, repeats,
                 shape=f"B={B} m={m3} n={n3} Wp={words}")
 
@@ -219,8 +239,6 @@ def cluster_layouts(seed, rounds, repeats, device):
             32 * words - 100, 25_000, 30_000)
         args3 = full_args(patterns3, windows3, words, device)
         layouts = {}
-        if words <= k3.WIDE_WORDS:
-            layouts["wide"] = lambda: k3.myers_large_wide(*args3)
         for blocks in (1, 2, 4, 8):
             if -(-(words // 128) // blocks) <= k3.CLUSTER_BLOCK_WARPS:
                 layouts[f"cluster{blocks}"] = (
@@ -230,12 +248,15 @@ def cluster_layouts(seed, rounds, repeats, device):
                **in_turns(layouts, 29_999, rounds, repeats)}
 
 
-def in_turns(layouts, columns, rounds, repeats) -> dict:
-    """Each layout's outputs held equal to the first's, and its ms in
-    turns (each round runs the layouts forward, then backward)."""
+def in_turns(layouts, columns, rounds, repeats, tasks=CLUSTER_TASKS,
+             exact=None) -> dict:
+    """The outputs of the layouts named in `exact` (all by default) held
+    equal to the first's, and each layout's ms in turns (each round runs
+    the layouts forward, then backward)."""
     import torch
 
-    outputs = {name: [t.cpu() for t in fn()] for name, fn in layouts.items()}
+    names = list(layouts) if exact is None else exact
+    outputs = {name: [t.cpu() for t in layouts[name]()] for name in names}
     first = next(iter(outputs.values()))
     equal = all(all(bool((a == b).all()) for a, b in zip(out, first))
                 for out in outputs.values())
@@ -243,12 +264,88 @@ def in_turns(layouts, columns, rounds, repeats) -> dict:
     for _ in range(rounds):
         for name in [*layouts, *reversed(layouts)]:
             turns[name] += rounds_ms(layouts[name], 1, repeats)
-    return {"tasks": CLUSTER_TASKS, "columns": columns, "equal": equal,
+    return {"tasks": tasks, "columns": columns, "equal": equal,
             "card": torch.cuda.get_device_name(0), **{
                 name: {"ms": sum(t) / len(t), "turns_ms": t,
                        "us_per_col": sum(t) / len(t) * 1000 / columns,
-                       "blocks": 1 if name == "wide" else int(name[7:])}
+                       **({"blocks": int(name[7:])}
+                          if name.startswith("cluster") else {})}
                 for name, t in turns.items()}}
+
+
+def lockstep(args, dropped):
+    """The lockstep multi-warp K1 column (tools/csrc/k1w_lockstep.cu) on
+    K1's CUDA operands, with the parts in `dropped` left out."""
+    import torch
+
+    from floxer_tpu_torch.ops import _build
+
+    vp0, planes0, texts, stream, scalars, band_words, num_text = args
+    T = vp0.shape[0]
+    dist = torch.empty(T, dtype=torch.int32, device=vp0.device)
+    end = torch.empty(T, dtype=torch.int32, device=vp0.device)
+    _build.BENCH.launch(
+        "floxer_wide_lockstep", vp0.data_ptr(), planes0.data_ptr(),
+        texts.data_ptr(), stream.data_ptr(), scalars.data_ptr(), T,
+        band_words, num_text // 8, dropped, dist.data_ptr(), end.data_ptr(),
+        torch.cuda.current_stream(vp0.device).cuda_stream)
+    return dist, end
+
+
+def price_wide_column(seed, rounds, repeats, device):
+    """K1's multi-warp column priced on LONG_ROOTS at PRICE_WIDTHS: the
+    routed kernel (myers_banded_wide), the lockstep column whole and that
+    column without each of its parts (PRICE_VARIANTS), in turns; the
+    routed kernel's and the whole lockstep column's outputs equal."""
+    from floxer_tpu_torch.ops import cuda_myers_banded as k1
+
+    (patterns, windows), _ = long_tasks(seed)
+    T, m, k, _, _ = LONG_ROOTS
+    for band_words in PRICE_WIDTHS:
+        args = banded_args(patterns, windows, k, band_words, device)
+        layouts = {"routed": lambda: k1.myers_banded_wide(*args)}
+        for name, dropped in PRICE_VARIANTS.items():
+            layouts[name] = lambda d=dropped: lockstep(args, d)
+        yield {"kernel": "K1w price", "band_words": band_words,
+               "shape": f"T={T} m={m} k={k}",
+               **in_turns(layouts, max(map(len, windows)) - 1, rounds,
+                          repeats, tasks=T,
+                          exact=["routed", "lockstep"])}
+
+
+def large_layouts(seed, rounds, repeats, device):
+    """K3u's layouts at K3_LAYOUT_WORDS on K3_LAYOUT_TASKS overhanging
+    roots of 30 kb windows whose patterns fill the width: 1 block up to
+    one past its aim of blocks, whichever hold the width, in turns, their
+    outputs equal; beside them the pick for the tasks on this card."""
+    import numpy as np
+
+    from floxer_tpu_torch.ops import cuda_myers_large as k3
+
+    genome = np.random.default_rng(seed + 4).integers(
+        1, 5, size=LONG_GENOME_BP).astype(np.uint8)
+    for words in K3_LAYOUT_WORDS:
+        m = 32 * words - 100
+        patterns, windows = overhang_roots(
+            np.random.default_rng(seed + words), genome,
+            max(K3_LAYOUT_TASKS), m, 25_000, 30_000)
+        warps = -(-words // 128)
+        for tasks in K3_LAYOUT_TASKS:
+            args3 = full_args(patterns[:tasks], windows[:tasks], words,
+                              device)
+            layouts = {}
+            for blocks in range(1, k3.cluster_blocks(words) + 2):
+                if (blocks <= k3.CLUSTER_MAX_BLOCKS and -(-warps // blocks)
+                        <= k3.CLUSTER_BLOCK_WARPS):
+                    layouts[f"cluster{blocks}"] = (
+                        lambda b=blocks, a=args3: k3.myers_large_cluster(
+                            *a, blocks=b))
+            yield {"kernel": "K3 layouts", "words": words,
+                   "pick": k3.cluster_blocks(words, tasks,
+                                             k3.card_sms(device)),
+                   "shape": f"B={tasks} m={m} n=30000",
+                   **in_turns(layouts, 29_999, rounds, repeats,
+                              tasks=tasks)}
 
 
 def rounds_ms(fn, rounds, repeats) -> list[float]:
@@ -301,7 +398,7 @@ def bench(patterns, windows, band_words, rounds, repeats, device) -> dict:
 
 def register_instances(long=False) -> dict:
     """ptxas -v and the column loops of each myers_banded_reg_kernel<R>
-    (and with `long` of the multi-warp kernels)."""
+    (and with `long` of each instance of the multi-warp K1 and of K3u)."""
     from floxer_tpu_torch.ops import _build
 
     usage = _build.ALIGNER.ptxas_usage()
@@ -313,11 +410,13 @@ def register_instances(long=False) -> dict:
             out[f"myers_banded_reg_kernel<{match.group(1)}>"] = {
                 **found, "sass_loop_instructions": loops.get(name)}
     out = dict(sorted(out.items(), key=lambda kv: int(kv[0][24:-1])))
-    for kernel in ("myers_banded_wide_kernel", "myers_large_wide_kernel"):
+    for kernel in ("myers_banded_wide_kernel", "myers_large_cluster_kernel"):
         for name, found in usage.items():
             if long and kernel in name:
-                out[kernel] = {**found,
-                               "sass_loop_instructions": loops.get(name)}
+                instance = re.search(rf"{kernel}ILi(\d+)E", name)
+                key = f"{kernel}<{instance.group(1)}>" if instance else kernel
+                out[key] = {**found,
+                            "sass_loop_instructions": loops.get(name)}
     return out
 
 
@@ -329,6 +428,8 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=SEED)
     parser.add_argument("--long", action="store_true")
     parser.add_argument("--clusters", action="store_true")
+    parser.add_argument("--price", action="store_true")
+    parser.add_argument("--large-layouts", action="store_true")
     args = parser.parse_args(argv)
     import torch
 
@@ -348,8 +449,22 @@ def main(argv=None) -> int:
         for line in cluster_layouts(args.seed, args.rounds, args.repeats,
                                     device):
             print(json.dumps(line), flush=True)
+    if args.price:
+        for line in price_wide_column(args.seed, args.rounds, args.repeats,
+                                      device):
+            print(json.dumps(line), flush=True)
+    if args.large_layouts:
+        for line in large_layouts(args.seed, args.rounds, args.repeats,
+                                  device):
+            print(json.dumps(line), flush=True)
     print(json.dumps({"instances": register_instances(args.long)}),
           flush=True)
+    if args.price:
+        from floxer_tpu_torch.ops import _build
+
+        print(json.dumps({"bench_instances": {
+            name: found for name, found in _build.BENCH.ptxas_usage().items()
+            if "lockstep" in name}}), flush=True)
     return 0
 
 

@@ -150,28 +150,60 @@ def test_wide_band_runs_the_shared_kernel(cuda_device):
             kernel(*args)
 
 
-@pytest.mark.parametrize("band_words", [128, 256, 384, 640, 1024, 2048])
+# the task counts the multi-warp kernels are held to their plain versions
+# at: one task, a launch of a few, a full one (pass E's timing shape)
+WIDE_TASKS = (1, 7, 64)
+
+
+def wide_band_args(rng, band_words, device, tasks):
+    """`tasks` K1 tasks at band_words: deep bands of up to 1500 columns
+    whose rows reach every warp from the first column (deep_band_cases)
+    and band_cases' shape in turn, tlen 0 and 1 among a launch of more
+    than two."""
+    deep = cuda_myers_banded.deep_band_cases(rng, -(-tasks // 2), band_words,
+                                             1500)
+    more = band_cases(rng, tasks // 2, band_words)
+    patterns = [p for pair in zip(deep[0], more[0]) for p in pair]
+    texts = [t for pair in zip(deep[1], more[1]) for t in pair]
+    budgets = [b for pair in zip(deep[2], more[2]) for b in pair]
+    if len(patterns) < tasks:
+        patterns.append(deep[0][-1])
+        texts.append(deep[1][-1])
+        budgets.append(deep[2][-1])
+    txt, tlen = pad(texts)
+    if tasks > 2:
+        tlen[0], tlen[1] = 0, 1
+    operands, num_text = cuda_myers_banded.banded_operands(
+        patterns, txt, tlen, np.asarray(budgets), band_words, device
+    )
+    return (*operands, band_words, num_text)
+
+
+@pytest.mark.parametrize("band_words", [128, 256, 384,
+                                        *cuda_myers_banded.WIDE_BAND_WORDS])
 def test_banded_wide_kernel_matches_plain(cuda_device, band_words):
     """K1's multi-warp kernel through its explicit entry at one to three
-    warps and at routed widths: equal to the plain version, one launch
-    counted."""
-    args = band_args(np.random.default_rng(band_words + 4), band_words,
-                     cuda_device, count=32)
-    before = k1_counts()
-    got = cuda_myers_banded.myers_banded_wide(*args)
-    assert k1_counts() == (before[0], before[1] + 1, *before[2:])
-    # the plain version on the card (on the host a 2048-word band takes
-    # seconds per case)
-    plain = cuda_myers_banded.myers_banded_plain(*args)
-    for g, w in zip(got, plain):
-        assert torch.equal(g, w)
+    words a lane (128-384 words) and at every routed 128-word tile
+    (640-2048), at 1, 7 and 64 tasks: equal to the plain version, one
+    launch counted each."""
+    rng = np.random.default_rng(band_words + 4)
+    for tasks in WIDE_TASKS:
+        args = wide_band_args(rng, band_words, cuda_device, tasks)
+        before = k1_counts()
+        got = cuda_myers_banded.myers_banded_wide(*args)
+        assert k1_counts() == (before[0], before[1] + 1, *before[2:])
+        # the plain version on the card (on the host a 2048-word band takes
+        # seconds per case)
+        plain = cuda_myers_banded.myers_banded_plain(*args)
+        for g, w in zip(got, plain):
+            assert torch.equal(g, w), (band_words, tasks)
 
 
-@pytest.mark.parametrize("band_words", [640, 1024, 2048])
+@pytest.mark.parametrize("band_words", cuda_myers_banded.WIDE_BAND_WORDS)
 def test_wide_band_runs_the_multi_warp_kernel(cuda_device, band_words):
-    """myers_banded sends a 640-, 1024- or 2048-word band to the multi-warp
-    kernel (counts from 0: one wide launch, no other), equal to the plain
-    version and to the shared-memory kernel."""
+    """myers_banded sends every 128-word tile from 640 to 2048 words to the
+    multi-warp kernel (counts from 0: one wide launch, no other), equal to
+    the plain version and to the shared-memory kernel."""
     args = band_args(np.random.default_rng(band_words + 5), band_words,
                      cuda_device, count=24)
     zero_k1_counts()
@@ -224,14 +256,12 @@ def test_small_kernel_every_instance_matches_plain(cuda_device, words):
 
 def k3_counts():
     return (cuda_myers_large.REGISTER_LAUNCHES,
-            cuda_myers_large.WIDE_LAUNCHES,
             cuda_myers_large.CLUSTER_LAUNCHES,
             cuda_myers_large.SHARED_LAUNCHES)
 
 
 def zero_k3_counts():
     cuda_myers_large.REGISTER_LAUNCHES = 0
-    cuda_myers_large.WIDE_LAUNCHES = 0
     cuda_myers_large.CLUSTER_LAUNCHES = 0
     cuda_myers_large.SHARED_LAUNCHES = 0
 
@@ -247,7 +277,7 @@ def test_large_register_kernel_matches_plain_and_shared(cuda_device, words):
     register = cuda_myers_large.myers_large_register(*args)
     shared = cuda_myers_large.myers_large_shared(*args)
     routed = cuda_myers_large.myers_large(*args)
-    assert k3_counts() == (before[0] + 2, *before[1:3], before[3] + 1)
+    assert k3_counts() == (before[0] + 2, before[1], before[2] + 1)
     want = cuda_myers_large.myers_large_plain(*(t.cpu() for t in args))
     for w, *got in zip(want, register, shared, routed):
         for tensor in got:
@@ -255,54 +285,88 @@ def test_large_register_kernel_matches_plain_and_shared(cuda_device, words):
 
 
 def test_wide_large_runs_the_shared_kernel(cuda_device):
-    """No routed width reaches the shared-memory kernel past the new
-    widest any more (the cluster kernel takes every Wp up to 16384 words,
-    past the shared kernel's limit): its entry point runs 2080 pattern
-    words directly, equal to the plain version, and the register kernels
-    refuse them."""
+    """No routed width reaches the shared-memory kernel (the cluster
+    kernel takes every Wp past 512 words up to 16384, past the shared
+    kernel's limit): its entry point runs 2080 pattern words directly,
+    equal to the plain version, and the register kernel refuses them."""
     args = full_myers_operands(np.random.default_rng(640), 6, 2080, False,
                                cuda_device, max_chars=3000)
     before = k3_counts()
     got = cuda_myers_large.myers_large_shared(*args)
-    assert k3_counts() == (*before[:3], before[3] + 1)
+    assert k3_counts() == (*before[:2], before[2] + 1)
     want = cuda_myers_large.myers_large_plain(*(t.cpu() for t in args))
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
-    for kernel in (cuda_myers_large.myers_large_register,
-                   cuda_myers_large.myers_large_wide):
-        with pytest.raises(ValueError):
-            kernel(*args)
+    with pytest.raises(ValueError):
+        cuda_myers_large.myers_large_register(*args)
 
 
-@pytest.mark.parametrize("words", [32, 128, 256, 544, 1280, 2048])
+@pytest.mark.parametrize("words", range(544, 2049, 32))
 def test_large_wide_kernel_matches_plain(cuda_device, words):
-    """K3's multi-warp kernel through its explicit entry, at one to sixteen
-    warps, tasks spread from one group to the width's last in one launch:
-    equal to the plain version, one launch counted."""
-    args = full_myers_operands(np.random.default_rng(words + 9), 12, words,
-                               False, cuda_device, spread=True)
-    before = k3_counts()
-    got = cuda_myers_large.myers_large_wide(*args)
-    assert k3_counts() == (before[0], before[1] + 1, *before[2:])
-    # the plain version on the card (tasks of up to 65k chars)
-    want = cuda_myers_large.myers_large_plain(*args)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    """K3 at every Wp from 544 to 2048 words (past the register kernel's
+    widest: the cluster kernel, on its pick of blocks for the launch's
+    tasks) at 1, 7 and 64 tasks spread from one group to the width's last,
+    texts cut to 2000 columns: through myers_large from zeroed counts, one
+    cluster launch each, equal to the plain version on the card."""
+    rng = np.random.default_rng(words + 9)
+    for tasks in WIDE_TASKS:
+        # one task: the widest of four (the first three are m == 0, tlen 0
+        # and tlen 1)
+        args = full_myers_operands(rng, max(tasks, 4), words, False,
+                                   cuda_device, spread=True,
+                                   max_columns=2000)
+        if tasks == 1:
+            args = tuple(a[3:] for a in args)
+        zero_k3_counts()
+        got = cuda_myers_large.myers_large(*args)
+        assert k3_counts() == (0, 1, 0)
+        want = cuda_myers_large.myers_large_plain(*args)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (words, tasks)
 
 
 @pytest.mark.parametrize("words", [544, 1280, 2048])
 def test_wide_large_runs_the_multi_warp_kernel(cuda_device, words):
-    """myers_large sends 544, 1280 or 2048 pattern words to the multi-warp
-    kernel (counts from 0: one wide launch, no other), equal to the
-    shared-memory kernel on the same operands."""
+    """myers_large sends 544, 1280 or 2048 pattern words to the cluster
+    kernel (counts from 0: one cluster launch, no other; no one-block
+    multi-warp K3 is left), equal to the shared-memory kernel on the same
+    operands, and the card holds a cluster of each pick."""
     args = full_myers_operands(np.random.default_rng(words + 11), 8, words,
                                False, cuda_device, max_chars=4000)
     zero_k3_counts()
+    cuda_myers_large.CLUSTER_WIDTHS.clear()
     got = cuda_myers_large.myers_large(*args)
-    assert k3_counts() == (0, 1, 0, 0)
+    assert k3_counts() == (0, 1, 0)
+    assert cuda_myers_large.CLUSTER_WIDTHS == {words: 1}
     shared = cuda_myers_large.myers_large_shared(*args)
     for g, s in zip(got, shared):
         assert torch.equal(g.cpu(), s.cpu())
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for tasks in (1, 7, 64, 264):
+        blocks = cuda_myers_large.cluster_blocks(words, tasks, sms)
+        assert cuda_myers_large.cluster_max_clusters(cuda_device, words,
+                                                     blocks) > 0
+
+
+def test_a_cluster_the_card_refuses_raises(cuda_device):
+    """A cluster the kernel's entry refuses (nine blocks: past the
+    portable eight; for K1u a one-block cluster of a 4096-word band's 32
+    warps) raises a RuntimeError naming the entry, with no launch counted
+    and nothing else run in its place; asking the card for such a shape's
+    clusters raises too."""
+    args = short_full_args(np.random.default_rng(9), 1280, cuda_device)
+    zero_k3_counts()
+    with pytest.raises(RuntimeError, match="floxer_myers_large_cluster"):
+        cuda_myers_large._launch_cuda("floxer_myers_large_cluster", *args, 9)
+    assert k3_counts() == (0, 0, 0)
+    with pytest.raises(RuntimeError, match="max_clusters"):
+        cuda_myers_large.cluster_max_clusters(cuda_device, 1280, 9)
+    band = deep_band_args(np.random.default_rng(4096), 4096, cuda_device)
+    zero_k1_counts()
+    with pytest.raises(RuntimeError, match="floxer_myers_banded_cluster"):
+        cuda_myers_banded._launch_cuda("floxer_myers_banded_cluster", *band,
+                                       1)
+    assert k1_counts() == (0, 0, 0, 0)
 
 
 # the cluster kernels' sweep (K1u, K3u): every width chip_smoke.py's sweep
@@ -430,7 +494,7 @@ def test_large_cluster_kernel_matches_plain(cuda_device, words):
                            cuda_device)
     before = k3_counts()
     got = cuda_myers_large.myers_large_cluster(*args)
-    assert k3_counts() == (*before[:2], before[2] + 1, before[3])
+    assert k3_counts() == (before[0], before[1] + 1, before[2])
     want = cuda_myers_large.myers_large_plain(*args)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -450,12 +514,12 @@ def test_large_cluster_sizes_match_plain(cuda_device, words, blocks):
 
 
 @pytest.mark.parametrize("words,kernel", [
-    (2048, (0, 1, 0, 0)), (2176, (0, 0, 1, 0)), (8192, (0, 0, 1, 0)),
+    (2048, (0, 1, 0)), (2176, (0, 1, 0)), (8192, (0, 1, 0)),
 ])
 def test_large_routing_from_zeroed_counts(cuda_device, words, kernel):
-    """myers_large from zeroed counts: 2176 and 8192 pattern words take the
-    cluster kernel, 2048 still the multi-warp one; past the widest
-    (16384) it raises a ValueError naming the width."""
+    """myers_large from zeroed counts: 2048, 2176 and 8192 pattern words
+    take the cluster kernel; past the widest (16384) it raises a
+    ValueError naming the width."""
     args = short_full_args(np.random.default_rng(words + 5), words,
                            cuda_device)
     zero_k3_counts()

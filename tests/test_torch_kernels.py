@@ -396,8 +396,10 @@ def test_full_myers_operands_span_every_size(words, small):
     assert tuple(peq.shape) == ((words, 6, 40) if small else (40, 6, words))
 
 
-# ---- the multi-warp kernels (csrc/myers_banded_wide.cu,
-# csrc/myers_large_wide.cu), emulated lane by lane and warp by warp on
+# ---- the multi-warp kernels (the lockstep K1 column of
+# tools/csrc/k1w_lockstep.cu and K1u's of csrc/myers_banded_cluster.cu,
+# K3u's wavefront of csrc/myers_large_cluster.cu), emulated lane by lane
+# and warp by warp on
 # numpy int64 words masked to 32 bits
 
 MASK = 0xFFFFFFFF
@@ -451,9 +453,11 @@ def test_warp_lookahead_and_carry_select_equal_the_word_scan(warps, R, data):
 
 
 def emulate_banded_wide(args, warps, R, blocks=1):
-    """csrc/myers_banded_wide.cu's kernel on K1's operands (numpy, as
-    myers_banded takes them) at `warps` warps of 32 lanes with R words each:
-    per column the in-warp steps, the (G, P) words and the top bits each
+    """The multi-warp K1 column with its warps in lockstep on K1's operands
+    (numpy, as myers_banded takes them) at `warps` warps of 32 lanes with R
+    words each: tools/csrc/k1w_lockstep.cu's column (the routed one-block
+    kernel's schedule is tests/test_torch_wide_exchange.py's mirror): per
+    column the in-warp steps, the (G, P) words and the top bits each
     warp publishes, the carry into each warp from the warps' masks, the
     heads lane 31 takes from the warp above; the sliding and frozen columns
     and the scores as the kernel runs them. Tasks run together, each masked
@@ -695,17 +699,18 @@ def check_banded_emulation(warps, R, seed, blocks=1, deep=False):
 
 
 def emulate_large_wide(args, warps, R, blocks=1):
-    """csrc/myers_large_wide.cu's kernel on K3's operands (numpy) at `warps`
-    warps of R groups of 32 words: each task runs its ceil(m / 1024)
-    groups on ceil(groups / R) warps; at step s warp w runs chunk s - w of
-    32 columns, reading the carry out and lane 31's top bits the warp below
-    published for that chunk at step s - 1 (ring slot (s - 1) & 1) and
-    publishing its own (slot s & 1); the top warp keeps the score. All
-    warps of a step run at once, as the barrier between steps allows.
-    With blocks > 1 it is csrc/myers_large_cluster.cu's kernel on a
-    cluster of `blocks` blocks of ceil(warps / blocks) warps: each block
-    holds its own words' Peq rows, and a warp pushes into the ring of the
-    block that holds the warp above, indexed by that warp's place there."""
+    """csrc/myers_large_cluster.cu's wavefront (K3u, which myers_large runs
+    past the register kernel's widest) on K3's operands (numpy) at `warps`
+    warps of R groups of 32 words on a cluster of `blocks` blocks of
+    ceil(warps / blocks) warps (one block: the whole wavefront on one
+    SM): each task runs its ceil(m / 1024) groups on ceil(groups / R)
+    warps; at step s warp w runs chunk s - w of 32 columns, reading the
+    carry out and lane 31's top bits the warp below published for that
+    chunk at step s - 1 (ring slot (s - 1) & 1) and publishing its own
+    (slot s & 1) into the ring of the block that holds the warp above,
+    indexed by that warp's place there; each block holds its own words'
+    Peq rows; the top warp keeps the score. All warps of a step run at
+    once, as the barrier between steps allows."""
     peq, plen, texts, tlen = (a.astype(np.int64) for a in args)
     peq &= MASK
     B, _, Wp = peq.shape
@@ -808,11 +813,12 @@ def emulate_large_wide(args, warps, R, blocks=1):
 
 @pytest.mark.parametrize("warps,R", [(2, 1), (3, 1), (2, 2), (4, 2)])
 def test_large_wide_wavefront_emulation_equals_plain(warps, R):
-    """K3's skewed wavefront (each task on its own groups' warps, chunks of
-    32 columns a step behind the warp below, the carry out and top bits
-    through a two-slot ring, the top warp's score) emulated lane by lane
-    equals myers_large_plain on seeded tasks of every group count, with
-    m == 0, tlen 0 and 1 and chars 6..15 among them."""
+    """K3u's skewed wavefront on one block (each task on its own groups'
+    warps, chunks of 32 columns a step behind the warp below, the carry
+    out and top bits through a two-slot ring, the top warp's score)
+    emulated lane by lane equals myers_large_plain on seeded tasks of
+    every group count, with m == 0, tlen 0 and 1 and chars 6..15 among
+    them."""
     words = 32 * warps * R
     args = full_myers_operands(np.random.default_rng(words + R), 3 * warps * R,
                                words, False, CPU)
@@ -874,16 +880,17 @@ def test_banded_plain_past_2048_words_equals_the_reference_oracle():
 
 
 def test_wide_instances_are_the_kernel_sources():
-    """WIDE_WORDS_PER_LANE and WIDE_MAX_WORDS are csrc/myers_banded_wide.cu's
-    kWordsPerLane and kMaxBandWords, and WIDE_WORDS is
-    csrc/myers_large_wide.cu's kMaxWords; WIDE_BAND_WORDS holds every
-    128-word tile from past the register kernel's widest to 2048, each a
-    width the kernel takes, and myers_large's wide range covers 544..2048.
-    The cluster kernels' widest widths, block warps and cluster sizes are
-    csrc/myers_banded_cluster.cu's and csrc/myers_large_cluster.cu's
-    constants; CLUSTER_BAND_WORDS holds every 128-word tile from 2176 to
-    past F3's 6528 words (the widest 16384), and the pick of blocks holds
-    each routed width."""
+    """WIDE_WARPS, WIDE_TILE_WORDS and WIDE_MAX_WORDS are
+    csrc/myers_banded_wide.cu's kWarps, kTileWords and kMaxBandWords (a
+    tile a word a lane of its warps); WIDE_BAND_WORDS holds every 128-word
+    tile from past the register kernel's widest to 2048, each a width the
+    kernel takes (5 to 16 words a lane). K3 has no multi-warp one-block
+    kernel: myers_large routes 544 words on to the cluster kernel, whose
+    widest, block warps and cluster sizes are csrc/myers_large_cluster.cu's
+    constants as K1u's are csrc/myers_banded_cluster.cu's;
+    CLUSTER_BAND_WORDS holds every 128-word tile from 2176 to past F3's
+    6528 words (the widest 16384), and each pick of blocks holds its
+    width, K3u's for 1 to 264 tasks on 132 SMs too."""
     root = Path(__file__).resolve().parent.parent / "floxer_tpu_torch" / "csrc"
 
     def constant(source, name):
@@ -892,17 +899,21 @@ def test_wide_instances_are_the_kernel_sources():
         assert len(found) == 1, (source, name)
         return int(found[0])
 
-    R = cuda_myers_banded.WIDE_WORDS_PER_LANE
-    assert constant("myers_banded_wide.cu", "kWordsPerLane") == R
+    k1 = cuda_myers_banded
+    assert constant("myers_banded_wide.cu", "kWarps") == k1.WIDE_WARPS
+    assert re.search(r"^constexpr int kTileWords = 32 \* kWarps;$",
+                     (root / "myers_banded_wide.cu").read_text(), re.M)
+    assert k1.WIDE_TILE_WORDS == 32 * k1.WIDE_WARPS == 128
     assert (constant("myers_banded_wide.cu", "kMaxBandWords")
-            == cuda_myers_banded.WIDE_MAX_WORDS)
-    assert cuda_myers_banded.WIDE_BAND_WORDS == tuple(range(640, 2049, 128))
-    assert all(bw % (32 * R) == 0 for bw in cuda_myers_banded.WIDE_BAND_WORDS)
-    assert (constant("myers_large_wide.cu", "kMaxWords")
-            == cuda_myers_large.WIDE_WORDS)
+            == k1.WIDE_MAX_WORDS)
+    assert k1.WIDE_BAND_WORDS == tuple(range(640, 2049, 128))
+    assert all(bw % k1.WIDE_TILE_WORDS == 0
+               and 5 <= bw // k1.WIDE_TILE_WORDS <= 16
+               for bw in k1.WIDE_BAND_WORDS)
+    assert not (root / "myers_large_wide.cu").exists()
     assert cuda_myers_large.REGISTER_WORDS[-1] + 32 == 544
-    assert cuda_myers_large.WIDE_WORDS >= 2048
-    k1, k3 = cuda_myers_banded, cuda_myers_large
+    assert not hasattr(cuda_myers_large, "myers_large_wide")
+    k3 = cuda_myers_large
     for source, module, widest in (
         ("myers_banded_cluster.cu", k1, k1.CLUSTER_MAX_WORDS),
         ("myers_large_cluster.cu", k3, k3.CLUSTER_WORDS),
@@ -913,6 +924,7 @@ def test_wide_instances_are_the_kernel_sources():
                         else "kMaxWords") == widest
         assert widest == (32 * 4 * module.CLUSTER_BLOCK_WARPS
                           * module.CLUSTER_MAX_BLOCKS)
+    R = k1.CLUSTER_WORDS_PER_LANE
     assert constant("myers_banded_cluster.cu", "kWordsPerLane") == R
     assert constant("myers_large_cluster.cu", "kGroupsPerWarp") == 4
     assert k1.CLUSTER_BAND_WORDS == tuple(range(2176, 16385, 128))
@@ -923,6 +935,26 @@ def test_wide_instances_are_the_kernel_sources():
         assert blocks <= k1.CLUSTER_MAX_BLOCKS
         assert -(-warps // blocks) <= k1.CLUSTER_BLOCK_WARPS
         assert k3.cluster_blocks(words) == blocks
+    for words in range(544, k3.CLUSTER_WORDS + 1, 32):
+        warps = -(-words // 128)
+        for tasks in (1, 8, 64, 132, 264, 10_000):
+            blocks = k3.cluster_blocks(words, tasks, 132)
+            assert 1 <= blocks <= k3.cluster_blocks(words)
+            assert -(-warps // blocks) <= k3.CLUSTER_BLOCK_WARPS
+
+
+@pytest.mark.parametrize("words,tasks,blocks", [
+    (544, 8, 2), (544, 64, 2), (544, 264, 1), (768, 64, 2), (1280, 8, 3),
+    (1280, 64, 2), (1280, 264, 1), (2048, 8, 4), (2048, 64, 2),
+    (2048, 264, 1), (3200, 8, 7), (8192, 132, 4),
+])
+def test_large_cluster_pick_follows_the_tasks(words, tasks, blocks):
+    """K3u's blocks a task on a card of 132 SMs: about four warps a block
+    while the launch's clusters fit the SMs a block each (the layouts
+    that won in turns at 544-2048 words: tools/k1_bench.py
+    --large-layouts), else the most that fit, never fewer than hold the
+    width (8192 words: 4 blocks of 16 warps)."""
+    assert cuda_myers_large.cluster_blocks(words, tasks, 132) == blocks
 
 
 @pytest.mark.parametrize("band_words", [1024, 2176])

@@ -546,20 +546,21 @@ echo built > "$out"
 def test_each_source_set_builds_its_own_library(tmp_path, monkeypatch):
     """One nvcc per source, then a link, into a library named by the
     sources' hash; a failed compile raises and leaves no library. The
-    aligner's and the scripts' libraries share no source."""
+    aligner's, the scripts' and the bench's libraries share no source."""
     from floxer_tpu_torch.ops import _build
 
     assert [s.name for s in _build.ALIGNER.sources()] == [
         "fm_index.cu", "fm_sharded.cu", "frontier_search.cu",
         "myers_banded.cu", "myers_banded_cluster.cu",
         "myers_banded_wide.cu", "myers_large.cu", "myers_large_cluster.cu",
-        "myers_large_wide.cu", "myers_small.cu", "select_anchors.cu",
-        "traceback_banded.cu", "workqueue_search.cu",
+        "myers_small.cu", "select_anchors.cu", "traceback_banded.cu",
+        "workqueue_search.cu",
     ]
     assert [s.name for s in _build.SCRIPTS.sources()] == [
         "ablate_banded_kernel.cu", "microbench_carry_scaling.cu",
         "microbench_column_loop.cu",
     ]
+    assert [s.name for s in _build.BENCH.sources()] == ["k1w_lockstep.cu"]
     nvcc = tmp_path / "cuda" / "bin" / "nvcc"
     nvcc.parent.mkdir(parents=True)
     nvcc.write_text(FAKE_NVCC)
