@@ -404,21 +404,40 @@ PROCESS_SET_TIMEOUT = 300
 # word its mask (a clamp, a shift, a select: 3 x 4), per symbol and word
 # an AND, a popcount and an add (3 x 24), the block and offset (2). An
 # extension: two ranks, then per symbol the count, its prefix, C and the
-# two selects (5 x 6). A locate: per LF step a rank, the symbol and C
-# (3), and per step and at the end a binary search over the SA samples
-# (4 ops a probe), then one over the sequence starts. K10 per expanded
-# node: two ranks, the counts and children's primaries (12), the pattern
-# symbol and the 13 kinds' tests (30), the first child's interval and key
-# nibble (14), the frame of a branching node (20). Over S row shards a
-# rank is S ranks (K13, K11 over the shards), but a locate step (K13l)
-# needs only the owner's: one rank, the symbol, C and the earlier shards'
-# total (3), S owner tests and S sample-chunk tests, and one binary search
-# of one chunk of the SA samples, not S of each.
+# two selects (5 x 6). A locate (K9l, K12's locates): per LF step a rank,
+# the symbol and C (3); per step and at the end a lookup in the
+# sampled-row plane (the range test, the block and offset, the word's
+# three selects, the bit's shift and test: 8), and on the one hit a row
+# makes its index (the four masks 12, per word an AND, a popcount and an
+# add 12); then a binary search over the sequence starts (4 ops a probe).
+# K10 per expanded node: two ranks, the counts and children's primaries
+# (12), the pattern symbol and the 13 kinds' tests (30), the first
+# child's interval and key nibble (14), the frame of a branching node
+# (20). Over S row shards a rank (K13, K11 over the shards) is the
+# owner's: one rank, S - 1 owner tests (a compare, the owner's add, the
+# start's select: 3 each), the clamp (2) and the six adds of the earlier
+# shards' totals; a locate step (K13l) likewise needs only the owner's:
+# one rank, the symbol, C and the earlier shards' total (3), S owner tests
+# and S sample-chunk tests, and one binary search of one chunk of the SA
+# samples, not S of each.
 RANK_QUERIES = 1 << 20
 RANK_OPS = 86
 EXTEND_OPS = 2 * RANK_OPS + 30
 PROBE_OPS = 4
+PLANE_LOOKUP_OPS = 8
+PLANE_INDEX_OPS = 24
 SEARCH_OPS_PER_NODE = 2 * RANK_OPS + 76
+
+
+def sharded_rank_ops(shards: int) -> int:
+    """int32 ops of one rank over `shards` row shards (the owner's)."""
+    return RANK_OPS + 3 * (shards - 1) + 2 + 6
+
+
+def locate_ops(steps: int, rows: int, seq_probes: int) -> int:
+    """int32 ops of `rows` locates that take `steps` LF steps in all."""
+    return (steps * (RANK_OPS + 3) + (steps + rows) * PLANE_LOOKUP_OPS
+            + rows * (PLANE_INDEX_OPS + seq_probes))
 # K10's searches timed back to back (each zeroes its counters and root
 # counts on the stream, then launches its generations; see k10_times),
 # and the budgets it is also timed at (nodes a unit expands before it
@@ -2785,8 +2804,6 @@ def run_search_kernels(device, e2e: E2E, peaks):
         seq_ids, offsets = (t.long() for t in located)
         text_positions = index.seq_starts.long()[seq_ids] + offsets
         steps = int((text_positions % index.sampling_rate).sum())
-        probes = PROBE_OPS * int(np.ceil(np.log2(
-            index.sampled_rows.shape[0] + 1)))
         seq_probes = PROBE_OPS * int(np.ceil(np.log2(
             index.seq_starts.shape[0] + 1)))
         kernels = {
@@ -2802,10 +2819,9 @@ def run_search_kernels(device, e2e: E2E, peaks):
                                               index.sampling_rate),
                     lambda: k9.fm_locate_plain(index, sa_rows,
                                                index.sampling_rate),
-                    steps * (RANK_OPS + 3 + probes)
-                    + B * (probes + seq_probes),
+                    locate_ops(steps, B, seq_probes),
                     4 * B + 8 * B + table_bytes
-                    + tensor_bytes(fwd.bwt, index.sampled_rows,
+                    + tensor_bytes(fwd.bwt, index.sample_plane,
                                    index.sampled_values, index.seq_starts)),
         }
         for key, (name, kernel, plain, ops, nbytes) in kernels.items():
@@ -3015,7 +3031,8 @@ def run_sharded_kernels(device, e2e: E2E, peaks, inputs):
         for single, want in zip((index.fwd, index.rev), want_rank):
             args = (single.rank_rows, single.block_offset,
                     single.shard_starts, single.shard_lengths)
-            got = k13.fm_sharded_rank_cuda(positions, *args)
+            got = k13.fm_sharded_rank_cuda(positions, *args,
+                                           single.shard_before)
             errs["K13"] = max(
                 errs["K13"], max_error(got, want),
                 max_error(got, k13.fm_sharded_rank_plain(positions, *args)))
@@ -3073,9 +3090,13 @@ def run_sharded_kernels(device, e2e: E2E, peaks, inputs):
         expanded = int(out.expanded[0])
         kernels = {
             "K13": ("fm_sharded_rank",
-                    lambda: k13.fm_sharded_rank_cuda(positions, *rank_args),
+                    lambda: k13.fm_sharded_rank_cuda(positions, *rank_args,
+                                                     fwd.shard_before),
                     lambda: k13.fm_sharded_rank_plain(positions, *rank_args),
-                    20, S * RANK_OPS * B, 4 * B + 24 * B + table_bytes),
+                    20, sharded_rank_ops(S) * B,
+                    4 * B + 24 * B + table_bytes
+                    + tensor_bytes(fwd.shard_starts, fwd.shard_lengths,
+                                   fwd.shard_before)),
             "K13l": ("fm_sharded_locate",
                      lambda: k13.fm_sharded_locate_cuda(
                          index, sa_rows, index.sampling_rate),
@@ -3087,7 +3108,7 @@ def run_sharded_kernels(device, e2e: E2E, peaks, inputs):
                      + tensor_bytes(fwd.bwt, index.sampled_rows,
                                     index.sampled_values, index.seq_starts)),
             "K11s": ("frontier_search_sharded", k11_kernel, None, 5,
-                     (2 * S * RANK_OPS + 76) * expanded,
+                     (2 * sharded_rank_ops(S) + 76) * expanded,
                      tensor_bytes(index.rank_rows, *operands)
                      + int(out.num_reports[0]) * 5 * 4),
         }
@@ -3381,10 +3402,8 @@ def select_kernel_checks(index, index_path, rep, redo, peaks):
     plain_jobs, timers = [], {}
     fwd = index.fwd
     table_bytes = (128 * fwd.planes.shape[0]
-                   + tensor_bytes(fwd.bwt, index.sampled_rows,
+                   + tensor_bytes(fwd.bwt, index.sample_plane,
                                   index.sampled_values, index.seq_starts))
-    probes = PROBE_OPS * int(np.ceil(np.log2(
-        index.sampled_rows.shape[0] + 1)))
     seq_probes = PROBE_OPS * int(np.ceil(np.log2(
         index.seq_starts.shape[0] + 1)))
     for name, choice_code in (("defaults", 0), ("full_groups", 1),
@@ -3419,8 +3438,7 @@ def select_kernel_checks(index, index_path, rep, redo, peaks):
                           + kept[:, :, 1][valid])
         steps = int((text_positions % index.sampling_rate).sum())
         ops = (SELECT_OPS_PER_ANCHOR * emitted + SELECT_OPS_PER_SEED * S
-               + steps * (RANK_OPS + 3 + probes)
-               + emitted * (probes + seq_probes))
+               + locate_ops(steps, emitted, seq_probes))
         nbytes = (tensor_bytes(*operands, anchors, counts) + table_bytes)
         bound_ms, bound_by = bound(ops, nbytes, peaks)
         case = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,

@@ -13,7 +13,12 @@
 // SM full at the batch sizes the callers use), not by prefetch. The
 // table of a 4.6 Mb genome (9.2 MB for both directions) stays in the 50 MB
 // L2. Locate walks at most sampling_rate - 1 LF steps (a dependent rank
-// each) and two binary searches.
+// each), each step and the walk's end preceded by a lookup in the
+// sampled-row plane (one 32-byte sector, and one sample value on a hit:
+// fm_rank.cuh's fm_sample_lookup; the plane of that genome is 1.15 MB),
+// then one binary search of the sequence starts. The lookup comes before
+// the step's LF, as in the reference: the rank row of a step that hits
+// would be read for nothing.
 
 #include <cuda_runtime.h>
 
@@ -106,9 +111,10 @@ int floxer_fm_extend(const void* rows, const void* occ, const void* planes,
   return (int)cudaGetLastError();
 }
 
+// sample_plane: [n / 128 + 1, FM_SAMPLE_WORDS] (fm_rank.cuh); n the rows
 int floxer_fm_locate(const void* rows, const void* occ, const void* planes,
-                     const void* bwt, const void* C, const void* sampled_rows,
-                     const void* sampled_values, int ns,
+                     const void* bwt, const void* C, const void* sample_plane,
+                     const void* sampled_values, int n,
                      const void* seq_starts, int num_seqs, int sampling_rate,
                      const void* query_rows, int B, void* seq_ids,
                      void* positions, void* stream) {
@@ -116,9 +122,9 @@ int floxer_fm_locate(const void* rows, const void* occ, const void* planes,
   tables.fwd = make_table(rows, occ, planes, 0);
   tables.bwt = static_cast<const uint8_t*>(bwt);
   tables.C = static_cast<const int*>(C);
-  tables.sampled_rows = static_cast<const int*>(sampled_rows);
+  tables.sample_plane = static_cast<const uint32_t*>(sample_plane);
   tables.sampled_values = static_cast<const int*>(sampled_values);
-  tables.ns = ns;
+  tables.n = n;
   tables.seq_starts = static_cast<const int*>(seq_starts);
   tables.num_seqs = num_seqs;
   tables.sampling_rate = sampling_rate;

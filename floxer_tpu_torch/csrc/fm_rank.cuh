@@ -9,17 +9,17 @@
 //
 // The row-sharded index (FmShardedRankTable, FmShardedLocateTables) has
 // the same functions over S shard tables (csrc/fm_sharded.cu K13, K13l;
-// K11 over shards). The rank (K13, K11 over shards): each shard clamps
-// the global position into its own rows and ranks there, and the shards'
-// counts are summed in the thread, where the reference sums them with a
-// psum over its index mesh axis (device_index.py:318-358, :433-446;
-// parallel/sharded_index.py:78). The locate (K13l) resolves the one shard
-// that owns a row instead: the shards are contiguous and ascending, so
-// the clamped ranks of the shards before the owner are their totals and
-// those after it are 0, and the sum is the owner's local rank plus the
-// earlier shards' totals (a prefix the shard layout carries); a sampled
-// row can only lie in the one sample chunk that starts at or before it
-// and before the next chunk.
+// K11 over shards). The reference ranks in every shard at the global
+// position clamped into the shard's rows and sums the counts with a psum
+// over its index mesh axis (device_index.py:318-358, :433-446;
+// parallel/sharded_index.py:78). The shards are contiguous and ascending,
+// so the clamped ranks of the shards before the one that owns a position
+// are their totals and those after it are 0: here the rank (K13, K11 over
+// shards) and the locate (K13l) resolve that owner and take its local
+// rank plus the earlier shards' totals (`before`, a prefix the shard
+// layout carries), one rank row where the sum read S. A sampled row can
+// only lie in the one sample chunk that starts at or before it and before
+// the next chunk.
 // The functions that take a table are overloaded or templated on its
 // type, so the unsharded kernels compile as they did.
 //
@@ -31,6 +31,14 @@
 //     direction (used when the combined positions reach 2^31).
 // rank = the checkpoint + the popcounts of the plane words masked to the
 // bits below the position.
+//
+// The unsharded locate reads the SA samples through a sampled-row plane
+// (index/device_index.sample_plane), one 32-byte sector a block of 128 SA
+// rows: word 0 the count of sampled rows before the block, words 1..4
+// the block's membership bits, 5..7 zero. A row is sampled iff its bit is
+// set, and its sample is sampled_values[word 0 + the set bits below it]:
+// one sector and, on a hit, one value, where a binary search over the
+// ~n / 4 samples made ~21 dependent probes.
 #pragma once
 
 #include <cstddef>
@@ -40,6 +48,7 @@
 #define FM_OCC_BLOCK 128
 #define FM_ROW_WORDS 32
 #define FM_PLANE_WORDS 4
+#define FM_SAMPLE_WORDS 8
 
 struct FmRankTable {
   const uint32_t* rows;    // combined table, or nullptr for the planes layout
@@ -122,38 +131,74 @@ __host__ __device__ inline void fm_rank(const FmRankTable& t, int position,
 // rows start at rows + s * shard_rows * 32 and hold its own blocks (local
 // checkpoints and planes of its real rows only); a direction's positions
 // start at row row_offset of every shard. Shard s owns the global rows
-// [starts[s], starts[s] + lengths[s]).
+// [starts[s], starts[s] + lengths[s]), and before[s] holds each symbol's
+// total over the shards before it.
 struct FmShardedRankTable {
   const uint32_t* rows;  // [S, shard_rows, 32]
   int shard_rows;
   int row_offset;
   const int* starts;   // [S]
   const int* lengths;  // [S]
+  const int* before;   // [S, 6]
   int num_shards;
 };
 
-// counts[s] = occurrences of symbol s before a global position: the sum
-// over the shards of each shard's count at clamp(position - start, 0,
-// length) (an empty shard counts 0)
+// counts[s] = occurrences of symbol s before a global position: the
+// reference's sum over the shards of each shard's count at clamp(position
+// - start, 0, length), as the owner's count at its clamped position plus
+// the earlier shards' totals. The owner is the last shard whose start is
+// at most the position (S - 1 independent tests; shard 0 for a negative
+// one, whose start is 0; the last of the empty trailing shards, which
+// start at n, for one at or past n), so one 128-byte row a query. Its
+// start and length are selected beside the tests, so the row's address
+// waits on no load that waits on the owner.
 __host__ __device__ inline void fm_rank(const FmShardedRankTable& t,
                                         int position, int counts[FM_SIGMA]) {
-#pragma unroll
-  for (int s = 0; s < FM_SIGMA; ++s) counts[s] = 0;
-  for (int shard = 0; shard < t.num_shards; ++shard) {
-    int local = position - t.starts[shard];
-    const int length = t.lengths[shard];
-    local = local < 0 ? 0 : (local > length ? length : local);
-    FmRankTable one;
-    one.rows = t.rows + (size_t)shard * t.shard_rows * FM_ROW_WORDS;
-    one.occ = nullptr;
-    one.planes = nullptr;
-    one.row_offset = t.row_offset;
-    int part[FM_SIGMA];
-    fm_rank(one, local, part);
-#pragma unroll
-    for (int s = 0; s < FM_SIGMA; ++s) counts[s] += part[s];
+  int owner = 0, start = t.starts[0], length = t.lengths[0];
+#pragma unroll 4
+  for (int shard = 1; shard < t.num_shards; ++shard) {
+    const int first = t.starts[shard];
+    const int size = t.lengths[shard];
+    const bool owns = position >= first;
+    owner += owns;
+    start = owns ? first : start;
+    length = owns ? size : length;
   }
+  int local = position - start;
+  local = local < 0 ? 0 : (local > length ? length : local);
+  FmRankTable one;
+  one.rows = t.rows + (size_t)owner * t.shard_rows * FM_ROW_WORDS;
+  one.occ = nullptr;
+  one.planes = nullptr;
+  one.row_offset = t.row_offset;
+  fm_rank(one, local, counts);
+  const int* before = t.before + owner * FM_SIGMA;
+#pragma unroll
+  for (int s = 0; s < FM_SIGMA; ++s) counts[s] += before[s];
 }
+
+#ifdef __CUDACC__
+// the block's copy of a sharded table's starts, lengths and totals in
+// shared memory (FM_STAGED_WORDS(S) int32 at `staged`), written by the
+// block's threads; the caller syncs the block before a rank reads it
+#define FM_STAGED_WORDS(S) ((S) * (2 + FM_SIGMA))
+__device__ inline FmShardedRankTable fm_stage_shards(
+    const FmShardedRankTable& t, int* staged) {
+  const int S = t.num_shards;
+  for (int w = threadIdx.x; w < S; w += blockDim.x) {
+    staged[w] = t.starts[w];
+    staged[S + w] = t.lengths[w];
+  }
+  for (int w = threadIdx.x; w < S * FM_SIGMA; w += blockDim.x) {
+    staged[2 * S + w] = t.before[w];
+  }
+  FmShardedRankTable out = t;
+  out.starts = staged;
+  out.lengths = staged + S;
+  out.before = staged + 2 * S;
+  return out;
+}
+#endif
 
 // field-wise select of a direction's table (registers, not a copy)
 __host__ __device__ inline FmRankTable fm_pick(const FmRankTable& a,
@@ -175,6 +220,7 @@ __host__ __device__ inline FmShardedRankTable fm_pick(
   t.row_offset = first ? a.row_offset : b.row_offset;
   t.starts = first ? a.starts : b.starts;
   t.lengths = first ? a.lengths : b.lengths;
+  t.before = first ? a.before : b.before;
   t.num_shards = first ? a.num_shards : b.num_shards;
   return t;
 }
@@ -243,15 +289,16 @@ __host__ __device__ inline int fm_upper_bound(const int* sorted, int count,
   return lo;
 }
 
-// the operands of a locate: the forward rank table, the BWT, C, the SA
-// samples and the sequence starts
+// the operands of a locate: the forward rank table, the BWT (n rows), C,
+// the sampled-row plane ([n / 128 + 1, FM_SAMPLE_WORDS]), the SA samples'
+// values and the sequence starts
 struct FmLocateTables {
   FmRankTable fwd;
   const uint8_t* bwt;
   const int* C;
-  const int* sampled_rows;
+  const uint32_t* sample_plane;
   const int* sampled_values;
-  int ns;
+  int n;
   const int* seq_starts;
   int num_seqs;
   int sampling_rate;
@@ -338,9 +385,42 @@ __host__ __device__ inline bool fm_sample_lookup(const int* sampled_rows,
   return hit;
 }
 
+// the same through the sampled-row plane: the row's sector (words 0..4 as
+// one 16-byte and one 4-byte load of its 32 bytes), its bit and, on a hit,
+// its value at the block's count plus the set bits below it. A row
+// outside [0, n) reads nothing and is no hit, as the clamped searchsorted
+// finds no sample equal to it.
 __host__ __device__ inline bool fm_sample_lookup(const FmLocateTables& t,
                                                  int row, int* value) {
-  return fm_sample_lookup(t.sampled_rows, t.sampled_values, t.ns, row, value);
+  *value = 0;
+  if ((unsigned)row >= (unsigned)t.n) return false;
+  const int block = row / FM_OCC_BLOCK;
+  const int r = row - block * FM_OCC_BLOCK;
+  const uint32_t* sector = t.sample_plane + (size_t)block * FM_SAMPLE_WORDS;
+  uint32_t words[5];
+#ifdef __CUDA_ARCH__
+  const uint4 head = __ldg(reinterpret_cast<const uint4*>(sector));
+  words[0] = head.x;
+  words[1] = head.y;
+  words[2] = head.z;
+  words[3] = head.w;
+  words[4] = __ldg(sector + 4);
+#else
+  for (int w = 0; w < 5; ++w) words[w] = sector[w];
+#endif
+  // the row's word by selects (no indexed register array, so no stack)
+  const int at = r >> 5;
+  uint32_t word = words[1];
+#pragma unroll
+  for (int w = 1; w < FM_PLANE_WORDS; ++w) word = at == w ? words[1 + w] : word;
+  if (((word >> (r & 31)) & 1u) == 0) return false;
+  int index = (int)words[0];
+#pragma unroll
+  for (int w = 0; w < FM_PLANE_WORDS; ++w) {
+    index += fm_popc(words[1 + w] & fm_word_mask(r, w));
+  }
+  *value = t.sampled_values[index];
+  return true;
 }
 
 // the one sample chunk that can hold the row, searched over its real

@@ -57,9 +57,13 @@
 //
 // Over the row-sharded index (frontier_kernel<FmShardedRankTable>, the
 // counterpart of floxer_tpu/parallel/sharded_index.py's
-// sharded_frontier_search :371) each rank reads one row of each shard
-// and sums the shards' counts (fm_rank.cuh); the frontier, its order and
-// its flag are those of the unsharded kernel, since the counts are.
+// sharded_frontier_search :371) each rank reads the one row of the shard
+// that owns its position and adds the earlier shards' totals
+// (fm_rank.cuh), the reference's sum over the shards; the frontier, its
+// order and its flag are those of the unsharded kernel, since the counts
+// are. Each block first copies both directions' shard starts, lengths and
+// totals to shared memory (stage_tables; 2-3% faster on an H100 than
+// reading them through L1 at every rank).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -191,10 +195,26 @@ __device__ inline void put(int* buffer, int C, int slot, int lb, int lb_rev,
   buffer[fDone * C + slot] = done;
 }
 
+// the sharded instance's blocks read the shard tables' starts, lengths
+// and totals from shared memory (both directions, staged at the start)
+__device__ inline void stage_tables(Params<FmRankTable>&, int*) {}
+__device__ inline void stage_tables(Params<FmShardedRankTable>& p,
+                                    int* staged) {
+  p.fwd = fm_stage_shards(p.fwd, staged);
+  p.rev = fm_stage_shards(p.rev, staged + FM_STAGED_WORDS(p.fwd.num_shards));
+  __syncthreads();
+}
+inline size_t staged_bytes(const Params<FmRankTable>&) { return 0; }
+inline size_t staged_bytes(const Params<FmShardedRankTable>& p) {
+  return 2 * sizeof(int) * FM_STAGED_WORDS(p.fwd.num_shards);
+}
+
 template <class Table>
 __global__ void __launch_bounds__(kThreads) frontier_kernel(Params<Table> p) {
   __shared__ int warp_sums[kWarps + 1];
   __shared__ int exchange[2];
+  extern __shared__ int staged[];
+  stage_tables(p, staged);
   cg::cluster_group cluster = cg::this_cluster();
   const int blocks = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -469,7 +489,7 @@ cudaError_t launch_frontiers(const Params<Table>& p, int num_frontiers,
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(num_frontiers * cluster);
   config.blockDim = dim3(kThreads);
-  config.dynamicSmemBytes = 0;
+  config.dynamicSmemBytes = staged_bytes(p);
   config.stream = (cudaStream_t)stream;
   config.attrs = attribute;
   config.numAttrs = cluster > 1 ? 1 : 0;
@@ -522,11 +542,13 @@ int floxer_frontier_search(
 
 // over the row-sharded index: rows [S, shard_rows, 32], each shard's
 // combined table (the reverse direction from row rev_block_offset), the
-// shards' starts and lengths (both directions'); n the global length
+// shards' starts, lengths and the totals before each ([S, 6]), both
+// directions'; n the global length
 int floxer_frontier_search_sharded(
     const void* rows, int shard_rows, int rev_block_offset,
-    const void* fwd_starts, const void* fwd_lengths, const void* rev_starts,
-    const void* rev_lengths, int num_shards, const void* C, int n,
+    const void* fwd_starts, const void* fwd_lengths, const void* fwd_before,
+    const void* rev_starts, const void* rev_lengths, const void* rev_before,
+    int num_shards, const void* C, int n,
     const void* patterns, const void* seed_class, int num_frontiers,
     int num_seeds, int pad_len, const void* scheme, int num_searches,
     int num_parts, int capacity, int report_capacity, int max_iterations,
@@ -537,11 +559,13 @@ int floxer_frontier_search_sharded(
   p.fwd.row_offset = 0;
   p.fwd.starts = static_cast<const int*>(fwd_starts);
   p.fwd.lengths = static_cast<const int*>(fwd_lengths);
+  p.fwd.before = static_cast<const int*>(fwd_before);
   p.fwd.num_shards = num_shards;
   p.rev = p.fwd;
   p.rev.row_offset = rev_block_offset;
   p.rev.starts = static_cast<const int*>(rev_starts);
   p.rev.lengths = static_cast<const int*>(rev_lengths);
+  p.rev.before = static_cast<const int*>(rev_before);
   fill_common(p, C, n, patterns, seed_class, num_seeds, pad_len, scheme,
               num_searches, num_parts, capacity, report_capacity,
               max_iterations, frontier, reports, stats);

@@ -49,8 +49,9 @@
 // What bounds it on an H100: bytes, the anchor array written once (S x
 // soft_cap x 3 int32, 69 MB on a 115k-seed chunk at soft cap 50); its
 // operations are ~60 int32 ops an emitted anchor beside its locate (at
-// most sampling_rate - 1 dependent LF steps of one rank each, and two
-// binary searches; chip_smoke.py's SELECT_OPS). The zeros go out as
+// most sampling_rate - 1 dependent LF steps of one rank each, a lookup in
+// the sampled-row plane before each step and at the end, and a binary
+// search of the sequence starts; chip_smoke.py's SELECT_OPS). The zeros go out as
 // 16-byte stores of consecutive lanes; the locates' dependent gathers are
 // latency-bound, and a warp runs up to 32 of them at once.
 
@@ -450,13 +451,14 @@ __global__ void __launch_bounds__(kWarps * 32) select_kernel(Params p) {
 extern "C" {
 
 // rows: the forward combined rank table, or null for the planes layout
-// (occ, planes); scratch: null to keep each warp's rows in shared memory
+// (occ, planes); sample_plane: the locate's sampled-row plane of the n
+// rows (fm_rank.cuh); scratch: null to keep each warp's rows in shared memory
 // (shared_bytes a block), else [ceil(S / 32), 5 * soft_cap + 6 *
 // max(64, soft_cap)] int32
 int floxer_select_anchors(
     const void* rows, const void* occ, const void* planes, const void* bwt,
-    const void* C, const void* sampled_rows, const void* sampled_values,
-    int ns, const void* seq_starts, int num_seqs, int sampling_rate,
+    const void* C, const void* sample_plane, const void* sampled_values,
+    int n, const void* seq_starts, int num_seqs, int sampling_rate,
     const void* lb, const void* cnt, const void* err, const void* perm,
     const void* group_starts, const void* totals, const void* statuses,
     int num_seeds, int hard_cap, int soft_cap, int choice_code,
@@ -469,9 +471,9 @@ int floxer_select_anchors(
   p.locate.fwd.row_offset = 0;
   p.locate.bwt = static_cast<const uint8_t*>(bwt);
   p.locate.C = static_cast<const int*>(C);
-  p.locate.sampled_rows = static_cast<const int*>(sampled_rows);
+  p.locate.sample_plane = static_cast<const uint32_t*>(sample_plane);
   p.locate.sampled_values = static_cast<const int*>(sampled_values);
-  p.locate.ns = ns;
+  p.locate.n = n;
   p.locate.seq_starts = static_cast<const int*>(seq_starts);
   p.locate.num_seqs = num_seqs;
   p.locate.sampling_rate = sampling_rate;

@@ -5,7 +5,10 @@ The BWT, its occ checkpoints, the bit planes and the SA samples live on
 one torch device. A rank query for a batch of positions is a checkpoint
 read plus masked popcounts of the block's plane words; on the card it is
 K9 (csrc/fm_rank.cuh, launched by ops/cuda_fm_index.py), on the CPU its
-plain version. The extension and locate steps are K9x and K9l.
+plain version. The extension and locate steps are K9x and K9l. K9l (and
+K12's locates) find a row's SA sample through the sampled-row plane
+(sample_plane), built at upload beside the sorted sampled_rows that the
+plain versions search.
 
 Layout (one direction, as the reference ships it):
   - bwt:    uint8 [n]
@@ -26,11 +29,13 @@ checkpoints and the planes of its real rows only, the pad symbol SIGMA in
 no plane), stacked into int32 [S, R, 32], and its chunk of the SA
 samples. rank_all, bwt_at, _sample_lookup and locate_batch take either
 index; over the shards the rank is K13 and the locate K13l
-(ops/cuda_sharded.py), each shard's count taken at the position clamped
-into its rows and the counts summed, where the reference psums them over
-its index mesh axis. The reference's dense rank (_rank_all_dense, the
-one-hot window over the BWT) is not ported: the plane layout gives the
-same counts.
+(ops/cuda_sharded.py): the reference psums over its index mesh axis
+each shard's count at the position clamped into its rows, and the
+kernels take the count of the shard that owns the position plus each
+symbol's total over the shards before it (shard_before, held on each
+direction). The reference's dense rank (_rank_all_dense, the one-hot
+window over the BWT) is not ported: the plane layout gives the same
+counts.
 """
 
 from __future__ import annotations
@@ -72,6 +77,9 @@ class DeviceIndex:
     C: torch.Tensor  # int32 [SIGMA + 1]
     sampled_rows: torch.Tensor  # int32 [ns], sorted
     sampled_values: torch.Tensor  # int32 [ns]
+    # int32 [n // OCC_BLOCK + 1, 8] (sample_plane), what the CUDA locates
+    # (K9l, K12) read in place of a search over sampled_rows
+    sample_plane: torch.Tensor
     seq_starts: torch.Tensor  # int32 [num_seqs]
     rank_rows: torch.Tensor | None  # int32 [nb_fwd + 1 + nb_rev, 32]
     rev_block_offset: int
@@ -119,11 +127,36 @@ class DeviceIndex:
             C=_int32(index.C, device),
             sampled_rows=_int32(index.sampled_rows, device),
             sampled_values=_int32(index.sampled_values, device),
+            sample_plane=_int32_bits(
+                sample_plane(index.sampled_rows, index.n), device),
             seq_starts=_int32(index.seq_starts, device),
             rank_rows=rank_rows,
             rev_block_offset=rev_block_offset,
             sampling_rate=index.sampling_rate,
         )
+
+
+def sample_plane(sampled_rows, n: int) -> np.ndarray:
+    """uint32 [n // OCC_BLOCK + 1, 8]: block b's entry (a 32-byte sector)
+    holds the count of sampled rows before row b * OCC_BLOCK (word 0) and
+    the block's membership bits (words 1 .. OCC_BLOCK // 32, bit j of word
+    w for row b * OCC_BLOCK + 32 w + j, little-endian as the rank planes),
+    so a sampled row's index in the sorted sampled_rows is word 0 plus the
+    set bits below it in its block; words 5..7 are zero."""
+    rows = np.asarray(sampled_rows, dtype=np.int64)
+    num_blocks = n // OCC_BLOCK + 1
+    member = np.zeros(num_blocks * OCC_BLOCK, dtype=bool)
+    member[rows] = True
+    words = OCC_BLOCK // 32
+    plane = np.zeros((num_blocks, cuda_fm_index.SAMPLE_PLANE_WORDS),
+                     dtype=np.uint32)
+    plane[:, 0] = np.searchsorted(
+        rows, np.arange(num_blocks, dtype=np.int64) * OCC_BLOCK)
+    packed = np.packbits(member.reshape(num_blocks, words, 32), axis=-1,
+                         bitorder="little")
+    plane[:, 1:1 + words] = np.ascontiguousarray(packed).view(
+        "<u4").reshape(num_blocks, words)
+    return plane
 
 
 def _int32(array, device) -> torch.Tensor:
@@ -194,11 +227,13 @@ def rank_all(single, positions: torch.Tensor) -> torch.Tensor:
     """occ of every symbol before each position: [B] -> int32 [B, SIGMA]
     (K9), through the combined table when the index has one, else through
     this direction's occ and planes; over a ShardedSingleIndex, K13: the
-    shards' counts at the positions clamped into their rows, summed."""
+    shards' counts at the positions clamped into their rows, summed (the
+    owner's count plus the earlier shards' totals)."""
     if isinstance(single, ShardedSingleIndex):
         return cuda_sharded.fm_sharded_rank(
             positions.to(torch.int32).contiguous(), single.rank_rows,
             single.block_offset, single.shard_starts, single.shard_lengths,
+            single.shard_before,
         )
     return cuda_fm_index.fm_rank(
         positions.to(torch.int32).contiguous(), single.rank_rows,
@@ -286,13 +321,15 @@ def locate_batch(index, rows: torch.Tensor,
 @dataclass
 class ShardedSingleIndex:
     """One direction of the row-sharded index: its shards' BWT rows, the
-    global row each starts at and the real rows each holds, and the
-    index's stacked shard tables with this direction's first row in each
+    global row each starts at, the real rows each holds and each symbol's
+    total over the shards before each (shard_before), and the index's
+    stacked shard tables with this direction's first row in each
     (block_offset)."""
 
     bwt: torch.Tensor  # uint8 [S, L]
     shard_starts: torch.Tensor  # int32 [S]
     shard_lengths: torch.Tensor  # int32 [S]
+    shard_before: torch.Tensor  # int32 [S, SIGMA]
     rank_rows: torch.Tensor  # int32 [S, R, 32]
     block_offset: int
     global_n: int
@@ -360,6 +397,7 @@ class ShardedDeviceIndex:
                     device),
                 _int32(host.shard_starts, device),
                 _int32(host.shard_lengths, device),
+                _int32(shard_before(host), device),
                 rank_rows, offset, sh.global_n,
             )
 
@@ -389,19 +427,29 @@ def locate_layout(sh) -> np.ndarray:
     S = fwd.shard_starts.shape[0]
     layout = np.zeros((S, c.LAYOUT_COLUMNS), dtype=np.int64)
     layout[:, c.LAYOUT_START] = fwd.shard_starts
-    totals = np.stack([
-        np.bincount(fwd.bwt_shards[s, :int(fwd.shard_lengths[s])],
-                    minlength=SIGMA)[:SIGMA]
-        for s in range(S)
-    ])
-    layout[1:, c.LAYOUT_BEFORE:c.LAYOUT_BEFORE + SIGMA] = np.cumsum(
-        totals, axis=0)[:-1]
+    layout[:, c.LAYOUT_BEFORE:c.LAYOUT_BEFORE + SIGMA] = shard_before(fwd)
     rows = np.asarray(sh.sampled_rows, dtype=np.int64)
     real = rows != c.PAD_ROW
     layout[:, c.LAYOUT_SAMPLES] = real.sum(axis=1)
     layout[:, c.LAYOUT_SAMPLE_FIRST] = np.where(real.any(axis=1), rows[:, 0],
                                                 c.PAD_ROW)
     return layout
+
+
+def shard_before(sharded) -> np.ndarray:
+    """int64 [S, SIGMA]: each symbol's total over the real rows of the
+    shards before each shard of one direction (a HostShardedSingle): their
+    ranks at their ends, so a rank over the shards is the owner's local
+    rank plus its row (0 for the first shard)."""
+    S = sharded.shard_starts.shape[0]
+    totals = np.stack([
+        np.bincount(sharded.bwt_shards[s, :int(sharded.shard_lengths[s])],
+                    minlength=SIGMA)[:SIGMA]
+        for s in range(S)
+    ]).astype(np.int64)
+    before = np.zeros((S, SIGMA), dtype=np.int64)
+    before[1:] = np.cumsum(totals, axis=0)[:-1]
+    return before
 
 
 def shard_planes(sharded) -> list[np.ndarray]:

@@ -230,7 +230,7 @@ ALIGNER = KernelLibrary(_PACKAGE_DIR / "csrc", "libfloxer_kernels", {
     # new_lb, new_lb_rev, counts, stream (K9x)
     "floxer_fm_extend": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P,
                          _P],
-    # rows, occ, planes, bwt, C, sampled_rows, sampled_values, ns,
+    # rows, occ, planes, bwt, C, sample_plane, sampled_values, n,
     # seq_starts, num_seqs, sampling_rate, rows, B, seq_ids, positions,
     # stream (K9l)
     "floxer_fm_locate": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _I,
@@ -257,18 +257,19 @@ ALIGNER = KernelLibrary(_PACKAGE_DIR / "csrc", "libfloxer_kernels", {
     # sharded, cluster, the clusters one card holds (written to an int on
     # the host) (K11)
     "floxer_frontier_max_clusters": [_I, _I, _P],
-    # rows, shard_rows, rev_block_offset, fwd starts, fwd lengths, rev
-    # starts, rev lengths, num_shards, C, n, patterns, seed_class,
-    # num_frontiers, num_seeds, pad_len, scheme, num_searches, num_parts,
-    # capacity, report_capacity, max_iterations, frontier, reports, stats,
-    # cluster, stream (K11 over the sharded index)
+    # rows, shard_rows, rev_block_offset, fwd starts, fwd lengths, fwd
+    # before, rev starts, rev lengths, rev before, num_shards, C, n,
+    # patterns, seed_class, num_frontiers, num_seeds, pad_len, scheme,
+    # num_searches, num_parts, capacity, report_capacity, max_iterations,
+    # frontier, reports, stats, cluster, stream (K11 over the sharded
+    # index)
     "floxer_frontier_search_sharded": [
-        _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _I,
-        _I, _I, _I, _I, _P, _P, _P, _I, _P,
+        _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I,
+        _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P,
     ],
-    # rows, shard_rows, row_offset, starts, lengths, num_shards, positions,
-    # B, out, stream (K13)
-    "floxer_fm_sharded_rank": [_P, _I, _I, _P, _P, _I, _P, _I, _P, _P],
+    # rows, shard_rows, row_offset, starts, lengths, before, num_shards,
+    # positions, B, out, stream (K13)
+    "floxer_fm_sharded_rank": [_P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P],
     # rows, shard_rows, num_shards, bwt, bwt_stride, C, sampled_rows,
     # sampled_values, ns, seq_starts, num_seqs, sampling_rate, layout,
     # rows, B, seq_ids, positions, stream (K13l)
@@ -276,7 +277,7 @@ ALIGNER = KernelLibrary(_PACKAGE_DIR / "csrc", "libfloxer_kernels", {
         _P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _P, _P,
         _P,
     ],
-    # rows, occ, planes, bwt, C, sampled_rows, sampled_values, ns,
+    # rows, occ, planes, bwt, C, sample_plane, sampled_values, n,
     # seq_starts, num_seqs, sampling_rate, lb, cnt, err, perm,
     # group_starts, totals, statuses, num_seeds, hard_cap, soft_cap,
     # choice_code, erase_useless, anchors, counts, scratch, shared_bytes,

@@ -28,6 +28,8 @@ REPLACES = {
 }
 OCC_BLOCK = 128
 PLANE_WORDS = OCC_BLOCK // 32
+# int32 words of a sampled-row plane entry (index/device_index.sample_plane)
+SAMPLE_PLANE_WORDS = 8
 # kernel launches in this process (read and reset by chip_smoke.py)
 RANK_LAUNCHES = 0
 EXTEND_LAUNCHES = 0
@@ -235,11 +237,26 @@ def fm_locate(index, rows, sampling_rate: int):
     return fm_locate_cuda(index, rows, sampling_rate)
 
 
+def check_sample_plane(index, device) -> None:
+    """The sampled-row plane the CUDA locates (K9l, K12) read in place of
+    the search over sampled_rows: int32 [n // 128 + 1, 8]; an index
+    without one is refused (the card has no search to fall back on)."""
+    plane = getattr(index, "sample_plane", None)
+    if plane is None:
+        raise ValueError("the CUDA locate needs the index's sampled-row "
+                         "plane (DeviceIndex.from_host builds it)")
+    check_operand(plane, "sample_plane",
+                  (index.n // OCC_BLOCK + 1, SAMPLE_PLANE_WORDS),
+                  torch.int32, device)
+
+
 def fm_locate_cuda(index, rows, sampling_rate: int):
-    """K9l on CUDA operands; raises on CPU tensors."""
+    """K9l on CUDA operands (the SA samples through index.sample_plane);
+    raises on CPU tensors and on an index without the plane."""
     global LOCATE_LAUNCHES
     _check_locate(index, rows)
     _require_cuda(rows)
+    check_sample_plane(index, rows.device)
     fwd = index.fwd
     B = rows.shape[0]
     seq_ids = torch.empty(B, dtype=torch.int32, device=rows.device)
@@ -250,8 +267,8 @@ def fm_locate_cuda(index, rows, sampling_rate: int):
         launch(
             "floxer_fm_locate", _pointer(fwd.rank_rows), fwd.occ.data_ptr(),
             fwd.planes.data_ptr(), fwd.bwt.data_ptr(), index.C.data_ptr(),
-            index.sampled_rows.data_ptr(), index.sampled_values.data_ptr(),
-            index.sampled_rows.shape[0], index.seq_starts.data_ptr(),
+            index.sample_plane.data_ptr(), index.sampled_values.data_ptr(),
+            index.n, index.seq_starts.data_ptr(),
             index.seq_starts.shape[0], int(sampling_rate), rows.data_ptr(),
             B, seq_ids.data_ptr(), positions.data_ptr(), _stream(rows.device),
         )

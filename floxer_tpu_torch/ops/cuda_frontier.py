@@ -67,6 +67,8 @@ def _check_operands(index, patterns, seed_class, scheme, num_searches,
             for tensor, name in ((single.shard_starts, "shard_starts"),
                                  (single.shard_lengths, "shard_lengths")):
                 check_operand(tensor, name, (S,), torch.int32, device)
+            check_operand(single.shard_before, "shard_before", (S, SIGMA),
+                          torch.int32, device)
     elif index.rank_rows is not None:
         check_operand(index.rank_rows, "rank_rows",
                       (index.rank_rows.shape[0], 32), torch.int32, device)
@@ -150,7 +152,8 @@ def frontier_search_cuda(index, patterns, seed_class, scheme, num_searches,
                     "floxer_frontier_search_sharded", rows.data_ptr(),
                     rows.shape[1], int(index.rev_block_offset),
                     fwd.shard_starts.data_ptr(), fwd.shard_lengths.data_ptr(),
-                    rev.shard_starts.data_ptr(), rev.shard_lengths.data_ptr(),
+                    fwd.shard_before.data_ptr(), rev.shard_starts.data_ptr(),
+                    rev.shard_lengths.data_ptr(), rev.shard_before.data_ptr(),
                     index.num_shards, *common,
                 )
                 SHARDED_LAUNCHES += 1

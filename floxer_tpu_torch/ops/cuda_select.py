@@ -7,7 +7,8 @@ locates of the warp's emissions side by side) and gives what
 search_select_device.select_plain, its plain version, gives:
 the anchors [S, soft_cap, 3] (every slot written, zeros included) and the
 counts [S, 5]. The locate of each chosen SA row is K9l's walk as a device
-function inside it, so a selection is one launch. This wrapper takes CUDA
+function inside it (its SA samples through the index's sampled-row
+plane), so a selection is one launch. This wrapper takes CUDA
 tensors only
 (search_select_device.select_anchors runs the plain version for CPU
 tensors); it does not synchronize.
@@ -19,6 +20,7 @@ import torch
 
 from ..alphabet import SIGMA
 from ._build import check_operand, launch
+from .cuda_fm_index import check_sample_plane
 
 SOURCE = "floxer_tpu_torch/csrc/select_anchors.cu"
 REPLACES = "floxer_tpu/search_select_device.py:73"
@@ -67,6 +69,7 @@ def _check_operands(index, lb, cnt, err, gid, perm, group_starts, totals,
     fwd = index.fwd
     check_operand(index.C, "C", (SIGMA + 1,), torch.int32, device)
     check_operand(fwd.bwt, "bwt", (fwd.bwt.shape[0],), torch.uint8, device)
+    check_sample_plane(index, device)
     if fwd.rank_rows is not None:
         check_operand(fwd.rank_rows, "rank_rows",
                       (fwd.rank_rows.shape[0], 32), torch.int32, device)
@@ -105,8 +108,8 @@ def select_anchors_cuda(index, lb, cnt, err, gid, perm, group_starts, totals,
             "floxer_select_anchors",
             None if fwd.rank_rows is None else fwd.rank_rows.data_ptr(),
             fwd.occ.data_ptr(), fwd.planes.data_ptr(), fwd.bwt.data_ptr(),
-            index.C.data_ptr(), index.sampled_rows.data_ptr(),
-            index.sampled_values.data_ptr(), index.sampled_rows.shape[0],
+            index.C.data_ptr(), index.sample_plane.data_ptr(),
+            index.sampled_values.data_ptr(), index.n,
             index.seq_starts.data_ptr(), index.seq_starts.shape[0],
             int(index.sampling_rate), lb.data_ptr(), cnt.data_ptr(),
             err.data_ptr(), perm.data_ptr(), group_starts.data_ptr(),

@@ -13,9 +13,11 @@ The shards lie on one device, as one stacked table: rows int32 [S, R, 32]
 counts are exact and its pad adds nothing), starts and lengths int32 [S].
 A global position counts in shard s at clamp(position - start, 0,
 length); the shards' counts are summed (the reference's psum over its
-index mesh axis, here in the thread). K13l takes that sum as the owner's
-local rank plus the earlier shards' totals (the index's locate_layout),
-which equals it bit for bit. The index arguments are
+index mesh axis), as the plain versions do. The kernels take that sum as
+the count of the shard that owns the position plus each symbol's total
+over the shards before it (K13 and K11 over the shards: `before` int32
+[S, SIGMA], index/device_index.shard_before; K13l: the index's
+locate_layout), which equals it bit for bit. The index arguments are
 index/device_index.py's ShardedDeviceIndex (duck-typed here).
 """
 
@@ -65,25 +67,41 @@ def _require_cuda(tensor) -> None:
 # ---------------------------------------------------------------- K13 rank
 
 
-def fm_sharded_rank(positions, rows, row_offset, starts, lengths):
+def check_before(before, rows, device) -> None:
+    """Each symbol's total over the shards before each: int32 [S, SIGMA]
+    (the kernels' operand; the plain versions sum the shards instead)."""
+    if before is None:
+        raise ValueError("the sharded rank kernel needs shard_before, each "
+                         "symbol's total over the shards before each")
+    check_operand(before, "shard_before", (rows.shape[0], SIGMA),
+                  torch.int32, device)
+
+
+def fm_sharded_rank(positions, rows, row_offset, starts, lengths,
+                    before=None):
     """int32 [B, SIGMA]: the occurrences of each symbol before each global
     position, summed over the shards (positions of the direction whose
-    rows start at row_offset in every shard). The kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    rows start at row_offset in every shard). The kernel for CUDA tensors
+    (which reads `before`, the shards' totals), the plain version for CPU
+    tensors."""
     check_shards(rows, starts, lengths, positions.device)
     check_operand(positions, "positions", (positions.shape[0],), torch.int32,
                   positions.device)
     if positions.device.type == "cpu":
         return fm_sharded_rank_plain(positions, rows, row_offset, starts,
                                      lengths)
-    return fm_sharded_rank_cuda(positions, rows, row_offset, starts, lengths)
+    return fm_sharded_rank_cuda(positions, rows, row_offset, starts, lengths,
+                                before)
 
 
-def fm_sharded_rank_cuda(positions, rows, row_offset, starts, lengths):
-    """K13 on CUDA operands; raises on CPU tensors."""
+def fm_sharded_rank_cuda(positions, rows, row_offset, starts, lengths,
+                         before=None):
+    """K13 on CUDA operands: each position's owner shard ranked, plus
+    before[owner]; raises on CPU tensors and without `before`."""
     global RANK_LAUNCHES
     check_shards(rows, starts, lengths, positions.device)
     _require_cuda(positions)
+    check_before(before, rows, positions.device)
     B = positions.shape[0]
     out = torch.empty((B, SIGMA), dtype=torch.int32, device=positions.device)
     if B == 0:
@@ -92,7 +110,8 @@ def fm_sharded_rank_cuda(positions, rows, row_offset, starts, lengths):
         launch(
             "floxer_fm_sharded_rank", rows.data_ptr(), rows.shape[1],
             int(row_offset), starts.data_ptr(), lengths.data_ptr(),
-            rows.shape[0], positions.data_ptr(), B, out.data_ptr(),
+            before.data_ptr(), rows.shape[0], positions.data_ptr(), B,
+            out.data_ptr(),
             _stream(positions.device),
         )
     RANK_LAUNCHES += 1

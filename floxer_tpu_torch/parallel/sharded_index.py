@@ -19,9 +19,9 @@ axis, and a psum over that axis adds the partial counts. In the port the
 axis is a list of torch devices that may repeat (the same card S times on
 a one-card machine, the CPU in the tests), and the shards all lie on its
 one device as stacked tables (index/device_index.ShardedDeviceIndex): a
-kernel thread ranks in every shard and adds the counts (K13, K13l, and
-K11 over the shards: csrc/fm_sharded.cu, csrc/frontier_search.cu), the
-psum becomes a sum in the thread. The reads axis of the 2-D mesh splits
+kernel thread ranks in the shard that owns its position and adds the
+totals of the shards before it (K13, K13l, and K11 over the shards:
+csrc/fm_sharded.cu, csrc/frontier_search.cu), which is the psum's sum. The reads axis of the 2-D mesh splits
 the per-read arrays into chunks, one per device of the axis, as
 parallel/mesh.py does.
 """
@@ -37,6 +37,7 @@ from ..alphabet import SIGMA
 from ..index.device_index import (
     ShardedDeviceIndex,
     locate_batch,
+    shard_before,
     shard_rank_rows,
 )
 from ..index.fmindex import OCC_BLOCK
@@ -161,12 +162,14 @@ def device_index(mesh: Mesh, sh) -> ShardedDeviceIndex:
 
 def upload_shards(sharded: HostShardedSingle, device: torch.device):
     """One direction's shard tables on `device`: (rank rows int32 [S, nb,
-    32], starts, lengths int32 [S]), the operands of K13."""
+    32], starts, lengths int32 [S], each symbol's total over the shards
+    before each int32 [S, SIGMA]), the operands of K13."""
     rows = shard_rank_rows(sharded)
     return (
         torch.from_numpy(rows.view(np.int32)).to(device),
         torch.from_numpy(sharded.shard_starts.astype(np.int32)).to(device),
         torch.from_numpy(sharded.shard_lengths.astype(np.int32)).to(device),
+        torch.from_numpy(shard_before(sharded).astype(np.int32)).to(device),
     )
 
 
@@ -177,10 +180,10 @@ def sharded_rank(mesh: Mesh, tables, positions: torch.Tensor):
     first = chunks[0][0]
     parts = []
     for device, part in chunks:
-        rows, starts, lengths = (t.to(device) for t in tables)
+        rows, starts, lengths, before = (t.to(device) for t in tables)
         chunk = positions[part].to(device, torch.int32).contiguous()
-        parts.append(
-            fm_sharded_rank(chunk, rows, 0, starts, lengths).to(first))
+        parts.append(fm_sharded_rank(chunk, rows, 0, starts, lengths,
+                                     before).to(first))
     return torch.cat(parts)
 
 

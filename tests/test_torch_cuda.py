@@ -1,4 +1,4 @@
-"""floxer_tpu_torch on the card: each CUDA kernel (K1-K12) against its
+"""floxer_tpu_torch on the card: each CUDA kernel (K1-K13l) against its
 plain PyTorch version, a fused wave on the card against the same wave on the
 CPU, and the CLI's --engine device (and --device-search) against the host
 engine.
@@ -1123,6 +1123,64 @@ def test_workqueue_kernel_flags_overflow(cuda_device, search_index):
         full.reports[:full.num_reports].cpu().numpy()))
 
 
+@pytest.mark.parametrize("layout", ["combined", "planes"])
+def test_locate_kernel_every_row_and_block_edges(cuda_device, search_index,
+                                                 layout):
+    """K9l, whose SA samples come through the sampled-row plane, equals
+    its plain version (the search over sampled_rows) on every row of the
+    39 kb index and of a 300-row one, and on the rows beside the plane's
+    block edges (127, 128, n - 1 and every multiple of 128 with its
+    neighbours), in one launch each."""
+    from floxer_tpu_torch.index.fmindex import FmIndex
+    from floxer_tpu_torch.ops import cuda_fm_index as k9
+
+    host, _ = search_index
+    small = FmIndex([np.random.default_rng(5).integers(1, 5, 300)
+                     .astype(np.uint8)])
+    for index_host in (host, small):
+        index = device_index_of(index_host, cuda_device, layout)
+        n = index_host.n
+        blocks = np.arange(0, n, 128)
+        edges = np.unique(np.concatenate([
+            [0, 127, 128, n - 1], blocks, blocks - 1, blocks + 1,
+        ]))
+        edges = edges[(edges >= 0) & (edges < n)]
+        for rows in (np.arange(n), edges):
+            rows = torch.from_numpy(rows.astype(np.int32)).to(cuda_device)
+            before = k9.LOCATE_LAUNCHES
+            got = k9.fm_locate_cuda(index, rows, index.sampling_rate)
+            assert k9.LOCATE_LAUNCHES == before + 1
+            want = k9.fm_locate_plain(index, rows, index.sampling_rate)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_locates_refuse_an_index_without_the_plane(cuda_device,
+                                                   search_index):
+    """K9l and K12 read the SA samples through the sampled-row plane only:
+    an index without it (or with a plane of the wrong shape) is refused,
+    with no launch, and no search runs in its place."""
+    import dataclasses
+
+    from floxer_tpu_torch.ops import cuda_fm_index as k9
+    from floxer_tpu_torch.ops import cuda_select as k12
+
+    host, _ = search_index
+    index = device_index_of(host, cuda_device, "combined")
+    rows = torch.arange(64, dtype=torch.int32, device=cuda_device)
+    vector = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    for bad in (dataclasses.replace(index, sample_plane=None),
+                dataclasses.replace(index,
+                                    sample_plane=index.sample_plane[1:])):
+        before = (k9.LOCATE_LAUNCHES, k12.LAUNCHES)
+        with pytest.raises(ValueError, match="sample"):
+            k9.fm_locate_cuda(bad, rows, bad.sampling_rate)
+        with pytest.raises(ValueError, match="sample"):
+            k12.select_anchors_cuda(bad, vector, vector, vector, vector,
+                                    vector, vector[:2], vector[:1],
+                                    vector[:1], 500, 9, 0, 0, True)
+        assert (k9.LOCATE_LAUNCHES, k12.LAUNCHES) == before
+
+
 def test_search_wrappers_refuse_cpu_operands(cuda_device, search_index):
     """No fallback: each CUDA entry raises on CPU tensors."""
     from floxer_tpu_torch.ops import cuda_fm_index as k9
@@ -1536,7 +1594,8 @@ def test_sharded_kernels_match_plain_and_unsharded(cuda_device, search_index,
             args = (single.rank_rows, single.block_offset,
                     single.shard_starts, single.shard_lengths)
             before = k13.RANK_LAUNCHES
-            got = k13.fm_sharded_rank_cuda(positions, *args)
+            got = k13.fm_sharded_rank_cuda(positions, *args,
+                                           single.shard_before)
             assert k13.RANK_LAUNCHES == before + 1
             assert torch.equal(got, k13.fm_sharded_rank_plain(positions,
                                                               *args))
@@ -1549,6 +1608,47 @@ def test_sharded_kernels_match_plain_and_unsharded(cuda_device, search_index,
         flat_want = di.locate_batch(flat, rows)
         for g, w, f in zip(got, want, flat_want):
             assert torch.equal(g, w) and torch.equal(g, f)
+
+
+@pytest.mark.parametrize("num_shards", [1, 2, 3, 4])
+def test_sharded_rank_owner_edges(cuda_device, search_index, num_shards):
+    """K13 ranks only the shard that owns each position and adds the
+    earlier shards' totals: equal to its plain version (every shard's
+    clamped rank, summed in int64) at -1, 0, each shard's start and end
+    and their neighbours, n, n + 1, the int32 extremes and seeded
+    positions, in both directions, on the 39 kb index and on a 247-row
+    one whose last shards are empty at 3 and 4 shards; without the
+    totals it is refused."""
+    from floxer_tpu_torch.index import device_index as di
+    from floxer_tpu_torch.index.fmindex import FmIndex
+    from floxer_tpu_torch.ops import cuda_sharded as k13
+
+    host, _ = search_index
+    rng = np.random.default_rng(47)
+    small = FmIndex([rng.integers(1, 5, 200).astype(np.uint8),
+                     rng.integers(1, 6, 45).astype(np.uint8)])
+    for index_host in (host, small):
+        index = di.ShardedDeviceIndex.from_host(index_host, num_shards,
+                                                cuda_device)
+        n = index_host.n
+        edges = {-1, 0, n, n + 1, -2**31, 2**31 - 1}
+        for start, length in zip(index.fwd.shard_starts.tolist(),
+                                 index.fwd.shard_lengths.tolist()):
+            edges |= {start - 1, start, start + 1, start + length,
+                      start + length + 1}
+        positions = torch.from_numpy(np.concatenate([
+            np.array(sorted(edges), dtype=np.int64),
+            rng.integers(-3, n + 4, size=20_000),
+        ]).astype(np.int32)).to(cuda_device)
+        for single in (index.fwd, index.rev):
+            args = (single.rank_rows, single.block_offset,
+                    single.shard_starts, single.shard_lengths)
+            got = k13.fm_sharded_rank_cuda(positions, *args,
+                                           single.shard_before)
+            assert torch.equal(got, k13.fm_sharded_rank_plain(positions,
+                                                              *args))
+        with pytest.raises(ValueError, match="shard_before"):
+            k13.fm_sharded_rank_cuda(positions, *args)
 
 
 @pytest.mark.parametrize("num_shards,cluster", [

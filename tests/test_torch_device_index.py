@@ -4,10 +4,17 @@ K9x, K9l's plain versions on the CPU) against the reference's
 
 Each package builds its own FmIndex from the same numpy sequences, made
 from a seed; every comparison is integer equality (tolerance 0), in the
-combined rank-row layout and in the per-direction planes layout.
+combined rank-row layout and in the per-direction planes layout. K9l's
+per-row functions (csrc/fm_rank.cuh: the sampled-row plane's lookup and
+the locate walk over it) are built with g++ here and held to the
+reference's _sample_lookup and locate_batch on every row.
 """
 
+import ctypes
+import shutil
+import subprocess
 import types
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +28,7 @@ from floxer_tpu_torch.index.fmindex import FmIndex
 
 CPU = torch.device("cpu")
 LAYOUTS = ["combined", "planes"]
+CSRC = Path(__file__).resolve().parent.parent / "floxer_tpu_torch" / "csrc"
 
 
 def _sequences(seed):
@@ -182,3 +190,157 @@ def test_locate_and_lf_match_reference_and_host(indexes, layout):
         np.asarray(ref.rank_symbol(ref_index.rev, jnp.asarray(
             symbols.numpy()), rows_j)),
     )
+
+
+# ------------------------------------ g++ build of K9l's per-row functions
+
+EMULATION = r"""
+#define __host__
+#define __device__
+#include "fm_rank.cuh"
+
+static FmLocateTables tables(const unsigned* rows, const int* occ,
+                             const unsigned* planes, const unsigned char* bwt,
+                             const int* C, const unsigned* sample_plane,
+                             const int* sampled_values, int n,
+                             const int* seq_starts, int num_seqs,
+                             int sampling_rate) {
+  FmLocateTables t;
+  t.fwd.rows = rows; t.fwd.occ = occ; t.fwd.planes = planes;
+  t.fwd.row_offset = 0;
+  t.bwt = bwt; t.C = C; t.sample_plane = sample_plane;
+  t.sampled_values = sampled_values; t.n = n; t.seq_starts = seq_starts;
+  t.num_seqs = num_seqs; t.sampling_rate = sampling_rate;
+  return t;
+}
+
+extern "C" {
+
+// the plane's lookup of each row: hit (0 / 1) and value
+void emu_sample_lookup(const unsigned* sample_plane,
+                       const int* sampled_values, int n, const int* rows,
+                       int B, int* hits, int* values) {
+  const FmLocateTables t = tables(nullptr, nullptr, nullptr, nullptr,
+                                  nullptr, sample_plane, sampled_values, n,
+                                  nullptr, 0, 0);
+  for (int i = 0; i < B; ++i)
+    hits[i] = fm_sample_lookup(t, rows[i], values + i) ? 1 : 0;
+}
+
+// K9l's threads, one row after another
+void emu_locate(const unsigned* rows, const int* occ, const unsigned* planes,
+                const unsigned char* bwt, const int* C,
+                const unsigned* sample_plane, const int* sampled_values,
+                int n, const int* seq_starts, int num_seqs,
+                int sampling_rate, const int* query_rows, int B,
+                int* seq_ids, int* positions) {
+  const FmLocateTables t =
+      tables(rows, occ, planes, bwt, C, sample_plane, sampled_values, n,
+             seq_starts, num_seqs, sampling_rate);
+  for (int i = 0; i < B; ++i)
+    fm_locate_row(t, query_rows[i], seq_ids + i, positions + i);
+}
+
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def emulation(tmp_path_factory):
+    """The g++ build of csrc/fm_rank.cuh's locate functions (ctypes)."""
+    compiler = shutil.which("g++")
+    if compiler is None:
+        pytest.fail("g++ is needed to build the kernels' host emulation")
+    build = tmp_path_factory.mktemp("locate_emulation")
+    source = build / "emulation.cpp"
+    source.write_text(EMULATION)
+    library = build / "libemulation.so"
+    subprocess.run(
+        [compiler, "-O2", "-std=c++17", "-shared", "-fPIC",
+         "-Wno-unknown-pragmas", "-I", str(CSRC), str(source), "-o",
+         str(library)],
+        check=True, capture_output=True, text=True,
+    )
+    return ctypes.CDLL(str(library))
+
+
+def _ptr(tensor):
+    return ctypes.c_void_p(None if tensor is None else tensor.data_ptr())
+
+
+def emulate_lookup(lib, index, rows):
+    hits = torch.zeros(rows.shape[0], dtype=torch.int32)
+    values = torch.zeros_like(hits)
+    lib.emu_sample_lookup(_ptr(index.sample_plane),
+                          _ptr(index.sampled_values), index.n, _ptr(rows),
+                          rows.shape[0], _ptr(hits), _ptr(values))
+    return hits.bool(), values
+
+
+def emulate_locate(lib, index, rows):
+    fwd = index.fwd
+    seq_ids = torch.zeros(rows.shape[0], dtype=torch.int32)
+    positions = torch.zeros_like(seq_ids)
+    lib.emu_locate(
+        _ptr(fwd.rank_rows), _ptr(fwd.occ), _ptr(fwd.planes), _ptr(fwd.bwt),
+        _ptr(index.C), _ptr(index.sample_plane), _ptr(index.sampled_values),
+        index.n, _ptr(index.seq_starts), index.seq_starts.shape[0],
+        index.sampling_rate, _ptr(rows), rows.shape[0], _ptr(seq_ids),
+        _ptr(positions),
+    )
+    return seq_ids, positions
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_sample_plane_equals_searchsorted(indexes, layout):
+    """The sampled-row plane, built in both rank layouts: for every row of
+    the index, its bit says whether the row is in sampled_rows and its
+    block's count plus the set bits below it is the row's searchsorted
+    index there; words 5..7 are zero."""
+    _, _, host, _ = indexes
+    index = port_index(host, layout)
+    plane = index.sample_plane.numpy().view(np.uint32).astype(np.int64)
+    n = host.n
+    assert plane.shape == (n // 128 + 1, 8)
+    assert not plane[:, 5:].any()
+    sampled = index.sampled_rows.numpy().astype(np.int64)
+    rows = np.arange(n + 128 - n % 128, dtype=np.int64)
+    block, r = rows // 128, rows % 128
+    words = plane[block, 1 + r // 32]
+    bits = (words >> (r % 32)) & 1
+    at = np.searchsorted(sampled, rows)
+    member = (at < sampled.shape[0]) & (
+        sampled[np.minimum(at, sampled.shape[0] - 1)] == rows)
+    assert np.array_equal(bits.astype(bool), member)
+    below = plane[block, 0].copy()
+    for w in range(4):
+        keep = np.clip(r - 32 * w, 0, 32)
+        mask = (np.int64(1) << keep) - 1
+        masked = plane[block, 1 + w] & mask
+        below += np.array([bin(int(v)).count("1") for v in masked])
+    assert np.array_equal(below, at)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_plane_locate_matches_reference(indexes, layout, emulation):
+    """The g++ build of K9l's thread over FmLocateTables with the plane:
+    its sample lookup equals the reference's _sample_lookup on every row
+    from -1 to n (no hit at -1 and n, whose plane bits it never reads),
+    and its locate walk the reference's locate_batch on every row
+    0..n-1."""
+    _, ref_index, host, _ = indexes
+    index = port_index(host, layout)
+    n = host.n
+    rows = torch.arange(-1, n + 1, dtype=torch.int32)
+    hit, value = emulate_lookup(emulation, index, rows)
+    want_hit, want_value = ref._sample_lookup(ref_index,
+                                              jnp.asarray(rows.numpy()))
+    assert np.array_equal(hit.numpy(), np.asarray(want_hit))
+    assert np.array_equal(value.numpy(), np.asarray(want_value))
+    assert not hit[0] and not hit[-1]
+    every = torch.arange(n, dtype=torch.int32)
+    seq_ids, positions = emulate_locate(emulation, index, every)
+    want_ids, want_positions = ref.locate_batch(ref_index,
+                                                jnp.asarray(every.numpy()))
+    assert np.array_equal(seq_ids.numpy(), np.asarray(want_ids))
+    assert np.array_equal(positions.numpy(), np.asarray(want_positions))

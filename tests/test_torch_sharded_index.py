@@ -76,10 +76,12 @@ EMULATION = r"""
 
 static FmShardedRankTable table(const unsigned* rows, int shard_rows,
                                 int row_offset, const int* starts,
-                                const int* lengths, int num_shards) {
+                                const int* lengths, const int* before,
+                                int num_shards) {
   FmShardedRankTable t;
   t.rows = rows; t.shard_rows = shard_rows; t.row_offset = row_offset;
-  t.starts = starts; t.lengths = lengths; t.num_shards = num_shards;
+  t.starts = starts; t.lengths = lengths; t.before = before;
+  t.num_shards = num_shards;
   return t;
 }
 
@@ -87,10 +89,11 @@ extern "C" {
 
 // K13's threads, one query after another
 void emu_sharded_rank(const unsigned* rows, int shard_rows, int row_offset,
-                      const int* starts, const int* lengths, int num_shards,
+                      const int* starts, const int* lengths,
+                      const int* before, int num_shards,
                       const int* positions, int B, int* out) {
-  const FmShardedRankTable t =
-      table(rows, shard_rows, row_offset, starts, lengths, num_shards);
+  const FmShardedRankTable t = table(rows, shard_rows, row_offset, starts,
+                                     lengths, before, num_shards);
   for (int i = 0; i < B; ++i) fm_rank(t, positions[i], out + 6 * i);
 }
 
@@ -104,7 +107,7 @@ void emu_sharded_locate(const unsigned* rows, int shard_rows, int num_shards,
                         const int* query_rows, int B, int* seq_ids,
                         int* positions) {
   FmShardedLocateTables t;
-  t.fwd = table(rows, shard_rows, 0, nullptr, nullptr, num_shards);
+  t.fwd = table(rows, shard_rows, 0, nullptr, nullptr, nullptr, num_shards);
   t.bwt = bwt; t.bwt_stride = bwt_stride; t.C = C;
   t.sampled_rows = sampled_rows; t.sampled_values = sampled_values;
   t.ns = ns; t.seq_starts = seq_starts; t.num_seqs = num_seqs;
@@ -115,12 +118,13 @@ void emu_sharded_locate(const unsigned* rows, int shard_rows, int num_shards,
 
 // the extension K11 runs for an expanded state, over the shard tables
 void emu_sharded_extend(const unsigned* rows, int shard_rows, int row_offset,
-                        const int* starts, const int* lengths, int num_shards,
-                        const int* C, const int* lb, const int* lb_rev,
-                        const int* length, int B, int left, int* new_lb,
-                        int* new_lb_rev, int* counts) {
-  const FmShardedRankTable t =
-      table(rows, shard_rows, row_offset, starts, lengths, num_shards);
+                        const int* starts, const int* lengths,
+                        const int* before, int num_shards, const int* C,
+                        const int* lb, const int* lb_rev, const int* length,
+                        int B, int left, int* new_lb, int* new_lb_rev,
+                        int* counts) {
+  const FmShardedRankTable t = table(rows, shard_rows, row_offset, starts,
+                                     lengths, before, num_shards);
   for (int i = 0; i < B; ++i)
     fm_extend_all(t, C, lb[i], lb_rev[i], length[i], left != 0,
                   new_lb + 6 * i, new_lb_rev + 6 * i, counts + 6 * i);
@@ -153,11 +157,12 @@ def _ptr(tensor):
     return ctypes.c_void_p(tensor.data_ptr())
 
 
-def emulate_rank(lib, positions, rows, row_offset, starts, lengths):
+def emulate_rank(lib, positions, rows, row_offset, starts, lengths, before):
     out = torch.zeros((positions.shape[0], 6), dtype=torch.int32)
     lib.emu_sharded_rank(
         _ptr(rows), rows.shape[1], row_offset, _ptr(starts), _ptr(lengths),
-        rows.shape[0], _ptr(positions), positions.shape[0], _ptr(out),
+        _ptr(before), rows.shape[0], _ptr(positions), positions.shape[0],
+        _ptr(out),
     )
     return out
 
@@ -188,7 +193,8 @@ def emulated_extension(lib):
         lib.emu_sharded_extend(
             _ptr(single.rank_rows), single.rank_rows.shape[1],
             single.block_offset, _ptr(single.shard_starts),
-            _ptr(single.shard_lengths), index.num_shards, _ptr(index.C),
+            _ptr(single.shard_lengths), _ptr(single.shard_before),
+            index.num_shards, _ptr(index.C),
             *(_ptr(t.contiguous()) for t in (lb, lb_rev, length)),
             lb.shape[0], 1 if left else 0, *(_ptr(t) for t in outs),
         )
@@ -221,10 +227,57 @@ def test_sharded_rank_matches_reference_and_host(index_axis, emulation):
     assert np.array_equal(got.numpy(), want)
     for i, pos in enumerate(positions):
         assert np.array_equal(want[i], host.fwd.occ_all(int(pos)))
-    rows, starts, lengths = port_si.upload_shards(sharded, CPU)
+    rows, starts, lengths, before = port_si.upload_shards(sharded, CPU)
     emulated = emulate_rank(emulation, torch.from_numpy(positions), rows, 0,
-                            starts, lengths)
+                            starts, lengths, before)
     assert torch.equal(emulated, got)
+
+
+@pytest.mark.parametrize("num_shards", [1, 2, 3, 4])
+def test_owner_rank_matches_reference_psum(num_shards, emulation):
+    """K13's rank resolves the shard that owns a position and adds the
+    earlier shards' totals (shard_before): through the g++ build of its
+    thread it equals the reference's psum of every shard's clamped rank at
+    -1, 0, each shard's start and end, n, n + 1 and seeded positions
+    around them, in both directions, on a 247-row text whose last shards
+    are empty at 3 and 4 shards; and the plain version (int64 offsets) at
+    the int32 extremes."""
+    rng = np.random.default_rng(41)
+    sequences = [rng.integers(1, 5, size=200).astype(np.uint8),
+                 rng.integers(1, 6, size=45).astype(np.uint8)]
+    ref_host, host = RefFmIndex(sequences), FmIndex(sequences)
+    n = host.n
+    index = ShardedDeviceIndex.from_host(host, num_shards, CPU)
+    lengths = index.fwd.shard_lengths.numpy()
+    assert (lengths == 0).any() == (num_shards >= 3)
+    edges = {-1, 0, n, n + 1}
+    for start, length in zip(index.fwd.shard_starts.tolist(), lengths):
+        edges |= {start - 1, start, start + 1, start + int(length),
+                  start + int(length) + 1}
+    seeded = rng.integers(-3, n + 4, size=64)
+    positions = np.array(sorted(edges) + seeded.tolist(), dtype=np.int32)
+    if positions.shape[0] % 2:
+        positions = np.append(positions, np.int32(n))
+    ref_mesh = ref_si.make_2d_mesh(jax.devices()[:2 * num_shards],
+                                   index_axis_size=num_shards)
+    tensor = torch.from_numpy(positions)
+    for direction in ("fwd", "rev"):
+        single = getattr(index, direction)
+        want = np.asarray(ref_si.sharded_rank_all(
+            ref_mesh, ref_si.shard_single_index(
+                getattr(ref_host, direction).bwt, num_shards), positions))
+        got = emulate_rank(emulation, tensor, single.rank_rows,
+                           single.block_offset, single.shard_starts,
+                           single.shard_lengths, single.shard_before)
+        assert np.array_equal(got.numpy(), want)
+        assert torch.equal(got, port_di.rank_all(single, tensor))
+        extremes = torch.tensor([-2**31, -2**31 + 1, 2**31 - 1],
+                                dtype=torch.int32)
+        args = (single.rank_rows, single.block_offset, single.shard_starts,
+                single.shard_lengths)
+        assert torch.equal(
+            emulate_rank(emulation, extremes, *args, single.shard_before),
+            cuda_sharded.fm_sharded_rank_plain(extremes, *args))
 
 
 def test_shard_tables_count_only_real_rows():
@@ -445,7 +498,7 @@ def test_empty_trailing_shards_count_nothing(num_shards, emulation):
         assert torch.equal(got, port_di.rank_all(flat_single, positions))
         assert torch.equal(got, emulate_rank(
             emulation, positions, single.rank_rows, single.block_offset,
-            single.shard_starts, single.shard_lengths))
+            single.shard_starts, single.shard_lengths, single.shard_before))
     rows = torch.arange(host.n, dtype=torch.int32)
     assert torch.equal(port_di.bwt_at(index.fwd, rows),
                        port_di.bwt_at(flat.fwd, rows))
