@@ -79,8 +79,8 @@ Phases, one line each on stdout, any failure exits non-zero:
            entry with the counts at 0; each with its bound; and the plain
            versions once on the CPU in workers, on K1's 1024 words and
            on K3's shape, every kernel equal to them; and the cluster
-           kernels at theirs, in turns with the shared-memory kernels (one
-           launch a turn) and held to them and to the native host engine:
+           kernels at theirs, in turns with the shared-memory kernels
+           (cluster, shared, cluster; one launch a turn) and held to them and to the native host engine:
            K1u at 8 roots of 200 kb reads (k = 30000) on 3200 band words,
            K3u at 8 roots of 100 kb reads with 60 kb on the chromosome on
            3200 pattern words; each with its bound, the share's ceiling
@@ -110,7 +110,10 @@ Phases, one line each on stdout, any failure exits non-zero:
            and K3 launch of pass A on its register kernel. Pass B is the
            oracle of every pass below.
   search_kernels  the device search's kernels on pass A's index: K9 (rank),
-           K9x (both extensions) and K9l (locate) against their plain
+           K9x (both extensions, on random cursors and on the cursors the
+           first chunk's seeds meet when extended backwards on the host
+           index, with each set's share of intervals inside one block) and
+           K9l (locate) against their plain
            versions on the card at RANK_QUERIES queries, in the combined
            rank-row layout and with the planes layout forced; K10 (the
            work-queue search) on pass A's first chunk of seeds against
@@ -259,6 +262,9 @@ SEED = 20261016
 # K1 at the PEX root shape of 20 kb reads: tasks, pattern length, budget,
 # band words (32-bit)
 ROOT_SHAPE = (256, 20600, 1442, 256)
+# root tasks K1 is also held to the numpy band mirror on (~30 s a task on
+# one core, in a sweep worker)
+ROOT_MIRROR_TASKS = 2
 # K4 at the same root shape: tools/k4_bench.py's "root20k" batch (128
 # seeded 20 kb roots), then its "mixed" batch (one 40 kb root at -p 0.15
 # in place of the last). K4's wider layouts: (row key, kernel name,
@@ -834,6 +840,20 @@ def _k1_root_plain(band_words, part):
         lambda: myers_banded_plain(*operands, band_words, num_text))
 
 
+def _k1_root_mirror(task):
+    """The numpy band mirror (myers_banded_np) on root task `task` of the
+    kernels phase, its tasks drawn from SEED as that phase draws them
+    (sweep worker): ([distance], [end column]) and its seconds."""
+    import numpy as np
+
+    from floxer_tpu_torch.ops.myers_banded import myers_banded_np
+
+    _, (patterns, texts) = k1_phase_inputs(np.random.default_rng(SEED))
+    return _timed_outputs(lambda: [
+        np.asarray([value]) for value in
+        myers_banded_np(patterns[task], texts[task], ROOT_SHAPE[2])])
+
+
 def _long_k1_plain(part):
     """K1's plain version at pass E's long roots on the first band width,
     on part `part` of K1_PLAIN_PARTS equal parts of the tasks (CPU
@@ -1120,7 +1140,6 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain, large_sweep,
         full_myers_operands,
         u32_tensor,
     )
-    from floxer_tpu_torch.ops.myers_banded import myers_banded_np
 
     def to_dev(array):
         return torch.from_numpy(np.ascontiguousarray(array)).to(device)
@@ -1166,8 +1185,9 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain, large_sweep,
     )
     check(bool((native_dist <= k_root).all()),
           "root-shape cases must all be within budget")
-    # the numpy band mirror is slow: a subset
-    mirror = [myers_banded_np(patterns[i], texts[i], k_root) for i in range(2)]
+    # the numpy band mirror is slow: a subset, run in a sweep worker since
+    # the start (_k1_root_mirror) and compared when the CPU checks settle
+    mirror = CPU_PLAIN.results["root_mirror"]
     # the launch lasts as long as its longest task: tlen - 1 columns
     k1_columns = max(len(t) for t in texts) - 1
     k1_root = {}
@@ -1195,9 +1215,8 @@ def run_kernel_phase(device, rng, peaks, sweep, sweep_plain, large_sweep,
         check(np.array_equal(got[0], native_dist)
               and np.array_equal(got[1], native_end),
               f"K1 differs from the native engine {at}")
-        for i, pair in enumerate(mirror):
-            check((int(got[0][i]), int(got[1][i])) == pair,
-                  f"K1 differs from myers_banded_np on root task {i} {at}")
+        CPU_PLAIN.expect(f"K1's numpy mirror {at}", mirror,
+                         [[g[:ROOT_MIRROR_TASKS] for g in got]])
         k1_ends[f"root BW={band_words}"] = (args, got[1])
         # both kernels on the same operands, in turns: shared, register,
         # register, shared
@@ -1624,9 +1643,9 @@ def array_error(got, want) -> int:
 
 def run_ultra_shapes(device, peaks):
     """The cluster kernels at their long shapes, each timed in turns with
-    the shared-memory kernel on the same operands (shared, cluster,
-    cluster, shared; the shared kernel LONG_SHARED_REPEATS launches a
-    turn) and held to it and to the native host engine: K1u at
+    the shared-memory kernel on the same operands (cluster, shared,
+    cluster; the shared kernel LONG_SHARED_REPEATS launches a turn) and
+    held to it and to the native host engine: K1u at
     ULTRA_ROOT_SHAPE, K3u at ULTRA_OVERHANG_SHAPE; each once through the
     routing entry with the counts at 0. Returns the table rows K1u and K3u
     (their plain ms come from the sweep) and the phase's fields, each with
@@ -1644,11 +1663,12 @@ def run_ultra_shapes(device, peaks):
     (patterns, texts), (patterns3, texts3) = ultra_shape_inputs()
 
     def timed(kernels, columns, bound_and_by, blocks, tasks):
-        """{kernel: {ms, turns_ms, us_per_col, bound_share}} in turns and
-        the bound's fields."""
+        """{kernel: {ms, turns_ms, us_per_col, bound_share}} in turns
+        (cluster, shared, cluster: the shared kernel takes seconds a launch
+        at these shapes, so it is timed once) and the bound's fields."""
         turns = {"shared": [], "cluster": []}
         repeats = {"shared": LONG_SHARED_REPEATS, "cluster": 5}
-        for name in ("shared", "cluster", "cluster", "shared"):
+        for name in ("cluster", "shared", "cluster"):
             turns[name].append(cuda_ms(kernels[name], repeats[name]))
         bound_ms, bound_by = bound_and_by
         fields = {"bound_ms": bound_ms, "bound_by": bound_by,
@@ -2675,30 +2695,41 @@ def events_ms(fn, repeats: int) -> float:
     return total / repeats
 
 
-def first_chunk(e2e: E2E):
-    """Pass A's first chunk of seeds (its first --batch-size reads, both
-    strands), as the searcher hands it to the work queue: (patterns of the
-    seeds the card searches, their classes, SchemeTables, report
-    capacity, largest error count, the chunk's seeds, their global ids,
-    the chunk's ChunkSeedArrays, its jobs (seeds, strand) in order)."""
+def read_jobs(e2e: E2E, start: int, count: int | None = None):
+    """The jobs (seeds, strand) of reads [start, start + count) of pass A's
+    workload (count: --batch-size), both strands, as the searcher gets
+    them."""
     import itertools
-
-    import numpy as np
 
     from floxer_tpu_torch.cli import parse_and_validate
     from floxer_tpu_torch.io.sequence_io import Queries
     from floxer_tpu_torch.pipeline_host import prepare_query_tree
-    from floxer_tpu_torch.search_device import chunk_operands, report_capacity
-    from floxer_tpu_torch.search_host import assemble_chunk_seed_arrays
 
     cli = parse_and_validate(e2e.argv("chunk"))
     queries = Queries(cli.queries_path, cli.query_num_errors,
                       cli.query_error_probability, cli.pex_seed_num_errors)
+    count = cli.batch_size if count is None else count
     jobs = []
-    for query in itertools.islice(queries, cli.batch_size):
+    for query in itertools.islice(queries, start, start + count):
         _, seeds = prepare_query_tree(query, cli)
         jobs.append((seeds, query.rank_sequence))
         jobs.append((seeds, query.reverse_complement_rank_sequence))
+    return jobs
+
+
+def first_chunk(e2e: E2E, start: int = 0):
+    """Pass A's first chunk of seeds (its first --batch-size reads, both
+    strands; or the chunk of reads from `start`), as the searcher hands it
+    to the work queue: (patterns of the
+    seeds the card searches, their classes, SchemeTables, report
+    capacity, largest error count, the chunk's seeds, their global ids,
+    the chunk's ChunkSeedArrays, its jobs (seeds, strand) in order)."""
+    import numpy as np
+
+    from floxer_tpu_torch.search_device import chunk_operands, report_capacity
+    from floxer_tpu_torch.search_host import assemble_chunk_seed_arrays
+
+    jobs = read_jobs(e2e, start)
     arrays = assemble_chunk_seed_arrays(jobs)
     patterns, class_of, gids, tables, max_errors = chunk_operands(arrays)
     return (patterns, class_of.astype(np.int32), tables,
@@ -2740,9 +2771,67 @@ def frontier_inputs(arrays, jobs):
     }
 
 
+def search_bodies(e2e: E2E, index, first_nodes: int) -> dict:
+    """How often K9's and K9x's functions run inside other kernels on the
+    CLI's passes, by running their searches again here: pass G's K10
+    searches (one a chunk of --batch-size reads; the first chunk's nodes
+    given), each expanded node two ranks (one interval rank), and pass
+    H's K11 launches (the first PASS_H_READS reads, a launch a (length,
+    errors) bucket of each strand's seeds, as search_seeds makes them),
+    each expanded state one extension; and the seconds this replay
+    takes."""
+    import torch
+
+    from floxer_tpu_torch import search_device as sd
+    from floxer_tpu_torch import search_queue
+    from floxer_tpu_torch.ops import cuda_search_queue as k10
+    from floxer_tpu_torch.schemes import expand_scheme
+
+    from floxer_tpu_torch.cli import parse_and_validate
+
+    started = time.monotonic()
+    nodes, generations = first_nodes, 0
+    batch = parse_and_validate(e2e.argv("chunk")).batch_size
+    for start in range(batch, e2e.num_reads, batch):
+        padded, classes, tables, report_cap, max_errors = first_chunk(
+            e2e, start)[:5]
+        before = k10.LAUNCHES
+        run = k10.workqueue_search_cuda(
+            index, *(torch.from_numpy(a).to(index.device)
+                     for a in (padded, classes, tables.fused())),
+            tables.num_searches, tables.num_parts, report_cap,
+            search_queue.key_words_needed(padded.shape[1], max_errors),
+            search_queue.frames_needed(padded.shape[1], max_errors))
+        check(not run.overflow, f"pass G's chunk at read {start} overflowed")
+        nodes += run.nodes
+        generations += k10.LAUNCHES - before
+    states = launches = 0
+    for seeds, query in read_jobs(e2e, 0, PASS_H_READS):
+        buckets = {}
+        for seed in seeds:
+            buckets.setdefault((seed.length, seed.num_errors), []).append(
+                query[seed.query_position:seed.query_position + seed.length])
+        for (length, errors), patterns in buckets.items():
+            if length > sd._MAX_DEVICE_PATTERN:
+                continue
+            padded, seed_class, tables, iterations = sd.frontier_operands(
+                patterns, expand_scheme(errors, length), errors)
+            out = sd.block_search(index, padded[None], seed_class[None],
+                                  tables, 1 << 14, 1 << 12, iterations)
+            states += int(out.expanded.sum())
+            launches += 1
+    return {"pass_g_k10_nodes": nodes, "pass_g_interval_ranks": nodes,
+            "pass_g_later_chunks_generations": generations,
+            "pass_h_k11_launches": launches,
+            "pass_h_k11_expanded_states": states,
+            "seconds": time.monotonic() - started}
+
+
 def run_search_kernels(device, e2e: E2E, peaks):
     """K9, K9x and K9l against their plain versions on pass A's index at
-    RANK_QUERIES queries (combined and planes layouts), K10 against
+    RANK_QUERIES queries (combined and planes layouts; K9x on random
+    cursors and on the first chunk's search cursors, each set's share of
+    one-block intervals printed, and timed on both), K10 against
     workqueue_search_plain on pass A's first chunk, K11 and K12 on it;
     each timed with its bound. Returns (table rows K9-K12, the phase's
     fields, K11's inputs (frontier_inputs) for run_sharded_kernels)."""
@@ -2755,6 +2844,11 @@ def run_search_kernels(device, e2e: E2E, peaks):
     from floxer_tpu_torch.ops import cuda_fm_index as k9
     from floxer_tpu_torch.ops import cuda_search_queue as k10
     from floxer_tpu_torch.search_device import _MAX_DEVICE_PATTERN
+    from floxer_tpu_torch.tools.fm_bench import (
+        same_block_share,
+        search_cursors,
+        seed_patterns,
+    )
 
     host = FmIndex.load(e2e.workdir / "index.npz")
     n = host.n
@@ -2772,6 +2866,18 @@ def run_search_kernels(device, e2e: E2E, peaks):
     cursors = [to_dev(a) for a in (lb, lb_rev, length)]
     sa_rows = to_dev(rng.integers(0, n, size=B))
     fields, rows = {"genome_n": n, "queries": B}, {}
+    # K9x's second cursor set: the cursors the first chunk's seeds meet
+    # when each is extended backwards on the host index (fm_bench's
+    # search_cursors), up to RANK_QUERIES of them
+    chunk = first_chunk(e2e)
+    started = time.monotonic()
+    search = [to_dev(a) for a in search_cursors(host, seed_patterns(
+        chunk[-1]), limit=B, seed=SEED + 9)]
+    fields["search_cursors"] = {
+        "count": int(search[0].shape[0]),
+        "seconds": time.monotonic() - started,
+        "same_block_share": same_block_share(*search),
+        "random_same_block_share": same_block_share(*cursors)}
     for layout in ("combined", "planes"):
         index = DeviceIndex.from_host(host, device,
                                       force_planes=layout == "planes")
@@ -2788,9 +2894,10 @@ def run_search_kernels(device, e2e: E2E, peaks):
                 k9.fm_rank_cuda(positions, *args),
                 k9.fm_rank_plain(positions, *args)))
         for left in (True, False):
-            errs["K9x"] = max(errs.get("K9x", 0), max_error(
-                k9.fm_extend_cuda(index, *cursors, left=left),
-                k9.fm_extend_plain(index, *cursors, left=left)))
+            for kind in (cursors, search):
+                errs["K9x"] = max(errs.get("K9x", 0), max_error(
+                    k9.fm_extend_cuda(index, *kind, left=left),
+                    k9.fm_extend_plain(index, *kind, left=left)))
         located = k9.fm_locate_cuda(index, sa_rows, index.sampling_rate)
         errs["K9l"] = max_error(
             located, k9.fm_locate_plain(index, sa_rows, index.sampling_rate))
@@ -2824,6 +2931,13 @@ def run_search_kernels(device, e2e: E2E, peaks):
                     + tensor_bytes(fwd.bwt, index.sample_plane,
                                    index.sampled_values, index.seq_starts)),
         }
+        Bs = search[0].shape[0]
+        ms = cuda_ms(lambda: k9.fm_extend_cuda(index, *search, left=True),
+                     20)
+        fields["K9x_search"] = {
+            "ms": ms, "queries": Bs,
+            **bound_fields(bound(EXTEND_OPS * Bs,
+                                 12 * Bs + 72 * Bs + table_bytes, peaks))}
         for key, (name, kernel, plain, ops, nbytes) in kernels.items():
             ms = cuda_ms(kernel, 20)
             _, plain_s = plain_seconds(plain)
@@ -2839,7 +2953,7 @@ def run_search_kernels(device, e2e: E2E, peaks):
     # K10 on pass A's first chunk, the combined layout (the main path's)
     index = DeviceIndex.from_host(host, device)
     (padded, classes, tables, report_cap, max_errors, seeds, gids, arrays,
-     jobs) = first_chunk(e2e)
+     jobs) = chunk
     eligible = padded.shape[0]
     before, spills_before = k10.LAUNCHES, k10.SPILL_LAUNCHES
     sorted_rows, overflow = search_queue.workqueue_runner(
@@ -2936,6 +3050,9 @@ def run_search_kernels(device, e2e: E2E, peaks):
         "bound_by": rows["K10"]["bound_by"], "plain_ms": plain_s * 1e3,
         "grid_blocks": k10.resident_blocks(device),
     }
+    fields["bodies"] = search_bodies(e2e, index, run.nodes)
+    fields["bodies"]["pass_g_k10_launches"] = (
+        generations + fields["bodies"].pop("pass_g_later_chunks_generations"))
     for key in ("K9", "K9x", "K9l"):
         fields[key] = {k: rows[key][k] for k in
                        ("ms", "plain_ms", "bound_ms", "bound_by")}
@@ -4259,13 +4376,15 @@ def ptxas_phase() -> dict:
               f"innermost loops of {loops[name]} instructions")
         report[f"myers_banded_cluster_kernel<{q}>"] = {
             **found, "sass_loop_instructions": loops[name]}
-    # the device search's kernels: K9, K9x, K9l (csrc/fm_index.cu), K10
+    # the device search's kernels: K9, K9x (a kernel each for the combined
+    # and the planes layout), K9l (csrc/fm_index.cu), K10
     # (csrc/workqueue_search.cu), K11 (csrc/frontier_search.cu) and K12
     # (csrc/select_anchors.cu), one instance each
     # (K11 twice: over the index and over the shard tables), and the
     # sharded index's K13 and K13l (csrc/fm_sharded.cu)
     for kernel, instances in (
         ("fm_rank_kernel", 1), ("fm_extend_kernel", 1),
+        ("fm_rank_group_kernel", 1), ("fm_extend_group_kernel", 1),
         ("fm_locate_kernel", 1), ("workqueue_kernel", 1),
         ("frontier_kernel", 2), ("select_kernel", 1),
         ("fm_sharded_rank_kernel", 1), ("fm_sharded_locate_kernel", 1),
@@ -4346,6 +4465,9 @@ def main() -> int:
             sweep_pool.map_async(_k1_plain, cluster_sweep[0], chunksize=1),
             sweep_pool.map_async(_k3_plain, cluster_sweep[1], chunksize=1),
         )
+        results["root_mirror"] = JoinedResult([
+            sweep_pool.apply_async(_k1_root_mirror, (task,))
+            for task in range(ROOT_MIRROR_TASKS)])
         full_pool, full_plain = start_full_width_plain(full_arrays)
         pools.append(full_pool)
         return run_all(device, peaks, (sweep, sweep_plain),
@@ -4415,6 +4537,7 @@ def run_all(device, peaks, k1_sweep, k3_sweep, cluster_sweep, full_arrays,
         search_rows, fields, inputs = run_search_kernels(device, e2e, peaks)
         rows.update(search_rows)
         phase("search_kernels", **fields)
+        bodies = fields["bodies"]
         sharded_rows, fields = run_sharded_kernels(device, e2e, peaks,
                                                    inputs)
         rows.update(sharded_rows)
@@ -4467,6 +4590,12 @@ def run_all(device, peaks, k1_sweep, k3_sweep, cluster_sweep, full_arrays,
     for name in ("K9", "K9x", "K9l", "K10"):
         rows[name]["launches"] = launches_g[name]
     rows["K11"]["launches"] = launches_h["K11"]
+    # the search_kernels phase's replay of passes G and H launched what
+    # they did, so its node and state counts are theirs
+    check(bodies["pass_g_k10_launches"] == launches_g["K10"]
+          and bodies["pass_h_k11_launches"] == launches_h["K11"],
+          f"the replay of passes G and H ({bodies}) launched other than "
+          f"they did (K10 {launches_g['K10']}, K11 {launches_h['K11']})")
     rows["K12"]["launches"] = launches_g2["K12"]
     rows["K11s"]["launches"] = launches_i["K11s"]
     for name in ("K13", "K13l"):

@@ -1,9 +1,13 @@
 // The device FM index's per-query functions, shared by the kernels that
-// walk it: K9's rank of all six symbols at one position (csrc/fm_index.cu
-// K9, K9x, K9l; csrc/workqueue_search.cu K10; csrc/frontier_search.cu
-// K11), K9x's all-symbol bidirectional extension (fm_extend_all: K9x and
+// walk it: the rank of all six symbols at one position (fm_rank:
+// csrc/fm_index.cu K9l, csrc/fm_sharded.cu K13), the interval rank at both
+// ends of an interval from one row when they share a block
+// (fm_interval_rank: csrc/workqueue_search.cu K10), the all-symbol
+// bidirectional extension over it (fm_extend_all: csrc/frontier_search.cu
 // K11) and K9l's bounded LF walk to a sampled row (fm_locate_row: K9l and
-// csrc/select_anchors.cu K12). Replaces floxer_tpu/index/device_index.py's
+// csrc/select_anchors.cu K12). K9 and K9x themselves (csrc/fm_index.cu)
+// stage a warp's rows through shared memory and rank each query with
+// fm_rank_words. Replaces floxer_tpu/index/device_index.py's
 // rank_rows_lookup (:260), _rank_all_planes (:228), extend_left_all /
 // extend_right_all (:370, :387) and locate_batch (:455).
 //
@@ -72,15 +76,23 @@ __host__ __device__ inline uint32_t fm_word_mask(int r, int w) {
   return below >= 32 ? 0xFFFFFFFFu : ((1u << below) - 1u);
 }
 
-// counts[s] = occurrences of symbol s in bwt[0, position)
-__host__ __device__ inline void fm_rank(const FmRankTable& t, int position,
-                                        int counts[FM_SIGMA]) {
-  uint32_t words[FM_SIGMA * 5];
-  int r;
+// the block of the table a rank at `position` reads and the position's
+// offset in it (the combined layout's positions of a direction start at
+// its row_offset)
+__host__ __device__ inline void fm_block_of(const FmRankTable& t,
+                                            int position, int* block,
+                                            int* r) {
+  const int p =
+      t.rows != nullptr ? position + t.row_offset * FM_OCC_BLOCK : position;
+  *block = p / FM_OCC_BLOCK;
+  *r = p - *block * FM_OCC_BLOCK;
+}
+
+// a block's 30 words: word 5 s symbol s's checkpoint, 5 s + 1 .. 5 s + 4
+// its plane words
+__host__ __device__ inline void fm_load_row(const FmRankTable& t, int block,
+                                            uint32_t words[FM_SIGMA * 5]) {
   if (t.rows != nullptr) {
-    const int p = position + t.row_offset * FM_OCC_BLOCK;
-    const int block = p / FM_OCC_BLOCK;
-    r = p - block * FM_OCC_BLOCK;
     const uint32_t* row = t.rows + (size_t)block * FM_ROW_WORDS;
 #ifdef __CUDA_ARCH__
     // the row's 128 bytes as seven 16-byte loads (columns 0..27) and one
@@ -101,8 +113,6 @@ __host__ __device__ inline void fm_rank(const FmRankTable& t, int position,
     for (int c = 0; c < FM_SIGMA * 5; ++c) words[c] = row[c];
 #endif
   } else {
-    const int block = position / FM_OCC_BLOCK;
-    r = position - block * FM_OCC_BLOCK;
 #pragma unroll
     for (int s = 0; s < FM_SIGMA; ++s) {
       words[5 * s] = (uint32_t)t.occ[(size_t)block * FM_SIGMA + s];
@@ -113,6 +123,12 @@ __host__ __device__ inline void fm_rank(const FmRankTable& t, int position,
       }
     }
   }
+}
+
+// counts[s] = symbol s's checkpoint + the popcounts of its plane words
+// masked to the r bits below the position
+__host__ __device__ inline void fm_rank_words(
+    const uint32_t words[FM_SIGMA * 5], int r, int counts[FM_SIGMA]) {
   uint32_t mask[FM_PLANE_WORDS];
 #pragma unroll
   for (int w = 0; w < FM_PLANE_WORDS; ++w) mask[w] = fm_word_mask(r, w);
@@ -125,6 +141,49 @@ __host__ __device__ inline void fm_rank(const FmRankTable& t, int position,
     }
     counts[s] = count;
   }
+}
+
+// counts[s] = occurrences of symbol s in bwt[0, position), each layout's
+// branch working out its own block and offset
+__host__ __device__ inline void fm_rank(const FmRankTable& t, int position,
+                                        int counts[FM_SIGMA]) {
+  uint32_t words[FM_SIGMA * 5];
+  int r;
+  if (t.rows != nullptr) {
+    const int p = position + t.row_offset * FM_OCC_BLOCK;
+    const int block = p / FM_OCC_BLOCK;
+    r = p - block * FM_OCC_BLOCK;
+    fm_load_row(t, block, words);
+  } else {
+    const int block = position / FM_OCC_BLOCK;
+    r = position - block * FM_OCC_BLOCK;
+    fm_load_row(t, block, words);
+  }
+  fm_rank_words(words, r, counts);
+}
+
+// The interval rank: lo[s] = the rank at base and count[s] = the rank at
+// base + length less lo[s], from one row when both positions fall in one
+// block (the checkpoint cancels in count, which is then the popcount of
+// the plane words under mask(r_hi) & ~mask(r_lo)), else from two. The
+// same arithmetic as two ranks on the same words, so exact at any
+// (base, length); a search deep in its tree extends intervals of a few
+// rows, whose two positions share a block most of the time.
+__host__ __device__ inline void fm_interval_rank(const FmRankTable& t,
+                                                 int base, int length,
+                                                 int lo[FM_SIGMA],
+                                                 int count[FM_SIGMA]) {
+  int block_lo, r_lo, block_hi, r_hi;
+  fm_block_of(t, base, &block_lo, &r_lo);
+  fm_block_of(t, base + length, &block_hi, &r_hi);
+  uint32_t words[FM_SIGMA * 5];
+  fm_load_row(t, block_lo, words);
+  fm_rank_words(words, r_lo, lo);
+  if (block_hi != block_lo) fm_load_row(t, block_hi, words);
+  int hi[FM_SIGMA];
+  fm_rank_words(words, r_hi, hi);
+#pragma unroll
+  for (int s = 0; s < FM_SIGMA; ++s) count[s] = hi[s] - lo[s];
 }
 
 // S shard tables of one direction, each in the combined layout: shard s's
@@ -143,17 +202,15 @@ struct FmShardedRankTable {
   int num_shards;
 };
 
-// counts[s] = occurrences of symbol s before a global position: the
-// reference's sum over the shards of each shard's count at clamp(position
-// - start, 0, length), as the owner's count at its clamped position plus
-// the earlier shards' totals. The owner is the last shard whose start is
-// at most the position (S - 1 independent tests; shard 0 for a negative
-// one, whose start is 0; the last of the empty trailing shards, which
-// start at n, for one at or past n), so one 128-byte row a query. Its
-// start and length are selected beside the tests, so the row's address
-// waits on no load that waits on the owner.
-__host__ __device__ inline void fm_rank(const FmShardedRankTable& t,
-                                        int position, int counts[FM_SIGMA]) {
+// The shard that owns a global position, the position clamped into it
+// and its table. The owner is the last shard whose start is at most the
+// position (S - 1 independent tests; shard 0 for a negative one, whose
+// start is 0; the last of the empty trailing shards, which start at n, for
+// one at or past n). Its start and length are selected beside the tests,
+// so the row's address waits on no load that waits on the owner.
+__host__ __device__ inline FmRankTable fm_owner(const FmShardedRankTable& t,
+                                                int position, int* owner_out,
+                                                int* local_out) {
   int owner = 0, start = t.starts[0], length = t.lengths[0];
 #pragma unroll 4
   for (int shard = 1; shard < t.num_shards; ++shard) {
@@ -171,10 +228,53 @@ __host__ __device__ inline void fm_rank(const FmShardedRankTable& t,
   one.occ = nullptr;
   one.planes = nullptr;
   one.row_offset = t.row_offset;
+  *owner_out = owner;
+  *local_out = local;
+  return one;
+}
+
+// counts[s] = occurrences of symbol s before a global position: the
+// reference's sum over the shards of each shard's count at clamp(position
+// - start, 0, length), as the owner's count at its clamped position plus
+// the earlier shards' totals, so one 128-byte row a query
+__host__ __device__ inline void fm_rank(const FmShardedRankTable& t,
+                                        int position, int counts[FM_SIGMA]) {
+  int owner, local;
+  const FmRankTable one = fm_owner(t, position, &owner, &local);
   fm_rank(one, local, counts);
   const int* before = t.before + owner * FM_SIGMA;
 #pragma unroll
   for (int s = 0; s < FM_SIGMA; ++s) counts[s] += before[s];
+}
+
+// the interval rank over the shards: one row when both positions have
+// the same owner and fall in one block of it (before[owner] cancels in
+// count), else the two owners' rows
+__host__ __device__ inline void fm_interval_rank(
+    const FmShardedRankTable& t, int base, int length, int lo[FM_SIGMA],
+    int count[FM_SIGMA]) {
+  int owner_lo, local_lo, owner_hi, local_hi;
+  const FmRankTable table_lo = fm_owner(t, base, &owner_lo, &local_lo);
+  const FmRankTable table_hi =
+      fm_owner(t, base + length, &owner_hi, &local_hi);
+  int block_lo, r_lo, block_hi, r_hi;
+  fm_block_of(table_lo, local_lo, &block_lo, &r_lo);
+  fm_block_of(table_hi, local_hi, &block_hi, &r_hi);
+  uint32_t words[FM_SIGMA * 5];
+  fm_load_row(table_lo, block_lo, words);
+  fm_rank_words(words, r_lo, lo);
+  if (owner_hi != owner_lo || block_hi != block_lo) {
+    fm_load_row(table_hi, block_hi, words);
+  }
+  int hi[FM_SIGMA];
+  fm_rank_words(words, r_hi, hi);
+  const int* before_lo = t.before + owner_lo * FM_SIGMA;
+  const int* before_hi = t.before + owner_hi * FM_SIGMA;
+#pragma unroll
+  for (int s = 0; s < FM_SIGMA; ++s) {
+    lo[s] += before_lo[s];
+    count[s] = hi[s] + before_hi[s] - lo[s];
+  }
 }
 
 #ifdef __CUDACC__
@@ -237,10 +337,32 @@ __host__ __device__ inline int fm_rank_symbol(const Table& t, int position,
   return out;
 }
 
+// the children of an extension from the ranks at its base (lo) and the
+// counts: primary = C + lo on the extended direction, the other one the
+// secondary start plus the counts' exclusive prefix
+__host__ __device__ inline void fm_children(const int* C, int secondary,
+                                            bool left,
+                                            const int lo[FM_SIGMA],
+                                            const int count[FM_SIGMA],
+                                            int new_lb[FM_SIGMA],
+                                            int new_lb_rev[FM_SIGMA],
+                                            int counts[FM_SIGMA]) {
+  int prefix = 0;
+#pragma unroll
+  for (int s = 0; s < FM_SIGMA; ++s) {
+    const int primary = C[s] + lo[s];
+    new_lb[s] = left ? primary : secondary + prefix;
+    new_lb_rev[s] = left ? secondary + prefix : primary;
+    counts[s] = count[s];
+    prefix += count[s];
+  }
+}
+
 // one bidirectional extension step of the interval (lb, lb_rev, length)
-// by every symbol: two ranks on the direction that is extended (`t`: the
+// by every symbol, ranked on the direction that is extended (`t`: the
 // forward table for a left extension at lb, the reverse one for a right
-// extension at lb_rev), the counts, their exclusive prefix and C
+// extension at lb_rev) by the interval rank: one row when the interval
+// lies in one block
 template <class Table>
 __host__ __device__ inline void fm_extend_all(const Table& t,
                                               const int* C, int lb,
@@ -249,21 +371,10 @@ __host__ __device__ inline void fm_extend_all(const Table& t,
                                               int new_lb[FM_SIGMA],
                                               int new_lb_rev[FM_SIGMA],
                                               int counts[FM_SIGMA]) {
-  const int base = left ? lb : lb_rev;
-  const int secondary = left ? lb_rev : lb;
-  int lo[FM_SIGMA], hi[FM_SIGMA];
-  fm_rank(t, base, lo);
-  fm_rank(t, base + length, hi);
-  int prefix = 0;
-#pragma unroll
-  for (int s = 0; s < FM_SIGMA; ++s) {
-    const int count = hi[s] - lo[s];
-    const int primary = C[s] + lo[s];
-    new_lb[s] = left ? primary : secondary + prefix;
-    new_lb_rev[s] = left ? secondary + prefix : primary;
-    counts[s] = count;
-    prefix += count;
-  }
+  int lo[FM_SIGMA], count[FM_SIGMA];
+  fm_interval_rank(t, left ? lb : lb_rev, length, lo, count);
+  fm_children(C, left ? lb_rev : lb, left, lo, count, new_lb, new_lb_rev,
+              counts);
 }
 
 // first index in sorted[0, count) whose value is not below key (count

@@ -21,9 +21,11 @@
 // picked by the wrapper), which walks the current frontier in rounds of
 // B x kThreads consecutive slots, block r of the cluster taking slots
 // [round + r kThreads, +kThreads), one slot a thread: the thread finds
-// its state's kinds of child (two ranks of all six symbols when the
-// state extends, fm_extend_all), a block-wide exclusive scan of the child
-// counts gives each parent its offset within its block, and each block
+// its state's kinds of child (the ranks of all six symbols at both ends
+// of its interval when the state extends, fm_extend_all: one rank row
+// when the interval lies in one block, two otherwise), a block-wide
+// exclusive scan of the child counts gives each parent its offset within
+// its block, and each block
 // publishes its total in shared memory; after a cluster barrier every
 // warp reads the totals of the cluster's blocks through distributed
 // shared memory (cluster.map_shared_rank), so a block's children follow

@@ -62,7 +62,9 @@
 // patterns and the scheme rows read once and the reports written once,
 // over 3.35 TB/s. Its rank-row gathers are latency-bound and dependent
 // along a path: occupancy hides them (every SM full of threads, each on
-// its own root or entry), not prefetch.
+// its own root or entry), not prefetch. A node's two ranks (at both ends
+// of its interval) read one row when the interval lies in one block, as
+// it does deep in a tree (fm_rank.cuh's fm_interval_rank).
 
 #include <cuda_runtime.h>
 
@@ -371,17 +373,16 @@ workqueue_kernel(Params p) {
           continue;
         }
       } else {
-        // expand: two ranks on the direction of the part
+        // expand: the interval rank on the direction of the part (one row
+        // when the interval lies in one block)
         ++nodes;
         ++unit_nodes;
         const bool left = dir < 0;
         const int base = left ? node.lb : node.lb_rev;
-        int lo[FM_SIGMA], hi[FM_SIGMA], primary[FM_SIGMA], count[FM_SIGMA];
-        fm_rank(left ? p.fwd : p.rev, base, lo);
-        fm_rank(left ? p.fwd : p.rev, base + node.len, hi);
+        int lo[FM_SIGMA], primary[FM_SIGMA], count[FM_SIGMA];
+        fm_interval_rank(left ? p.fwd : p.rev, base, node.len, lo, count);
 #pragma unroll
         for (int s = 0; s < FM_SIGMA; ++s) {
-          count[s] = hi[s] - lo[s];
           primary[s] = __ldg(p.C + s) + lo[s];
         }
         int pos = node.pos < 0 ? 0 : node.pos;

@@ -4,8 +4,13 @@ Counterpart of the XLA programs of floxer_tpu/index/device_index.py
 (rank_all / rank_rows_lookup, extend_left_all / extend_right_all,
 locate_batch). Each entry launches its hand-written CUDA kernel
 (csrc/fm_index.cu, over csrc/fm_rank.cuh) for CUDA tensors and runs its
-plain PyTorch version for CPU tensors. Tables are int32 tensors holding
-the uint32 words; the plain versions widen them to int64 masked to 32
+plain PyTorch version for CPU tensors. In the combined layout K9 and K9x
+give each lane its own query and copy a warp's 32 rank rows into shared
+memory 8 lanes a row, each lane one 16-byte piece; in the planes layout
+a group of 8 lanes takes a query. Either way the tables must start on a
+16-byte boundary (the CUDA wrappers check it). K9x reads a second row
+only for a cursor whose interval ends in another block. Tables are int32
+tensors holding the uint32 words; the plain versions widen them to int64 masked to 32
 bits, since torch has no uint32 shifts or popcount on the CPU.
 
 The index arguments are index/device_index.py's DeviceIndex and
@@ -68,6 +73,14 @@ def _require_cuda(tensor) -> None:
         raise ValueError(f"a CUDA kernel got operands on {tensor.device}")
 
 
+def _require_pieces(rows, planes) -> None:
+    """K9's and K9x's lanes load 16-byte pieces of the rank rows or of the
+    plane rows: the table must start on a 16-byte boundary."""
+    table = rows if rows is not None else planes
+    if table.data_ptr() % 16:
+        raise ValueError("the rank table must start on a 16-byte boundary")
+
+
 # ---------------------------------------------------------------- K9 rank
 
 
@@ -88,6 +101,7 @@ def fm_rank_cuda(positions, rows=None, row_offset=0, occ=None, planes=None):
     global RANK_LAUNCHES
     _check_table(rows, occ, planes, positions.device)
     _require_cuda(positions)
+    _require_pieces(rows, planes)
     B = positions.shape[0]
     out = torch.empty((B, SIGMA), dtype=torch.int32, device=positions.device)
     if B == 0:
@@ -176,6 +190,7 @@ def fm_extend_cuda(index, lb, lb_rev, length, left: bool):
     _check_extend(index, lb, lb_rev, length, left)
     _require_cuda(lb)
     rows, offset, occ, planes = _extend_table(index, left)
+    _require_pieces(rows, planes)
     B = lb.shape[0]
     outs = [torch.empty((B, SIGMA), dtype=torch.int32, device=lb.device)
             for _ in range(3)]

@@ -973,6 +973,98 @@ def test_fm_index_kernels_match_plain(cuda_device, search_index, layout):
         assert host.locate(int(rows[i])) == (seq_ids[i], offsets[i])
 
 
+def group_cursors(host, sequences, kind, count, rng):
+    """K9x's two cursor kinds, int32 [3, count] on the CPU: random ones
+    (the first of length 0, the second ending at n, lengths up to 2999
+    clipped to fit) or search cursors (tools/fm_bench.search_cursors of
+    the text's own slices, some mutated, tiled to count)."""
+    from floxer_tpu_torch.tools.fm_bench import search_cursors
+
+    n = host.n
+    if kind == "random":
+        lb = rng.integers(0, n, size=count)
+        lb_rev = rng.integers(0, n, size=count)
+        length = np.minimum(rng.integers(0, 3000, size=count),
+                            n - np.maximum(lb, lb_rev))
+        length[0] = 0
+        if count > 1:
+            length[1] = n - max(lb[1], lb_rev[1])
+        return np.stack([lb, lb_rev, length]).astype(np.int32)
+    patterns = []
+    for i in range(400):
+        source = sequences[i % 2]
+        k = int(rng.integers(12, 41))
+        start = int(rng.integers(0, len(source) - k))
+        pattern = source[start:start + k].copy()
+        if i % 3 == 0:
+            pattern[int(rng.integers(0, k))] = int(rng.integers(1, 5))
+        patterns.append(pattern)
+    cursors = search_cursors(host, patterns, limit=count, seed=5)
+    copies = -(-count // cursors.shape[1])
+    return np.tile(cursors, (1, copies))[:, :count].astype(np.int32)
+
+
+@pytest.mark.parametrize("layout", ["combined", "planes"])
+@pytest.mark.parametrize("batch", [1, 3, 4097, 1 << 16])
+def test_rank_and_extension_kernels_match_plain(cuda_device, search_index,
+                                                layout, batch):
+    """K9 and K9x (a warp's rows staged 8 lanes a row in the combined
+    layout, 8 lanes a query in the planes layout) against their plain
+    versions at B queries (a part of one warp, of one block, and many
+    blocks), each launch counted: K9 at positions 0 and n and seeded ones in both
+    directions; K9x left and right on random cursors (length 0 and an end
+    at n among them) and on search cursors, most inside one block."""
+    from floxer_tpu_torch.ops import cuda_fm_index as k9
+
+    host, sequences = search_index
+    index = device_index_of(host, cuda_device, layout)
+    rng = np.random.default_rng(batch)
+    n = host.n
+    positions = rng.integers(0, n + 1, size=batch)
+    positions[0], positions[-1] = 0, n
+    batches = [positions] + ([np.array([0])] if batch == 1 else [])
+    for values in batches:
+        tensor = torch.from_numpy(values.astype(np.int32)).to(cuda_device)
+        for single in (index.fwd, index.rev):
+            operands = (single.rank_rows, single.block_offset, single.occ,
+                        single.planes)
+            before = k9.RANK_LAUNCHES
+            got = k9.fm_rank_cuda(tensor, *operands)
+            assert k9.RANK_LAUNCHES == before + 1
+            assert torch.equal(got, k9.fm_rank_plain(tensor, *operands))
+    for kind in ("random", "search"):
+        cursors = [torch.from_numpy(a).to(cuda_device) for a in
+                   group_cursors(host, sequences, kind, batch, rng)]
+        for left in (True, False):
+            before = k9.EXTEND_LAUNCHES
+            got = k9.fm_extend_cuda(index, *cursors, left=left)
+            assert k9.EXTEND_LAUNCHES == before + 1
+            want = k9.fm_extend_plain(index, *cursors, left=left)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_group_kernels_refuse_a_misaligned_table(cuda_device, search_index):
+    """K9's and K9x's lanes load 16-byte pieces: a table that starts off
+    a 16-byte boundary raises, and nothing launches."""
+    from floxer_tpu_torch.ops import cuda_fm_index as k9
+
+    host, _ = search_index
+    index = device_index_of(host, cuda_device, "combined")
+    rows = index.rank_rows
+    flat = torch.empty(rows.numel() + 1, dtype=torch.int32,
+                       device=cuda_device)
+    shifted = flat[1:].view(rows.shape)
+    shifted.copy_(rows)
+    positions = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    before = (k9.RANK_LAUNCHES, k9.EXTEND_LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        k9.fm_rank_cuda(positions, shifted, 0)
+    index.fwd.rank_rows = shifted
+    with pytest.raises(ValueError, match="16-byte"):
+        k9.fm_extend_cuda(index, positions, positions, positions, left=True)
+    assert (k9.RANK_LAUNCHES, k9.EXTEND_LAUNCHES) == before
+
+
 def search_chunk(sequences, seed=23, count=300):
     """Mutated slices of the indexed text as seeds of mixed error and
     length classes, plus a homopolymer: (padded, seed_class, tables,
@@ -1219,15 +1311,17 @@ def test_search_wrappers_refuse_cpu_operands(cuda_device, search_index):
 
 
 def test_search_kernels_ptxas_no_spill_no_stack(cuda_device):
-    """ptxas -v of the aligner's build: K9, K9x, K9l, K10, K11 (its
-    instances over the index and over the shards), K12, K13 and K13l
-    keep no stack frame and spill nothing."""
+    """ptxas -v of the aligner's build: K9 and K9x (a kernel each for the
+    combined and the planes layout), K9l, K10, K11 (its instances over
+    the index and over the shards), K12, K13 and K13l keep no stack frame
+    and spill nothing."""
     from floxer_tpu_torch.ops import _build
 
     _build.ALIGNER.load()
     usage = _build.ALIGNER.ptxas_usage()
     for kernel, instances in (
         ("fm_rank_kernel", 1), ("fm_extend_kernel", 1),
+        ("fm_rank_group_kernel", 1), ("fm_extend_group_kernel", 1),
         ("fm_locate_kernel", 1), ("workqueue_kernel", 1),
         ("frontier_kernel", 2), ("select_kernel", 1),
         ("fm_sharded_rank_kernel", 1), ("fm_sharded_locate_kernel", 1),

@@ -7,7 +7,14 @@ from a seed; every comparison is integer equality (tolerance 0), in the
 combined rank-row layout and in the per-direction planes layout. K9l's
 per-row functions (csrc/fm_rank.cuh: the sampled-row plane's lookup and
 the locate walk over it) are built with g++ here and held to the
-reference's _sample_lookup and locate_batch on every row.
+reference's _sample_lookup and locate_batch on every row; so are the
+interval rank and the extension that K10 and K11 run (one row when an
+interval lies in one block) on cursors at every block edge.
+emulate_k9_staged, emulate_k9_planes and emulate_k9x mirror K9's and
+K9x's schedules (csrc/fm_index.cu: a warp's rows staged 8 lanes a row in
+the combined layout, a group of 8 lanes a query in the planes layout)
+lane by lane and are held to the reference's rank_rows_lookup,
+_rank_all_planes and extend_*_all.
 """
 
 import ctypes
@@ -199,6 +206,13 @@ EMULATION = r"""
 #define __device__
 #include "fm_rank.cuh"
 
+static FmRankTable rank_table(const unsigned* rows, const int* occ,
+                              const unsigned* planes, int row_offset) {
+  FmRankTable t;
+  t.rows = rows; t.occ = occ; t.planes = planes; t.row_offset = row_offset;
+  return t;
+}
+
 static FmLocateTables tables(const unsigned* rows, const int* occ,
                              const unsigned* planes, const unsigned char* bwt,
                              const int* C, const unsigned* sample_plane,
@@ -227,6 +241,28 @@ void emu_sample_lookup(const unsigned* sample_plane,
     hits[i] = fm_sample_lookup(t, rows[i], values + i) ? 1 : 0;
 }
 
+// the interval rank (fm_interval_rank, K10's) at each (base, length):
+// lo [B, 6] and count [B, 6]
+void emu_interval_rank(const unsigned* rows, const int* occ,
+                       const unsigned* planes, int row_offset,
+                       const int* base, const int* length, int B, int* lo,
+                       int* count) {
+  const FmRankTable t = rank_table(rows, occ, planes, row_offset);
+  for (int i = 0; i < B; ++i)
+    fm_interval_rank(t, base[i], length[i], lo + 6 * i, count + 6 * i);
+}
+
+// the extension K11 runs for an expanded state (fm_extend_all)
+void emu_extend(const unsigned* rows, const int* occ, const unsigned* planes,
+                int row_offset, const int* C, const int* lb,
+                const int* lb_rev, const int* length, int B, int left,
+                int* new_lb, int* new_lb_rev, int* counts) {
+  const FmRankTable t = rank_table(rows, occ, planes, row_offset);
+  for (int i = 0; i < B; ++i)
+    fm_extend_all(t, C, lb[i], lb_rev[i], length[i], left != 0,
+                  new_lb + 6 * i, new_lb_rev + 6 * i, counts + 6 * i);
+}
+
 // K9l's threads, one row after another
 void emu_locate(const unsigned* rows, const int* occ, const unsigned* planes,
                 const unsigned char* bwt, const int* C,
@@ -247,7 +283,8 @@ void emu_locate(const unsigned* rows, const int* occ, const unsigned* planes,
 
 @pytest.fixture(scope="module")
 def emulation(tmp_path_factory):
-    """The g++ build of csrc/fm_rank.cuh's locate functions (ctypes)."""
+    """The g++ build of csrc/fm_rank.cuh's locate, interval rank and
+    extension functions (ctypes)."""
     compiler = shutil.which("g++")
     if compiler is None:
         pytest.fail("g++ is needed to build the kernels' host emulation")
@@ -344,3 +381,436 @@ def test_plane_locate_matches_reference(indexes, layout, emulation):
                                                 jnp.asarray(every.numpy()))
     assert np.array_equal(seq_ids.numpy(), np.asarray(want_ids))
     assert np.array_equal(positions.numpy(), np.asarray(want_positions))
+
+
+# ------------------------------- one-block intervals: K9x, K10 and K11's rank
+
+
+def _block_cursors(rng, n, left):
+    """int32 cursors (lb, lb_rev, length) whose base (lb for a left
+    extension, lb_rev for a right one) sits at offsets r = 0, 1, 31, 64
+    and 127 of the first, second and last blocks, with lengths 0, 1, 127,
+    127 - r (the block's last position), 128 - r (the next block's first)
+    and 129 - r (one past it), those that run past n dropped; then every
+    base + length = n up to 300 back, and n itself at length 0. The other
+    start is seeded in [0, n - length]."""
+    last = n // 128
+    bases, lengths = [], []
+    for block in sorted({0, 1, last}):
+        for r in (0, 1, 31, 64, 127):
+            base = 128 * block + r
+            for length in (0, 1, 127, 127 - r, 128 - r, 129 - r):
+                if base + length <= n:
+                    bases.append(base)
+                    lengths.append(length)
+    for length in range(0, min(n, 300) + 1, 7):
+        bases.append(n - length)
+        lengths.append(length)
+    bases.append(n)
+    lengths.append(0)
+    base = np.array(bases, dtype=np.int64)
+    length = np.array(lengths, dtype=np.int64)
+    other = (rng.random(base.shape[0]) * (n - length + 1)).astype(np.int64)
+    lb, lb_rev = (base, other) if left else (other, base)
+    return [a.astype(np.int32) for a in (lb, lb_rev, length)]
+
+
+def test_block_cursors_cover_the_edges():
+    """The cursors sit in one block, end on the next block's first
+    position, cross a block by one, and end at n."""
+    n = 517
+    lb, _, length = _block_cursors(np.random.default_rng(0), n, True)
+    end = lb.astype(np.int64) + length
+    same = lb // 128 == end // 128
+    assert same.any() and (~same).any()
+    assert set(length.tolist()) >= {0, 1, 127}
+    assert (end == n).sum() > 10 and (lb == n).any()
+    assert ((end % 128 == 0) & (lb // 128 + 1 == end // 128)
+            & (length > 0)).any()
+    assert ((end % 128 == 1) & (lb // 128 + 1 == end // 128)).any()
+
+
+def _ref_extend(ref_index, left, cursors):
+    fn = ref.extend_left_all if left else ref.extend_right_all
+    return [np.asarray(a) for a in fn(ref_index, *map(jnp.asarray, cursors))]
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_extend_block_edges_match_reference(indexes, layout):
+    """extend_left_all / extend_right_all (K9x's plain version on the CPU)
+    on cursors at every block edge equal the reference's."""
+    _, ref_index, host, _ = indexes
+    index = port_index(host, layout)
+    rng = np.random.default_rng(11)
+    for left, port_fn in ((True, port.extend_left_all),
+                          (False, port.extend_right_all)):
+        cursors = _block_cursors(rng, host.n, left)
+        got = port_fn(index, *map(torch.from_numpy, cursors))
+        for g, w in zip(got, _ref_extend(ref_index, left, cursors)):
+            assert np.array_equal(g.numpy(), w)
+
+
+def _single_table(index, left):
+    single = index.fwd if left else index.rev
+    return single.rank_rows, single.occ, single.planes, single.block_offset
+
+
+def emulate_interval(lib, index, left, base, length):
+    rows, occ, planes, offset = _single_table(index, left)
+    lo = torch.zeros((base.shape[0], 6), dtype=torch.int32)
+    count = torch.zeros_like(lo)
+    lib.emu_interval_rank(
+        _ptr(rows), _ptr(occ), _ptr(planes), offset, _ptr(base),
+        _ptr(length), base.shape[0], _ptr(lo), _ptr(count))
+    return lo, count
+
+
+def emulate_extend(lib, index, left, cursors):
+    rows, occ, planes, offset = _single_table(index, left)
+    outs = [torch.zeros((cursors[0].shape[0], 6), dtype=torch.int32)
+            for _ in range(3)]
+    lib.emu_extend(
+        _ptr(rows), _ptr(occ), _ptr(planes), offset, _ptr(index.C),
+        *(_ptr(c) for c in cursors), cursors[0].shape[0],
+        1 if left else 0, *(_ptr(t) for t in outs))
+    return outs
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_interval_rank_and_extension_match_reference(indexes, layout,
+                                                     emulation):
+    """The g++ build of fm_interval_rank (K10's rank, one row when the
+    interval lies in one block) and of fm_extend_all (K11's extension
+    over it): lo is the reference's rank_all at
+    the base and count its rank at base + length less lo, and the
+    extensions equal the reference's extend_*_all, on cursors at every
+    block edge and on seeded ones, in both directions."""
+    _, ref_index, host, _ = indexes
+    index = port_index(host, layout)
+    rng = np.random.default_rng(12)
+    n = host.n
+    for left in (True, False):
+        edges = _block_cursors(rng, n, left)
+        lb = rng.integers(0, n, size=200)
+        lb_rev = rng.integers(0, n, size=200)
+        length = np.minimum(rng.integers(0, 300, size=200),
+                            n - np.maximum(lb, lb_rev))
+        cursors = [np.concatenate([e, s.astype(np.int32)]) for e, s in
+                   zip(edges, (lb, lb_rev, length))]
+        tensors = [torch.from_numpy(c) for c in cursors]
+        base = tensors[0] if left else tensors[1]
+        single = ref_index.fwd if left else ref_index.rev
+        want_lo = np.asarray(ref.rank_all(single, jnp.asarray(base.numpy())))
+        want_hi = np.asarray(ref.rank_all(single, jnp.asarray(
+            (base + tensors[2]).numpy())))
+        lo, count = emulate_interval(emulation, index, left, base,
+                                     tensors[2])
+        assert np.array_equal(lo.numpy(), want_lo)
+        assert np.array_equal(count.numpy(), want_hi - want_lo)
+        got = emulate_extend(emulation, index, left, tensors)
+        for g, w in zip(got, _ref_extend(ref_index, left, cursors)):
+            assert np.array_equal(g.numpy(), w)
+
+
+# ------------------------------ K9's and K9x's schedules (csrc/fm_index.cu)
+
+WARP = 32
+PIECES = 8
+GROUP = 8
+MASK32 = 0xFFFFFFFF
+
+
+def stage_schedule():
+    """stage_rows' loads in the combined layout: for load k and lane l,
+    (the warp's query whose row it reads, the 16-byte piece, the slot it
+    stores the piece at): 8 lanes a row, lane l % 8's piece of query
+    4 k + l / 8, at slot 8 i + (p ^ (i & 7))."""
+    return [[(4 * k + lane // 8, lane % 8,
+              8 * (4 * k + lane // 8) + ((lane % 8) ^ ((4 * k + lane // 8)
+                                                      % 8)))
+             for lane in range(WARP)] for k in range(PIECES)]
+
+
+def staged_row_slot(lane, p):
+    """staged_row's read p of the lane's own row."""
+    return 8 * lane + (p ^ (lane % 8))
+
+
+def mask_below(r, w):
+    """fm_word_mask: word w keeps its clamp(r - 32 w, 0, 32) lowest bits."""
+    below = np.clip(r - 32 * w, 0, 32).astype(np.int64)
+    return ((np.int64(1) << below) - 1) & MASK32
+
+
+def rank_words(words, r):
+    """fm_rank_words on [B, 32] staged words: symbol s's checkpoint plus its
+    four plane words' popcounts under the masks of r."""
+    counts = np.zeros((words.shape[0], 6), dtype=np.int64)
+    for s in range(6):
+        counts[:, s] = words[:, 5 * s] + sum(
+            np.bitwise_count(words[:, 5 * s + 1 + w] & mask_below(r, w))
+            .astype(np.int64) for w in range(4))
+    return counts
+
+
+def stage_rows(rows, blocks, need, stage):
+    """One stage_rows over every warp at once: blocks and need [warps, 32]
+    (a query's row, and whether it is read); stage [warps, 256, 4] slots,
+    of which those of rows not needed keep what they held."""
+    for load in stage_schedule():
+        for lane, (i, p, slot) in enumerate(load):
+            take = need[:, i]
+            stage[take, slot] = rows[blocks[take, i], 4 * p:4 * p + 4]
+
+
+def staged_rows(stage):
+    """Each lane's own row read back from its slots: [warps, 32, 32]."""
+    words = np.empty(stage.shape[:1] + (WARP, 32), dtype=np.int64)
+    for lane in range(WARP):
+        for p in range(PIECES):
+            words[:, lane, 4 * p:4 * p + 4] = stage[:, staged_row_slot(lane,
+                                                                       p)]
+    return words
+
+
+def warp_blocks(values, B):
+    """[B] -> [warps, 32], the warp's lanes past B at 0 (as a lane past the
+    batch ranks position 0)."""
+    warps = -(-B // WARP)
+    out = np.zeros(warps * WARP, dtype=np.int64)
+    out[:B] = values
+    return out.reshape(warps, WARP)
+
+
+def store_staged(values, B):
+    """store_staged's [warps, 32, 6] -> the batch's [B, 6]: the warp's
+    stage holds lane i's six at [6 i, 6 i + 6), and vector v (4 ints) of
+    the warp's 48 goes out by lane v % 32."""
+    warps = values.shape[0]
+    stage = values.reshape(warps, WARP * 6)
+    out = np.full(warps * WARP * 6, -1, dtype=np.int64)
+    for v in range(WARP * 6 // 4):
+        out_view = out.reshape(warps, WARP * 6)
+        out_view[:, 4 * v:4 * v + 4] = stage[:, 4 * v:4 * v + 4]
+    return out.reshape(-1, 6)[:B]
+
+
+def _combined(single):
+    rows = single.rank_rows.numpy().view(np.uint32).astype(np.int64)
+    return rows, single.block_offset * 128
+
+
+def emulate_k9_staged(single, positions):
+    """K9 in the combined layout, warp by warp: the rows staged 8 lanes a
+    row, each lane's rank from its own staged row, the outputs through the
+    stage."""
+    rows, offset = _combined(single)
+    B = positions.shape[0]
+    p = warp_blocks(positions.astype(np.int64) + offset, B)
+    blocks, r = p // 128, p % 128
+    stage = np.full((p.shape[0], WARP * PIECES, 4), -1, dtype=np.int64)
+    stage_rows(rows, blocks, np.ones_like(blocks, dtype=bool), stage)
+    words = staged_rows(stage)
+    counts = rank_words(words.reshape(-1, 32), r.reshape(-1))
+    return store_staged(counts.reshape(-1, WARP, 6), B)
+
+
+def group_plane_rank(occ, planes, block, r):
+    """The planes layout's group: lane s < 6 loads symbol s's checkpoint
+    and 16-byte plane row and ranks that symbol alone; [B, 6]."""
+    counts = np.zeros((block.shape[0], 6), dtype=np.int64)
+    for lane in range(6):
+        counts[:, lane] = occ[block, lane] + sum(
+            np.bitwise_count(planes[block, lane, w] & mask_below(r, w))
+            .astype(np.int64) for w in range(4))
+    return counts
+
+
+def _planes(single):
+    return (single.occ.numpy().astype(np.int64),
+            single.planes.numpy().view(np.uint32).astype(np.int64))
+
+
+def emulate_k9_planes(single, positions):
+    """K9 in the planes layout: a group of 8 lanes a query, lane s's count
+    stored by lane s."""
+    occ, planes = _planes(single)
+    p = positions.astype(np.int64)
+    return group_plane_rank(occ, planes, p // 128, p % 128)
+
+
+def group_exclusive_prefix(values):
+    """The planes group's shuffle-up scan of its 8 lanes (lanes 6, 7
+    zero): at d = 1, 2, 4 lane j >= d adds lane j - d's running sum."""
+    lanes = [values[:, j] if j < 6 else np.zeros_like(values[:, 0])
+             for j in range(GROUP)]
+    running = list(lanes)
+    for d in (1, 2, 4):
+        running = [running[j] + running[j - d] if j >= d else running[j]
+                   for j in range(GROUP)]
+    return np.stack([running[j] - lanes[j] for j in range(6)], axis=1)
+
+
+def emulate_k9x(index, lb, lb_rev, length, left):
+    """K9x, lane by lane: in the combined layout the warp stages its base
+    rows and, in a second region, the end rows of the cursors whose
+    interval ends in another block (the other slots there hold -1, which
+    a lane that read them would rank); a one-row cursor ranks its end on
+    its base row. In the
+    planes layout the group of 8 lanes, the end's row read only for a
+    two-row cursor, and the shuffle scan. Returns the three outputs and
+    the share of one-row cursors."""
+    single = index.fwd if left else index.rev
+    B = lb.shape[0]
+    lb, lb_rev, length = (a.astype(np.int64) for a in (lb, lb_rev, length))
+    base, secondary = (lb, lb_rev) if left else (lb_rev, lb)
+    if single.rank_rows is not None:
+        rows, offset = _combined(single)
+        p_lo = warp_blocks(base + offset, B)
+        p_hi = warp_blocks(base + length + offset, B)
+        block_lo, block_hi = p_lo // 128, p_hi // 128
+        two_rows = block_hi != block_lo
+        stage_lo, stage_hi = (np.full((p_lo.shape[0], WARP * PIECES, 4), -1,
+                                      dtype=np.int64) for _ in range(2))
+        stage_rows(rows, block_lo, np.ones_like(two_rows), stage_lo)
+        stage_rows(rows, block_hi, two_rows, stage_hi)
+        words_lo, words_hi = staged_rows(stage_lo), staged_rows(stage_hi)
+        lo = rank_words(words_lo.reshape(-1, 32), (p_lo % 128).reshape(-1))
+        words = np.where(two_rows[:, :, None], words_hi, words_lo)
+        hi = rank_words(words.reshape(-1, 32), (p_hi % 128).reshape(-1))
+        lo, hi = lo[:B], hi[:B]
+        two = two_rows.reshape(-1)[:B]
+    else:
+        occ, planes = _planes(single)
+        p_lo, p_hi = base, base + length
+        block_lo, block_hi = p_lo // 128, p_hi // 128
+        two = block_hi != block_lo
+        lo = group_plane_rank(occ, planes, block_lo, p_lo % 128)
+        row_hi = np.where(two, block_hi, block_lo)
+        hi = group_plane_rank(occ, planes, row_hi, p_hi - row_hi * 128)
+    count = hi - lo
+    if single.rank_rows is not None:
+        prefix = np.cumsum(count, axis=1) - count
+    else:
+        prefix = group_exclusive_prefix(count)
+    primary = index.C.numpy()[:6].astype(np.int64)[None, :] + lo
+    other = secondary[:, None] + prefix
+    new_lb, new_lb_rev = (primary, other) if left else (other, primary)
+    outputs = [new_lb, new_lb_rev, count]
+    if single.rank_rows is not None:
+        warps = -(-B // WARP)
+        outputs = [store_staged(np.concatenate(
+            [o, np.zeros((warps * WARP - B, 6), dtype=np.int64)]).reshape(
+                warps, WARP, 6), B) for o in outputs]
+    return [o.astype(np.int32) for o in outputs], float(np.mean(~two))
+
+
+def test_stage_schedule_reads_each_piece_once_without_bank_conflicts():
+    """stage_rows: every (query, piece) of the warp's 32 rows is loaded
+    once, each load by 4 groups of 8 lanes that read 4 whole rows; each
+    row's 8 slots are its own; the 8 lanes that write (or later read back
+    their own rows) in one 16-byte shared-memory wavefront hit 8
+    different bank quads; store_staged's 48 vectors cover the warp's
+    [32, 6] outputs once."""
+    schedule = stage_schedule()
+    loaded = sorted((i, p) for load in schedule for i, p, _ in load)
+    assert loaded == [(i, p) for i in range(WARP) for p in range(PIECES)]
+    for load in schedule:
+        rows = [i for i, _, _ in load]
+        assert all(len(set(rows[8 * g:8 * g + 8])) == 1 for g in range(4))
+        assert len(set(rows)) == 4
+        for g in range(4):
+            quads = {slot % 8 for _, _, slot in load[8 * g:8 * g + 8]}
+            assert len(quads) == 8
+    slots = sorted(slot for load in schedule for _, _, slot in load)
+    assert slots == list(range(WARP * PIECES))
+    for i in range(WARP):
+        assert {staged_row_slot(i, p) for p in range(PIECES)} == set(
+            range(8 * i, 8 * i + 8))
+    for p in range(PIECES):
+        for g in range(4):
+            quads = {staged_row_slot(lane, p) % 8
+                     for lane in range(8 * g, 8 * g + 8)}
+            assert len(quads) == 8
+    values = np.arange(2 * WARP * 6).reshape(2, WARP, 6)
+    assert np.array_equal(store_staged(values, 2 * WARP - 5),
+                          values.reshape(-1, 6)[:2 * WARP - 5])
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_k9_schedule_matches_reference(indexes, layout):
+    """K9's mirror (emulate_k9_staged in the combined layout,
+    emulate_k9_planes in the planes layout) equals the reference's
+    rank_rows_lookup_stacked or _rank_all_planes at random positions,
+    every block edge and n, in both directions, the batch's last warp a
+    partial one."""
+    _, ref_index, host, _ = indexes
+    index = port_index(host, layout)
+    positions = _positions(np.random.default_rng(4), host.n)
+    if positions.shape[0] % WARP == 0:
+        positions = positions[:-1]
+    for direction in ("fwd", "rev"):
+        single = getattr(index, direction)
+        ref_single = getattr(ref_index, direction)
+        if layout == "combined":
+            got = emulate_k9_staged(single, positions)
+            want = ref.rank_rows_lookup_stacked(
+                ref_index.rank_rows,
+                jnp.asarray(positions + single.block_offset * 128))
+        else:
+            got = emulate_k9_planes(single, positions)
+            want = ref._rank_all_planes(ref_single.occ, ref_single.planes,
+                                        jnp.asarray(positions))
+        assert np.array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_k9x_schedule_matches_reference(indexes, layout):
+    """K9x's mirror (emulate_k9x) equals the reference's extend_left_all
+    and extend_right_all on the block-edge cursors (one row and two) and
+    on seeded ones, in both layouts."""
+    _, ref_index, host, _ = indexes
+    index = port_index(host, layout)
+    rng = np.random.default_rng(13)
+    n = host.n
+    for left in (True, False):
+        edges = _block_cursors(rng, n, left)
+        lb = rng.integers(0, n, size=300)
+        lb_rev = rng.integers(0, n, size=300)
+        length = np.minimum(rng.integers(0, 80, size=300),
+                            n - np.maximum(lb, lb_rev))
+        cursors = [np.concatenate([e, s.astype(np.int32)]) for e, s in
+                   zip(edges, (lb, lb_rev, length))]
+        got, one_row = emulate_k9x(index, *cursors, left)
+        assert 0.0 < one_row < 1.0
+        for g, w in zip(got, _ref_extend(ref_index, left, cursors)):
+            assert np.array_equal(g, w)
+
+
+def test_search_cursors_follow_host_extend_left(indexes):
+    """tools/fm_bench.search_cursors (K9x's search cursors, built for all
+    seeds at once) records the cursors FmIndex.extend_left walks through
+    for each pattern, from the root until the interval empties or the
+    pattern ends, each once; limit and seed pick a seeded subset."""
+    from floxer_tpu_torch.tools.fm_bench import search_cursors
+
+    _, _, host, sequences = indexes
+    rng = np.random.default_rng(14)
+    text = sequences[0]
+    patterns = [text[s:s + k] for s, k in zip(rng.integers(0, 200, 12),
+                                              rng.integers(1, 30, 12))]
+    patterns += [rng.integers(1, 5, size=25).astype(np.uint8)
+                 for _ in range(4)]
+    want = []
+    for pattern in patterns:
+        cursor = host.root_cursor()
+        for symbol in reversed(pattern.tolist()):
+            if cursor.length <= 0:
+                break
+            want.append((cursor.lb, cursor.lb_rev, cursor.length))
+            cursor = host.extend_left(cursor, int(symbol))
+    got = search_cursors(host, patterns, limit=10**6, seed=3)
+    assert got.dtype == np.int32 and got.shape == (3, len(want))
+    assert sorted(map(tuple, got.T.tolist())) == sorted(want)
+    subset = search_cursors(host, patterns, limit=7, seed=3)
+    assert np.array_equal(subset, got[:, :7])

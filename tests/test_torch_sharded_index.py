@@ -116,6 +116,18 @@ void emu_sharded_locate(const unsigned* rows, int shard_rows, int num_shards,
     fm_locate_row(t, query_rows[i], seq_ids + i, positions + i);
 }
 
+// the interval rank over the shard tables: lo [B, 6] and count [B, 6]
+void emu_sharded_interval(const unsigned* rows, int shard_rows,
+                          int row_offset, const int* starts,
+                          const int* lengths, const int* before,
+                          int num_shards, const int* base, const int* length,
+                          int B, int* lo, int* count) {
+  const FmShardedRankTable t = table(rows, shard_rows, row_offset, starts,
+                                     lengths, before, num_shards);
+  for (int i = 0; i < B; ++i)
+    fm_interval_rank(t, base[i], length[i], lo + 6 * i, count + 6 * i);
+}
+
 // the extension K11 runs for an expanded state, over the shard tables
 void emu_sharded_extend(const unsigned* rows, int shard_rows, int row_offset,
                         const int* starts, const int* lengths,
@@ -203,6 +215,18 @@ def emulated_extension(lib):
     return extend
 
 
+def emulate_interval(lib, base, length, rows, row_offset, starts, lengths,
+                     before):
+    lo = torch.zeros((base.shape[0], 6), dtype=torch.int32)
+    count = torch.zeros_like(lo)
+    lib.emu_sharded_interval(
+        _ptr(rows), rows.shape[1], row_offset, _ptr(starts), _ptr(lengths),
+        _ptr(before), rows.shape[0], _ptr(base), _ptr(length),
+        base.shape[0], _ptr(lo), _ptr(count),
+    )
+    return lo, count
+
+
 # ------------------------------------------------------------------- rank
 
 
@@ -278,6 +302,59 @@ def test_owner_rank_matches_reference_psum(num_shards, emulation):
         assert torch.equal(
             emulate_rank(emulation, extremes, *args, single.shard_before),
             cuda_sharded.fm_sharded_rank_plain(extremes, *args))
+
+
+@pytest.mark.parametrize("num_shards", [2, 3, 4])
+def test_owner_interval_rank_matches_reference_psum(num_shards, emulation):
+    """The interval rank over the shard tables (K11s's extension: one row
+    when both ends have one owner and share its block) through the g++
+    build: lo is the reference's psum rank at the base and count its rank
+    at base + length less lo, for intervals that straddle each owner
+    boundary by 1-3 positions on either side, sit inside one block of one
+    owner, end at n or at an empty trailing shard's start, in both
+    directions, on the 247-row text of the owner test."""
+    rng = np.random.default_rng(43)
+    sequences = [rng.integers(1, 5, size=200).astype(np.uint8),
+                 rng.integers(1, 6, size=45).astype(np.uint8)]
+    ref_host, host = RefFmIndex(sequences), FmIndex(sequences)
+    n = host.n
+    index = ShardedDeviceIndex.from_host(host, num_shards, CPU)
+    bases, lengths = [], []
+    for start in index.fwd.shard_starts.tolist():
+        for before_edge in (1, 2, 3):
+            for past_edge in (0, 1, 3):
+                if 0 <= start - before_edge and start + past_edge <= n:
+                    bases.append(start - before_edge)
+                    lengths.append(before_edge + past_edge)
+        if start + 5 <= n:
+            bases.append(start + 1)
+            lengths.append(4)
+    for base in range(0, n + 1, 37):
+        bases.append(base)
+        lengths.append(n - base)
+        bases.append(base)
+        lengths.append(min(3, n - base))
+    if len(bases) % 2:  # the reference's batch splits over 2 reads devices
+        bases.append(n)
+        lengths.append(0)
+    base = np.array(bases, dtype=np.int32)
+    length = np.array(lengths, dtype=np.int32)
+    ref_mesh = ref_si.make_2d_mesh(jax.devices()[:2 * num_shards],
+                                   index_axis_size=num_shards)
+    for direction in ("fwd", "rev"):
+        single = getattr(index, direction)
+        ref_single = ref_si.shard_single_index(
+            getattr(ref_host, direction).bwt, num_shards)
+        want_lo = np.asarray(ref_si.sharded_rank_all(ref_mesh, ref_single,
+                                                     base))
+        want_hi = np.asarray(ref_si.sharded_rank_all(ref_mesh, ref_single,
+                                                     base + length))
+        lo, count = emulate_interval(
+            emulation, torch.from_numpy(base), torch.from_numpy(length),
+            single.rank_rows, single.block_offset, single.shard_starts,
+            single.shard_lengths, single.shard_before)
+        assert np.array_equal(lo.numpy(), want_lo)
+        assert np.array_equal(count.numpy(), want_hi - want_lo)
 
 
 def test_shard_tables_count_only_real_rows():
