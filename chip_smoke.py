@@ -99,7 +99,10 @@ Phases, one line each on stdout, any failure exits non-zero:
            beside K1's at the root shape), K5 full = r4 there, and each
            output there equal to its plain version, run on CPU copies of
            the same inputs in worker processes since the kernels phase
-           ended; then the three entry points' main() as a user runs them
+           ended; the ptxas report and the column loops of K5-K8's
+           instances (no spill; K6 and K8 with no shared memory and
+           loops that hold the work their functions name); then the
+           three entry points' main() as a user runs them
            (python -m floxer_tpu_torch.scripts.<name>)
   toy_e2e  python -m floxer_tpu_torch --engine device on tests/data: the
            reference's expected records, empty stdout
@@ -2031,11 +2034,14 @@ def script_bounds(arrays, peaks) -> dict:
     """K5-K8's bound fields for their representative variants on
     script_arrays' `arrays`, per band word and column, counted as the
     constants above count: K5 `full` runs K1's column on every row's
-    columns; K6 `elementwise` 20 x (xor, or, add) plus the accumulating
-    IADD3 (v1 is the same in every word); K7 carry=10 ops=80 rolls=12 the
-    char's xor and the carried sum's add (the carried arrays but the first
-    are the same in every word), 80 x (shift, LOP3) and 12 xors; K8
-    bcast=18 one predicated xor per condition plus the char's add."""
+    columns; K6 `elementwise` 20 x (xor, or, add, v1's add) plus the
+    accumulating IADD3 (v1 is an array of 256 words; it was counted once a
+    row until the kernel loaded its start values from a table); K7
+    carry=10 ops=80 rolls=12 the char's xor and the carried sum's add (the
+    carried arrays but the first are the same in every word), 80 x (shift,
+    LOP3) and 12 xors; K8 bcast=18 one predicated xor per condition plus
+    the char's add and y's add (y an array too), and each condition's
+    compare once a row. K6 and K8 also read their start tables."""
     import numpy as np
 
     inputs, texts, jstar = arrays
@@ -2043,18 +2049,20 @@ def script_bounds(arrays, peaks) -> dict:
     band_words = inputs[0].shape[1]
     word_cols = rows * band_words * num_text
     out_bytes = rows * band_words * 4
+    table_bytes = band_words * 4  # a start table's row
     k5_ops = banded_ops(band_words, np.full(rows, num_text + 1),
                         inputs[4][:, 1], num_text)
     k5_bytes = sum(a.nbytes for a in inputs) + 8 * rows
     return {
         "K5": bound_fields(bound(k5_ops, k5_bytes, peaks)),
-        "K6": bound_fields(bound((20 * 3 + 1) * word_cols,
-                                 texts.nbytes + out_bytes, peaks)),
+        "K6": bound_fields(bound((20 * 4 + 1) * word_cols,
+                                 texts.nbytes + 3 * table_bytes + out_bytes,
+                                 peaks)),
         "K7": bound_fields(bound((2 + 80 * 2 + 12) * word_cols,
                                  texts.nbytes + out_bytes, peaks)),
-        "K8": bound_fields(bound((18 + 1) * word_cols,
-                                 texts.nbytes + jstar.nbytes + out_bytes,
-                                 peaks)),
+        "K8": bound_fields(bound((18 + 2) * word_cols + 18 * rows * num_text,
+                                 texts.nbytes + jstar.nbytes
+                                 + 2 * table_bytes + out_bytes, peaks)),
     }
 
 
@@ -2152,34 +2160,60 @@ def start_full_width_plain(arrays):
     return pool, pool.map_async(_plain_run, range(count), chunksize=1)
 
 
+def scripts_loop_floors() -> dict:
+    """{(kernel, label): the fewest column-loop instructions} of K6's 3
+    and K8's 4 instances: the work the function names on a lane's 8 words
+    (a loop that folds words, as the shared-memory kernels' did, falls
+    below): K6 `empty` an add a word, `elementwise` 20 x 3 a word (xor,
+    or, add), `rolls` its 12 shuffles and an add a word (nvcc merges the
+    ors of the loop-invariant v2 across rolls); K8 an add for each of x's
+    and y's words and a predicated xor a word for each condition."""
+    from floxer_tpu_torch.scripts import microbench_carry_scaling as k78
+
+    floors = {("K6", "empty"): 8, ("K6", "elementwise"): 8 * 20 * 3,
+              ("K6", "rolls"): 12 + 8}
+    floors.update({("K8", f"bcast={b}"): 2 * 8 + 8 * b for b in k78.BCASTS})
+    return floors
+
+
 def scripts_ptxas() -> dict:
     """What ptxas -v reported in the scripts' build for K5's 27 instances
     (ablate_banded_kernel<R, F>: R = 4, 8, 12 words a lane, F each variant's
-    sections) and K7's 8 (carry_scaling_kernel<n_carry, n_ops, n_rolls>),
-    with the instructions of their column loops (cuobjdump -sass). Fails
-    on a missing instance, a spill or a stack frame, and unless K7 holds
-    its carried arrays in registers: carry=14 (ops and rolls 0) at least
-    80 registers above carry=3 and its column loop at least 2 instructions
-    above for each of the 11 x 8 array words a lane it adds."""
+    sections), K6's 3 (column_loop_kernel<V>), K7's 8
+    (carry_scaling_kernel<n_carry, n_ops, n_rolls>) and K8's 4
+    (bcast_kernel<n_bcast>), with the instructions of their column loops
+    (cuobjdump -sass). Fails on a missing instance, a spill or a stack
+    frame; unless K7 holds its carried arrays in registers: carry=14 (ops
+    and rolls 0) at least 80 registers above carry=3 and its column loop at
+    least 2 instructions above for each of the 11 x 8 array words a lane it
+    adds; and unless K6 and K8 keep no static shared memory and each holds
+    one column loop of at least scripts_loop_floors' instructions."""
     from floxer_tpu_torch.ops import _build
     from floxer_tpu_torch.scripts import ablate_banded_kernel as k5
     from floxer_tpu_torch.scripts import microbench_carry_scaling as k78
+    from floxer_tpu_torch.scripts import microbench_column_loop as k6
 
     usage = _build.SCRIPTS.ptxas_usage()
     loops = _build.sass_loops(_build.SCRIPTS.sass())
     flags = {sum(k5._FLAGS[s] for s in k5._sections_off(v)): v
              for v in k5.VARIANTS}
-    report = {"K5": {}, "K7": {}}
+    report = {"K5": {}, "K6": {}, "K7": {}, "K8": {}}
     for name, found in usage.items():
         k5_match = re.search(r"ablate_banded_kernelILi(\d+)ELi(\d+)E", name)
+        k6_match = re.search(r"column_loop_kernelILi(\d+)E", name)
         k7_match = re.search(
             r"carry_scaling_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name)
+        k8_match = re.search(r"bcast_kernelILi(\d+)E", name)
         if k5_match:
             r, f = map(int, k5_match.groups())
             key, kernel = f"BW={32 * r} {flags.get(f, f)}", "K5"
+        elif k6_match:
+            key, kernel = k6.VARIANTS[int(k6_match.group(1))], "K6"
         elif k7_match:
             key, kernel = "carry={} ops={} rolls={}".format(
                 *k7_match.groups()), "K7"
+        elif k8_match:
+            key, kernel = f"bcast={k8_match.group(1)}", "K8"
         else:
             continue
         check(found.get("spill_stores", 1) == 0
@@ -2204,6 +2238,20 @@ def scripts_ptxas() -> dict:
           f"K7's column loops at carry=3 and 14: "
           f"{few['sass_loop_instructions']}, "
           f"{many['sass_loop_instructions']}")
+    floors = scripts_loop_floors()
+    for kernel in ("K6", "K8"):
+        check(set(report[kernel]) == {k for c, k in floors if c == kernel},
+              f"{kernel}'s instances are {sorted(report[kernel])}")
+    for (kernel, key), floor in floors.items():
+        entry = report[kernel][key]
+        check(entry.get("shared", 0) == 0,
+              f"{kernel} {key} keeps {entry.get('shared')} bytes of shared "
+              f"memory")
+        check(len(entry["sass_loop_instructions"]) == 1
+              and entry["sass_loop_instructions"][0] >= floor,
+              f"{kernel} {key}'s column loops hold "
+              f"{entry['sass_loop_instructions']} instructions, not one "
+              f"loop of at least {floor}")
     return report
 
 
@@ -2262,7 +2310,7 @@ def run_scripts_phase(device, scripts_build, k1_row, k1_ends, full_arrays,
     in turns with K1's register kernel (k1_column_decomposition); every
     variant timed at the scripts' full width on `full_arrays`, its output
     held against `full_plain` (the plain versions on CPU copies of the
-    same arrays); K5's and K7's ptxas and column loops (scripts_ptxas);
+    same arrays); K5-K8's ptxas and column loops (scripts_ptxas);
     then the three entry points' main() with the launch counts set to 0
     just before. Returns (phase fields, table rows)."""
     import numpy as np
@@ -2378,12 +2426,17 @@ def run_scripts_phase(device, scripts_build, k1_row, k1_ends, full_arrays,
             "plain_ms": rep[f"plain_ms_{COMPARE_TEXT}"],
             **bounds[kernel],
         }
-    k7_build = {
-        label: {"us_per_col": variants[("K7", label)]["us_per_col"],
-                "registers": entry["registers"],
-                "sass_loop_instructions": entry["sass_loop_instructions"]}
-        for label, entry in ptxas["K7"].items()
-    }
+    def build_rows(kernel):
+        return {
+            label: {"us_per_col": variants[(kernel, label)]["us_per_col"],
+                    "registers": entry["registers"],
+                    "sass_loop_instructions":
+                        entry["sass_loop_instructions"]}
+            for label, entry in ptxas[kernel].items()
+        }
+
+    k7_build = build_rows("K7")
+    k6_k8_build = {"K6": build_rows("K6"), "K8": build_rows("K8")}
     fields = {
         "nvcc_seconds": _build.SCRIPTS.last_build_seconds,
         "library": str(_build.SCRIPTS.path().relative_to(ROOT)),
@@ -2403,6 +2456,7 @@ def run_scripts_phase(device, scripts_build, k1_row, k1_ends, full_arrays,
         "k1_column_decomposition": decomposition,
         "k5_widths": k5_widths,
         "k7_build": k7_build,
+        "k6_k8_build": k6_k8_build,
         "ptxas": ptxas,
         "variants": {f"{k} {label}": v for (k, label), v in variants.items()},
         "launches": launches, "entry_points": printed,

@@ -292,12 +292,12 @@ SCRIPTS = KernelLibrary(_PACKAGE_DIR / "scripts" / "csrc", "libfloxer_scripts", 
     # vp0, planes0, texts, pattern stream, scalars, rows, band_words,
     # num_text, variant flags, dist, end, stream
     "floxer_ablate_banded": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
-    # texts, rows, num_text, variant, out, stream
-    "floxer_column_loop": [_P, _I, _I, _I, _P, _P],
+    # texts, starts, rows, num_text, variant, out, stream
+    "floxer_column_loop": [_P, _P, _I, _I, _I, _P, _P],
     # texts, starts, rows, num_text, n_carry, n_ops, n_rolls, out, stream
     "floxer_carry_scaling": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
-    # texts, jstar, rows, num_text, n_bcast, out, stream
-    "floxer_bcast": [_P, _P, _I, _I, _I, _P, _P],
+    # texts, jstar, starts, rows, num_text, n_bcast, out, stream
+    "floxer_bcast": [_P, _P, _P, _I, _I, _I, _P, _P],
 }, extra_headers=(_PACKAGE_DIR / "csrc" / "myers_banded_column.cuh",))
 
 # tools/k1_bench.py's own kernels (tools/csrc/*.cu), built only when the
@@ -313,7 +313,8 @@ launch = ALIGNER.launch
 
 def parse_ptxas_log(text: str) -> dict[str, dict[str, int]]:
     """ptxas -v's info lines -> {mangled kernel name: {"registers",
-    "stack", "spill_stores", "spill_loads"}}."""
+    "stack", "spill_stores", "spill_loads"}}, and "shared" (bytes of
+    static shared memory) for a kernel whose line reports any."""
     usage: dict[str, dict[str, int]] = {}
     name = None
     for line in text.splitlines():
@@ -336,6 +337,9 @@ def parse_ptxas_log(text: str) -> dict[str, dict[str, int]]:
         found = re.search(r"Used (\d+) registers", line)
         if found and name:
             usage[name]["registers"] = int(found.group(1))
+        found = re.search(r"(\d+) bytes smem", line)
+        if found and name:
+            usage[name]["shared"] = int(found.group(1))
     return usage
 
 

@@ -24,6 +24,7 @@ with a Python loop over the text columns.
 
 from __future__ import annotations
 
+import functools
 import subprocess
 
 import torch
@@ -58,6 +59,19 @@ def shift_up(words: torch.Tensor) -> torch.Tensor:
     """Every word moves one up along the last axis (word w-1 to w), 0
     into word 0: the TPU's masked one-word roll."""
     return torch.cat([torch.zeros_like(words[..., :1]), words[..., :-1]], dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def start_table(values: tuple, device: torch.device) -> torch.Tensor:
+    """int32 [len(values), BAND_WORDS], row a holding values[a] in every
+    word: a kernel's start values as an operand, which the compiler cannot
+    see through (from constants it could prove the words of an array equal
+    and compute one where the function names them all). Made once per
+    (values, device); the kernels only read it."""
+    return (
+        torch.tensor(values, dtype=torch.int32, device=device)
+        .view(-1, 1).expand(len(values), BAND_WORDS).contiguous()
+    )
 
 
 def accelerator_or_exit() -> torch.device:

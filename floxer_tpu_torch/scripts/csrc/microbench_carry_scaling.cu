@@ -19,25 +19,45 @@
 // template parameters here, instantiated for exactly the script's lists;
 // the entry points refuse any other configuration.
 //
-// Layout: one warp per row, lane l owns the words [8l, 8l+8). K7 holds its
-// carried arrays in registers, as K1's register kernel holds its six band
-// arrays: kCarry x 8 words a lane (24, 80, 112 registers at 3, 10, 14
-// arrays), so what it times is what K1 pays for each carried array and
-// each word of a lane's run; a one-word roll is register moves plus one
-// __shfl_up_sync, the way K1 shifts its horizontal deltas. The arrays'
-// start values are loaded from an operand (a + 1 in every word of row a):
-// from constants the compiler could prove the words of an array, or the
-// arrays 1.., equal induction variables and fold them, and K7 would time
-// fewer arrays than it names. K8 keeps its two arrays in shared memory at
-// [i*32 + l], as K6 (microbench_column_loop.cu) does; jstar is one int per
-// row, held in a register.
+// Layout, both kernels: K1's register column at 256 band words (its
+// myers_banded_reg_kernel<8>, csrc/myers_banded.cu). One warp per row,
+// lane l owns the words [8l, 8l+8) of each carried array as registers,
+// indexed only by constants in unrolled loops, as K1 holds its six band
+// arrays; nothing is read or written in shared memory. K7: kCarry x 8
+// words a lane (24, 80, 112 registers at 3, 10, 14 arrays), so what it
+// times is what K1 pays for each carried array and each word of a lane's
+// run; a one-word roll is register moves plus one __shfl_up_sync, the way
+// K1 shifts its horizontal deltas. The arrays' start values are loaded from
+// an operand (K7: a + 1 in every word of row a; K8: x = 1, y = 3): from
+// constants the compiler could prove the words of an array, or K7's arrays
+// 1.., equal induction variables and fold them, and the kernel would time
+// fewer words or arrays than it names.
 //
-// What bounds them on an H100: the latency of the column chain. For K7
-// that is the issue of a dependent chain of SHF/LOP3 pairs (2 n_ops deep)
-// over 8 independent words, then n_rolls shuffles, one warp per row.
+// K8's conditions: each j + t <= jstar[row] is the same for the whole warp
+// (one row). It is compared once per column and t, with jstar in a
+// register, and applied to each of a lane's 8 words of x as a predicated
+// xor, as K1 applies its one per-column condition (col >= topshift) to its
+// words. The n_bcast predicated xors of a column are inline PTX: written as
+// selects, the compiler may merge them into one xor of y under the parity
+// of the column's true conditions, which gives the same x but no longer
+// prices a condition on each word. The chars arrive a block of 32 columns a
+// warp load, a block ahead (column_chars.cuh); K7 loads each one column
+// ahead.
+//
+// What bounds them on an H100: the issue of one warp's column (32 rows,
+// 32 warps, one on each of 32 of the card's 528 SM sub-partitions). For K7
+// that is a dependent chain of SHF/LOP3 pairs (2 n_ops deep) over 8
+// independent words, then n_rolls shuffles; for K8, n_bcast compares and
+// 8 n_bcast predicated xors a column, then 16 adds. The compares and xors
+// go to the sub-partition's integer pipe, which takes a warp's instruction
+// only every other cycle: at n_bcast = 18 they set ~330 of a column's ~380
+// cycles.
 
 #include <cstdint>
+#include <utility>
 #include <cuda_runtime.h>
+
+#include "column_chars.cuh"
 
 namespace {
 
@@ -101,40 +121,72 @@ __global__ void __launch_bounds__(32) carry_scaling_kernel(
   }
 }
 
+// x[i] ^= y[i] on each of the 8 words when d <= -kT, i.e. j + kT <=
+// jstar: one compare, then eight predicated xors
+template <int kT>
+__device__ __forceinline__ void xor_if(uint32_t (&x)[kRun],
+                                       const uint32_t (&y)[kRun], int d) {
+  static_assert(kRun == 8, "one predicated xor for each of 8 words");
+  asm("{\n\t"
+      ".reg .pred p;\n\t"
+      "setp.le.s32 p, %8, %9;\n\t"
+      "@p xor.b32 %0, %0, %10;\n\t"
+      "@p xor.b32 %1, %1, %11;\n\t"
+      "@p xor.b32 %2, %2, %12;\n\t"
+      "@p xor.b32 %3, %3, %13;\n\t"
+      "@p xor.b32 %4, %4, %14;\n\t"
+      "@p xor.b32 %5, %5, %15;\n\t"
+      "@p xor.b32 %6, %6, %16;\n\t"
+      "@p xor.b32 %7, %7, %17;\n\t"
+      "}"
+      : "+r"(x[0]), "+r"(x[1]), "+r"(x[2]), "+r"(x[3]), "+r"(x[4]),
+        "+r"(x[5]), "+r"(x[6]), "+r"(x[7])
+      : "r"(d), "n"(-kT), "r"(y[0]), "r"(y[1]), "r"(y[2]), "r"(y[3]),
+        "r"(y[4]), "r"(y[5]), "r"(y[6]), "r"(y[7]));
+}
+
+// the column's conditions t = 0, 1, ... in order
+template <int... kT>
+__device__ __forceinline__ void conditions(uint32_t (&x)[kRun],
+                                           const uint32_t (&y)[kRun], int d,
+                                           std::integer_sequence<int, kT...>) {
+  (xor_if<kT>(x, y, d), ...);
+}
+
 template <int kBcast>
-__global__ void bcast_kernel(const int32_t* __restrict__ texts,
-                             const int32_t* __restrict__ jstar, int rows,
-                             int num_text, uint32_t* __restrict__ out) {
-  __shared__ uint32_t xs[kBandWords];
-  __shared__ uint32_t ys[kBandWords];
+__global__ void __launch_bounds__(32) bcast_kernel(
+    const int32_t* __restrict__ texts, const int32_t* __restrict__ jstar,
+    const uint32_t* __restrict__ starts, int rows, int num_text,
+    uint32_t* __restrict__ out) {
   const int row = blockIdx.x;
   const int lane = threadIdx.x;
   if (row >= rows) return;
+  // starts is [2, 256]: x, y
+  uint32_t x[kRun], y[kRun];
 #pragma unroll
   for (int i = 0; i < kRun; ++i) {
-    xs[i * 32 + lane] = 1u;
-    ys[i * 32 + lane] = 3u;
+    x[i] = __ldg(starts + lane * kRun + i);
+    y[i] = __ldg(starts + kBandWords + lane * kRun + i);
   }
-  const int js = jstar[row];
-  const int32_t* trow = texts + static_cast<size_t>(row) * num_text;
+  // j + t <= jstar as d = j - js <= -t; js clamped to [-1, num_text +
+  // kBcast], which leaves every condition as it was and d without overflow
+  const int js = min(max(__ldg(jstar + row), -1), num_text + kBcast);
+  floxer_scripts::ColumnChars chars(
+      texts + static_cast<size_t>(row) * num_text, num_text, lane);
 
+#pragma unroll 1
   for (int j = 0; j < num_text; ++j) {
-    const uint32_t ch = static_cast<uint32_t>(trow[j]);
+    const uint32_t ch = chars.take(j);
+    conditions(x, y, j - js, std::make_integer_sequence<int, kBcast>{});
 #pragma unroll
     for (int i = 0; i < kRun; ++i) {
-      const int at = i * 32 + lane;
-      uint32_t x = xs[at];
-      const uint32_t y = ys[at];
-#pragma unroll
-      for (int t = 0; t < kBcast; ++t) x = (j + t <= js) ? (x ^ y) : x;
-      xs[at] = x + ch;
-      ys[at] = y + 1u;
+      x[i] += ch;
+      y[i] += 1u;
     }
   }
 #pragma unroll
   for (int i = 0; i < kRun; ++i) {
-    out[static_cast<size_t>(row) * kBandWords + lane * kRun + i] =
-        xs[i * 32 + lane];
+    out[static_cast<size_t>(row) * kBandWords + lane * kRun + i] = x[i];
   }
 }
 
@@ -173,16 +225,18 @@ extern "C" int floxer_carry_scaling(const void* texts, const void* starts,
   if (n_bcast == B) {                                                     \
     bcast_kernel<B><<<rows, 32, 0, s>>>(                                  \
         static_cast<const int32_t*>(texts),                               \
-        static_cast<const int32_t*>(jstar), rows, num_text,               \
+        static_cast<const int32_t*>(jstar),                               \
+        static_cast<const uint32_t*>(starts), rows, num_text,             \
         static_cast<uint32_t*>(out));                                     \
     return static_cast<int>(cudaGetLastError());                          \
   }
 
-// texts int32 [rows, num_text], jstar int32 [rows], out uint32 [rows, 256];
-// n_bcast one of the script's 0, 4, 10, 18
-extern "C" int floxer_bcast(const void* texts, const void* jstar, int rows,
-                            int num_text, int n_bcast, void* out,
-                            void* stream) {
+// texts int32 [rows, num_text], jstar int32 [rows], starts uint32 [2, 256]
+// (x, y: 1, 3 in every word), out uint32 [rows, 256]; n_bcast one of the
+// script's 0, 4, 10, 18
+extern "C" int floxer_bcast(const void* texts, const void* jstar,
+                            const void* starts, int rows, int num_text,
+                            int n_bcast, void* out, void* stream) {
   if (rows == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   FLOXER_BCAST_CONFIG(0)

@@ -12,22 +12,38 @@
 //                0) | v2 }; acc += x + ch
 // and the result is acc [rows, 256].
 //
-// What bounds it on an H100: nothing but the column chain itself. A few
-// bytes enter per column, so the time per column is the latency of the
-// column's dependent integer ops, shared-memory round trips and shuffles.
+// Design: K1's register column at 256 band words, the layout of its
+// myers_banded_reg_kernel<8> (csrc/myers_banded.cu), so that what K6 times
+// is the column K1 runs. One warp a row; lane l owns the words [8l, 8l+8)
+// of each carried array as registers, indexed only by constants in
+// unrolled loops; nothing is read or written in shared memory. `rolls`
+// shifts as K1 shifts its horizontal deltas: each word takes the one below
+// it inside the lane, and the lane's bottom word takes the top word of
+// lane l-1 by one __shfl_up_sync, 0 in lane 0. The chars arrive a block of
+// 32 columns a warp load, a block ahead, each shuffled from its lane a
+// column ahead (column_chars.cuh).
 //
-// Design: the layout K1 (csrc/myers_banded.cu) and the other research
-// kernels share, so their numbers decompose K1's column. One warp per row;
-// lane l owns the words [8l, 8l+8). Carried arrays live in shared memory,
-// interleaved so that word i of lane l sits at [i*32 + l], as K1 holds its
-// state; the per-column temporary x lives in registers. A one-word roll is
-// a register move inside the lane's run plus one __shfl_up_sync for the
-// word that crosses from lane l-1. Each column's char is read from
-// texts[row, j]; the TPU kernel's 128-column block roll, which only brought
-// a column's char to lane 0, has no counterpart.
+// The start values come from an operand (a [3, 256] table, one row per
+// array, that the wrapper keeps per device). Every word of a row holds the
+// same value in `empty` and `elementwise`: from constants the compiler
+// could prove that and compute one word a lane where the function names
+// eight. In `rolls` v1 and v2 never change, so x is the same every column;
+// an empty asm statement hides v1's value from the compiler at each column,
+// so the twelve rolls stay in the column loop, as the TPU kernel runs them.
+//
+// What bounds it on an H100: one warp's column on its SM sub-partition (32
+// rows, 32 warps, one on each of 32 of the card's 528 sub-partitions).
+// `elementwise` issues about 20 x 4 instructions a word (the xor, the or,
+// the add and v1's add), 8 words a lane; its xors and ors are LOP3s, which
+// the sub-partition's integer pipe takes from a warp only every other
+// cycle, so their 320 a column set ~640 of its ~730 cycles (the adds go to
+// the IMAD pipe). `empty` is the loop's floor: ~16 instructions and two
+// taken branches a column, ~68 cycles.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "column_chars.cuh"
 
 namespace {
 
@@ -38,51 +54,47 @@ constexpr int kRun = kBandWords / 32;  // words per lane
 enum Variant { kEmpty = 0, kElementwise = 1, kRolls = 2 };
 
 template <int V>
-__global__ void column_loop_kernel(const int32_t* __restrict__ texts,
-                                   int rows, int num_text,
-                                   uint32_t* __restrict__ out) {
-  __shared__ uint32_t acc_s[kBandWords];
-  __shared__ uint32_t v1_s[kBandWords];
-  __shared__ uint32_t v2_s[kBandWords];
+__global__ void __launch_bounds__(32) column_loop_kernel(
+    const int32_t* __restrict__ texts, const uint32_t* __restrict__ starts,
+    int rows, int num_text, uint32_t* __restrict__ out) {
   const int row = blockIdx.x;
   const int lane = threadIdx.x;
   if (row >= rows) return;
+  // starts is [3, 256]: acc, v1, v2
+  uint32_t acc[kRun], v1[kRun], v2[kRun];
 #pragma unroll
   for (int i = 0; i < kRun; ++i) {
-    const int at = i * 32 + lane;
-    acc_s[at] = 0u;
-    v1_s[at] = 1u;
-    v2_s[at] = 3u;
+    const int at = lane * kRun + i;
+    acc[i] = __ldg(starts + at);
+    v1[i] = __ldg(starts + kBandWords + at);
+    v2[i] = __ldg(starts + 2 * kBandWords + at);
   }
-  const int32_t* trow = texts + static_cast<size_t>(row) * num_text;
+  floxer_scripts::ColumnChars chars(
+      texts + static_cast<size_t>(row) * num_text, num_text, lane);
 
+#pragma unroll 1
   for (int j = 0; j < num_text; ++j) {
-    const uint32_t ch = static_cast<uint32_t>(trow[j]);
+    const uint32_t ch = chars.take(j);
     if constexpr (V == kEmpty) {
 #pragma unroll
-      for (int i = 0; i < kRun; ++i) acc_s[i * 32 + lane] += ch;
+      for (int i = 0; i < kRun; ++i) acc[i] += ch;
     } else if constexpr (V == kElementwise) {
 #pragma unroll
       for (int i = 0; i < kRun; ++i) {
-        const int at = i * 32 + lane;
-        uint32_t v1 = v1_s[at];
-        const uint32_t v2 = v2_s[at];
-        uint32_t x = v1;
+        uint32_t x = v1[i];
 #pragma unroll
         for (int r = 0; r < 20; ++r) {
-          x = (x ^ v2) + (x | v1);
-          v1 += 1u;
+          x = (x ^ v2[i]) + (x | v1[i]);
+          v1[i] += 1u;
         }
-        v1_s[at] = v1;
-        acc_s[at] += x + ch;
+        acc[i] += x + ch;
       }
     } else {
       uint32_t x[kRun];
-      uint32_t v2[kRun];
 #pragma unroll
       for (int i = 0; i < kRun; ++i) {
-        x[i] = v1_s[i * 32 + lane];
-        v2[i] = v2_s[i * 32 + lane];
+        asm("" : "+r"(v1[i]));
+        x[i] = v1[i];
       }
 #pragma unroll
       for (int r = 0; r < 12; ++r) {
@@ -92,38 +104,40 @@ __global__ void column_loop_kernel(const int32_t* __restrict__ texts,
         x[0] = (lane == 0 ? 0u : below) | v2[0];
       }
 #pragma unroll
-      for (int i = 0; i < kRun; ++i) acc_s[i * 32 + lane] += x[i] + ch;
+      for (int i = 0; i < kRun; ++i) acc[i] += x[i] + ch;
     }
   }
 #pragma unroll
   for (int i = 0; i < kRun; ++i) {
-    out[static_cast<size_t>(row) * kBandWords + lane * kRun + i] =
-        acc_s[i * 32 + lane];
+    out[static_cast<size_t>(row) * kBandWords + lane * kRun + i] = acc[i];
   }
 }
 
 template <int V>
-int launch(const void* texts, int rows, int num_text, void* out,
-           cudaStream_t stream) {
+int launch(const void* texts, const void* starts, int rows, int num_text,
+           void* out, cudaStream_t stream) {
   column_loop_kernel<V><<<rows, 32, 0, stream>>>(
-      static_cast<const int32_t*>(texts), rows, num_text,
+      static_cast<const int32_t*>(texts),
+      static_cast<const uint32_t*>(starts), rows, num_text,
       static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// texts int32 [rows, num_text] (chars 0..4), out uint32 [rows, 256];
-// variant 0 empty, 1 elementwise, 2 rolls
-extern "C" int floxer_column_loop(const void* texts, int rows, int num_text,
-                                  int variant, void* out, void* stream) {
+// texts int32 [rows, num_text] (chars 0..4), starts uint32 [3, 256] (acc,
+// v1, v2: 0, 1, 3 in every word), out uint32 [rows, 256]; variant 0 empty,
+// 1 elementwise, 2 rolls
+extern "C" int floxer_column_loop(const void* texts, const void* starts,
+                                  int rows, int num_text, int variant,
+                                  void* out, void* stream) {
   if (rows == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (variant) {
-    case kEmpty: return launch<kEmpty>(texts, rows, num_text, out, s);
+    case kEmpty: return launch<kEmpty>(texts, starts, rows, num_text, out, s);
     case kElementwise:
-      return launch<kElementwise>(texts, rows, num_text, out, s);
-    case kRolls: return launch<kRolls>(texts, rows, num_text, out, s);
+      return launch<kElementwise>(texts, starts, rows, num_text, out, s);
+    case kRolls: return launch<kRolls>(texts, starts, rows, num_text, out, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -8,8 +8,8 @@ conditions per column. Each launches its CUDA kernel
 version for a CPU tensor; a configuration outside the script's lists is
 refused on both routes. Operands: texts int32 [rows, num_text] (chars
 0..4), K8's jstar int32 [rows] -> int32 [rows, 256] holding uint32 words.
-K7 holds its carried arrays in registers, as K1 holds its band, and
-loads their start values from a table the wrapper keeps on each device.
+Both kernels hold their carried arrays in registers, as K1 holds its band,
+and load their start values from a table the wrapper keeps on each device.
 
     python -m floxer_tpu_torch.scripts.microbench_carry_scaling
 """
@@ -23,7 +23,7 @@ from ..ops._build import SCRIPTS, check_operand
 from ..ops.myers import MASK32, narrow
 from . import (
     BAND_WORDS, NUM_TEXT, ROWS, accelerator_or_exit, best_seconds, card_line,
-    check_texts, require_cuda, shift_up,
+    check_texts, require_cuda, shift_up, start_table,
 )
 from .microbench_column_loop import script_texts
 
@@ -42,10 +42,11 @@ CONFIGS = (
     (10, 80, 12),
 )
 BCASTS = (0, 4, 10, 18)
-# per device, K7's start values: row a holds a + 1 in every word, for the
-# most carried arrays a configuration has (the kernel loads its arrays'
-# starts from memory, so the compiler cannot fold them)
-_STARTS: dict[torch.device, torch.Tensor] = {}
+# the start values the kernels read from start_table(..., device): K7's
+# carried array a starts at a + 1, for the most arrays a configuration
+# has; K8's x and y (every word) at the script's BCAST_STARTS
+CARRY_STARTS = tuple(range(1, max(c for c, _, _ in CONFIGS) + 1))
+BCAST_STARTS = (1, 3)
 # kernel launches in this process (read and reset by chip_smoke.py)
 CARRY_LAUNCHES = 0
 BCAST_LAUNCHES = 0
@@ -75,23 +76,13 @@ def carry_scaling(texts: torch.Tensor, n_carry: int, n_ops: int, n_rolls: int):
     return carry_scaling_cuda(texts, n_carry, n_ops, n_rolls)
 
 
-def _starts(device: torch.device) -> torch.Tensor:
-    if device not in _STARTS:
-        carried = max(c for c, _, _ in CONFIGS)
-        _STARTS[device] = (
-            torch.arange(1, carried + 1, dtype=torch.int32, device=device)
-            .view(carried, 1).expand(carried, BAND_WORDS).contiguous()
-        )
-    return _STARTS[device]
-
-
 def carry_scaling_cuda(texts, n_carry, n_ops, n_rolls) -> torch.Tensor:
     """Launch K7 on the texts' GPU."""
     global CARRY_LAUNCHES
     _check_carry(texts, n_carry, n_ops, n_rolls)
     require_cuda(texts, "texts")
     rows, num_text = texts.shape
-    starts = _starts(texts.device)
+    starts = start_table(CARRY_STARTS, texts.device)
     out = torch.empty((rows, BAND_WORDS), dtype=torch.int32, device=texts.device)
     with torch.cuda.device(texts.device):
         SCRIPTS.launch(
@@ -140,11 +131,12 @@ def bcast_cuda(texts, jstar, n_bcast) -> torch.Tensor:
     _check_bcast(texts, jstar, n_bcast)
     require_cuda(texts, "texts")
     rows, num_text = texts.shape
+    table = start_table(BCAST_STARTS, texts.device)
     out = torch.empty((rows, BAND_WORDS), dtype=torch.int32, device=texts.device)
     with torch.cuda.device(texts.device):
         SCRIPTS.launch(
-            "floxer_bcast", texts.data_ptr(), jstar.data_ptr(), rows, num_text,
-            n_bcast, out.data_ptr(),
+            "floxer_bcast", texts.data_ptr(), jstar.data_ptr(),
+            table.data_ptr(), rows, num_text, n_bcast, out.data_ptr(),
             torch.cuda.current_stream(texts.device).cuda_stream,
         )
     BCAST_LAUNCHES += 1
@@ -157,9 +149,10 @@ def bcast_plain(texts, jstar, n_bcast) -> torch.Tensor:
     rows, num_text = texts.shape
     chars = texts.to(torch.int64)
     js = jstar.to(torch.int64)[:, None]
-    shape = (rows, BAND_WORDS)
-    x = torch.ones(shape, dtype=torch.int64, device=texts.device)
-    y = torch.full(shape, 3, dtype=torch.int64, device=texts.device)
+    x, y = (
+        torch.full((rows, BAND_WORDS), v, dtype=torch.int64, device=texts.device)
+        for v in BCAST_STARTS
+    )
     for j in range(num_text):
         for t in range(n_bcast):
             x = torch.where(j + t <= js, x ^ y, x)

@@ -6,6 +6,9 @@ elementwise work or pure one-word rolls. `column_loop` launches the CUDA
 kernel (csrc/microbench_column_loop.cu) for a CUDA tensor and runs
 `column_loop_plain` for a CPU tensor. Operands: texts int32 [rows,
 num_text] (chars 0..4) -> int32 [rows, 256] holding the uint32 words of acc.
+The kernel holds the carried arrays in registers, as K1 holds its band,
+and loads their start values from a table the wrapper keeps on each
+device.
 
     python -m floxer_tpu_torch.scripts.microbench_column_loop
 """
@@ -19,12 +22,15 @@ from ..ops._build import SCRIPTS
 from ..ops.myers import MASK32, narrow
 from . import (
     BAND_WORDS, NUM_TEXT, ROWS, accelerator_or_exit, best_seconds, card_line,
-    check_texts, require_cuda, shift_up,
+    check_texts, require_cuda, shift_up, start_table,
 )
 
 SOURCE = "floxer_tpu_torch/scripts/csrc/microbench_column_loop.cu"
 REPLACES = "scripts/tpu_microbench_column_loop.py:39"
 VARIANTS = ("empty", "elementwise", "rolls")
+# the script's start values of acc, v1 and v2 (every word; the kernel
+# reads them from start_table(STARTS, device))
+STARTS = (0, 1, 3)
 # kernel launches in this process (read and reset by chip_smoke.py)
 LAUNCHES = 0
 
@@ -49,10 +55,12 @@ def column_loop_cuda(texts: torch.Tensor, variant: str) -> torch.Tensor:
     _check(texts, variant)
     require_cuda(texts, "texts")
     rows, num_text = texts.shape
+    table = start_table(STARTS, texts.device)
     out = torch.empty((rows, BAND_WORDS), dtype=torch.int32, device=texts.device)
     with torch.cuda.device(texts.device):
         SCRIPTS.launch(
-            "floxer_column_loop", texts.data_ptr(), rows, num_text,
+            "floxer_column_loop", texts.data_ptr(), table.data_ptr(), rows,
+            num_text,
             VARIANTS.index(variant), out.data_ptr(),
             torch.cuda.current_stream(texts.device).cuda_stream,
         )
@@ -65,10 +73,10 @@ def column_loop_plain(texts: torch.Tensor, variant: str) -> torch.Tensor:
     _check(texts, variant)
     rows, num_text = texts.shape
     chars = texts.to(torch.int64)
-    shape = (rows, BAND_WORDS)
-    acc = torch.zeros(shape, dtype=torch.int64, device=texts.device)
-    v1 = torch.ones(shape, dtype=torch.int64, device=texts.device)
-    v2 = torch.full(shape, 3, dtype=torch.int64, device=texts.device)
+    acc, v1, v2 = (
+        torch.full((rows, BAND_WORDS), v, dtype=torch.int64, device=texts.device)
+        for v in STARTS
+    )
     for j in range(num_text):
         ch = chars[:, j : j + 1]
         if variant == "empty":

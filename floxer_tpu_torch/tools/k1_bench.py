@@ -2,7 +2,7 @@
 
     python -m floxer_tpu_torch.tools.k1_bench [--bands 256,384]
         [--rounds 3] [--repeats 5] [--seed 20261016] [--long] [--clusters]
-        [--price] [--large-layouts]
+        [--price] [--large-layouts] [--scripts]
 
 It makes 256 root tasks (a genome window of m + 2 k + 1 chars and up to
 1200 more, the pattern m = 20600 chars of a slice of it mutated at 5%,
@@ -36,10 +36,20 @@ them). With --large-layouts it times K3u on 1 block up to one past its
 aim of blocks at 544, 768, 1280 and 2048 pattern words on 8, 64 and 264
 overhanging roots, in turns.
 
+With --scripts it times instead the research kernels K6 and K8
+(floxer_tpu_torch.scripts) at the scripts' shape, 32 rows of 256 band
+words, at 1280 and 23040 text columns: every variant in turns (each round
+runs the variants forward, then backward), one JSON line a column count
+with each variant's ms, us per column and a checksum of its output, the
+outputs held to the plain versions at 1280 columns. A last line holds
+each K6 and K8 instance's ptxas -v report and the instruction count of
+each of its column loops (ops._build.sass_loops on the checkout's build).
+
 Without --clusters, --price and --large-layouts it calls only entry
 points that every version of the port with the multi-warp kernels has,
-so it times another checkout's K1 and K3 on the same tasks when that
-checkout is first on the path (run it in turns for an A/B):
+so it times another checkout's K1 and K3 (with --scripts its K6 and K8)
+on the same tasks when that checkout is first on the path (run it in
+turns for an A/B):
 
     PYTHONPATH=<checkout> python floxer_tpu_torch/tools/k1_bench.py
 
@@ -81,6 +91,11 @@ K3_LAYOUT_WORDS = (544, 768, 1280, 2048)
 K3_LAYOUT_TASKS = (8, 64, 264)
 # SM clock cycles the card spins before a timed round (~10 ms)
 ENQUEUE_CYCLES = 20_000_000
+# --scripts: the text columns at which K6 and K8 are timed, and the most
+# at which their outputs are held to the plain versions (which loop over
+# the columns in Python)
+SCRIPT_COLUMNS = (1280, 23040)
+SCRIPT_PLAIN_COLUMNS = 1280
 
 
 def root_tasks(seed):
@@ -348,6 +363,70 @@ def large_layouts(seed, rounds, repeats, device):
                               tasks=tasks)}
 
 
+def script_runs(texts, jstar) -> tuple[dict, dict]:
+    """({name: launch}, {name: plain version on CPU copies}) of every K6
+    and K8 variant."""
+    import functools
+
+    from floxer_tpu_torch.scripts import microbench_carry_scaling as k78
+    from floxer_tpu_torch.scripts import microbench_column_loop as k6
+
+    P = functools.partial
+    cpu_texts, cpu_jstar = texts.cpu(), jstar.cpu()
+    runs, plains = {}, {}
+    for v in k6.VARIANTS:
+        runs[f"K6 {v}"] = P(k6.column_loop, texts, v)
+        plains[f"K6 {v}"] = P(k6.column_loop_plain, cpu_texts, v)
+    for b in k78.BCASTS:
+        runs[f"K8 bcast={b}"] = P(k78.bcast, texts, jstar, b)
+        plains[f"K8 bcast={b}"] = P(k78.bcast_plain, cpu_texts, cpu_jstar, b)
+    return runs, plains
+
+
+def scripts_bench(rounds, repeats, device):
+    """One JSON line a count of SCRIPT_COLUMNS: script_runs' variants on
+    the scripts' seeded texts and jstar, in turns."""
+    import torch
+
+    from floxer_tpu_torch.scripts import microbench_carry_scaling as k78
+    from floxer_tpu_torch.scripts import microbench_column_loop as k6
+
+    for num_text in SCRIPT_COLUMNS:
+        texts = torch.from_numpy(k6.script_texts(num_text)).to(device)
+        jstar = torch.from_numpy(k78.script_jstar(num_text)).to(device)
+        runs, plains = script_runs(texts, jstar)
+        outputs = {name: run().cpu() for name, run in runs.items()}
+        line = {"kernel": "K6/K8", "num_text": num_text,
+                "card": torch.cuda.get_device_name(0)}
+        if num_text <= SCRIPT_PLAIN_COLUMNS:
+            line["equal_to_plain"] = all(
+                torch.equal(outputs[name], plains[name]()) for name in runs)
+        turns = {name: [] for name in runs}
+        for _ in range(rounds):
+            for name in [*runs, *reversed(runs)]:
+                turns[name] += rounds_ms(runs[name], 1, repeats)
+        line["variants"] = {
+            name: {"ms": sum(t) / len(t), "turns_ms": t,
+                   "us_per_col": sum(t) / len(t) * 1000 / num_text,
+                   "checksum": int(outputs[name].to(torch.int64).sum())}
+            for name, t in turns.items()}
+        yield line
+
+
+def script_instances() -> dict:
+    """ptxas -v and the column loops' instruction counts (sass_loops) of
+    each K6 and K8 instance of the checkout's scripts build."""
+    from floxer_tpu_torch.ops import _build
+
+    _build.SCRIPTS.load()
+    usage = _build.SCRIPTS.ptxas_usage()
+    return {
+        name: {**usage.get(name, {}), "column_loops": loops}
+        for name, loops in _build.sass_loops(_build.SCRIPTS.sass()).items()
+        if "column_loop" in name or "bcast" in name
+    }
+
+
 def rounds_ms(fn, rounds, repeats) -> list[float]:
     import torch
 
@@ -430,6 +509,7 @@ def main(argv=None) -> int:
     parser.add_argument("--clusters", action="store_true")
     parser.add_argument("--price", action="store_true")
     parser.add_argument("--large-layouts", action="store_true")
+    parser.add_argument("--scripts", action="store_true")
     args = parser.parse_args(argv)
     import torch
 
@@ -437,6 +517,12 @@ def main(argv=None) -> int:
         print("k1_bench: no CUDA device", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
+    if args.scripts:
+        for line in scripts_bench(args.rounds, args.repeats, device):
+            print(json.dumps(line), flush=True)
+        print(json.dumps({"script_instances": script_instances()}),
+              flush=True)
+        return 0
     patterns, windows = root_tasks(args.seed)
     for band_words in map(int, args.bands.split(",")):
         print(json.dumps(bench(patterns, windows, band_words, args.rounds,

@@ -848,19 +848,29 @@ def scripts_instances(usage, kernel, params):
 
 def test_scripts_kernels_registers_and_loops(cuda_device):
     """ptxas -v of the scripts' build: K5's 27 instances (9 variants x R =
-    4, 8, 12) and K7's 8 keep no stack frame and spill nothing; K7 holds
-    its carried arrays in registers, so carry=14 takes at least 80 more
-    registers than carry=3, and its column loop at least 2 more
-    instructions for each added array word (11 arrays x 8 words)."""
+    4, 8, 12), K6's 3, K7's 8 and K8's 4 keep no stack frame and spill
+    nothing; K7 holds its carried arrays in registers, so carry=14 takes at
+    least 80 more registers than carry=3, and its column loop at least 2
+    more instructions for each added array word (11 arrays x 8 words); K6
+    and K8 keep no static shared memory and hold one column loop of at
+    least the work their function names on a lane's 8 words (K6 `empty`
+    8 adds, `elementwise` 8 x 20 x 3, `rolls` 12 shuffles and 8 adds; K8
+    16 adds and 8 predicated xors a condition), which a loop that folds
+    words falls below."""
     from floxer_tpu_torch.ops import _build
 
     _build.SCRIPTS.load()
     usage = _build.SCRIPTS.ptxas_usage()
     k5 = scripts_instances(usage, "ablate_banded_kernel", 2)
+    k6 = scripts_instances(usage, "column_loop_kernel", 1)
     k7 = scripts_instances(usage, "carry_scaling_kernel", 3)
+    k8 = scripts_instances(usage, "bcast_kernel", 1)
     assert len(k5) == 27 and {r for r, _ in k5} == {4, 8, 12}
+    assert sorted(k6) == [(0,), (1,), (2,)]
     assert sorted(k7) == sorted(microbench_carry_scaling.CONFIGS)
-    for name, entry in list(k5.values()) + list(k7.values()):
+    assert sorted(k8) == [(b,) for b in microbench_carry_scaling.BCASTS]
+    instances = [*k5.values(), *k6.values(), *k7.values(), *k8.values()]
+    for name, entry in instances:
         assert entry.get("stack", 1) == 0, (name, entry)
         assert entry.get("spill_stores", 1) == 0, (name, entry)
         assert entry.get("spill_loads", 1) == 0, (name, entry)
@@ -870,6 +880,13 @@ def test_scripts_kernels_registers_and_loops(cuda_device):
     few, many = (loops[k7[(c, 0, 0)][0]] for c in (3, 14))
     assert len(few) == len(many) == 1
     assert many[0] - few[0] >= 2 * 11 * 8
+    floors = [(k6[(0,)], 8), (k6[(1,)], 8 * 20 * 3), (k6[(2,)], 12 + 8)]
+    floors += [(k8[(b,)], 2 * 8 + 8 * b)
+               for b in microbench_carry_scaling.BCASTS]
+    for (name, entry), floor in floors:
+        assert entry.get("shared", 0) == 0, (name, entry)
+        assert len(loops[name]) == 1 and loops[name][0] >= floor, (
+            name, loops[name], floor)
 
 
 @pytest.mark.parametrize("variant", microbench_column_loop.VARIANTS)

@@ -27,6 +27,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from floxer_tpu_torch import scripts
 from floxer_tpu_torch.scripts import ablate_banded_kernel as k5
 from floxer_tpu_torch.scripts import microbench_carry_scaling as k78
 from floxer_tpu_torch.scripts import microbench_column_loop as k6
@@ -441,6 +442,192 @@ def test_k5_schedule_emulation_matches_plain(variant, R):
     if variant == "r4":
         full = emulate_k5(inputs, "full")
         np.testing.assert_array_equal(dist, full[0])
+
+
+def script_initial_values(name: str, function: str) -> list:
+    """The start values of the carried arrays in the script's `function`
+    (its `init` tuple of jnp.zeros / ones / full((S, BW), v) arrays)."""
+    tree = script_tree(name)
+    maker = next(node for node in tree.body
+                 if isinstance(node, ast.FunctionDef) and node.name == function)
+    init = next(node.value for node in ast.walk(maker)
+                if isinstance(node, ast.Assign)
+                and getattr(node.targets[0], "id", None) == "init")
+    constant = {"zeros": 0, "ones": 1}
+    return [constant[call.func.attr] if call.func.attr in constant
+            else ast.literal_eval(call.args[1]) for call in init.elts]
+
+
+def test_start_tables_hold_the_scripts_initial_values():
+    """K6's table holds acc, v1, v2 and K8's x, y as the TPU scripts start
+    them (K7's its carried arrays 1..10), each value in every word of its
+    row, made once a device; the plain versions start from the same values
+    (the Pallas parity tests hold them)."""
+    assert script_initial_values(
+        "tpu_microbench_column_loop.py", "make_kernel") == list(k6.STARTS)
+    assert script_initial_values(
+        "tpu_microbench_carry_scaling.py", "make_bcast_kernel"
+    ) == list(k78.BCAST_STARTS)
+    cpu = torch.device("cpu")
+    for values in (k6.STARTS, k78.BCAST_STARTS, k78.CARRY_STARTS):
+        table = scripts.start_table(values, cpu)
+        assert table.dtype == torch.int32 and table.is_contiguous()
+        np.testing.assert_array_equal(
+            table.numpy(), np.repeat(np.array(values)[:, None], 256, axis=1))
+    assert scripts.start_table(k6.STARTS, cpu) is scripts.start_table(
+        k6.STARTS, cpu)
+
+
+def column_chars(row: np.ndarray):
+    """scripts/csrc/column_chars.cuh's ColumnChars in numpy: each column's
+    char in order; the warp holds a block of 32 columns, lane l column
+    32 b + l (0 past the row's end), loads the next block when it takes up
+    the one before, and shuffles each column's char from its lane one
+    column ahead."""
+    num_text = len(row)
+
+    def block(b):
+        return [row[32 * b + lane] if 32 * b + lane < num_text else 0
+                for lane in range(32)]
+
+    now, ahead = block(0), block(1)
+    following = now[0]
+    for j in range(num_text):
+        ch = following
+        k = j + 1
+        if k & 31 == 0:
+            now, ahead = ahead, block((k >> 5) + 1)
+        following = now[k & 31]
+        yield ch
+
+
+@pytest.mark.parametrize("num_text", [0, 1, 31, 32, 33, 65, 100])
+def test_column_chars_schedule_gives_every_column_in_order(num_text):
+    row = np.arange(1000, 1000 + num_text, dtype=np.int32)
+    assert list(column_chars(row)) == list(row)
+
+
+def lane_words(table_row: np.ndarray, rows: int) -> np.ndarray:
+    """A start table's row as [rows, 32 lanes, 8 words]: lane l holds the
+    band words [8l, 8l + 8)."""
+    words = np.ascontiguousarray(table_row).view(np.uint32).reshape(1, 32, 8)
+    return np.repeat(words, rows, axis=0)
+
+
+def kernel_chars(texts: np.ndarray) -> np.ndarray:
+    """uint32 [rows, num_text]: each row's chars as the kernels take them."""
+    rows, num_text = texts.shape
+    return np.array([list(column_chars(texts[r])) for r in range(rows)],
+                    dtype=np.int64).reshape(rows, num_text).astype(np.uint32)
+
+
+def emulate_k6(texts: np.ndarray, variant: str) -> np.ndarray:
+    """K6 as its CUDA kernel schedules it (scripts/csrc/
+    microbench_column_loop.cu), in numpy: acc, v1 and v2 as [rows, 32
+    lanes, 8 words] from the start table; `elementwise` runs the 20 rounds
+    on each of a lane's 8 words; `rolls` moves each word up inside the lane
+    and the lane's top word up a lane (the shuffle), 0 into lane 0's word
+    0. Returns acc as uint32 [rows, 256]."""
+    rows, num_text = texts.shape
+    table = scripts.start_table(k6.STARTS, torch.device("cpu")).numpy()
+    acc, v1, v2 = (lane_words(table[a], rows) for a in range(3))
+    chars = kernel_chars(texts)
+    for j in range(num_text):
+        ch = chars[:, j, None]
+        if variant == "empty":
+            acc += ch[:, :, None]
+        elif variant == "elementwise":
+            for i in range(8):
+                x = v1[:, :, i].copy()
+                for _ in range(20):
+                    x = (x ^ v2[:, :, i]) + (x | v1[:, :, i])
+                    v1[:, :, i] += np.uint32(1)
+                acc[:, :, i] += x + ch
+        else:
+            x = v1.copy()
+            for _ in range(12):
+                below = _shfl_up(x[:, :, 7], 1)
+                x[:, :, 1:] = x[:, :, :-1] | v2[:, :, 1:]
+                x[:, :, 0] = below | v2[:, :, 0]
+            acc += x + ch[:, :, None]
+    return acc.reshape(rows, 256)
+
+
+def emulate_k8(texts: np.ndarray, jstar: np.ndarray, n_bcast: int):
+    """K8 as its CUDA kernel schedules it (scripts/csrc/
+    microbench_carry_scaling.cu), in numpy: x and y as [rows, 32 lanes, 8
+    words] from the start table; per column, each condition t compared
+    once a row as j - js <= -t with js clamped to [-1, num_text + n_bcast],
+    then applied to every word as a predicated xor. Returns (x as uint32
+    [rows, 256], the count of true conditions [rows, num_text])."""
+    rows, num_text = texts.shape
+    table = scripts.start_table(
+        k78.BCAST_STARTS, torch.device("cpu")).numpy()
+    x, y = (lane_words(table[a], rows) for a in range(2))
+    chars = kernel_chars(texts)
+    js = np.clip(jstar.astype(np.int64), -1, num_text + n_bcast)
+    counts = np.zeros((rows, num_text), dtype=np.int64)
+    for j in range(num_text):
+        d = j - js
+        for t in range(n_bcast):
+            true = (d <= -t)[:, None, None]
+            counts[:, j] += true[:, 0, 0]
+            x = np.where(true, x ^ y, x)
+        x += chars[:, j, None, None]
+        y += np.uint32(1)
+    return x.reshape(rows, 256), counts
+
+
+EMULATION_COLUMNS = (37, 128)
+
+
+@pytest.mark.parametrize("num_text", EMULATION_COLUMNS)
+@pytest.mark.parametrize("variant", k6.VARIANTS)
+def test_k6_schedule_emulation_matches_plain(variant, num_text):
+    """emulate_k6, the CUDA kernel's lane schedule, computes the plain
+    version's function (37 columns: a short last block)."""
+    texts = np.random.default_rng(num_text).integers(
+        0, 5, size=(32, num_text)).astype(np.int32)
+    want = k6.column_loop_plain(torch.from_numpy(texts), variant)
+    np.testing.assert_array_equal(emulate_k6(texts, variant), words(want))
+
+
+@pytest.mark.parametrize("num_text", EMULATION_COLUMNS)
+@pytest.mark.parametrize("n_bcast", k78.BCASTS)
+def test_k8_schedule_emulation_matches_plain(n_bcast, num_text):
+    """emulate_k8 computes the plain version's function, for jstar past
+    both ends of int32 and of the row too; each column's count of true
+    conditions is min(max(jstar - j + 1, 0), n_bcast)."""
+    rng = np.random.default_rng(100 + num_text)
+    texts = rng.integers(0, 5, size=(32, num_text)).astype(np.int32)
+    jstar = rng.integers(0, num_text, size=32).astype(np.int32)
+    jstar[:6] = [-2**31, -5, 0, num_text - 1, num_text + 100, 2**31 - 1]
+    got, counts = emulate_k8(texts, jstar, n_bcast)
+    want = k78.bcast_plain(torch.from_numpy(texts), torch.from_numpy(jstar),
+                           n_bcast)
+    np.testing.assert_array_equal(got, words(want))
+    j = np.arange(num_text)[None, :]
+    np.testing.assert_array_equal(
+        counts, np.clip(jstar.astype(np.int64)[:, None] - j + 1, 0, n_bcast))
+
+
+def test_ptxas_log_reports_static_shared_memory():
+    """A kernel whose ptxas line reports static shared memory gets its
+    bytes as "shared"; one whose line reports none gets no such key."""
+    from floxer_tpu_torch.ops import _build
+
+    log = """ptxas info    : Compiling entry function '_Z1av' for 'sm_90a'
+ptxas info    : Function properties for _Z1av
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 31 registers, used 0 barriers, 3072 bytes smem, 380 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'
+ptxas info    : Function properties for _Z1bv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers, 380 bytes cmem[0]
+"""
+    usage = _build.parse_ptxas_log(log)
+    assert usage["_Z1av"]["shared"] == 3072 and usage["_Z1av"]["registers"] == 31
+    assert "shared" not in usage["_Z1bv"] and usage["_Z1bv"]["registers"] == 40
 
 
 def test_cuda_wrapper_refuses_other_band_widths():
