@@ -2628,7 +2628,7 @@ class E2E:
         also hold K1's and K3's split by kernel (K1_register, K1_wide,
         K1_cluster, K1_shared, and K3's likewise) and K4's launches by
         the layouts their blocks ran in (K4_reg8, K4_reg16, ...)."""
-        from floxer_tpu_torch import pipeline, verify_batch
+        from floxer_tpu_torch import pipeline, tracing
         from floxer_tpu_torch.__main__ import main
         from floxer_tpu_torch.ops import (
             cuda_myers_banded,
@@ -2639,7 +2639,6 @@ class E2E:
         env = env or {}
         os.environ.update(env)
         try:
-            fused_before = verify_batch._BATCH_TIMERS["fused"]
             reset_launches()
             code = main(self.argv(name, ["--engine", engine, *extra]))
             launches = pipeline.kernel_launches()
@@ -2656,13 +2655,14 @@ class E2E:
         check(code == 0, f"{name} failed")
         check(self.sam(name) == self.sam(oracle),
               f"{name} and {oracle} SAM files differ")
-        return launches, verify_batch._BATCH_TIMERS["fused"] - fused_before
+        return launches, tracing.last_job().counter(
+            "verify.fused_dispatches")
 
 
 def run_e2e(device, e2e: E2E):
     import torch
 
-    from floxer_tpu_torch import pipeline, verify_batch
+    from floxer_tpu_torch import pipeline, tracing
 
     e2e.run_host_pass()
 
@@ -2672,9 +2672,8 @@ def run_e2e(device, e2e: E2E):
     pipeline.start_device_warmup(device)
     pipeline.join_device_warmup()
     torch.cuda.synchronize()
-    kernel_before = verify_batch._BATCH_TIMERS["kernel"]
     launches, fused = e2e.run_device_pass("pass_a")
-    device_kernel_s = verify_batch._BATCH_TIMERS["kernel"] - kernel_before
+    device_kernel_s = tracing.last_job().seconds("verify.device_wait")
 
     sam_a = e2e.sam("pass_a")
     mapped = sum(
@@ -3675,7 +3674,6 @@ def run_device_search_pass(device, e2e: E2E):
     overflow_before = DeviceSearcher.redo_overflow
     dispatches_before = DeviceSearcher._chunk_dispatches
     retries_before = search_queue.RETRIES
-    seconds_before = dict(DeviceSearcher.stage_seconds)
     launches, _ = e2e.run_device_pass("pass_g", extra=["--device-search"])
     chunks = -(-e2e.num_reads // 100)
     dispatches = DeviceSearcher._chunk_dispatches - dispatches_before
@@ -3700,19 +3698,26 @@ def run_device_search_pass(device, e2e: E2E):
         "host_redo_long_seeds": DeviceSearcher.redo_long - long_before,
         "host_redo_overflowed_seeds":
             DeviceSearcher.redo_overflow - overflow_before,
-        "search_stage_s": {
-            stage: DeviceSearcher.stage_seconds[stage] - seconds_before[stage]
-            for stage in seconds_before
-        },
+        "search_stage_s": search_stage_seconds(),
     }, launches
 
 
-def search_stage_delta(before) -> dict:
-    """DeviceSearcher.stage_seconds since `before`."""
-    from floxer_tpu_torch.search_device import DeviceSearcher
+SEARCH_STAGES = (
+    "work_queue", "work_queue.operands", "work_queue.upload",
+    "work_queue.launch", "work_queue.download", "work_queue.sort", "blocks",
+    "dedup_cap", "select", "device_select", "select_order", "redo",
+    "frontier", "frontier_replay",
+)
 
-    return {stage: DeviceSearcher.stage_seconds[stage] - before[stage]
-            for stage in before}
+
+def search_stage_seconds() -> dict:
+    """The last run's seconds in each stage of the device searcher: its
+    job's sums of the spans search.device.<stage>."""
+    from floxer_tpu_torch import tracing
+
+    job = tracing.last_job()
+    return {stage: job.seconds(f"search.device.{stage}")
+            for stage in SEARCH_STAGES}
 
 
 def run_select_pass(e2e: E2E):
@@ -3721,9 +3726,6 @@ def run_select_pass(e2e: E2E):
     locate inside it, so no K9l launch); SAM = pass B; the searcher's
     stage seconds (device_select with its host group order,
     select_order)."""
-    from floxer_tpu_torch.search_device import DeviceSearcher
-
-    before = dict(DeviceSearcher.stage_seconds)
     launches, _ = e2e.run_device_pass(
         "pass_g2", extra=["--device-search"],
         env={"FLOXER_TPU_DEVICE_SELECT": "1"},
@@ -3738,7 +3740,7 @@ def run_select_pass(e2e: E2E):
         "reads": e2e.num_reads, "chunks": chunks, "sam_identical": True,
         "launches": launches, "align_s": seconds,
         "search_s": stage_seconds(split, "search"), "stage_split": split,
-        "search_stage_s": search_stage_delta(before),
+        "search_stage_s": search_stage_seconds(),
     }, launches
 
 
@@ -3750,7 +3752,6 @@ def run_block_pass(e2e: E2E):
     overflow."""
     from floxer_tpu_torch.search_device import DeviceSearcher
 
-    before = dict(DeviceSearcher.stage_seconds)
     overflow_before = DeviceSearcher.redo_overflow
     launches, _ = e2e.run_device_pass(
         "pass_g3", extra=["--device-search"],
@@ -3766,7 +3767,7 @@ def run_block_pass(e2e: E2E):
         "search_s": stage_seconds(split, "search"), "stage_split": split,
         "host_redo_overflowed_seeds":
             DeviceSearcher.redo_overflow - overflow_before,
-        "search_stage_s": search_stage_delta(before),
+        "search_stage_s": search_stage_seconds(),
     }, launches
 
 
@@ -3795,10 +3796,7 @@ def run_frontier_pass(e2e: E2E):
     seeds and strand (the per-query frontier), the rest of the reference
     engine on the host; SAM = the same reads' own host pass (the native
     host engine). Counted after the search warmup is joined."""
-    from floxer_tpu_torch.search_device import DeviceSearcher
-
     subset = first_reads(e2e, PASS_H_READS, "pass_h_host")
-    before = dict(DeviceSearcher.stage_seconds)
     started = time.monotonic()
     launches, _ = subset.run_device_pass(
         "pass_h", extra=["--device-search"], engine="reference",
@@ -3812,7 +3810,7 @@ def run_frontier_pass(e2e: E2E):
         "reads": PASS_H_READS, "sam_identical": True, "launches": launches,
         "align_s": subset.seconds("pass_h"),
         "host_pass_align_s": subset.seconds("pass_h_host"), "wall_s": wall,
-        "search_stage_s": search_stage_delta(before),
+        "search_stage_s": search_stage_seconds(),
     }, launches
 
 
@@ -3824,7 +3822,6 @@ def run_sharded_pass(e2e: E2E):
     seconds."""
     from floxer_tpu_torch.search_device import DeviceSearcher
 
-    before = dict(DeviceSearcher.stage_seconds)
     overflow_before = DeviceSearcher.redo_overflow
     launches, _ = e2e.run_device_pass(
         "pass_i", extra=["--device-search", "--index-shards", "2"],
@@ -3843,7 +3840,7 @@ def run_sharded_pass(e2e: E2E):
         "stage_split": split,
         "host_redo_overflowed_seeds":
             DeviceSearcher.redo_overflow - overflow_before,
-        "search_stage_s": search_stage_delta(before),
+        "search_stage_s": search_stage_seconds(),
     }, launches
 
 
@@ -4052,13 +4049,12 @@ def run_long_pass(e2e: E2E, rng):
     the long reads' widths (K1's multi-warp kernel at 640-2048 band words,
     K3u at 544-2048 pattern words): (width, tasks)."""
     from floxer_tpu_torch.ops import cuda_myers_banded, cuda_myers_large
-    from floxer_tpu_torch import verify_batch
+    from floxer_tpu_torch import tracing
 
     append_overhanging_reads(e2e, rng)
     e2e.run_host_pass()
-    kernel_before = verify_batch._BATCH_TIMERS["kernel"]
     launches, fused = e2e.run_device_pass("pass_e")
-    device_kernel_s = verify_batch._BATCH_TIMERS["kernel"] - kernel_before
+    device_kernel_s = tracing.last_job().seconds("verify.device_wait")
     for name, routed in (("K1", "wide"), ("K3", "cluster")):
         check(launches[f"{name}_{routed}"] > 0
               and launches[f"{name}_shared"] == 0,
@@ -4115,16 +4111,15 @@ def run_ultra_pass(e2e: E2E, rng, long_result):
     patterns' words), the launches by kernel, the tasks of each launch at
     the long reads' widths (as pass E) and device_kernel_s beside pass
     E's."""
-    from floxer_tpu_torch import verify_batch
+    from floxer_tpu_torch import tracing
     from floxer_tpu_torch.ops import cuda_myers_banded, cuda_myers_large
 
     append_overhanging_reads(e2e, rng, 1, ULTRA_OVERHANG[1],
                              ULTRA_OVERHANG[0])
     skipped = append_skipped_read(e2e, SEED + 6)
     e2e.run_host_pass()
-    kernel_before = verify_batch._BATCH_TIMERS["kernel"]
     launches, fused = e2e.run_device_pass("pass_j")
-    device_kernel_s = verify_batch._BATCH_TIMERS["kernel"] - kernel_before
+    device_kernel_s = tracing.last_job().seconds("verify.device_wait")
     band_words = dict(cuda_myers_banded.CLUSTER_WIDTHS)
     pattern_words = dict(cuda_myers_large.CLUSTER_WIDTHS)
     for name in ("K1", "K3"):

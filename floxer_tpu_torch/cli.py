@@ -391,8 +391,8 @@ def build_parser(advanced: bool = False) -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--profile", dest="profile_dir", default=None,
-        **adv(help="Write a jax.profiler trace of the alignment phase to "
-              "this directory (view with TensorBoard/Perfetto)."),
+        **adv(help="Write a torch.profiler Chrome trace of the alignment "
+              "phase to this directory (view with Perfetto)."),
     )
     parser.add_argument(
         "--cprofile", dest="cprofile_path", default=None,

@@ -25,6 +25,7 @@ import time
 import numpy as np
 import torch
 
+from . import tracing
 from .backend import accelerator_available, cpu_requested
 from .cli import CommandLineInput
 from .io.sam import AlignmentOutput
@@ -270,13 +271,25 @@ def _get_resident_bank(cli, references, device: torch.device):
 
 def _start_profiler(device):
     """torch.profiler over the alignment phase: CPU activity, plus CUDA
-    activity when the run has a CUDA device."""
+    activity when the run has a CUDA device. Where this torch can, it
+    records every thread's host ops, so the search worker's, the finalize
+    thread's and the traceback pool's ops and spans are in the trace
+    beside the pipeline's."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if device is not None and device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    profiler = profile(activities=activities)
+    options = {}
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+
+        options["experimental_config"] = _ExperimentalConfig(
+            profile_all_threads=True
+        )
+    except (ImportError, TypeError):
+        pass
+    profiler = profile(activities=activities, **options)
     profiler.start()
     return profiler
 
@@ -341,7 +354,12 @@ def verify_and_write_chunk(
     verification_ms = int((time.monotonic() - verification_started) * 1000)
 
     def complete() -> None:
-        verifier.resolve_deferred()
+        with tracing.span("finalize.tracebacks"):
+            verifier.resolve_deferred()
+        with tracing.span("finalize.write"):
+            write()
+
+    def write() -> None:
         soa = all(
             hasattr(entry[2], "kept_useful")
             and hasattr(entry[3], "kept_useful")
@@ -432,6 +450,17 @@ def run(
             profiler.dump_stats(path)
             logger.info("cProfile written to %s", path)
 
+    # the run is one traced job (inside a server job, that job); with
+    # tracing on, its `trace spans:` line is logged at its end
+    with tracing.job(on=bool(cli.profile_dir), emit=_log_trace_line):
+        return _run_logged(cli, device, use_device, extra_log_handler)
+
+
+def _log_trace_line(line: str) -> None:
+    logger.info("%s", line)
+
+
+def _run_logged(cli, device, use_device, extra_log_handler) -> int:
     initialize_logger(cli.logfile_path, cli.console_debug_logs)
     if extra_log_handler is not None:
         logger.addHandler(extra_log_handler)
@@ -532,7 +561,8 @@ def _run(cli, device, use_device, process_index, process_count) -> int:
     logger.debug("command line call: %s", cli.command_line_call())
 
     try:
-        references = read_references(cli.reference_path)
+        with tracing.span("job.reference"):
+            references = read_references(cli.reference_path)
     except Exception as error:  # noqa: BLE001
         logger.error(
             "An error occured while trying to read the reference from the "
@@ -543,30 +573,33 @@ def _run(cli, device, use_device, process_index, process_count) -> int:
         return -1
 
     try:
-        index = build_or_load_index(cli, references)
+        with tracing.span("job.index"):
+            index = build_or_load_index(cli, references)
     except Exception as error:  # noqa: BLE001 - parity: floxer.cpp:70-80
         logger.error(
             "An error occured while trying to load or build the index. %s",
             error,
         )
         return -1
-    searcher = make_searcher(cli, index, len(references.records))
-    if sharded:
-        # the row-sharded index, as the reference routes it (before
-        # --device-search): frontier searches over the shard tables (K11
-        # over K13's rank) under every engine
-        from .search_device import make_sharded_searcher
+    with tracing.span("job.searcher"):
+        searcher = make_searcher(cli, index, len(references.records))
+        if sharded:
+            # the row-sharded index, as the reference routes it (before
+            # --device-search): frontier searches over the shard tables
+            # (K11 over K13's rank) under every engine
+            from .search_device import make_sharded_searcher
 
-        searcher = make_sharded_searcher(searcher, index, cli.index_shards,
-                                         device)
-    elif cli.device_search:
-        # the seed search on the device: the work queue (K10) under the
-        # batched engines, the per-query frontier (K11) under --engine
-        # reference
-        from .index.device_index import DeviceIndex
-        from .search_device import DeviceSearcher
+            searcher = make_sharded_searcher(searcher, index,
+                                             cli.index_shards, device)
+        elif cli.device_search:
+            # the seed search on the device: the work queue (K10) under
+            # the batched engines, the per-query frontier (K11) under
+            # --engine reference
+            from .index.device_index import DeviceIndex
+            from .search_device import DeviceSearcher
 
-        searcher = DeviceSearcher(searcher, DeviceIndex.from_host(index, device))
+            searcher = DeviceSearcher(searcher,
+                                      DeviceIndex.from_host(index, device))
 
     # distributed runs write per-process shard files (extension preserved
     # so the SAM/BAM writer selection is unchanged); process 0 merges the
@@ -626,6 +659,75 @@ def _run(cli, device, use_device, process_index, process_count) -> int:
             logger.error("%s", error)
             return -1
 
+    # the batched engines' chunk stages, each a span of the job: the
+    # search (search.chunk, on the search worker), the wave loop
+    # (verify.chunk) and the finalize stage (finalize.chunk, on the
+    # finalize thread); the seed search proper is search.host, or
+    # search.device for a device searcher
+    search_span = getattr(searcher, "trace_name", "search.host")
+
+    def next_chunk():
+        chunk = []
+        with tracing.span("pipeline.read_queries"):
+            for query in queries:
+                chunk.append(query)
+                if len(chunk) >= cli.batch_size:
+                    break
+        return chunk
+
+    def search_chunk(chunk):
+        with tracing.span("search.chunk", reads=len(chunk)):
+            return search_chunk_seeds(chunk)
+
+    def search_chunk_seeds(chunk):
+        started = time.monotonic()
+        many = getattr(searcher, "search_seeds_many", None)
+        if many is None:
+            with tracing.span(search_span):
+                result = [
+                    search_query_pure(query, cli, searcher)
+                    for query in chunk
+                ]
+        else:
+            # chunk-level batched search: every query's fwd+rc seeds in
+            # one native call per seed class; per-query search ms is
+            # chunk-averaged
+            prepared = []
+            jobs = []
+            with tracing.span("search.prepare"):
+                for query in chunk:
+                    pex_tree, seeds = prepare_query_tree(query, cli)
+                    prepared.append((pex_tree, seeds))
+                    jobs.append((seeds, query.rank_sequence))
+                    jobs.append(
+                        (seeds, query.reverse_complement_rank_sequence)
+                    )
+            with tracing.span(search_span):
+                searched = many(jobs)
+            elapsed_ms = int((time.monotonic() - started) * 1000) // max(
+                len(chunk), 1
+            )
+            result = [
+                (
+                    pex_tree,
+                    seeds,
+                    searched[2 * i],
+                    searched[2 * i + 1],
+                    elapsed_ms,
+                )
+                for i, (pex_tree, seeds) in enumerate(prepared)
+            ]
+        logger.debug(
+            "search chunk: %d queries in %.2fs",
+            len(chunk),
+            time.monotonic() - started,
+        )
+        return result
+
+    def finalize_chunk(complete, reads):
+        with tracing.span("finalize.chunk", reads=reads):
+            return complete()
+
     logger.info(
         "aligning queries against %d references and writing output file to %s",
         len(references.records),
@@ -648,177 +750,132 @@ def _run(cli, device, use_device, process_index, process_count) -> int:
             )
 
         failed = False
-        stage_wall = None  # set by the batched engines; None => no stage split
-        vb_timers_start = None
-        if cli.engine == "reference":
-            try:
-                for query in queries:
-                    if hit_timeout():
-                        timed_out = True
-                        break
-                    process_query(query, cli, references, searcher, output, stats)
-                    num_processed += 1
-                    record_progress()
-            except Exception as error:  # noqa: BLE001 - parity with the
-                # reference's task-level abort (parallelization.cpp:149-157)
-                logger.error(
-                    "An error occurred while reading/searching/verifying a "
-                    "query. Shutting down. The output file is likely "
-                    "incomplete. Error message: %s",
-                    error,
-                )
-                failed = True
-        else:
-            # double-buffered pipeline: the host searches chunk N+1 on a worker
-            # thread (the native search releases the GIL) while chunk N
-            # verifies, and a single finalize worker writes chunk N-1
-            from concurrent.futures import ThreadPoolExecutor
-
-            from .verify_batch import _BATCH_TIMERS, VerificationTimeout
-
-            resident_ref = (
-                _get_resident_bank(cli, references, device)
-                if use_device is not False
-                else None
-            )
-            # per-stage wall attribution for the end-of-run "stage split" line:
-            # stages OVERLAP, so the sums can exceed the align wall
-            stage_wall = {"search": 0.0, "verify": 0.0, "finalize": 0.0}
-            vb_timers_start = dict(_BATCH_TIMERS)
-
-            def next_chunk():
-                chunk = []
-                for query in queries:
-                    chunk.append(query)
-                    if len(chunk) >= cli.batch_size:
-                        break
-                return chunk
-
-            def search_chunk(chunk):
-                started = time.monotonic()
-                many = getattr(searcher, "search_seeds_many", None)
-                if many is None:
-                    result = [
-                        search_query_pure(query, cli, searcher) for query in chunk
-                    ]
-                else:
-                    # chunk-level batched search: every query's fwd+rc seeds in
-                    # one native call per seed class; per-query search ms is
-                    # chunk-averaged
-                    prepared = []
-                    jobs = []
-                    for query in chunk:
-                        pex_tree, seeds = prepare_query_tree(query, cli)
-                        prepared.append((pex_tree, seeds))
-                        jobs.append((seeds, query.rank_sequence))
-                        jobs.append(
-                            (seeds, query.reverse_complement_rank_sequence)
-                        )
-                    searched = many(jobs)
-                    elapsed_ms = int((time.monotonic() - started) * 1000) // max(
-                        len(chunk), 1
-                    )
-                    result = [
-                        (
-                            pex_tree,
-                            seeds,
-                            searched[2 * i],
-                            searched[2 * i + 1],
-                            elapsed_ms,
-                        )
-                        for i, (pex_tree, seeds) in enumerate(prepared)
-                    ]
-                stage_wall["search"] += time.monotonic() - started
-                logger.debug(
-                    "search chunk: %d queries in %.2fs",
-                    len(chunk),
-                    time.monotonic() - started,
-                )
-                return result
-
-            with ThreadPoolExecutor(max_workers=1) as pool, ThreadPoolExecutor(
-                max_workers=1, thread_name_prefix="finalize"
-            ) as finalize_pool:
-                pending = None
-                finalizing = None  # (chunk_len, future)
+        batched = cli.engine != "reference"
+        with tracing.span("align"):
+            if not batched:
                 try:
-                    while not timed_out:
-                        chunk = next_chunk()
-                        future = (
-                            pool.submit(search_chunk, chunk) if chunk else None
-                        )
-                        if pending is not None:
-                            prev_chunk, prev_future = pending
-                            t0_verify = time.monotonic()
-                            try:
-                                complete = verify_and_write_chunk(
-                                    prev_chunk,
-                                    prev_future.result(),
-                                    cli,
-                                    references,
-                                    output,
-                                    stats,
-                                    use_device=use_device,
-                                    resident_ref=resident_ref,
-                                    defer_finalize=True,
-                                    deadline_check=hit_timeout,
-                                    device=device,
-                                )
-                                stage_wall["verify"] += (
-                                    time.monotonic() - t0_verify
-                                )
-                            except VerificationTimeout:
-                                # per-wave timeout check: drop the in-flight
-                                # chunk, output stays truncated like the
-                                # reference's
-                                timed_out = True
-                                if future is not None:
-                                    future.cancel()
-                                break
-                            if finalizing is not None:
-                                done_len, done_future = finalizing
-                                done_future.result()
-                                num_processed += done_len
-                                record_progress()
-
-                            def timed_complete(fn=complete):
-                                t0 = time.monotonic()
-                                try:
-                                    return fn()
-                                finally:
-                                    stage_wall["finalize"] += (
-                                        time.monotonic() - t0
-                                    )
-
-                            finalizing = (
-                                len(prev_chunk),
-                                finalize_pool.submit(timed_complete),
-                            )
-                        if not chunk:
-                            break
+                    for query in queries:
                         if hit_timeout():
                             timed_out = True
-                            future.cancel()
                             break
-                        pending = (chunk, future)
-                    if finalizing is not None:
-                        done_len, done_future = finalizing
-                        done_future.result()
-                        num_processed += done_len
+                        process_query(query, cli, references, searcher,
+                                      output, stats)
+                        num_processed += 1
                         record_progress()
-                        finalizing = None
-                except Exception as error:  # noqa: BLE001 - see reference-engine
-                    # branch above
+                except Exception as error:  # noqa: BLE001 - parity with
+                    # the reference's task-level abort
+                    # (parallelization.cpp:149-157)
                     logger.error(
-                        "An error occurred during batched alignment. Shutting "
-                        "down. The output file is likely incomplete. Error "
-                        "message: %s",
+                        "An error occurred while reading/searching/verifying "
+                        "a query. Shutting down. The output file is likely "
+                        "incomplete. Error message: %s",
                         error,
                     )
-                    logger.debug(
-                        "batched alignment failure traceback:", exc_info=True
-                    )
                     failed = True
+            else:
+                # double-buffered pipeline: the host searches chunk N+1 on a
+                # worker thread (the native search releases the GIL) while
+                # chunk N verifies, and a single finalize worker writes
+                # chunk N-1
+                from concurrent.futures import ThreadPoolExecutor
+
+                from .verify_batch import VerificationTimeout
+
+                resident_ref = None
+                if use_device is not False:
+                    with tracing.span("job.bank"):
+                        resident_ref = _get_resident_bank(cli, references,
+                                                          device)
+                with ThreadPoolExecutor(max_workers=1,
+                                        thread_name_prefix="search") \
+                        as pool, \
+                        ThreadPoolExecutor(max_workers=1,
+                                           thread_name_prefix="finalize") \
+                        as finalize_pool:
+                    pending = None
+                    finalizing = None  # (chunk_len, future)
+                    try:
+                        while not timed_out:
+                            chunk = next_chunk()
+                            future = (
+                                tracing.submit(pool, search_chunk, chunk)
+                                if chunk else None
+                            )
+                            if pending is not None:
+                                prev_chunk, prev_future = pending
+                                try:
+                                    # verify= of the stage split: the wait for
+                                    # this chunk's search, then its wave loop
+                                    with tracing.span("verify.chunk",
+                                                      reads=len(prev_chunk)):
+                                        with tracing.span(
+                                            "pipeline.wait_search"
+                                        ):
+                                            searched = prev_future.result()
+                                        complete = verify_and_write_chunk(
+                                            prev_chunk,
+                                            searched,
+                                            cli,
+                                            references,
+                                            output,
+                                            stats,
+                                            use_device=use_device,
+                                            resident_ref=resident_ref,
+                                            defer_finalize=True,
+                                            deadline_check=hit_timeout,
+                                            device=device,
+                                        )
+                                except VerificationTimeout:
+                                    # per-wave timeout check: drop the
+                                    # in-flight chunk, output stays
+                                    # truncated like the reference's
+                                    timed_out = True
+                                    if future is not None:
+                                        future.cancel()
+                                    break
+                                if finalizing is not None:
+                                    done_len, done_future = finalizing
+                                    with tracing.span(
+                                        "pipeline.wait_finalize"
+                                    ):
+                                        done_future.result()
+                                    num_processed += done_len
+                                    record_progress()
+
+                                finalizing = (
+                                    len(prev_chunk),
+                                    tracing.submit(
+                                        finalize_pool, finalize_chunk,
+                                        complete, len(prev_chunk),
+                                    ),
+                                )
+                            if not chunk:
+                                break
+                            if hit_timeout():
+                                timed_out = True
+                                future.cancel()
+                                break
+                            pending = (chunk, future)
+                        if finalizing is not None:
+                            done_len, done_future = finalizing
+                            with tracing.span("pipeline.wait_finalize"):
+                                done_future.result()
+                            num_processed += done_len
+                            record_progress()
+                            finalizing = None
+                    except Exception as error:  # noqa: BLE001 - see the
+                        # reference-engine branch above
+                        logger.error(
+                            "An error occurred during batched alignment. "
+                            "Shutting down. The output file is likely "
+                            "incomplete. Error message: %s",
+                            error,
+                        )
+                        logger.debug(
+                            "batched alignment failure traceback:",
+                            exc_info=True,
+                        )
+                        failed = True
 
         if timed_out:
             logger.warning(
@@ -826,7 +883,8 @@ def _run(cli, device, use_device, process_index, process_count) -> int:
                 "be incomplete."
             )
 
-        output.close()
+        with tracing.span("job.close"):
+            output.close()
     finally:
         if profiler is not None:
             _stop_profiler(profiler, cli.profile_dir)
@@ -839,6 +897,15 @@ def _run(cli, device, use_device, process_index, process_count) -> int:
             logger.error("%s", error)
             failed = True
 
+    # launches= counts the CUDA kernel launches of this run (in a server:
+    # of this job)
+    launches = {
+        name: count - launches_before[name]
+        for name, count in kernel_launches().items()
+    }
+    job = tracing.current()
+    if job is not None:
+        job.launches = launches
     if timed_out or failed:
         return -1
 
@@ -852,27 +919,20 @@ def _run(cli, device, use_device, process_index, process_count) -> int:
         align_elapsed,
         _pretty_elapsed_suffix(align_elapsed),
     )
-    if stage_wall is not None:
-        # machine-parsable per-stage attribution. Stages overlap, so the
-        # sums can exceed the align wall; device_kernel_s is the unhidden
-        # device wait observed by the wave loop this run.
-        # launches= counts the CUDA kernel launches of this run (in a
-        # server: of this job)
-        from .verify_batch import _BATCH_TIMERS as _vb_now
-
-        launches = kernel_launches()
+    if batched and job is not None:
+        # machine-parsable per-stage attribution from the job's span sums.
+        # Stages overlap, so the sums can exceed the align wall;
+        # device_kernel is the unhidden device wait observed by the wave
+        # loop this run (verify.device_wait)
         logger.info(
             "stage split: search=%.2fs verify=%.2fs finalize=%.2fs "
             "device_kernel=%.2fs fused_dispatches=%d launches=%s",
-            stage_wall["search"],
-            stage_wall["verify"],
-            stage_wall["finalize"],
-            _vb_now["kernel"] - vb_timers_start["kernel"],
-            _vb_now["fused"] - vb_timers_start["fused"],
-            ",".join(
-                f"{name}:{count - launches_before[name]}"
-                for name, count in launches.items()
-            ),
+            job.seconds("search.chunk"),
+            job.seconds("verify.chunk"),
+            job.seconds("finalize.chunk"),
+            job.seconds("verify.device_wait"),
+            job.counter("verify.fused_dispatches"),
+            ",".join(f"{name}:{count}" for name, count in launches.items()),
         )
 
     if distributed:
@@ -916,11 +976,12 @@ def _run(cli, device, use_device, process_index, process_count) -> int:
             return 0
 
     if cli.stats_target is not None:
-        if cli.stats_target == "terminal":
-            for line in stats.format_for_terminal():
-                logger.info("%s", line)
-        else:
-            with open(cli.stats_target, "w") as handle:
-                handle.write(stats.format_as_toml())
+        with tracing.span("job.close"):
+            if cli.stats_target == "terminal":
+                for line in stats.format_for_terminal():
+                    logger.info("%s", line)
+            else:
+                with open(cli.stats_target, "w") as handle:
+                    handle.write(stats.format_as_toml())
 
     return 0

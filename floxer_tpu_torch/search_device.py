@@ -37,13 +37,13 @@ ablation; it raises NotImplementedError).
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass
 
 import numpy as np
 
 import torch
 
+from . import tracing
 from .ops.frontier import frontier_search_batch
 from .schemes import ExpandedSearch, expand_scheme
 from .search_queue import workqueue_runner
@@ -224,24 +224,22 @@ class DeviceSearcher:
     # subclass clears this; else the legacy loop of one frontier search a
     # block
     _one_dispatch_chunk = True
-    # counters for tests and chip_smoke.py: work-queue dispatches, the
-    # seeds redone on the host because they were long or because their
-    # search overflowed, and the seconds spent in each stage
-    # (work_queue: the dispatch with its uploads, launch, download and
-    # report sort; blocks: the legacy block loop's launches and drains;
-    # dedup_cap; select: the native select; device_select: the device
-    # select, its host group order (select_order, the introsort loop)
-    # included; redo; frontier: the per-query path's frontier searches
-    # with their uploads and downloads; frontier_replay: their reports'
-    # keep-first dedup and cap replay in Python)
+    # counters for tests and chip_smoke.py: work-queue dispatches, and
+    # the seeds redone on the host because they were long or because
+    # their search overflowed. Each stage's time is a span of the job
+    # (tracing.py), search.device.<stage>: work_queue (the dispatch: its
+    # operands, upload, launch, download and report sort as children);
+    # blocks (the legacy block loop's launches and drains); dedup_cap;
+    # select (the native select); device_select (the device select, its
+    # host group order select_order, the introsort loop, a child); redo;
+    # frontier (the per-query path's frontier searches with their uploads
+    # and downloads); frontier_replay (their reports' keep-first dedup
+    # and cap replay in Python)
     _chunk_dispatches = 0
     redo_long = 0
     redo_overflow = 0
-    stage_seconds = {
-        "work_queue": 0.0, "blocks": 0.0, "dedup_cap": 0.0, "select": 0.0,
-        "device_select": 0.0, "select_order": 0.0, "redo": 0.0,
-        "frontier": 0.0, "frontier_replay": 0.0,
-    }
+    # the pipeline's span around search_seeds_many
+    trace_name = "search.device"
 
     def __init__(self, host_searcher, device_index):
         self._host = host_searcher
@@ -257,7 +255,6 @@ class DeviceSearcher:
             errors,
             expanded,
             max_total_count=self._host.search_cap(),
-            seconds=type(self).stage_seconds,
         )
 
     def _run_block(
@@ -274,7 +271,8 @@ class DeviceSearcher:
     def _run_chunk_fused(self, arrays):
         """ONE work-queue dispatch for a whole chunk's eligible seeds:
         (report rows [k, 5] = gid, lb, lb_rev, len, err; overflow gids)."""
-        operands = chunk_operands(arrays)
+        with tracing.span("search.device.work_queue.operands"):
+            operands = chunk_operands(arrays)
         if operands is None:
             return (
                 np.zeros((0, 5), dtype=np.int64),
@@ -329,6 +327,39 @@ class DeviceSearcher:
                 while len(inflight) >= _INFLIGHT_BLOCKS:
                     drain_one()
 
+    def _block_reports(self, arrays):
+        """The legacy block loop's (report rows, overflow gids) of a
+        chunk: a bounded window of launches in flight; each drained
+        launch leaves one (reports, count, overflow, gids, n_real) a
+        block."""
+        inflight = []  # (FrontierBatch on the device, [(gids, n_real)])
+        pending = []
+
+        def drain_one():
+            out, blocks = inflight.pop(0)
+            d_reports = out.reports.cpu().numpy()
+            d_num = out.num_reports.cpu().numpy()
+            d_overflow = out.overflow.cpu().numpy()
+            for b, (gids, n_real) in enumerate(blocks):
+                pending.append((d_reports[b], int(d_num[b]),
+                                d_overflow[b], gids, n_real))
+
+        self._legacy_block_loop(arrays, inflight, drain_one)
+        while inflight:
+            drain_one()
+        report_rows = []  # each [k, 5]: gid, lb, lb_rev, len, err
+        overflow_gids = []
+        for reports, num_reports, overflow, gids, n_real in pending:
+            reports = reports[:num_reports]
+            local = reports[:, 4]
+            keep = local < n_real
+            rows = np.empty((int(keep.sum()), 5), dtype=np.int64)
+            rows[:, 0] = gids[local[keep]]
+            rows[:, 1:] = reports[keep, :4]
+            report_rows.append(rows)
+            overflow_gids.append(gids[np.flatnonzero(overflow[:n_real])])
+        return report_rows, overflow_gids
+
     def search_seeds_many(self, jobs):
         """Chunk-level device search: every job's seeds (all queries of a
         read chunk, fwd and rc) in one work-queue dispatch (or the legacy
@@ -374,47 +405,18 @@ class DeviceSearcher:
         total_seeds = arrays.total_seeds
         buffer = arrays.buffer
 
-        seconds = type(self).stage_seconds
-        started = time.monotonic()
         # ---- stage 1: device group discovery ----
         long_gids = np.flatnonzero(arrays.length_g > _MAX_DEVICE_PATTERN)
-        report_rows = []  # each [k, 5]: gid, lb, lb_rev, len, err
-        overflow_gids = []
         if self._one_dispatch_chunk and not os.environ.get(
             "FLOXER_TPU_SEARCH_NO_CHUNK_FUSE"
         ):
-            rows, ovf_gids = self._run_chunk_fused(arrays)
-            report_rows.append(rows)
-            overflow_gids.append(ovf_gids)
-            stage = "work_queue"
+            with tracing.span("search.device.work_queue"):
+                rows, ovf_gids = self._run_chunk_fused(arrays)
+            report_rows = [rows]  # each [k, 5]: gid, lb, lb_rev, len, err
+            overflow_gids = [ovf_gids]
         else:
-            # a bounded window of launches in flight; each drained launch
-            # leaves one (reports, count, overflow, gids, n_real) a block
-            inflight = []  # (FrontierBatch on the device, [(gids, n_real)])
-            pending = []
-
-            def drain_one():
-                out, blocks = inflight.pop(0)
-                d_reports = out.reports.cpu().numpy()
-                d_num = out.num_reports.cpu().numpy()
-                d_overflow = out.overflow.cpu().numpy()
-                for b, (gids, n_real) in enumerate(blocks):
-                    pending.append((d_reports[b], int(d_num[b]),
-                                    d_overflow[b], gids, n_real))
-
-            self._legacy_block_loop(arrays, inflight, drain_one)
-            while inflight:
-                drain_one()
-            for reports, num_reports, overflow, gids, n_real in pending:
-                reports = reports[:num_reports]
-                local = reports[:, 4]
-                keep = local < n_real
-                rows = np.empty((int(keep.sum()), 5), dtype=np.int64)
-                rows[:, 0] = gids[local[keep]]
-                rows[:, 1:] = reports[keep, :4]
-                report_rows.append(rows)
-                overflow_gids.append(gids[np.flatnonzero(overflow[:n_real])])
-            stage = "blocks"
+            with tracing.span("search.device.blocks"):
+                report_rows, overflow_gids = self._block_reports(arrays)
         ovf_gids = (np.concatenate(overflow_gids) if overflow_gids
                     else np.zeros(0, dtype=np.int64))
         redo = np.unique(np.concatenate([long_gids, ovf_gids]))
@@ -428,15 +430,12 @@ class DeviceSearcher:
             else np.zeros((0, 5), dtype=np.int64)
         )
 
-        seconds[stage] += time.monotonic() - started
-        started = time.monotonic()
         # ---- stage 2: order-preserving dedup + cap replay ----
-        groups_flat, group_starts, totals, statuses = replay_groups(
-            rep, redo_set_mask, self._host.search_cap()
-        )
+        with tracing.span("search.device.dedup_cap"):
+            groups_flat, group_starts, totals, statuses = replay_groups(
+                rep, redo_set_mask, self._host.search_cap()
+            )
 
-        seconds["dedup_cap"] += time.monotonic() - started
-        started = time.monotonic()
         # ---- stage 3: anchor selection over the found groups: on the
         # device (caps, order, choice, locate, dominance: K12 on the card)
         # with FLOXER_TPU_DEVICE_SELECT set, else the native select ----
@@ -446,35 +445,34 @@ class DeviceSearcher:
         ) is not None:
             from .search_select_device import device_select_from_groups_batch
 
-            out = device_select_from_groups_batch(
-                self._device_index,
-                groups_flat,
-                group_starts,
-                totals,
-                statuses,
-                config.max_num_anchors_hard,
-                config.max_num_anchors_soft,
-                order_code,
-                choice_code,
-                config.erase_useless_anchors,
-                seconds=seconds,
-            )
-            seconds["device_select"] += time.monotonic() - started
+            with tracing.span("search.device.device_select"):
+                out = device_select_from_groups_batch(
+                    self._device_index,
+                    groups_flat,
+                    group_starts,
+                    totals,
+                    statuses,
+                    config.max_num_anchors_hard,
+                    config.max_num_anchors_soft,
+                    order_code,
+                    choice_code,
+                    config.erase_useless_anchors,
+                )
         else:
-            out = native_select_from_groups_batch(
-                self.index,
-                groups_flat,
-                group_starts,
-                totals,
-                statuses,
-                config.max_num_anchors_hard,
-                config.max_num_anchors_soft,
-                order_code,
-                choice_code,
-                config.erase_useless_anchors,
-                self._host.num_threads,
-            )
-            seconds["select"] += time.monotonic() - started
+            with tracing.span("search.device.select"):
+                out = native_select_from_groups_batch(
+                    self.index,
+                    groups_flat,
+                    group_starts,
+                    totals,
+                    statuses,
+                    config.max_num_anchors_hard,
+                    config.max_num_anchors_soft,
+                    order_code,
+                    choice_code,
+                    config.erase_useless_anchors,
+                    self._host.num_threads,
+                )
         if out is None:  # the library vanished mid-run: per-query path
             return [self.search_seeds(s, q) for s, q in jobs]
         anchors_arr, counts = out
@@ -502,9 +500,8 @@ class DeviceSearcher:
         rows_parts.append(anchors_arr[valid])
         gid_parts.append(np.repeat(np.arange(total_seeds), nw))
 
-        started = time.monotonic()
         # ---- stage 4: native DFS redo of the seeds the device left ----
-        if redo.shape[0]:
+        with tracing.span("search.device.redo", seeds=int(redo.shape[0])):
             redo_key = arrays.length_g[redo] * 4096 + arrays.errors_g[redo]
             for key_value in np.unique(redo_key).tolist():
                 cls_sel = redo[redo_key == key_value]
@@ -523,7 +520,6 @@ class DeviceSearcher:
                     self._host.num_threads,
                 )
                 if out is None:  # the library vanished: per-query path
-                    seconds["redo"] += time.monotonic() - started
                     return [self.search_seeds(s, q) for s, q in jobs]
                 r_anchors, r_counts = out
                 r_status = r_counts[:, 0]
@@ -550,7 +546,6 @@ class DeviceSearcher:
                         gid_parts,
                     )
 
-        seconds["redo"] += time.monotonic() - started
         return build_soa_results(
             arrays,
             nw_g,
@@ -692,7 +687,6 @@ class ShardedDeviceSearcher(DeviceSearcher):
             errors,
             expanded,
             max_total_count=self._host.search_cap(),
-            seconds=type(self).stage_seconds,
         )
 
 
@@ -852,7 +846,6 @@ def search_seeds_device(
     report_capacity: int = 1 << 12,
     runner=None,
     max_total_count: int | None = None,
-    seconds: dict | None = None,
 ):
     """Run the frontier search for a batch of same-(length, errors) seeds
     on the index's device (K11 on the card, its plain version on the CPU).
@@ -863,9 +856,24 @@ def search_seeds_device(
     by the running-total cap replay when max_total_count is given: a group
     is kept iff the total BEFORE it is under the cap, totals[i] is the
     running total at the stop point, and aborted[i] mirrors the host DFS's
-    abort. `seconds`, when given, gains the search's seconds under
-    "frontier" and the replay's under "frontier_replay"."""
-    started = time.monotonic()
+    abort. The search is the job's span search.device.frontier, the
+    replay search.device.frontier_replay."""
+    with tracing.span("search.device.frontier", seeds=len(patterns)):
+        reports, overflow = _frontier_reports(
+            index, patterns, max_errors, expanded_searches,
+            frontier_capacity, report_capacity, runner,
+        )
+    with tracing.span("search.device.frontier_replay"):
+        groups, totals, aborted = _replay_frontier_reports(
+            reports, len(patterns), max_total_count
+        )
+    return groups, totals, aborted, overflow
+
+
+def _frontier_reports(index, patterns, max_errors, expanded_searches,
+                      frontier_capacity, report_capacity, runner):
+    """One frontier search's reports (numpy [n, 5]: lb, lb_rev, length,
+    errors, seed) and overflow flags."""
     padded, seed_class, tables, max_iterations = frontier_operands(
         patterns, expanded_searches, max_errors
     )
@@ -888,21 +896,26 @@ def search_seeds_device(
         num_reports = int(out.num_reports[0])
         reports = out.reports[0, :num_reports].cpu().numpy()
         overflow = out.overflow[0].cpu().numpy()
-    replay_started = time.monotonic()
+    return reports, overflow
+
+
+def _replay_frontier_reports(reports, num_patterns, max_total_count):
+    """The keep-first dedup and cap replay of one frontier search's
+    reports: (groups per seed, totals, aborted)."""
     cap = (1 << 62) if max_total_count is None else int(max_total_count)
 
     groups: list[list[tuple[int, int, int, int]]] = [
-        [] for _ in range(len(patterns))
+        [] for _ in range(num_patterns)
     ]
-    totals = np.zeros(len(patterns), dtype=np.int64)
-    aborted = np.zeros(len(patterns), dtype=bool)
+    totals = np.zeros(num_patterns, dtype=np.int64)
+    aborted = np.zeros(num_patterns, dtype=bool)
     seen: set = set()
     # reports are in frontier slot order: interleaved across seeds, but in
     # exact DFS order within each seed, so the keep-first dedup and cap
     # replay below reproduce search_host.search_seed_groups
     for lb, lb_rev, length, errors, seed in reports.tolist():
         s = int(seed)
-        if s >= len(patterns):  # padding seed
+        if s >= num_patterns:  # padding seed
             continue
         if aborted[s]:
             continue
@@ -914,7 +927,4 @@ def search_seeds_device(
         totals[s] += int(length)
         if totals[s] >= cap:
             aborted[s] = True
-    if seconds is not None:
-        seconds["frontier"] += replay_started - started
-        seconds["frontier_replay"] += time.monotonic() - replay_started
-    return groups, totals, aborted, overflow
+    return groups, totals, aborted

@@ -33,6 +33,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import tracing
 from .alphabet import SIGMA
 
 logger = logging.getLogger("floxer-tpu")
@@ -378,25 +379,30 @@ def workqueue_runner(
     r_cap = report_capacity
     budget = BUDGET if budget is None else budget
     list_cap = list_entries(init) if list_capacity is None else list_capacity
-    patterns = torch.from_numpy(
-        np.ascontiguousarray(padded, dtype=np.int32)
-    ).to(device)
-    classes = torch.from_numpy(
-        np.ascontiguousarray(seed_class, dtype=np.int32)
-    ).to(device)
-    scheme = torch.from_numpy(tables.fused()).to(device)
+    with tracing.span("search.device.work_queue.upload"):
+        patterns = torch.from_numpy(
+            np.ascontiguousarray(padded, dtype=np.int32)
+        ).to(device)
+        classes = torch.from_numpy(
+            np.ascontiguousarray(seed_class, dtype=np.int32)
+        ).to(device)
+        scheme = torch.from_numpy(tables.fused()).to(device)
     for attempt in range(2):
-        if device.type == "cuda":
-            run = workqueue_search_cuda(
-                index, patterns, classes, scheme, tables.num_searches,
-                tables.num_parts, r_cap, KW,
-                frames_needed(max_len, max_errors), budget, list_cap,
-            )
-        else:
-            run = workqueue_search_plain(
-                index, patterns, classes, scheme, tables.num_searches,
-                tables.num_parts, K, P, cap, r_cap, KW, MAX_ITERATIONS,
-            )
+        # the launch reads the counters of its last generation back, so
+        # it holds the search's device time
+        with tracing.span("search.device.work_queue.launch",
+                          seeds=num_seeds, attempt=attempt):
+            if device.type == "cuda":
+                run = workqueue_search_cuda(
+                    index, patterns, classes, scheme, tables.num_searches,
+                    tables.num_parts, r_cap, KW,
+                    frames_needed(max_len, max_errors), budget, list_cap,
+                )
+            else:
+                run = workqueue_search_plain(
+                    index, patterns, classes, scheme, tables.num_searches,
+                    tables.num_parts, K, P, cap, r_cap, KW, MAX_ITERATIONS,
+                )
         if not run.overflow or attempt:
             break
         RETRIES += 1
@@ -407,5 +413,7 @@ def workqueue_runner(
         "workqueue search: %d seeds, %d reports, %d nodes, overflow %s",
         num_seeds, run.num_reports, run.nodes, run.overflow,
     )
-    raw = run.reports[:run.num_reports].cpu().numpy()
-    return sort_reports(raw), run.overflow
+    with tracing.span("search.device.work_queue.download"):
+        raw = run.reports[:run.num_reports].cpu().numpy()
+    with tracing.span("search.device.work_queue.sort"):
+        return sort_reports(raw), run.overflow

@@ -25,11 +25,10 @@ a seed). select_anchors picks by the operands' device.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
+from . import tracing
 from .index.device_index import locate_batch
 
 # counts[:, 0] status bits, matching native/search.cpp select_one
@@ -258,14 +257,13 @@ def device_select_from_groups_batch(
     order_code: int,
     choice_code: int,
     erase_useless: bool,
-    seconds: dict | None = None,
 ):
     """Drop-in device replacement for native_select_from_groups_batch on
     the index's device: returns (anchors int64 [S, soft_cap, 3], counts
     int64 [S, 5]). The batch goes to the selection as it is (the
     reference pads its shapes to powers of two for its compiler; padding
-    seeds and groups change no real seed's result). `seconds`, when
-    given, gains the host group order's seconds under "select_order"."""
+    seeds and groups change no real seed's result). The host group order
+    is the job's span search.device.select_order."""
     S = len(totals)
     G = groups_flat.shape[0]
     if S == 0:
@@ -273,10 +271,8 @@ def device_select_from_groups_batch(
             np.zeros((0, soft_cap, 3), dtype=np.int64),
             np.zeros((0, 5), dtype=np.int64),
         )
-    started = time.monotonic()
-    perm = group_order(groups_flat, group_starts, order_code)
-    if seconds is not None:
-        seconds["select_order"] += time.monotonic() - started
+    with tracing.span("search.device.select_order"):
+        perm = group_order(groups_flat, group_starts, order_code)
     gid = np.repeat(
         np.arange(S, dtype=np.int32),
         np.diff(group_starts).astype(np.int64),

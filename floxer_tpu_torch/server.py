@@ -50,8 +50,9 @@ class _JobLogHandler(logging.Handler):
 def _execute_job(request: dict, send_line) -> int:
     from .cli import parse_and_validate
 
-    from . import pipeline
+    from . import pipeline, tracing
 
+    started = tracing.now()
     argv = request.get("argv", [])
     cwd = request.get("cwd")
     if cwd:
@@ -64,8 +65,21 @@ def _execute_job(request: dict, send_line) -> int:
         )
         return -1
     handler = _JobLogHandler(send_line)
+
+    def emit(line: str) -> None:
+        # to this job's client only: the server's own log stays short
+        handler.handle(logging.makeLogRecord(
+            {"name": logger.name, "levelno": logging.INFO,
+             "levelname": "INFO", "msg": line}
+        ))
+
     try:
-        return pipeline.run(cli, extra_log_handler=handler)
+        # the job span runs from the request's parse to its exit code; with
+        # tracing on (a profiler running, or --profile), the job's
+        # `trace spans:` line reaches the client before the exit line
+        with tracing.job(on=bool(cli.profile_dir), started_ns=started,
+                         emit=emit):
+            return pipeline.run(cli, extra_log_handler=handler)
     except Exception as error:  # noqa: BLE001 - a job must not kill the daemon
         logger.debug("job failure traceback:", exc_info=True)
         send_line({"log": {"level": "ERROR", "message": f"job failed: {error}"}})

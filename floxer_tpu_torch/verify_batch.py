@@ -43,6 +43,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from . import tracing
 from .intervals import VerifiedIntervals
 
 
@@ -186,6 +187,8 @@ def _observe_device_band_rate(padded_cells: float, kernel_seconds: float):
         return
     sample = padded_cells / kernel_seconds
     if not (1e9 <= sample <= 1e12):
+        # the router never learns a rate outside this clamp: count them
+        tracing.count("router.device_rate_dropped")
         return
     _BAND_RATES["device"] = 0.7 * _BAND_RATES["device"] + 0.3 * sample
 _PROBE_MIN_HOST_S = 0.01  # don't touch the device for < 10 ms of host work
@@ -371,9 +374,39 @@ class _WalkTable:
         return walk
 
 
-_BATCH_TIMERS = {
-    "pack": 0.0, "kernel": 0.0, "numpy": 0.0, "calls": 0, "fused": 0,
-}
+def _wave_cells() -> tuple[int, int]:
+    """The current job's (host, device) useful band cells so far."""
+    job = tracing.current()
+    if job is None:
+        return 0, 0
+    return job.counter("verify.cells_host"), job.counter("verify.cells_device")
+
+
+def _end_wave(wave, before: tuple[int, int]) -> None:
+    """Count one wave, and give its span the cells it computed and the
+    route they took (host, device, split, or none when every task was
+    cached)."""
+    host, device = _wave_cells()
+    host -= before[0]
+    device -= before[1]
+    route = (
+        "split" if host and device
+        else "device" if device
+        else "host" if host
+        else "none"
+    )
+    tracing.count("verify.waves")
+    if route == "split":
+        tracing.count("verify.waves_split")
+    wave.set(cells=host + device, route=route)
+
+
+def _traceback_task(window, pattern, end, distance):
+    """One root's banded CIGAR traceback on the traceback pool."""
+    with tracing.span("traceback.root", columns=len(window)):
+        return dp_reference.banded_cigar_traceback(
+            window, pattern, end, distance
+        )
 
 
 class _TaskBatcher:
@@ -569,8 +602,6 @@ class _TaskBatcher:
         import logging as _logging
         import time as _time
 
-        from .ops.myers import pad_batch
-
         # device buckets are SUBMITTED first (sync=False keeps results on
         # the device) and downloaded after the last dispatch, so the card
         # runs bucket after bucket instead of waiting on one round trip
@@ -630,16 +661,19 @@ class _TaskBatcher:
             else:
                 size_qualifies = cells > MIN_DEVICE_CELLS
                 on_device = size_qualifies and self._device()
+            useful = band_cells if tag == "banded" else cells
             if not on_device:
                 t0 = _time.monotonic()
                 from .native import native_myers_distance_batch
 
-                native = native_myers_distance_batch(
-                    [self.windows[i] for i in slots],
-                    [self.patterns[i] for i in slots],
-                    num_threads=min(4, len(slots)),
-                    budgets=[self.budgets[i] for i in slots],
-                )
+                tracing.count("verify.cells_host", useful)
+                with tracing.span("verify.host_engine", tasks=len(slots)):
+                    native = native_myers_distance_batch(
+                        [self.windows[i] for i in slots],
+                        [self.patterns[i] for i in slots],
+                        num_threads=min(4, len(slots)),
+                        budgets=[self.budgets[i] for i in slots],
+                    )
                 if native is not None:
                     dist_arr, end_arr = native
                     distances[slots] = dist_arr
@@ -659,60 +693,22 @@ class _TaskBatcher:
                         end = dp_reference._rightmost_argmin(last)
                         distances[i] = last[end]
                         ends[i] = end
-                _BATCH_TIMERS["numpy"] += _time.monotonic() - t0
                 continue
             # the cost model prices a power-of-two batch as the reference's
             # padded kernels ran it; the CUDA kernels run the slots as they
             # are (each task stops at its own window), so no pad rows
-            t0 = _time.monotonic()
             b_bucket = 1
             while b_bucket < len(slots):
                 b_bucket *= 2
-            resident_result = self._try_resident(
-                tag, m_bucket, n_bucket, slots
-            )
-            if resident_result is not None:
-                t1 = _time.monotonic()
-                _BATCH_TIMERS["pack"] += t1 - t0
-                _BATCH_TIMERS["calls"] += 1
-                pending.append(
-                    (slots, b_bucket, m_bucket, n_bucket,
-                     resident_result[0], resident_result[1], t1 - t0,
-                     modeled_kernel_s)
+            tracing.count("verify.cells_device", useful)
+            tracing.count("verify.device_calls")
+            with tracing.span("verify.device_dispatch", tasks=len(slots)):
+                bucket_distances, bucket_ends, t_disp = self._dispatch(
+                    tag, m_bucket, n_bucket, slots
                 )
-                continue
-            batch_patterns = [self.patterns[i] for i in slots]
-            txt, tlen = pad_batch(
-                [self.windows[i] for i in slots], pad_to=n_bucket
-            )
-            if tag == "banded":
-                from .ops.cuda_myers_banded import myers_banded_host
-
-                t1 = _time.monotonic()
-                bucket_distances, bucket_ends = myers_banded_host(
-                    batch_patterns,
-                    txt,
-                    tlen,
-                    np.asarray([self.budgets[i] for i in slots], np.int64),
-                    band_words=m_bucket,
-                    device=self.device,
-                    sync=False,
-                )
-                t2 = _time.monotonic()
-            else:
-                from .ops.myers import myers_distance
-
-                pat, plen = pad_batch(batch_patterns, pad_to=m_bucket)
-                t1 = _time.monotonic()
-                bucket_distances, bucket_ends = myers_distance(
-                    pat, plen, txt, tlen, self.device, sync=False
-                )
-                t2 = _time.monotonic()
-            _BATCH_TIMERS["pack"] += t1 - t0
-            _BATCH_TIMERS["calls"] += 1
             pending.append(
                 (slots, b_bucket, m_bucket, n_bucket,
-                 bucket_distances, bucket_ends, t2 - t1, modeled_kernel_s)
+                 bucket_distances, bucket_ends, t_disp, modeled_kernel_s)
             )
 
         log = _logging.getLogger("floxer-tpu")
@@ -721,10 +717,10 @@ class _TaskBatcher:
             slots, b_bucket, m_bucket, n_bucket, dist, end, t_disp, mk_s
         ) in pending:
             t1 = _time.monotonic()
-            distances[slots] = dist.cpu().numpy()
-            ends[slots] = end.cpu().numpy()
+            with tracing.span("verify.device_wait", tasks=len(slots)):
+                distances[slots] = dist.cpu().numpy()
+                ends[slots] = end.cpu().numpy()
             t2 = _time.monotonic()
-            _BATCH_TIMERS["kernel"] += t2 - t1
             if mk_s:
                 _observe_device_call(t_disp + (t2 - t1), mk_s)
             useful = sum(
@@ -741,6 +737,47 @@ class _TaskBatcher:
             )
 
         return distances, ends
+
+    def _dispatch(self, tag, m_bucket, n_bucket, slots):
+        """Submit one device bucket (results stay on the device): (dist,
+        end, seconds of the dispatch the router's overhead model reads:
+        the resident call whole, or the kernel call without the host
+        padding)."""
+        import time as _time
+
+        from .ops.myers import pad_batch
+
+        t0 = _time.monotonic()
+        resident_result = self._try_resident(tag, m_bucket, n_bucket, slots)
+        if resident_result is not None:
+            return (resident_result[0], resident_result[1],
+                    _time.monotonic() - t0)
+        batch_patterns = [self.patterns[i] for i in slots]
+        txt, tlen = pad_batch(
+            [self.windows[i] for i in slots], pad_to=n_bucket
+        )
+        if tag == "banded":
+            from .ops.cuda_myers_banded import myers_banded_host
+
+            t1 = _time.monotonic()
+            dist, end = myers_banded_host(
+                batch_patterns,
+                txt,
+                tlen,
+                np.asarray([self.budgets[i] for i in slots], np.int64),
+                band_words=m_bucket,
+                device=self.device,
+                sync=False,
+            )
+        else:
+            from .ops.myers import myers_distance
+
+            pat, plen = pad_batch(batch_patterns, pad_to=m_bucket)
+            t1 = _time.monotonic()
+            dist, end = myers_distance(
+                pat, plen, txt, tlen, self.device, sync=False
+            )
+        return dist, end, _time.monotonic() - t1
 
 
 class _DeviceTb:
@@ -1013,9 +1050,9 @@ class BatchVerifier:
         from .native import native_cache_scan
 
         log = logging.getLogger("floxer-tpu")
-        t0 = _time.monotonic()
-        self._setup_chunk_state(items)
-        table = self._build_walk_table(items)
+        with tracing.span("verify.build", reads=len(items)):
+            self._setup_chunk_state(items)
+            table = self._build_walk_table(items)
         n = len(table)
         alignments = [QueryAlignments(len(self.references)) for _ in items]
         self.last_stats_events = []
@@ -1043,13 +1080,10 @@ class BatchVerifier:
         state = np.zeros(n, dtype=np.uint8)
         sim_flag = np.full(n, 2, dtype=np.uint8)
         dirty = np.ones(num_keys, dtype=bool)
-        t_build = _time.monotonic()
 
         waves = 0
         need_total = 0
         CHECK_DEPTH = 3
-        t_sim = 0.0
-        t_flat = 0.0
 
         # targeted cascade speculation: when a walk breaks, the walks its
         # optimistic root insertion was covering become needed — and they
@@ -1108,21 +1142,20 @@ class BatchVerifier:
 
         while True:
             while True:
-                t0_sim = _time.monotonic()
-                if dirty.any():
-                    segs = np.nonzero(dirty)[0]
-                    scan = native_cache_scan(
-                        key_begin[segs], key_end[segs], order,
-                        table.trim_lo, table.trim_hi,
-                        table.ins_lo, table.ins_hi, state, enabled,
-                    )
-                    assert scan is not None
-                    _, flags = scan
-                    scanned = flags != 255
-                    sim_flag[scanned] = flags[scanned]
-                    dirty[:] = False
-                need_ids = np.nonzero((sim_flag == 1) & (state == 0))[0]
-                t_sim += _time.monotonic() - t0_sim
+                with tracing.span("verify.sim"):
+                    if dirty.any():
+                        segs = np.nonzero(dirty)[0]
+                        scan = native_cache_scan(
+                            key_begin[segs], key_end[segs], order,
+                            table.trim_lo, table.trim_hi,
+                            table.ins_lo, table.ins_hi, state, enabled,
+                        )
+                        assert scan is not None
+                        _, flags = scan
+                        scanned = flags != 255
+                        sim_flag[scanned] = flags[scanned]
+                        dirty[:] = False
+                    need_ids = np.nonzero((sim_flag == 1) & (state == 0))[0]
                 if need_ids.size == 0:
                     break
                 waves += 1
@@ -1142,15 +1175,45 @@ class BatchVerifier:
                             if state[w] == 0 and w not in need_set]
                     spec_pending.clear()
                     need_total += len(spec)
-                t0_flat = _time.monotonic()
-                # one-dispatch fused wave: need walks at FULL depth +
-                # speculation at prescreen depth, together in ONE device
-                # dispatch. Need walks resolve terminally (no pending
-                # state), so chains advance a full CHAIN_K per round trip.
-                fused_done = self._try_fused_wave(
-                    table, items, need_list,
-                    spec=spec, spec_depth=CHECK_DEPTH,
-                )
+                with tracing.span(
+                    "verify.wave", walks=len(need_list) + len(spec)
+                ) as wave:
+                    cells_before = _wave_cells()
+                    # one-dispatch fused wave: need walks at FULL depth +
+                    # speculation at prescreen depth, together in ONE
+                    # device dispatch. Need walks resolve terminally (no
+                    # pending state), so chains advance a full CHAIN_K per
+                    # round trip.
+                    fused_done = self._try_fused_wave(
+                        table, items, need_list,
+                        spec=spec, spec_depth=CHECK_DEPTH,
+                    )
+                    if not fused_done:
+                        t0_host = _time.monotonic()
+                        self._compute_walks_flat(
+                            table, items, need_list,
+                            max_depth=None if full else CHECK_DEPTH,
+                        )
+                        if full:
+                            # full-depth fallback: comparable to the split
+                            # path's host share, so its timing is an
+                            # effective-rate sample (depth-limited
+                            # prescreens are not)
+                            self._observe_host_wave(
+                                _time.monotonic() - t0_host
+                            )
+                        if spec:
+                            # speculation runs at prescreen depth only: a
+                            # breaking walk (the chr21 repetitive-locus
+                            # cascade) is detected in its first levels,
+                            # while a passing walk means its root insertion
+                            # will cover the rest of the chain — so
+                            # computing past it (let alone its root) is the
+                            # 15x overcompute the sequential stats exposed
+                            self._compute_walks_flat(
+                                table, items, spec, max_depth=CHECK_DEPTH
+                            )
+                    _end_wave(wave, cells_before)
                 any_failed = False
                 if fused_done:
                     if self.use_device is True:
@@ -1160,7 +1223,6 @@ class BatchVerifier:
                         # cascades route to the native engine, where bulk
                         # speculation costs more than it saves.
                         chain_k[0] = CHAIN_K_FUSED
-                    t_flat += _time.monotonic() - t0_flat
                     passed_fused: set[int] = set()
                     for wid in spec:
                         key = int(key_of_walk[wid])
@@ -1181,27 +1243,6 @@ class BatchVerifier:
                     if not any_failed:
                         break
                     continue
-                t0_host = _time.monotonic()
-                self._compute_walks_flat(
-                    table, items, need_list,
-                    max_depth=None if full else CHECK_DEPTH,
-                )
-                if full:
-                    # full-depth fallback: comparable to the split path's
-                    # host share, so its timing is an effective-rate
-                    # sample (depth-limited prescreens are not)
-                    self._observe_host_wave(_time.monotonic() - t0_host)
-                if spec:
-                    # speculation runs at prescreen depth only: a breaking
-                    # walk (the chr21 repetitive-locus cascade) is detected
-                    # in its first levels, while a passing walk means its
-                    # root insertion will cover the rest of the chain — so
-                    # computing past it (let alone its root) is the 15x
-                    # overcompute the sequential stats exposed
-                    self._compute_walks_flat(
-                        table, items, spec, max_depth=CHECK_DEPTH
-                    )
-                t_flat += _time.monotonic() - t0_flat
                 passed_segments: set[int] = set()
                 for wid in spec:
                     key = int(key_of_walk[wid])
@@ -1237,28 +1278,28 @@ class BatchVerifier:
             # optimistic insertion — its (flag-2) coverer computes this
             # round and either confirms the cover or breaks and dirties
             # the segment, so skipping it here always makes progress.
-            t0_sim = _time.monotonic()
-            scan = native_cache_scan(
-                key_begin, key_end, order,
-                table.trim_lo, table.trim_hi,
-                table.ins_lo, table.ins_hi, state, enabled,
-            )
-            assert scan is not None
-            _, pflags = scan
-            scanned = pflags != 255
-            sim_flag[scanned] = pflags[scanned]
-            t_sim += _time.monotonic() - t0_sim
+            with tracing.span("verify.sim"):
+                scan = native_cache_scan(
+                    key_begin, key_end, order,
+                    table.trim_lo, table.trim_hi,
+                    table.ins_lo, table.ins_hi, state, enabled,
+                )
+                assert scan is not None
+                _, pflags = scan
+                scanned = pflags != 255
+                sim_flag[scanned] = pflags[scanned]
             batch_list = [
                 int(w) for w in pending_ids if pflags[w] not in (0, 4)
             ]
             if not batch_list:
                 break
-            t0_flat = _time.monotonic()
-            if not self._try_fused_wave(table, items, batch_list):
-                t0_host = _time.monotonic()
-                self._compute_walks_flat(table, items, batch_list)
-                self._observe_host_wave(_time.monotonic() - t0_host)
-            t_flat += _time.monotonic() - t0_flat
+            with tracing.span("verify.wave", walks=len(batch_list)) as wave:
+                cells_before = _wave_cells()
+                if not self._try_fused_wave(table, items, batch_list):
+                    t0_host = _time.monotonic()
+                    self._compute_walks_flat(table, items, batch_list)
+                    self._observe_host_wave(_time.monotonic() - t0_host)
+                _end_wave(wave, cells_before)
             for wid in batch_list:
                 if self._walk_is_broken(table[wid]):
                     state[wid] = 3
@@ -1266,11 +1307,29 @@ class BatchVerifier:
                     chain_victims(wid)
                 else:
                     state[wid] = 2
-        t_waves = _time.monotonic()
 
-        # final authoritative replay: the native scan settles which walks
-        # the sequential verifier would have cache-skipped; only computed
-        # walks are replayed in Python (stats events + alignment records)
+        with tracing.span("verify.scan"):
+            replayed = self._record_soa(table, items, alignments, key_begin,
+                                        key_end, order, state, enabled)
+        log.debug(
+            "verify batch (soa): %d walks, %d waves (%d walks computed, "
+            "%d walks replayed, %d fused dispatches)",
+            n,
+            waves,
+            need_total,
+            replayed,
+            self._fused_dispatches,
+        )
+        return alignments
+
+    def _record_soa(self, table, items, alignments, key_begin, key_end,
+                    order, state, enabled) -> int:
+        """The final authoritative replay: the native scan settles which
+        walks the sequential verifier would have cache-skipped; only
+        computed walks are replayed in Python (stats events and alignment
+        records). Returns the number of walks replayed."""
+        from .native import native_cache_scan
+
         scan = native_cache_scan(
             key_begin, key_end, order,
             table.trim_lo, table.trim_hi,
@@ -1281,8 +1340,9 @@ class BatchVerifier:
         assert not leftover, "uncomputed walks survived the wave loop"
         avoided = flags == 0
         self.last_avoided_lengths = table.root_len[avoided]
+        replayed = np.nonzero(~avoided)[0]
         stats_events = []
-        for wid in np.nonzero(~avoided)[0]:
+        for wid in replayed:
             walk = table[int(wid)]
             for level in walk.levels:
                 if level.node.is_root:
@@ -1313,34 +1373,16 @@ class BatchVerifier:
                 if not level.exists:
                     break
         self.last_stats_events = stats_events
-        log.debug(
-            "verify batch (soa): %d walks, %d waves (%d walks computed, "
-            "%d walks replayed, %d fused dispatches); build %.2fs waves "
-            "%.2fs (sim %.2fs flat %.2fs) record %.2fs",
-            n,
-            waves,
-            need_total,
-            int(np.count_nonzero(~avoided)),
-            self._fused_dispatches,
-            t_build - t0,
-            t_waves - t_build,
-            t_sim,
-            t_flat,
-            _time.monotonic() - t_waves,
-        )
-        return alignments
+        return int(replayed.size)
 
     def _process_legacy(self, items: list[_QueryItem]) -> list[QueryAlignments]:
         import logging
-        import time as _time
 
         log = logging.getLogger("floxer-tpu")
-        t0 = _time.monotonic()
-
-        walks = self._build_walks(items)
+        with tracing.span("verify.build", reads=len(items)):
+            walks = self._build_walks(items)
+            self._setup_chunk_state(items)
         computed: set[int] = set()
-        self._setup_chunk_state(items)
-        t_build = _time.monotonic()
 
         # prescreen: cheap batched passes over every walk's first few levels
         # (the smallest spans) resolve junk anchors immediately — their
@@ -1355,9 +1397,12 @@ class BatchVerifier:
         )
         if prescreen_depth > 0:
             all_ids = list(range(len(walks)))
-            self._compute_walks(
-                walks, items, all_ids, max_depth=prescreen_depth
-            )
+            with tracing.span("verify.wave", walks=len(all_ids)) as wave:
+                cells_before = _wave_cells()
+                self._compute_walks(
+                    walks, items, all_ids, max_depth=prescreen_depth
+                )
+                _end_wave(wave, cells_before)
             for walk_id in all_ids:
                 walk = walks[walk_id]
                 prescreened = walk.levels[:prescreen_depth]
@@ -1365,7 +1410,6 @@ class BatchVerifier:
                     level.exists for level in prescreened
                 ):
                     computed.add(walk_id)
-        t_prescreen = _time.monotonic()
 
         waves = 0
         need_total = 0
@@ -1383,8 +1427,6 @@ class BatchVerifier:
             walks_by_key.setdefault(key, []).append(walk_id)
         need_by_key = {}
         dirty = set(walks_by_key)
-        t_sim = 0.0  # host time inside the cache simulation
-        t_flat = 0.0  # host+device time inside _compute_walks_flat
 
         def key_of(walk_id):
             walk = walks[walk_id]
@@ -1408,30 +1450,31 @@ class BatchVerifier:
             # inner: stabilize junk anchors on the cheap first levels only
             # (small batches, fast dispatches) before any full-size work
             while True:
-                t0_sim = _time.monotonic()
-                for key in dirty:
-                    need_by_key[key] = self._simulate_key(
-                        walks, walks_by_key[key], computed, pending_ok
+                with tracing.span("verify.sim"):
+                    for key in dirty:
+                        need_by_key[key] = self._simulate_key(
+                            walks, walks_by_key[key], computed, pending_ok
+                        )
+                    dirty.clear()
+                    need = sorted(
+                        walk_id
+                        for ids in need_by_key.values()
+                        for walk_id in ids
+                        if walk_id not in computed
+                        and walk_id not in pending_ok
                     )
-                dirty.clear()
-                need = sorted(
-                    walk_id
-                    for ids in need_by_key.values()
-                    for walk_id in ids
-                    if walk_id not in computed and walk_id not in pending_ok
-                )
-                t_sim += _time.monotonic() - t0_sim
                 if not need:
                     break
                 waves += 1
                 if self.deadline_check is not None and self.deadline_check():
                     raise VerificationTimeout()
                 need_total += len(need)
-                t0_flat = _time.monotonic()
-                self._compute_walks_flat(
-                    walks, items, need, max_depth=CHECK_DEPTH
-                )
-                t_flat += _time.monotonic() - t0_flat
+                with tracing.span("verify.wave", walks=len(need)) as wave:
+                    cells_before = _wave_cells()
+                    self._compute_walks_flat(
+                        walks, items, need, max_depth=CHECK_DEPTH
+                    )
+                    _end_wave(wave, cells_before)
                 failed = set(
                     walk_id
                     for walk_id in need
@@ -1451,37 +1494,23 @@ class BatchVerifier:
             # early-exit is only a compute saving, never a dependency, and
             # dispatch rounds cost more than the extra cells on a remote TPU
             batch = sorted(pending_ok)
-            t0_flat = _time.monotonic()
-            self._compute_walks_flat(walks, items, batch)
-            t_flat += _time.monotonic() - t0_flat
+            with tracing.span("verify.wave", walks=len(batch)) as wave:
+                cells_before = _wave_cells()
+                self._compute_walks_flat(walks, items, batch)
+                _end_wave(wave, cells_before)
             computed.update(batch)
             pending_ok.clear()
             mark_broken(batch)
-        t_waves = _time.monotonic()
 
         alignments = [QueryAlignments(len(self.references)) for _ in items]
-        leftover = self._scan(walks, items, computed, record=alignments)
+        with tracing.span("verify.scan"):
+            leftover = self._scan(walks, items, computed, record=alignments)
         assert not leftover
         log.debug(
-            "batcher timers: pack %.2fs kernel %.2fs numpy %.2fs calls %d",
-            _BATCH_TIMERS["pack"],
-            _BATCH_TIMERS["kernel"],
-            _BATCH_TIMERS["numpy"],
-            _BATCH_TIMERS["calls"],
-        )
-        log.debug(
-            "verify batch: %d walks, %d waves (%d walks computed); "
-            "build %.2fs prescreen %.2fs waves %.2fs (sim %.2fs flat %.2fs) "
-            "record %.2fs",
+            "verify batch: %d walks, %d waves (%d walks computed)",
             len(walks),
             waves,
             need_total,
-            t_build - t0,
-            t_prescreen - t_build,
-            t_waves - t_prescreen,
-            t_sim,
-            t_flat,
-            _time.monotonic() - t_waves,
         )
         return alignments
 
@@ -1924,15 +1953,17 @@ class BatchVerifier:
                 x_device, total_cells / 1e6,
             )
 
-        for walk_id in device_set:
-            stage_walk(walk_id, None)
-        for walk_id in spec_device:
-            stage_walk(walk_id, spec_depth)
+        with tracing.span("verify.device_dispatch",
+                          walks=len(device_set) + len(spec_device)):
+            for walk_id in device_set:
+                stage_walk(walk_id, None)
+            for walk_id in spec_device:
+                stage_walk(walk_id, spec_depth)
 
-        modeled_kernel_s = batch.padded_cells() / _device_band_rate()
-        t_staged = _time.monotonic()
-        dispatched = batch.num_tasks > 0 and batch.run_async()
-        t_disp = _time.monotonic()
+            modeled_kernel_s = batch.padded_cells() / _device_band_rate()
+            t_staged = _time.monotonic()
+            dispatched = batch.num_tasks > 0 and batch.run_async()
+            t_disp = _time.monotonic()
         # host share runs WHILE the device executes (native engine
         # releases the GIL; the device sync happens in collect below)
         if host_set:
@@ -1950,7 +1981,10 @@ class BatchVerifier:
                 walks, items, list(spec), max_depth=spec_depth
             )
         t_host_done = _time.monotonic()
-        results = batch.collect() if dispatched else {}
+        results = {}
+        if dispatched:
+            with tracing.span("verify.device_wait", tasks=batch.num_tasks):
+                results = batch.collect()
         t1 = _time.monotonic()
         if dispatched:
             # observe only the UNHIDDEN device cost (the dispatch call +
@@ -1975,9 +2009,9 @@ class BatchVerifier:
                     (t1 - t_host_done) - _fused_call_overhead(device),
                 )
             self._fused_dispatches += 1
-            _BATCH_TIMERS["fused"] += 1
-            _BATCH_TIMERS["calls"] += 1
-            _BATCH_TIMERS["kernel"] += t1 - t_host_done
+            tracing.count("verify.fused_dispatches")
+            tracing.count("verify.device_calls")
+            tracing.count("verify.cells_device", useful_band_cells)
 
         root_tasks = []
         for walk_id, plan in staged:
@@ -2375,9 +2409,8 @@ class BatchVerifier:
         for walk_id, level, distance, end in root_tasks:
             key, pattern, window = key_and_slices(walk_id, level)
             if key not in memo:
-                memo[key] = pool.submit(
-                    dp_reference.banded_cigar_traceback,
-                    window, pattern, end, distance,
+                memo[key] = tracing.submit(
+                    pool, _traceback_task, window, pattern, end, distance,
                 )
 
         for walk_id, level, distance, end in root_tasks:
@@ -2437,8 +2470,8 @@ class BatchVerifier:
                     (window, pattern, level.end_col, level.distance)
                 )
             else:
-                entry = memo[key] = _traceback_pool().submit(
-                    dp_reference.banded_cigar_traceback,
+                entry = memo[key] = tracing.submit(
+                    _traceback_pool(), _traceback_task,
                     window, pattern, level.end_col, level.distance,
                 )
         if isinstance(entry, tuple):

@@ -17,6 +17,7 @@ import floxer_tpu.warm_shapes as warm_shapes
 import floxer_tpu_torch.native as native
 from floxer_tpu.ops import resident as jres
 from floxer_tpu.ops.pallas_myers_banded import EFFECTIVE_GROUP
+from floxer_tpu_torch import tracing
 from floxer_tpu_torch import verify_batch as vb
 from floxer_tpu_torch.ops import resident as tres
 from floxer_tpu_torch.verify import VerificationKind
@@ -192,14 +193,15 @@ def test_task_batcher_matches_reference(monkeypatch, resident):
     want = fill(
         jax_vb._TaskBatcher(True, resident=jax_banks if resident else None)
     ).run()
-    calls = vb._BATCH_TIMERS["calls"]
     port = fill(
         vb._TaskBatcher(
             True, resident=port_banks if resident else None, device=CPU
         )
     )
-    got = port.run()
-    assert vb._BATCH_TIMERS["calls"] - calls >= 2  # banded and full buckets
+    with tracing.job() as job:
+        got = port.run()
+    # banded and full buckets
+    assert job.counter("verify.device_calls") >= 2
     assert port.owners[0] == [0, 99]
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
@@ -253,8 +255,8 @@ def test_legacy_path_matches_sequential(
             else None
         ),
     )
-    calls = vb._BATCH_TIMERS["calls"]
-    got = verifier.process(items)
+    with tracing.job() as job:
+        got = verifier.process(items)
     assert not verifier._soa_active
-    assert (vb._BATCH_TIMERS["calls"] > calls) == use_device
+    assert (job.counter("verify.device_calls") > 0) == use_device
     assert_same_alignments(want, got)

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from floxer_tpu_torch.cli import parse_and_validate
-from floxer_tpu_torch import pipeline, server
+from floxer_tpu_torch import pipeline, server, tracing
 from floxer_tpu_torch.__main__ import main
 from floxer_tpu_torch.backend import accelerator_available
 from test_e2e import check_output_records, parse_sam
@@ -286,12 +286,11 @@ def test_no_accelerator_on_this_host_means_host_waves(tmp_path, data_dir):
     native host engine (no fused dispatch)."""
     if accelerator_available():
         pytest.skip("this host has a Hopper GPU")
-    from floxer_tpu_torch.verify_batch import _BATCH_TIMERS
-
-    before = _BATCH_TIMERS["fused"]
     cli = parse_and_validate(cli_args(data_dir, tmp_path / "out.sam"))
     assert pipeline.run(cli) == 0
-    assert _BATCH_TIMERS["fused"] == before
+    job = tracing.last_job()
+    assert job.counter("verify.fused_dispatches") == 0
+    assert job.counter("verify.cells_device") == 0
 
 
 @pytest.fixture(scope="module")
@@ -360,7 +359,6 @@ def test_platform_cpu_keeps_run_on_the_cpu(tmp_path, data_dir, reference_sam,
     both write the reference's SAM. accelerator_available() itself is
     False under the variable."""
     from floxer_tpu_torch import backend
-    from floxer_tpu_torch.verify_batch import _BATCH_TIMERS
 
     monkeypatch.setattr(pipeline, "accelerator_available", lambda: True)
     monkeypatch.setenv("FLOXER_TPU_PLATFORM", "cpu")
@@ -378,13 +376,13 @@ def test_platform_cpu_keeps_run_on_the_cpu(tmp_path, data_dir, reference_sam,
     monkeypatch.setattr(pipeline, "verify_and_write_chunk", spy)
     for engine in ("batched", "device"):
         output = tmp_path / f"{engine}.sam"
-        fused = _BATCH_TIMERS["fused"]
         cli = parse_and_validate(cli_args(data_dir, output,
                                           ["--engine", engine]))
         assert pipeline.run(cli) == 0
         assert output.read_bytes() == reference_sam
         assert devices and set(devices) == {CPU}
-        assert (_BATCH_TIMERS["fused"] > fused) == (engine == "device")
+        fused = tracing.last_job().counter("verify.fused_dispatches")
+        assert (fused > 0) == (engine == "device")
         devices.clear()
     assert warmups == []
 

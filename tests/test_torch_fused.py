@@ -19,6 +19,7 @@ import torch
 import floxer_tpu.ops.fused_verify as jax_fused
 from floxer_tpu.ops.resident import ResidentBank as JaxBank
 from floxer_tpu.verify import VerificationKind as RefKind
+from floxer_tpu_torch import tracing
 from floxer_tpu_torch import verify_batch as vb
 from floxer_tpu_torch.alphabet import reverse_complement
 from floxer_tpu_torch.index.fmindex import FmIndex
@@ -308,8 +309,10 @@ def test_bucketed_device_batcher_runs_host_slices(monkeypatch):
         use_device=True,
         device=CPU,
     )
-    calls = vb._BATCH_TIMERS["calls"]
-    got = verifier.process(items)
-    assert vb._BATCH_TIMERS["calls"] > calls, "no bucket ran on the device"
+    with tracing.job() as job:
+        got = verifier.process(items)
+    assert job.counter("verify.device_calls") > 0, (
+        "no bucket ran on the device")
+    assert job.counter("verify.cells_device") > 0
     assert verifier._fused_dispatches == 0
     assert_same_alignments(want, got)

@@ -40,6 +40,16 @@ COPIED_DEFINITIONS = {
     ],
 }
 REPAIRED = {("_BamShardCursor", "_next_blob")}
+# strings a copy words differently from its original, because the port's
+# behaviour differs there: the original's text, the copy's
+REWORDED = {
+    "cli.py": [(
+        '"Write a jax.profiler trace of the alignment phase to "\n'
+        '              "this directory (view with TensorBoard/Perfetto)."',
+        '"Write a torch.profiler Chrome trace of the alignment "\n'
+        '              "phase to this directory (view with Perfetto)."',
+    )],
+}
 
 
 def forbidden(module: str) -> bool:
@@ -154,10 +164,14 @@ def code_of(source: str) -> str:
 @pytest.mark.parametrize("module", COPIED)
 def test_copied_module_equals_its_original(module):
     """Each copy is its original below one header line naming it: the same
-    code (its docstrings may differ)."""
+    code (its docstrings may differ, and the strings REWORDED names)."""
     header, body = (PORT / module).read_text().split("\n", 1)
     assert header.startswith(f"# Copied from floxer_tpu/{module}")
-    assert code_of(body) == code_of((REFERENCE / module).read_text())
+    original = (REFERENCE / module).read_text()
+    for theirs, ours in REWORDED.get(module, []):
+        assert original.count(theirs) == 1 and body.count(ours) == 1
+        original = original.replace(theirs, ours)
+    assert code_of(body) == code_of(original)
 
 
 def test_index_artifacts_load_across_packages(tmp_path):

@@ -17,7 +17,7 @@ from floxer_tpu import search_device as ref_sd
 from floxer_tpu import search_host as ref_host_search
 from floxer_tpu.index.device_index import DeviceIndex as RefDeviceIndex
 from floxer_tpu.index.fmindex import FmIndex as RefFmIndex
-from floxer_tpu_torch import pex, search_device, search_host
+from floxer_tpu_torch import pex, search_device, search_host, tracing
 from floxer_tpu_torch.index.device_index import DeviceIndex
 from floxer_tpu_torch.index.fmindex import FmIndex
 
@@ -265,8 +265,8 @@ def test_unported_branches_raise(indexes, monkeypatch, branch):
         monkeypatch.setattr(native, "get_library", lambda: None)
     else:
         monkeypatch.setenv(branch, "1")
-    seconds = dict(search_device.DeviceSearcher.stage_seconds)
-    got = device_searcher.search_seeds_many(jobs)
+    with tracing.job() as job:
+        got = device_searcher.search_seeds_many(jobs)
     assert len(got) == len(want) == len(jobs)
     for j, (g, w) in enumerate(zip(got, want)):
         assert result_view(g) == result_view(w), f"job {j} vs host"
@@ -278,4 +278,4 @@ def test_unported_branches_raise(indexes, monkeypatch, branch):
         "FLOXER_TPU_SEARCH_NO_CHUNK_FUSE": "blocks",
         "FLOXER_TPU_DEVICE_SELECT": "device_select",
     }.get(branch, "frontier")
-    assert search_device.DeviceSearcher.stage_seconds[stage] > seconds[stage]
+    assert job.seconds(f"search.device.{stage}") > 0
